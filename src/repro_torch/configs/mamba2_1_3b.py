@@ -1,0 +1,13 @@
+"""mamba2-1.3b [ssm] — SSD (state-space duality) [arXiv:2405.21060; unverified]."""
+from repro_torch.configs import ArchConfig, SSMConfig
+
+CONFIG = ArchConfig(
+    name="mamba2-1.3b", family="ssm",
+    n_layers=48, d_model=2048, n_heads=0, n_kv_heads=0,
+    d_ff=0, vocab=50280,
+    ssm=SSMConfig(d_state=128, d_conv=4, expand=2, head_dim=64,
+                  n_groups=1, chunk=256),
+    tie_embeddings=True,
+    subquadratic=True,
+    notes="Attention-free; chunked SSD dual form; O(1)-in-seq decode state.",
+)

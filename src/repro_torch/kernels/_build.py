@@ -1,0 +1,126 @@
+"""Build and load the CUDA kernels of ``csrc/``.
+
+``load()`` compiles every ``csrc/*.cu`` with ``nvcc`` for ``sm_90a`` — one
+compiler process per source, all started together — links the objects into
+one shared library with a plain C interface and opens it with ``ctypes``.
+The library lands in ``build/repro_torch_kernels/`` at the root of the
+checkout (override with ``REPRO_TORCH_BUILD_DIR``), named by a hash of the
+sources and flags, so a second call — or a second process — reuses it and
+an edited source rebuilds.  A failed build raises with ``nvcc``'s output.
+
+``nvcc`` and ``ctypes`` are touched only inside ``load()``: importing this
+module needs neither.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_lib = None
+build_seconds = 0.0       # wall time of the last real build (0 = cache hit)
+
+
+def build_dir() -> Path:
+    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    # src/repro_torch/kernels/_build.py -> checkout root
+    return Path(__file__).resolve().parents[3] / "build" / \
+        "repro_torch_kernels"
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _find_nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    raise RuntimeError(
+        "nvcc not found (looked on PATH, $CUDA_HOME, $CUDA_PATH and "
+        "/usr/local/cuda): the CUDA kernels cannot be built here")
+
+
+def _digest(srcs: list[Path]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in srcs + sorted(CSRC.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _run_all(cmds: list[list[str]]) -> None:
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    failed = []
+    for c, p in zip(cmds, procs):
+        out, _ = p.communicate()
+        if p.returncode:
+            failed.append(f"$ {' '.join(c)}\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
+def _build(lib_path: Path, srcs: list[Path]) -> None:
+    nvcc = _find_nvcc()
+    out_dir = lib_path.parent
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tag = f"{lib_path.stem}.{os.getpid()}"
+    objs = [out_dir / f"{tag}.{s.stem}.o" for s in srcs]
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)]
+                  for s, o in zip(srcs, objs)])
+        tmp = out_dir / f"{tag}.so"
+        _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, lib_path)       # atomic: readers never see half
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+
+
+def load():
+    """The kernels' shared library as a ``ctypes.CDLL`` (built on first
+    use, then cached in the process)."""
+    global _lib, build_seconds
+    with _lock:
+        if _lib is not None:
+            return _lib
+        import ctypes
+        srcs = sources()
+        if not srcs:
+            raise RuntimeError(f"no CUDA sources under {CSRC}")
+        lib_path = build_dir() / f"libkernels_{_digest(srcs)}.so"
+        if not lib_path.is_file():
+            t0 = time.perf_counter()
+            _build(lib_path, srcs)
+            build_seconds = time.perf_counter() - t0
+        lib = ctypes.CDLL(str(lib_path))
+        c_ptr, c_int, c_ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.shard_factor_launch.argtypes = [
+            c_ptr, c_ptr, c_ptr, c_ptr, c_int, c_int, c_int, c_ll, c_ptr]
+        lib.shard_factor_launch.restype = c_int
+        lib.shard_factor_limits.argtypes = [
+            ctypes.POINTER(c_int)] * 3
+        lib.shard_factor_limits.restype = c_int
+        lib.segmented_cummax_launch.argtypes = [
+            c_ptr, c_ptr, c_int, c_ll, c_ptr]
+        lib.segmented_cummax_launch.restype = c_int
+        _lib = lib
+        return lib

@@ -1,0 +1,145 @@
+"""The port stands alone: importing every module of ``repro_torch`` in a
+fresh interpreter pulls in neither ``jax`` nor the reference package, needs
+no ``nvcc`` / ``triton``, and its default entry points refuse to run
+without a CUDA device instead of quietly computing on the host."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = os.path.join(ROOT, "src")
+
+
+def run_fresh(code: str, path: str = "") -> subprocess.CompletedProcess:
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "CUDA_HOME", "CUDA_PATH")}
+    env["PYTHONPATH"] = SRC
+    env["PATH"] = path or os.path.dirname(sys.executable)
+    return subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+IMPORT_ALL = """
+import importlib, pkgutil, sys
+import repro_torch
+names = ["repro_torch"] + sorted(
+    m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                          "repro_torch."))
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro", "triton"))
+print("MODULES", len(names))
+print("BAD", bad)
+for want in ("repro_torch.core.batch_torch", "repro_torch.core.sweep",
+             "repro_torch.kernels.shard_factor",
+             "repro_torch.kernels.segmented_cummax",
+             "repro_torch.kernels._build", "repro_torch.configs.llava15_7b",
+             "repro_torch.launch.mesh", "repro_torch.serve.pool"):
+    assert want in names, want
+"""
+
+
+def test_every_module_imports_without_jax_or_reference_package():
+    r = run_fresh(IMPORT_ALL)
+    assert r.returncode == 0, r.stderr
+    assert "BAD []" in r.stdout, r.stdout
+    n = int(r.stdout.split("MODULES")[1].split()[0])
+    assert n >= 35, r.stdout
+
+
+def test_no_source_line_imports_jax_or_reference_package():
+    import re
+    pat = re.compile(r"^\s*(from|import)\s+(jax|repro)(\.|\s|$)", re.M)
+    checked = 0
+    for base in (os.path.join(SRC, "repro_torch"),):
+        for dirpath, _, files in os.walk(base):
+            for f in files:
+                if f.endswith(".py"):
+                    text = open(os.path.join(dirpath, f)).read()
+                    assert not pat.search(text), os.path.join(dirpath, f)
+                    checked += 1
+    text = open(os.path.join(ROOT, "chip_smoke.py")).read()
+    assert not pat.search(text)
+    assert checked >= 35
+
+
+DEFAULT_ENTRY = """
+import torch
+assert not torch.cuda.is_available()
+from repro_torch.core import sweep as SW
+grid = SW.SweepGrid(arch="smollm-360m", chips=2, global_batches=(8,),
+                    seq_lens=(512,))
+for call in (lambda: SW.SweepEngine().sweep(grid),
+             lambda: SW.sweep(grid),
+             lambda: SW.SweepEngine().sweep(grid, device="cuda")):
+    try:
+        call()
+    except RuntimeError as e:
+        assert "CUDA" in str(e) and "device='cpu'" in str(e), e
+    else:
+        raise SystemExit("default entry point ran without a CUDA device")
+res = SW.SweepEngine().sweep(grid, device="cpu")
+print("CPU_OK", len(res))
+"""
+
+
+def test_default_entry_point_raises_without_cuda():
+    r = run_fresh(DEFAULT_ENTRY)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "CPU_OK 2" in r.stdout
+
+
+@pytest.mark.parametrize("extra,rc,needle", [
+    ((), 2, "pass --device cpu"),
+    (("--device", "cuda"), 2, "pass --device cpu"),
+    (("--device", "cpu"), 0, "engine=torch, device=cpu"),
+    (("--engine", "numpy"), 0, "engine=numpy"),
+    (("--engine", "numpy", "--device", "cpu"), 2, "--engine torch only"),
+    (("--device", "cpu", "--profile", "p.json"), 2, "not ported yet"),
+    (("--device", "cpu", "--mix", "0.3"), 2, "not ported yet"),
+    (("--device", "cpu", "--draft-arch", "smollm-360m"), 2,
+     "not ported yet"),
+    (("--device", "cpu", "--mesh", "data=2,expert=2"), 2,
+     "'expert' mesh axis is not ported"),
+])
+def test_cli(extra, rc, needle):
+    code = ("import sys; from repro_torch.core.sweep import main; "
+            f"sys.exit(main({['--arch', 'llava15_7b', '--chips', '4', '--batch', '16', '--seq-len', '1024', *extra]!r}))")
+    r = run_fresh(code)
+    assert r.returncode == rc, r.stdout + r.stderr
+    assert needle in r.stdout + r.stderr
+
+
+def test_cli_rejects_unported_family():
+    r = run_fresh("import sys; from repro_torch.core.sweep import main; "
+                  "sys.exit(main(['--arch', 'mamba2_1_3b', '--chips', '4', "
+                  "'--device', 'cpu']))")
+    assert r.returncode == 2
+    assert "not ported yet" in r.stderr
+
+
+BUILD_WITHOUT_NVCC = """
+from repro_torch.kernels import _build
+assert len(_build.sources()) == 2
+try:
+    _build.load()
+except RuntimeError as e:
+    assert "nvcc not found" in str(e), e
+    print("RAISED")
+"""
+
+
+def test_kernel_build_raises_without_nvcc(tmp_path):
+    """Where there is no compiler the build says so; nothing falls back."""
+    if os.path.isfile("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("an nvcc is installed here")
+    r = run_fresh("import os; os.environ['REPRO_TORCH_BUILD_DIR'] = "
+                  f"{str(tmp_path)!r}\n" + BUILD_WITHOUT_NVCC,
+                  path=str(tmp_path))
+    assert r.returncode == 0, r.stderr
+    assert "RAISED" in r.stdout
+    assert not list(tmp_path.iterdir())

@@ -1,0 +1,90 @@
+"""Spec layer of the port against the reference: ``parse_model`` rows are
+equal field for field for the six supported archs under every TrainPolicy
+preset, ``from_reference`` carries a reference tree across unchanged, and
+the families without spec functions raise."""
+
+import dataclasses
+
+import pytest
+
+from repro.configs import get_config as ref_config
+from repro.core import parser as RP
+from repro.core import spec as RS
+from repro.models import build_model as ref_build
+from repro_torch.configs import get_config, registered_archs
+from repro_torch.core import parser as TP
+from repro_torch.core import spec as TS
+from repro_torch.models import build_model
+
+SUPPORTED = ("llava15-7b", "llava-next-mistral-7b", "llama3.1-8b",
+             "llama3.2-3b", "smollm-360m", "qwen3-32b")
+UNSUPPORTED = ("arctic-480b", "deepseek-v2-lite-16b", "mamba2-1.3b",
+               "minicpm3-4b", "seamless-m4t-large-v2", "zamba2-2.7b")
+POLICIES = ("FULL_TRAIN", "LLAVA_STAGE1", "LLAVA_STAGE2")
+
+
+def row_dict(r) -> dict:
+    """A ParsedLayer (either package's) as plain nested dicts."""
+    return dataclasses.asdict(r)
+
+
+def test_registry_lists_the_same_archs():
+    from repro.configs import registered_archs as ref_archs
+    assert list(registered_archs()) == list(ref_archs())
+    assert set(SUPPORTED) | set(UNSUPPORTED) == set(registered_archs())
+
+
+@pytest.mark.parametrize("arch", registered_archs())
+def test_config_equals_reference(arch):
+    assert dataclasses.asdict(get_config(arch)) \
+        == dataclasses.asdict(ref_config(arch))
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+@pytest.mark.parametrize("arch", SUPPORTED)
+def test_parse_rows_equal_reference(arch, policy):
+    ref_rows = RP.parse_model(ref_build(ref_config(arch)).spec,
+                              getattr(RS, policy))
+    got_rows = TP.parse_model(build_model(get_config(arch)).spec,
+                              getattr(TS, policy))
+    assert len(got_rows) == len(ref_rows)
+    for got, ref in zip(got_rows, ref_rows):
+        assert row_dict(got) == row_dict(ref), ref.path
+    assert TP.total_params(got_rows) == RP.total_params(ref_rows)
+    assert TP.total_params(got_rows, trainable_only=True) \
+        == RP.total_params(ref_rows, trainable_only=True)
+
+
+@pytest.mark.parametrize("arch", SUPPORTED)
+def test_from_reference_round_trips(arch):
+    ref_spec = ref_build(ref_config(arch)).spec
+    as_dict = dataclasses.asdict(ref_spec)
+    carried = TS.from_reference(as_dict)
+    assert isinstance(carried, TS.ModuleSpec)
+    assert dataclasses.asdict(carried) == as_dict
+    assert dataclasses.asdict(carried) \
+        == dataclasses.asdict(build_model(get_config(arch)).spec)
+    assert carried.param_bytes == ref_spec.param_bytes
+    # the carried tree drives the port's parser like its own
+    rows = TP.parse_model(carried, TS.LLAVA_STAGE2)
+    ref_rows = RP.parse_model(ref_spec, RS.LLAVA_STAGE2)
+    assert [row_dict(r) for r in rows] == [row_dict(r) for r in ref_rows]
+
+
+@pytest.mark.parametrize("arch", SUPPORTED)
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_batch_spec_equals_reference(arch, kind):
+    from repro.configs import ShapeConfig as RShape
+    from repro_torch.configs import ShapeConfig as TShape
+    ref = ref_build(ref_config(arch)).batch_spec(RShape("t", 1024, 8, kind))
+    got = build_model(get_config(arch)).batch_spec(TShape("t", 1024, 8, kind))
+    assert list(got) == list(ref)
+    for name in ref:
+        assert tuple(got[name].shape) == tuple(ref[name].shape), name
+        assert TS.dtype_bytes(got[name].dtype) == ref[name].dtype.itemsize
+
+
+@pytest.mark.parametrize("arch", UNSUPPORTED)
+def test_unsupported_families_raise(arch):
+    with pytest.raises(NotImplementedError, match="not ported"):
+        build_model(get_config(arch))
