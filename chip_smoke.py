@@ -3,26 +3,40 @@
 
     python3 chip_smoke.py          # needs one CUDA device and nvcc
 
-Drives the port's main path — the capacity sweep of llava15-7b at its
-published widths through ``SweepEngine.sweep(grid, engine="torch")`` on the
-CUDA device — and holds every hand-written kernel against its plain PyTorch
-version on the card.  Phases (any failure exits non-zero):
+Drives the port's two paths on the CUDA device — the capacity sweep of
+llava15-7b at its published widths through ``SweepEngine.sweep(grid,
+engine="torch")``, and llava15-7b serving (prefill + greedy decode) at its
+published widths and depth through ``repro_torch.serve.generate`` — and
+holds every hand-written kernel against its plain PyTorch version on the
+card.  Phases (any failure exits non-zero):
 
 1. toolchain + card line, then the kernels' build (set-up time);
-2. ``kernels``: ``shard_factor`` on randomized step programs and
+2. ``kernels_check``: ``shard_factor`` on randomized step programs and
    ``segmented_cummax`` on random delta stacks, kernel == plain version,
-   exact int64 equality (tolerance 0);
+   exact int64 equality (tolerance 0); ``flash_fwd`` and ``rmsnorm_fwd``
+   on the reference's kernel-test cases and at the serving path's shapes,
+   in fp32 (tolerance 2e-5; the plain version's matmuls in full fp32,
+   ``allow_tf32`` off) and bf16 (tolerance 2e-2), on ``out`` and ``lse``;
 3. ``sweep_large``: the 124,416-cell llava15-7b grid, legacy and liveness
    assembly, device engine == host columnar path column for column;
 4. ``sweep_pipe``: the same grid with a ``pipe`` mesh axis, both schedules
    and three microbatch counts (1,959,552 cells), liveness assembly;
-5. timings: cold / warm wall time, cells/s and the phase split of each
-   sweep, and per kernel — at the largest shape the sweeps gave it — the
+5. ``serve_llava15_7b``: the 7B VLM with random weights from a seeded
+   generator on the card, 4 requests of one 336x336 image (576 patch
+   tokens) + 512 text tokens, 32 greedy new tokens: prefill ms, decode ms
+   per step, tokens/s, kernel launches per phase, the allocator's peak
+   bytes of prefill and of the decode loop beside the port's own
+   ``core.predictor`` prediction for the same request; the kernel path's
+   prefill logits against the same prefill through the plain versions,
+   and the reduced config on the card against the CPU;
+6. timings: cold / warm wall time, cells/s and the phase split of each
+   sweep, and per kernel — at the largest shape its path gave it — the
    median of CUDA-event-timed calls of its wrapper (``ms``), the kernel's
    own device time from a profiler trace (``device_ms``), the plain
-   version's time and the roofline bound.
+   version's time, the roofline bound and the time of the one PyTorch
+   call that computes the same function, where there is one.
 
-Each sweep is run with the kernels' launch counters set to 0 just before
+Each path is run with the kernels' launch counters set to 0 just before
 and read just after; a kernel of the path that was launched no time fails
 the run.  The line before the last is the ``nvidia-smi`` name / power-limit
 line, the ``{"kernels": [...]}`` line stands before it, and the last line
@@ -31,6 +45,8 @@ is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import copy
+import gc
 import json
 import os
 import statistics
@@ -49,13 +65,23 @@ if not torch.cuda.is_available():
           file=sys.stderr)
     raise SystemExit(2)
 
+import torch.nn.functional as F  # noqa: E402
+
 from repro_torch.core import batch as B  # noqa: E402
+from repro_torch.core import factors as FA  # noqa: E402
 from repro_torch.core import planner as PL  # noqa: E402
+from repro_torch.core import predictor as PR  # noqa: E402
 from repro_torch.core import sweep as SW  # noqa: E402
-from repro_torch.configs import ShapeConfig  # noqa: E402
+from repro_torch.core.spec import FULL_TRAIN  # noqa: E402
+from repro_torch.configs import ShapeConfig, get_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import flash_attention as FL  # noqa: E402
+from repro_torch.kernels import ops as OPS  # noqa: E402
+from repro_torch.kernels import rmsnorm as RN  # noqa: E402
 from repro_torch.kernels import segmented_cummax as SC  # noqa: E402
 from repro_torch.kernels import shard_factor as SF  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.serve import serve_step as SV  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 SEED = 20260811
@@ -65,6 +91,17 @@ HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12      # fp32 rate outside the tensor cores; the int64
                            # ALU work of both kernels is slower than that,
                            # so the operations bound errs low (still a bound)
+BF16_OPS_PER_S = 989e12    # dense bf16 tensor-core rate (attention's bound)
+
+# the plain versions' float32 matmuls run in full fp32 (no TF32): the
+# fp32 kernel checks hold the kernels to 2e-5 against them
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+# the serving path: llava15-7b, 4 requests of one 336x336 image (576
+# patch tokens) + 512 text tokens, 32 greedy new tokens
+SERVE_ARCH = "llava15-7b"
+SERVE_BATCH, SERVE_TEXT, SERVE_NEW = 4, 512, 32
 
 RESULT_COLUMNS = ("peak_bytes", "budget_bytes", "fits", "offload_bytes",
                   "overlap_slack_bytes", "pool_bytes", "draft_bytes",
@@ -248,6 +285,126 @@ def check_segmented_cummax() -> dict:
             "max_abs_err": max_err}
 
 
+# the reference's kernel-test cases (tests/test_kernels.py) and the serving
+# path's own shapes: (B, Sq, Skv, H, Hkv, D, Dv, causal)
+FLASH_CASES = [
+    (2, 256, 256, 4, 2, 64, 64, True),
+    (1, 200, 200, 6, 3, 32, 32, True),
+    (2, 1, 384, 4, 4, 64, 64, False),
+    (1, 256, 256, 8, 1, 128, 64, True),
+    (1, 130, 130, 2, 2, 64, 64, True),
+    (2, 128, 256, 4, 2, 64, 64, True),
+    (4, 577, 577, 16, 16, 64, 64, False),      # vision tower
+    (4, 1088, 1088, 32, 32, 128, 128, True),   # LM prefill
+]
+RMSNORM_SHAPES = [(64, 128), (3, 50, 96), (2, 7, 33, 64), (5, 33),
+                  (4 * 1088, 4096), (4, 1, 4096)]
+TOLERANCE = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _excess(got, want, tol) -> tuple:
+    """(max |got - want|, max of |got - want| - tol * (1 + |want|)): the
+    second is > 0 where allclose(atol=tol, rtol=tol) fails."""
+    d = (got.float() - want.float()).abs()
+    return (float(d.max()),
+            float((d - tol * (1 + want.float().abs())).max()))
+
+
+def _refuses(call, errors=(TypeError, ValueError)) -> bool:
+    try:
+        call()
+    except errors:
+        return True
+    return False
+
+
+def check_flash() -> dict:
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED)
+    errs = {}
+    cases = 0
+    for dt in (torch.float32, torch.bfloat16):
+        for (b, sq, skv, h, hkv, d, dv, causal) in FLASH_CASES:
+            q = torch.randn(b, sq, h, d, generator=gen, device=DEV).to(dt)
+            k = torch.randn(b, skv, hkv, d, generator=gen, device=DEV).to(dt)
+            v = torch.randn(b, skv, hkv, dv, generator=gen,
+                            device=DEV).to(dt)
+            qoff = skv - sq if causal else 0
+            out, lse = FL.flash_fwd(q, k, v, causal=causal, q_offset=qoff)
+            torch.cuda.synchronize()
+            p_out, p_lse = FL.flash_fwd_plain(q, k, v, causal=causal,
+                                              q_offset=qoff)
+            tol = TOLERANCE[dt]
+            for what, got, want in (("out", out, p_out),
+                                    ("lse", lse, p_lse)):
+                err, over = _excess(got, want, tol)
+                key = f"{what}_{str(dt).split('.')[-1]}"
+                errs[key] = max(errs.get(key, 0.0), err)
+                if over > 0 or got.shape != want.shape:
+                    fail(f"flash_fwd kernel != plain version ({what}, "
+                         f"{dt}, case {(b, sq, skv, h, hkv, d, dv, causal)}"
+                         f": max abs diff {err}, tolerance {tol})")
+            cases += 1
+            del q, k, v, out, lse, p_out, p_lse
+    # what the kernel does not take raises (no fallback)
+    q = torch.zeros(1, 8, 4, 64, device=DEV)
+    bad = [lambda: FL.flash_fwd(q[..., :48], q[..., :48], q[..., :48]),
+           lambda: FL.flash_fwd(q.transpose(1, 2), q.transpose(1, 2),
+                                q.transpose(1, 2)),
+           lambda: FL.flash_fwd(q.half(), q.half(), q.half())]
+    for call in bad:
+        if not _refuses(call):
+            fail("flash_fwd accepted an input the kernel does not take")
+        cases += 1
+    g = q.clone().requires_grad_()
+    if not _refuses(lambda: OPS.flash_attention(g, g, g),
+                    NotImplementedError):
+        fail("ops.flash_attention must refuse a CUDA input that needs "
+             "grad (the backward kernels are not ported)")
+    cases += 1
+    return {"name": "flash_fwd", "ok": True, "cases": cases,
+            "max_abs_err": max(errs.values()), "max_abs_err_by": errs,
+            "tolerance": {"float32": 2e-5, "bfloat16": 2e-2}}
+
+
+def check_rmsnorm() -> dict:
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 1)
+    errs = {}
+    cases = 0
+    for dt in (torch.float32, torch.bfloat16):
+        for shape in RMSNORM_SHAPES:
+            x = torch.randn(shape, generator=gen, device=DEV).to(dt)
+            sc = torch.randn(shape[-1:], generator=gen, device=DEV).to(dt)
+            # a row-offset view: contiguous, but off the 16-byte grid
+            # when D * elt is not a multiple of 16 (the scalar path)
+            for xs in (x, x.view(-1, shape[-1])[1:]):
+                got = RN.rmsnorm_fwd(xs, sc, 1e-5)
+                torch.cuda.synchronize()
+                want = RN.rmsnorm_fwd_plain(xs, sc, 1e-5)
+                err, over = _excess(got, want, TOLERANCE[dt])
+                key = str(dt).split(".")[-1]
+                errs[key] = max(errs.get(key, 0.0), err)
+                if over > 0 or got.shape != want.shape:
+                    fail(f"rmsnorm_fwd kernel != plain version ({dt}, "
+                         f"{tuple(xs.shape)}: max abs diff {err})")
+                cases += 1
+    x = torch.zeros(8, 64, device=DEV)
+    for call in (lambda: RN.rmsnorm_fwd(x.t(), x[0]),
+                 lambda: RN.rmsnorm_fwd(x.half(), x[0].half()),
+                 lambda: RN.rmsnorm_fwd(x, x[0].bfloat16())):
+        if not _refuses(call):
+            fail("rmsnorm_fwd accepted an input the kernel does not take")
+        cases += 1
+    g = x.clone().requires_grad_()
+    if not _refuses(lambda: OPS.rmsnorm(g, x[0]), NotImplementedError):
+        fail("ops.rmsnorm must refuse a CUDA input that needs grad")
+    cases += 1
+    return {"name": "rmsnorm_fwd", "ok": True, "cases": cases,
+            "max_abs_err": max(errs.values()), "max_abs_err_by": errs,
+            "tolerance": {"float32": 2e-5, "bfloat16": 2e-2}}
+
+
 # ---------------------------------------------------------------------------
 # phases 3-4: the sweeps
 # ---------------------------------------------------------------------------
@@ -281,6 +438,11 @@ class ShapeLog:
         SF.shard_factor_tensors, SC.segmented_cummax = self._sf, self._sc
 
 
+def zero_counts() -> None:
+    """Every kernel's launch counter to 0, just before a path runs."""
+    SF.launches = SC.launches = FL.launches = RN.launches = 0
+
+
 def timed_sweep(engine, grid) -> tuple:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -295,10 +457,12 @@ def run_sweep(name: str, grid: SW.SweepGrid, want_cells: int,
     around it, a warm run on the same engine, and the comparison with the
     host columnar path."""
     engine = SW.SweepEngine()
-    SF.launches = SC.launches = 0
+    zero_counts()
     with log:
         cold, cold_s, cold_stats = timed_sweep(engine, grid)
     n_sf, n_sc = SF.launches, SC.launches
+    if FL.launches or RN.launches:
+        fail(f"{name}: the sweep launched a serving kernel")
     warm, warm_s, warm_stats = timed_sweep(engine, grid)
     if len(cold) != want_cells:
         fail(f"{name}: {len(cold)} cells, expected {want_cells}")
@@ -352,7 +516,283 @@ def run_sweep(name: str, grid: SW.SweepGrid, want_cells: int,
 
 
 # ---------------------------------------------------------------------------
-# phase 5: kernel timings at the main path's shapes
+# phase 5: serving llava15-7b
+# ---------------------------------------------------------------------------
+
+
+def serve_counts() -> dict:
+    return {"flash_fwd": FL.launches, "rmsnorm_fwd": RN.launches}
+
+
+class PlainKernels:
+    """Within the context the serving path takes the kernels' plain
+    versions on the card (the kernel path's end-to-end cross-check)."""
+
+    def __enter__(self):
+        self._saved = FL.flash_fwd, RN.rmsnorm_fwd
+        FL.flash_fwd, RN.rmsnorm_fwd = FL.flash_fwd_plain, \
+            RN.rmsnorm_fwd_plain
+        return self
+
+    def __exit__(self, *exc):
+        FL.flash_fwd, RN.rmsnorm_fwd = self._saved
+
+
+def vlm_batch(cfg, gen: torch.Generator, n_batch: int, n_text: int) -> dict:
+    v = cfg.vlm
+    n_patch = (v.vit_image_size // v.vit_patch) ** 2
+    patches = torch.randn(n_batch, n_patch, 3 * v.vit_patch ** 2,
+                          generator=gen, device=gen.device) * 0.3
+    tokens = torch.randint(0, cfg.vocab, (n_batch, n_text), generator=gen,
+                           device=gen.device, dtype=torch.int32)
+    return {"patches": patches.to(torch.bfloat16), "tokens": tokens}
+
+
+def logits_agree(got, want, what: str) -> dict:
+    """The serving tests' tolerance: |got - want| <= 2e-2 * max(1,
+    max|want|), and the same greedy token wherever want's top-2 margin
+    exceeds twice that."""
+    got, want = got.float(), want.float()
+    scale = max(1.0, float(want.abs().max()))
+    err = float((got - want).abs().max())
+    top2 = want.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * 2e-2 * scale
+    same = got.argmax(-1) == want.argmax(-1)
+    if not bool(torch.isfinite(got).all()):
+        fail(f"{what}: non-finite logits")
+    if err > 2e-2 * scale or not bool(same[clear].all()):
+        fail(f"{what}: max abs diff {err} against tolerance "
+             f"{2e-2 * scale}, greedy tokens equal where clear: "
+             f"{bool(same[clear].all())}")
+    return {"max_abs_err": err, "scale": scale,
+            "clear_tokens": int(clear.sum()),
+            "same_tokens": int(same.sum()), "tokens": int(same.numel())}
+
+
+def reduced_card_vs_cpu() -> dict:
+    """The reduced llava15-7b, same weights and batch, on the card
+    (kernels) and on the CPU (plain versions): prefill + 4 decode steps."""
+    cfg = get_config(SERVE_ARCH).reduced()
+    model = build_model(cfg)
+    gen = torch.Generator()
+    gen.manual_seed(SEED)
+    cpu_params = model.init(gen, "cpu")
+    cpu_batch = vlm_batch(cfg, gen, 2, 8)
+    card_params = copy.deepcopy(cpu_params).to(DEV)
+    card_batch = {k: v.to(DEV) for k, v in cpu_batch.items()}
+    prefill, decode = SV.make_prefill_step(model), SV.make_decode_step(model)
+    before = serve_counts()
+    out = {}
+    lc, cc = prefill(cpu_params, cpu_batch)
+    lg, cg = prefill(card_params, card_batch)
+    out["prefill"] = logits_agree(lg.cpu(), lc, "reduced prefill card/cpu")
+    cc, cg = SV.pad_cache(cc, 4), SV.pad_cache(cg, 4)
+    tok = lc[:, -1].argmax(-1)[:, None].to(torch.int32)
+    for i in range(4):
+        tok_next, lc, cc = decode(cpu_params, tok, cc)
+        _, lg, cg = decode(card_params, tok.to(DEV), cg)
+        out[f"decode_{i}"] = logits_agree(lg.cpu(), lc,
+                                          f"reduced decode {i} card/cpu")
+        tok = tok_next
+    used = {k: serve_counts()[k] - before[k] for k in before}
+    if min(used.values()) <= 0:
+        fail(f"reduced card run launched no kernel: {used}")
+    out["launches"] = used
+    return out
+
+
+def device_breakdown(fn, wall_ms: float, top: int = 6):
+    """Device time of one call of ``fn`` from a profiler trace: the sum of
+    the CUDA kernels' own times (one stream, so no overlap), the share of
+    ``wall_ms`` (the same work timed without the profiler) the card was
+    busy, the two hand-written kernels' part and the top kernels.  None
+    when the profiler reports no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    except RuntimeError as e:       # no device tracing on this machine
+        print(f"chip_smoke: profiler unavailable ({e})", file=sys.stderr)
+        return None
+    rows = []
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if us:
+            rows.append((us / 1e3, ev.key, ev.count))
+    busy = sum(r[0] for r in rows)
+    if not busy:
+        return None
+    rows.sort(reverse=True)
+    part = {name: sum(r[0] for r in rows if name in r[1])
+            for name in ("flash_fwd_kernel", "rmsnorm_fwd_kernel")}
+    return {"busy_ms": busy, "wall_ms": wall_ms,
+            "busy_share": busy / wall_ms,
+            "kernel_ms": part, "kernels": sum(r[2] for r in rows),
+            "top": [{"ms": ms, "count": n, "kernel": key[:90]}
+                    for ms, key, n in rows[:top]]}
+
+
+def serve_llava15_7b() -> dict:
+    cfg = get_config(SERVE_ARCH)
+    model = build_model(cfg)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(gen, DEV)
+    batch = vlm_batch(cfg, gen, SERVE_BATCH, SERVE_TEXT)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_img = (cfg.vlm.vit_image_size // cfg.vlm.vit_patch) ** 2
+    S = n_img + SERVE_TEXT
+
+    # the main path, once, through the entry point a user calls
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens = SV.generate(model, params, batch, SERVE_NEW)
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t0
+    main_launches = serve_counts()
+    if SF.launches or SC.launches:
+        fail("serving launched a sweep kernel")
+    if tuple(tokens.shape) != (SERVE_BATCH, SERVE_NEW) or \
+            tokens.dtype != torch.int32 or tokens.device.type != DEV.type or \
+            not bool(((tokens >= 0) & (tokens < cfg.vocab)).all()):
+        fail(f"generate returned {tokens.dtype} {tuple(tokens.shape)} on "
+             f"{tokens.device}")
+    for name, n in main_launches.items():
+        if n <= 0:
+            fail(f"serving launched the {name} kernel 0 times")
+
+    # the same program phase by phase: time, peak bytes and launches
+    prefill, decode = SV.make_prefill_step(model), SV.make_decode_step(model)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    zero_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_peak = torch.cuda.max_memory_allocated()
+    prefill_launches = serve_counts()
+    if tuple(logits.shape) != (SERVE_BATCH, 1, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        fail(f"prefill logits {tuple(logits.shape)} not finite / shaped")
+    kv_shape = (cfg.n_layers, SERVE_BATCH, S, cfg.n_kv_heads,
+                cfg.resolved_head_dim)
+    if tuple(cache["blocks"]["k"].shape) != kv_shape or \
+            not bool((cache["len"] == S).all()):
+        fail(f"prefill cache {tuple(cache['blocks']['k'].shape)} != "
+             f"{kv_shape}")
+
+    # the kernel path against the same prefill through the plain versions
+    with PlainKernels():
+        plain_logits, plain_cache = prefill(params, batch)
+    prefill_vs_plain = logits_agree(logits[:, -1], plain_logits[:, -1],
+                                    "prefill kernel path vs plain path")
+    del plain_logits, plain_cache
+
+    cache = SV.pad_cache(cache, SERVE_NEW)
+    with torch.inference_mode():
+        tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+    out_tokens = [tok]
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    for _ in range(SERVE_NEW - 1):
+        tok, step_logits, cache = decode(params, tok, cache)
+        out_tokens.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    decode_peak = torch.cuda.max_memory_allocated()
+    decode_launches = serve_counts()
+    if not bool(torch.isfinite(step_logits).all()):
+        fail("decode logits not finite")
+    if not torch.equal(torch.cat(out_tokens, dim=1), tokens):
+        fail("the phase-by-phase run generated other tokens than generate")
+
+    # where the device time goes: one more decode step (the cache has room
+    # for it) and one more prefill, each under the profiler
+    n_steps = SERVE_NEW - 1
+    on_device = {
+        "decode_step": device_breakdown(
+            lambda: decode(params, tok, cache), decode_s * 1e3 / n_steps),
+        "prefill": device_breakdown(lambda: prefill(params, batch),
+                                    prefill_s * 1e3)}
+
+    # the reference's program: 24 ViT + 32 LM flash calls in the prefill;
+    # RMSNorm 3 per block (norm1 twice: _prefill_kv and the block) + final,
+    # and 2 per block + final in each decode step
+    want = {"prefill": {"flash_fwd": cfg.vlm.vit_layers + cfg.n_layers,
+                        "rmsnorm_fwd": 3 * cfg.n_layers + 1},
+            "decode": {"flash_fwd": 0,
+                       "rmsnorm_fwd": n_steps * (2 * cfg.n_layers + 1)}}
+    got = {"prefill": prefill_launches, "decode": decode_launches}
+    if got != want:
+        fail(f"serving launches {got} != the reference's program {want}")
+    want_main = {k: want["prefill"][k] + want["decode"][k] for k in want[
+        "prefill"]}
+    if main_launches != want_main:
+        fail(f"generate launched {main_launches}, expected {want_main}")
+
+    # the port's own predictor for the same request (XLA byte model,
+    # backend="tpu", as examples/serve_batched.py builds it)
+    preds = {}
+    for kind, seq in (("prefill", S), ("decode", S + SERVE_NEW)):
+        p = PR.predict(model, FULL_TRAIN, FA.PredictContext(
+            mesh_shape={}, kind=kind, global_batch=SERVE_BATCH,
+            seq_len=seq, max_len=seq, backend="tpu"))
+        preds[kind] = {"peak_bytes": p.peak_bytes,
+                       "param_bytes": p.param_bytes,
+                       "cache_bytes": p.cache_bytes,
+                       "act_transient_bytes": p.act_transient_bytes,
+                       "input_bytes": p.input_bytes}
+    out = {
+        "arch": SERVE_ARCH, "requests": SERVE_BATCH,
+        "prompt_tokens": S, "image_tokens": n_img, "text_tokens": SERVE_TEXT,
+        "new_tokens": SERVE_NEW, "params": sum(
+            t.numel() for t in params.parameters()),
+        "init_s": init_s,
+        "generate_s": generate_s,
+        "tokens_per_s": SERVE_BATCH * SERVE_NEW / generate_s,
+        "prefill_ms": prefill_s * 1e3,
+        "decode_ms_per_step": decode_s * 1e3 / n_steps,
+        "decode_tokens_per_s": SERVE_BATCH * n_steps / decode_s,
+        "launches": {"generate": main_launches, "prefill": prefill_launches,
+                     "decode_per_step": {k: v / n_steps for k, v in
+                                         decode_launches.items()}},
+        "resident_bytes": resident,
+        "measured_peak_bytes": {"prefill": prefill_peak,
+                                "decode": decode_peak},
+        "predicted": preds,
+        "measured_over_predicted": {
+            k: {"prefill": prefill_peak, "decode": decode_peak}[k]
+            / preds[k]["peak_bytes"] for k in preds},
+        "prefill_vs_plain": prefill_vs_plain,
+        "on_device": on_device,
+    }
+    del params, cache, logits, step_logits, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["reduced_card_vs_cpu"] = reduced_card_vs_cpu()
+    say("serve_llava15_7b " + json.dumps(out))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6: kernel timings at the main path's shapes
 # ---------------------------------------------------------------------------
 
 
@@ -490,6 +930,87 @@ def time_kernels(log: ShapeLog, checks: dict, launches: dict) -> list:
     return [sf, sc]
 
 
+def _bound(n_bytes: float, n_ops: float, ops_per_s: float) -> tuple:
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
+    return max(t_bytes, t_ops) * 1e3, \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _flash_timing(shape: tuple, causal: bool, gen) -> dict:
+    b, sq, h, d = shape
+    q, k, v = (torch.randn(b, sq, h, d, generator=gen, device=DEV)
+               .to(torch.bfloat16) for _ in range(3))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    n_ops = 4 * b * h * sq * sq * d * (0.5 if causal else 1.0)
+    n_bytes = 4 * q.numel() * q.element_size() + 4 * b * h * sq
+    bound_ms, bound_by = _bound(n_bytes, n_ops, BF16_OPS_PER_S)
+    return {
+        "shape": {"B": b, "S": sq, "H": h, "D": d, "causal": causal,
+                  "dtype": "bfloat16"},
+        "ms": event_ms(lambda: FL.flash_fwd(q, k, v, causal=causal)),
+        "device_ms": device_ms(lambda: FL.flash_fwd(q, k, v, causal=causal),
+                               "flash_fwd_kernel"),
+        "plain_ms": event_ms(
+            lambda: FL.flash_fwd_plain(q, k, v, causal=causal), launches=10),
+        "library_ms": event_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal)),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "flops": n_ops, "bytes": n_bytes}
+
+
+def _rmsnorm_timing(shape: tuple, gen) -> dict:
+    x = torch.randn(shape, generator=gen, device=DEV).to(torch.bfloat16)
+    sc = torch.randn(shape[-1:], generator=gen, device=DEV) \
+        .to(torch.bfloat16)
+    n_bytes = (2 * x.numel() + sc.numel()) * x.element_size()
+    bound_ms, bound_by = _bound(n_bytes, 5 * x.numel(), ALU_OPS_PER_S)
+    return {
+        "shape": {"rows": x.numel() // shape[-1], "D": shape[-1],
+                  "dtype": "bfloat16"},
+        "ms": event_ms(lambda: RN.rmsnorm_fwd(x, sc)),
+        "device_ms": device_ms(lambda: RN.rmsnorm_fwd(x, sc),
+                               "rmsnorm_fwd_kernel"),
+        "plain_ms": event_ms(lambda: RN.rmsnorm_fwd_plain(x, sc)),
+        "library_ms": event_ms(lambda: F.rms_norm(x, shape[-1:], sc, 1e-5)),
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes}
+
+
+def time_serving_kernels(checks: dict, launches: dict) -> list:
+    """flash_fwd and rmsnorm_fwd at the serving path's shapes: the
+    entry's own numbers at the largest (LM prefill), the rest under
+    ``other_shapes``."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 2)
+    cfg = get_config(SERVE_ARCH)
+    v = cfg.vlm
+    n_patch = (v.vit_image_size // v.vit_patch) ** 2
+    S = n_patch + SERVE_TEXT
+    lm = _flash_timing((SERVE_BATCH, S, cfg.n_heads, cfg.resolved_head_dim),
+                       True, gen)
+    vit = _flash_timing((SERVE_BATCH, n_patch + 1, v.vit_heads,
+                         v.d_vision // v.vit_heads), False, gen)
+    rn = _rmsnorm_timing((SERVE_BATCH * S, cfg.d_model), gen)
+    rn_decode = _rmsnorm_timing((SERVE_BATCH, 1, cfg.d_model), gen)
+    out = []
+    for name, src, repl, main, others in (
+            ("flash_fwd", "flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:45", lm, [vit]),
+            ("rmsnorm_fwd", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:20",
+             rn, [rn_decode])):
+        entry = {"name": name, "route": "cuda",
+                 "source": f"src/repro_torch/kernels/csrc/{src}",
+                 "replaces": repl, "launches": launches[name],
+                 "max_abs_err": checks[name]["max_abs_err"]}
+        entry.update(main)
+        entry["other_shapes"] = others
+        for k in [entry] + others:
+            if not (k["ms"] > 0 and k["plain_ms"] > 0 and k["bound_ms"] > 0
+                    and k["library_ms"] > 0):
+                fail(f"{name}: a timing came back non-positive")
+        out.append(entry)
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -508,11 +1029,14 @@ def main() -> int:
         f"{_build.build_seconds:.1f} s (set-up) -> {_build.build_dir()}")
 
     # phase 2: kernels against their plain versions
-    checks = {c["name"]: c for c in (check_shard_factor(),
-                                     check_segmented_cummax())}
-    say("kernels_check " + json.dumps(
-        [dict(c, launches=n) for c, n in
-         zip(checks.values(), (SF.launches, SC.launches))]))
+    checks = {}
+    for check, module in ((check_shard_factor, SF),
+                          (check_segmented_cummax, SC),
+                          (check_flash, FL), (check_rmsnorm, RN)):
+        before = module.launches
+        c = check()
+        checks[c["name"]] = dict(c, launches=module.launches - before)
+    say("kernels_check " + json.dumps(list(checks.values())))
 
     # phases 3-4: the main path
     log = ShapeLog()
@@ -524,8 +1048,16 @@ def main() -> int:
     launches = {k: sum(s["launches"][k] for s in sweeps)
                 for k in ("shard_factor", "segmented_cummax")}
 
-    # phase 5: kernel timings at the main path's shapes
-    kernels = time_kernels(log, checks, launches)
+    # phase 5: serving (the sweeps' device state is gone with their
+    # engines; release the cached blocks before the 7B weights)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve = serve_llava15_7b()
+    launches.update(serve["launches"]["generate"])
+
+    # phase 6: kernel timings at the main paths' shapes
+    kernels = time_kernels(log, checks, launches) + \
+        time_serving_kernels(checks, launches)
     for k in kernels:
         dev = "not measured" if k["device_ms"] is None \
             else f"{k['device_ms'] * 1e3:.1f} us"

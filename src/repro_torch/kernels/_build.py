@@ -122,5 +122,13 @@ def load():
         lib.segmented_cummax_launch.argtypes = [
             c_ptr, c_ptr, c_int, c_ll, c_ptr]
         lib.segmented_cummax_launch.restype = c_int
+        c_float = ctypes.c_float
+        lib.flash_fwd_launch.argtypes = [
+            c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_int, c_int, c_int, c_int,
+            c_int, c_int, c_int, c_int, c_int, c_int, c_float, c_ptr]
+        lib.flash_fwd_launch.restype = c_int
+        lib.rmsnorm_fwd_launch.argtypes = [
+            c_ptr, c_ptr, c_ptr, c_int, c_ll, c_int, c_float, c_ptr]
+        lib.rmsnorm_fwd_launch.restype = c_int
         _lib = lib
         return lib

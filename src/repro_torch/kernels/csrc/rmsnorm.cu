@@ -1,0 +1,135 @@
+// rmsnorm_fwd_kernel: y = x * rsqrt(mean(x^2) + eps) * scale, one block per
+// row, statistics in fp32, the result cast back to x's type.
+//
+// Replaces the TPU kernel repro/kernels/rmsnorm.py::_fwd_kernel (driven by
+// rmsnorm_fwd), which streams a (block_rows, D) tile through VMEM.  Here a
+// block of up to 256 threads owns one row of the (R, D) view of x: any
+// leading shape is R = numel / D rows, and D is a runtime argument (the
+// widest d_model of the supported archs is 5120).
+//
+// What bounds it on an H100: bytes, 2*R*D*elt + D*elt (x read, y written,
+// scale read once) against ~5 flops per element.  Each thread loads 16
+// bytes at a time (8 bf16 or 4 fp32 values) where D and the pointers allow
+// it, else one element; the sum of squares is reduced with warp shuffles
+// and one shared-memory step across warps.  The second pass reads the row
+// again — it was just read by the same block and comes from L1/L2, so
+// device memory sees x once.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int MAX_THREADS = 256;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+    return __bfloat162float(x);
+}
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) {
+    return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16
+from_f32<__nv_bfloat16>(float x) {
+    return __float2bfloat16(x);          // round to nearest even
+}
+
+// VEC values of T moved as one load/store (16 bytes when VEC * sizeof(T)
+// is 16, one element when VEC is 1).
+template <typename T, int VEC>
+struct alignas(sizeof(T) * VEC) Pack {
+    T v[VEC];
+};
+
+__device__ __forceinline__ float block_sum(float v, float* red) {
+    #pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+        v += __shfl_xor_sync(0xffffffffu, v, off);
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int n_warps = (blockDim.x + 31) >> 5;
+    if (lane == 0) red[warp] = v;
+    __syncthreads();
+    if (warp == 0) {
+        v = lane < n_warps ? red[lane] : 0.f;
+        #pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+            v += __shfl_xor_sync(0xffffffffu, v, off);
+        if (lane == 0) red[0] = v;
+    }
+    __syncthreads();
+    return red[0];
+}
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(MAX_THREADS)
+rmsnorm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ scale,
+                   T* __restrict__ y, int D, float eps) {
+    __shared__ float red[MAX_THREADS / 32];
+    using P = Pack<T, VEC>;
+    const long long row = blockIdx.x;
+    const P* xr = reinterpret_cast<const P*>(x + row * D);
+    const P* sr = reinterpret_cast<const P*>(scale);
+    P* yr = reinterpret_cast<P*>(y + row * D);
+    const int n_vec = D / VEC;
+
+    float ss = 0.f;
+    for (int i = threadIdx.x; i < n_vec; i += blockDim.x) {
+        const P p = xr[i];
+        #pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+            const float f = to_f32(p.v[e]);
+            ss = fmaf(f, f, ss);
+        }
+    }
+    const float inv = rsqrtf(block_sum(ss, red) / (float)D + eps);
+
+    for (int i = threadIdx.x; i < n_vec; i += blockDim.x) {
+        const P p = xr[i];
+        const P s = sr[i];
+        P o;
+        #pragma unroll
+        for (int e = 0; e < VEC; ++e)
+            o.v[e] = from_f32<T>(to_f32(p.v[e]) * inv * to_f32(s.v[e]));
+        yr[i] = o;
+    }
+}
+
+template <typename T>
+int launch(const void* x, const void* scale, void* y, long long rows, int D,
+           float eps, cudaStream_t stream) {
+    constexpr int VEC = 16 / sizeof(T);
+    const bool vec = D % VEC == 0 &&
+        ((uintptr_t)x | (uintptr_t)scale | (uintptr_t)y) % 16 == 0;
+    const int n_vec = vec ? D / VEC : D;
+    int threads = ((n_vec + 31) / 32) * 32;
+    if (threads > MAX_THREADS) threads = MAX_THREADS;
+    const T* xt = static_cast<const T*>(x);
+    const T* st = static_cast<const T*>(scale);
+    T* yt = static_cast<T*>(y);
+    if (vec)
+        rmsnorm_fwd_kernel<T, VEC><<<(unsigned)rows, threads, 0, stream>>>(
+            xt, st, yt, D, eps);
+    else
+        rmsnorm_fwd_kernel<T, 1><<<(unsigned)rows, threads, 0, stream>>>(
+            xt, st, yt, D, eps);
+    return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entry point.  dtype: 0 = float32, 1 = bfloat16.  Device
+// pointers to contiguous x (rows, D), scale (D,) and y (rows, D).  Returns
+// the launch's cudaGetLastError() (0 on success), or -1 on arguments the
+// kernel does not take (the Python wrapper checks first and raises).
+extern "C" int rmsnorm_fwd_launch(const void* x, const void* scale, void* y,
+                                  int dtype, long long rows, int D,
+                                  float eps, void* stream) {
+    if (rows < 1 || rows > 0x7fffffffLL || D < 1) return -1;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (dtype == 0) return launch<float>(x, scale, y, rows, D, eps, st);
+    if (dtype == 1)
+        return launch<__nv_bfloat16>(x, scale, y, rows, D, eps, st);
+    return -1;
+}

@@ -1,15 +1,28 @@
-"""Attention layer specs: GQA (llama/qwen/mistral-style).
+"""Attention: GQA (llama/qwen/mistral-style).
 
-Spec function only: the parameter leaves and saved activations of a
-grouped-query attention layer as the memory predictor reads them.  The
-compute paths (flash attention kernel, decode attention) and the MLA
-variant arrive with the runnable model zoo.
+* ``gqa_spec`` — the parameter leaves and saved activations of a
+  grouped-query attention layer as the memory predictor reads them;
+* ``gqa_forward`` — full-sequence attention through the flash kernel
+  (``kernels.ops.flash_attention``), where the reference calls its
+  pure-``lax`` twin of the Pallas kernel;
+* ``gqa_decode`` / ``decode_attention`` — one token against the KV cache,
+  plain PyTorch as in the reference (no kernel there either).
+
+The MLA variant is not ported yet.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
+import torch
+
 from repro_torch.core.spec import (ActTerm, LayerSpec, ParamSpec,
                                    AXIS_EMBED, AXIS_HEADS, AXIS_KV_HEADS)
+from repro_torch.kernels import ops
+from repro_torch.models.layers import apply_rope
+
+NEG_INF = -1e30
 
 
 def gqa_spec(name: str, d_model: int, n_heads: int, n_kv_heads: int,
@@ -54,3 +67,82 @@ def gqa_spec(name: str, d_model: int, n_heads: int, n_kv_heads: int,
               "head_dim": head_dim, "qk_norm": qk_norm, "d_model": d_model,
               "kv_bytes_per_token": 2 * n_kv_heads * head_dim,
               "attn_kind": "gqa"})
+
+
+# ---------------------------------------------------------------------------
+# applies
+# ---------------------------------------------------------------------------
+
+
+def gqa_forward(p, x: torch.Tensor, *, n_heads: int, n_kv_heads: int,
+                head_dim: int, theta: float, qk_norm: bool = False,
+                norm_eps: float = 1e-5, causal: bool = True,
+                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device).expand(B, S)
+    q = (x @ p.wq).reshape(B, S, n_heads, head_dim)
+    k = (x @ p.wk).reshape(B, S, n_kv_heads, head_dim)
+    v = (x @ p.wv).reshape(B, S, n_kv_heads, head_dim)
+    if qk_norm:
+        q = ops.rmsnorm(q, p.q_norm, norm_eps)
+        k = ops.rmsnorm(k, p.k_norm, norm_eps)
+    q = apply_rope(q, positions, theta)
+    k = apply_rope(k, positions, theta)
+    ctx = ops.flash_attention(q, k, v, causal)
+    return ctx.reshape(B, S, n_heads * head_dim) @ p.wo
+
+
+def gqa_decode(p, x: torch.Tensor, cache: dict, *, n_heads: int,
+               n_kv_heads: int, head_dim: int, theta: float,
+               qk_norm: bool = False, norm_eps: float = 1e-5) -> tuple:
+    """One-token decode: x (B, 1, d); cache {'k','v': (B, S_max, Hkv, D),
+    'len': (B,)} -> (out, new_cache).
+
+    The new K/V land at position ``cache["len"][0]`` of every row, as in
+    the reference; the write is IN PLACE into the cache tensors (the
+    reference donates the cache so XLA aliases the update — the memory
+    the predictor models).  The index stays on the device: no host sync.
+    """
+    B = x.shape[0]
+    pos = cache["len"][:, None]                                   # (B,1)
+    q = (x @ p.wq).reshape(B, 1, n_heads, head_dim)
+    k = (x @ p.wk).reshape(B, 1, n_kv_heads, head_dim)
+    v = (x @ p.wv).reshape(B, 1, n_kv_heads, head_dim)
+    if qk_norm:
+        q = ops.rmsnorm(q, p.q_norm, norm_eps)
+        k = ops.rmsnorm(k, p.k_norm, norm_eps)
+    q = apply_rope(q, pos, theta)
+    k = apply_rope(k, pos, theta)
+    at = cache["len"][:1].long()
+    k_cache = cache["k"].index_copy_(1, at, k.to(cache["k"].dtype))
+    v_cache = cache["v"].index_copy_(1, at, v.to(cache["v"].dtype))
+    ctx = decode_attention(q, k_cache, v_cache, cache["len"] + 1)
+    out = ctx.reshape(B, 1, n_heads * head_dim) @ p.wo
+    return out, {"k": k_cache, "v": v_cache, "len": cache["len"] + 1}
+
+
+def decode_attention(q, k_cache, v_cache, kv_len):
+    """q: (B, 1, H, D); caches: (B, S_max, Hkv, D); kv_len: (B,).
+
+    q is scaled in its own type before the dot, as the reference does
+    (the flash path upcasts first); products accumulate in fp32."""
+    B, _, H, Dq = q.shape
+    Smax, Hkv = k_cache.shape[1], k_cache.shape[2]
+    G = H // Hkv
+    qg = (q * Dq ** -0.5).reshape(B, 1, Hkv, G, Dq)
+    s = torch.einsum("bshgd,bthd->bshgt", qg.float(),
+                     k_cache.to(qg.dtype).float())
+    valid = torch.arange(Smax, device=q.device)[None] < kv_len[:, None]
+    s = s.masked_fill(~valid[:, None, None, None, :], NEG_INF)
+    piv = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bshgt,bthd->bshgd",
+                       piv.to(v_cache.dtype).float(), v_cache.float())
+    return ctx.reshape(B, 1, H, v_cache.shape[-1]).to(q.dtype)
+
+
+def mla_forward(*args, **kwargs):
+    raise NotImplementedError("MLA attention is not ported yet")
+
+
+mla_decode = mla_forward

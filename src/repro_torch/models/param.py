@@ -1,0 +1,164 @@
+"""Parameters of a spec tree, held in ``nn.Module``s.
+
+The reference keeps parameters as nested dicts mirroring the ModuleSpec
+tree, with every leaf of a scanned module stacked on a leading ``layers``
+axis.  Here the same tree is a tree of modules:
+
+* :class:`LayerParams` — one layer's tensors as ``nn.Parameter``s, named
+  as in the spec (``params.language_model.blocks[3].attn.wq``);
+* :class:`ModuleParams` — a spec module: its layers and child modules by
+  name; a scanned (stacked) module is an ``nn.ModuleList`` of per-layer
+  :class:`ModuleParams`, so every block owns its own tensors.
+
+Both also answer ``p["name"]`` and ``"name" in p``, the reference's dict
+idiom, so each apply reads like its counterpart.  Parameters are created
+with ``requires_grad=False``: this slice serves; training comes with the
+backward kernels.
+
+* :func:`init_params` follows the reference's ``_init_leaf`` rules
+  (normal scaled by 1/sqrt(fan-in), ``embed`` x 0.02, zeros, ones) in the
+  spec's dtype, drawing from an explicit ``torch.Generator`` on the
+  target device.  The generator is not JAX's, so the values differ from
+  the reference's for the same seed; tests carry the reference's values
+  across with :func:`params_from_numpy`.
+* :func:`params_from_numpy` takes the reference's parameter tree as numpy
+  arrays (stacked leaves included) and returns the port's tree with every
+  value bit-equal.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.core.spec import ModuleSpec, ParamSpec
+
+TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class _Named:
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
+
+
+class LayerParams(_Named, nn.Module):
+    """One layer's parameter tensors, by the spec's names."""
+
+    def __init__(self, tensors: dict):
+        super().__init__()
+        for name, t in tensors.items():
+            self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+
+
+class ModuleParams(_Named, nn.Module):
+    """A spec module: layers and child modules by name."""
+
+    def __init__(self, children: dict):
+        super().__init__()
+        for name, child in children.items():
+            self.add_module(name, child)
+
+
+def _stacked(mod: ModuleSpec) -> bool:
+    return mod.repeat > 1 or mod.scanned
+
+
+def _build(spec: ModuleSpec, make_leaf) -> ModuleParams:
+    """The module tree of ``spec``; ``make_leaf(path, param_spec, layer)``
+    returns one tensor (``layer`` is ``(index, stack depth)`` inside a
+    stack, else None)."""
+
+    def module(mod: ModuleSpec, path: tuple, layer) -> ModuleParams:
+        out = {}
+        for ls in mod.layers:
+            out[ls.name] = LayerParams({
+                name: make_leaf(path + (ls.name, name), p, layer)
+                for name, p in ls.params.items()})
+        for child in mod.children:
+            if _stacked(child):
+                if layer is not None:
+                    raise NotImplementedError(
+                        f"{child.name}: a stacked module inside a stacked "
+                        f"module is not ported yet")
+                out[child.name] = nn.ModuleList(
+                    [module(child, path + (child.name,), (i, child.repeat))
+                     for i in range(child.repeat)])
+            else:
+                out[child.name] = module(child, path + (child.name,), layer)
+        return ModuleParams(out)
+
+    if _stacked(spec):
+        raise NotImplementedError("a stacked root module is not ported yet")
+    return ModuleParams({spec.name: module(spec, (spec.name,), None)})
+
+
+def _init_leaf(p: ParamSpec, generator: torch.Generator,
+               device: torch.device) -> torch.Tensor:
+    dtype = TORCH_DTYPES[p.dtype]
+    shape = tuple(p.shape)
+    if p.init == "zeros":
+        return torch.zeros(shape, dtype=dtype, device=device)
+    if p.init == "ones":
+        return torch.ones(shape, dtype=dtype, device=device)
+    if p.init not in ("normal", "embed"):
+        raise NotImplementedError(
+            f"init {p.init!r} (SSM parameters) is not ported yet")
+    fan_in = p.shape[0] if len(p.shape) >= 2 else max(
+        p.shape[-1] if p.shape else 1, 1)
+    scale = p.init_scale / math.sqrt(max(fan_in, 1))
+    if p.init == "embed":
+        scale = p.init_scale * 0.02
+    x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return (x * scale).to(dtype)
+
+
+def init_params(spec: ModuleSpec, generator: torch.Generator,
+                device) -> ModuleParams:
+    """Allocate every parameter of ``spec`` on ``device`` (the generator
+    must live on the same device)."""
+    device = torch.device(device)
+    return _build(spec, lambda path, p, layer: _init_leaf(p, generator,
+                                                          device))
+
+
+def tensor_from_numpy(a, device) -> torch.Tensor:
+    """A numpy array (ml_dtypes bfloat16 included) as a tensor on
+    ``device``, bit for bit."""
+    a = np.array(a, order="C")              # a writable copy
+    if a.dtype.name == "bfloat16":          # ml_dtypes: carry the bits
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16) \
+            .to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def params_from_numpy(tree: dict, device, spec: ModuleSpec) -> ModuleParams:
+    """The reference's parameter tree (numpy leaves, scanned modules
+    stacked on a leading axis) as the port's :class:`ModuleParams`, every
+    value bit-equal.  ``spec`` says which modules are stacked."""
+    device = torch.device(device)
+
+    def leaf(path, p: ParamSpec, layer):
+        node = tree
+        for key in path:
+            node = node[key]
+        a = np.asarray(node)
+        want = tuple(p.shape) if layer is None \
+            else (layer[1],) + tuple(p.shape)
+        if a.shape != want:
+            raise ValueError(f"{'/'.join(path)}: shape {a.shape}, spec "
+                             f"says {want}")
+        return tensor_from_numpy(a if layer is None else a[layer[0]],
+                                 device)
+
+    return _build(spec, leaf)
+
+
+def count_params(params: nn.Module) -> int:
+    return sum(p.numel() for p in params.parameters())

@@ -2,22 +2,32 @@
 
 ``build_model(cfg)`` returns a :class:`Model` exposing:
 
-* ``spec``              — the ModuleSpec tree (consumed by core.parser)
-* ``batch_spec(shape)`` — shape/dtype records for every input
+* ``spec``                         — the ModuleSpec tree (core.parser)
+* ``init(generator, device)``      — parameter tree on ``device``
+* ``from_numpy(tree, device)``     — the reference's parameters, carried
+  across bit for bit
+* ``prefill(params, batch)``       — last-position logits + populated cache
+* ``decode_step(params, token, cache)`` — one-token serve step
+* ``init_cache(batch, max_len, device)`` — zeroed cache
+* ``batch_spec(shape)``            — shape/dtype records for every input
 
-Only the spec half is here: the dense-GQA decoder LMs and the VLMs built on
-them.  The MLA / MoE / SSM / hybrid / enc-dec families raise
-``NotImplementedError`` until their spec functions are ported; the runnable
-half (init, loss, prefill, decode) arrives with the model zoo.
+The dense-GQA decoder LMs and the VLMs built on them are here, spec and
+serving path; the loss comes with the train step.  The MLA / MoE / SSM /
+hybrid / enc-dec families raise ``NotImplementedError`` until they are
+ported.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import torch
+
 from repro_torch.configs import ArchConfig, ShapeConfig
 from repro_torch.core.spec import ModuleSpec
+from repro_torch.models import param as PM
 from repro_torch.models import transformer as T
+from repro_torch.models import vlm as V
 
 
 @dataclass(frozen=True)
@@ -32,6 +42,26 @@ class ShapeDtype:
 class Model:
     cfg: ArchConfig
     spec: ModuleSpec
+
+    def init(self, generator: torch.Generator,
+             device="cuda") -> PM.ModuleParams:
+        return PM.init_params(self.spec, generator, device)
+
+    def from_numpy(self, tree: dict, device="cuda") -> PM.ModuleParams:
+        return PM.params_from_numpy(tree, device, self.spec)
+
+    def prefill(self, params, batch: dict):
+        if self.cfg.family == "vlm":
+            return V.vlm_prefill(self.cfg, params, batch)
+        return T.lm_prefill(self.cfg, params, batch["tokens"])
+
+    def decode_step(self, params, token, cache: dict):
+        if self.cfg.family == "vlm":
+            return V.vlm_decode_step(self.cfg, params, token, cache)
+        return T.lm_decode_step(self.cfg, params, token, cache)
+
+    def init_cache(self, batch: int, max_len: int, device="cuda") -> dict:
+        return T.init_kv_cache(self.cfg, batch, max_len, device)
 
     def batch_spec(self, shape: ShapeConfig) -> dict:
         """Shape/dtype stand-ins for every model input of this shape."""
@@ -65,7 +95,6 @@ def build_model(cfg: ArchConfig) -> Model:
     if fam == "dense":
         return Model(cfg=cfg, spec=T.lm_spec(cfg))
     if fam == "vlm":
-        from repro_torch.models import vlm as V
         return Model(cfg=cfg, spec=V.vlm_model_spec(cfg))
     if fam in ("moe", "ssm", "hybrid", "encdec"):
         raise NotImplementedError(

@@ -6,17 +6,21 @@
 * llava15-7b (paper repro): REAL CLIP ViT-L/14 vision tower (frozen per the
   paper's training stages) + 2-layer MLP projector + Vicuna-7B.
 
-Sequence layout: [projected image tokens | text embeddings].  Spec
-functions only; the forward passes arrive with the runnable model zoo.
+Sequence layout: [projected image tokens | text embeddings].  Specs and
+the serving path (prefill over the image and the prompt, then decode);
+the loss comes with the train step.
 """
 
 from __future__ import annotations
 
+import torch
+
 from repro_torch.configs import ArchConfig
 from repro_torch.core.spec import ModuleSpec, AXIS_EMBED
 from repro_torch.models import layers as L
+from repro_torch.models.param import TORCH_DTYPES
 from repro_torch.models import transformer as T
-from repro_torch.models.vit import vit_spec
+from repro_torch.models.vit import vit_forward, vit_spec
 
 
 def projector_spec(cfg: ArchConfig) -> ModuleSpec:
@@ -37,3 +41,38 @@ def vlm_model_spec(cfg: ArchConfig) -> ModuleSpec:
     children.append(projector_spec(cfg))
     children.append(T.lm_spec(cfg, name="language_model"))
     return ModuleSpec(name="vlm", modality="multimodal", children=children)
+
+
+def project_image(cfg: ArchConfig, p, feats: torch.Tensor) -> torch.Tensor:
+    """feats (B, n, d_vision) -> (B, n, d_model); ``p`` holds
+    ``projector``."""
+    x = feats
+    for i in range(cfg.vlm.projector_layers):
+        x = L.linear(p.projector[f"fc{i}"], x)
+        if i < cfg.vlm.projector_layers - 1:
+            x = L.gelu_tanh(x)
+    return x
+
+
+def vlm_embeds(cfg: ArchConfig, params, batch: dict) -> torch.Tensor:
+    """batch: {'tokens': (B, S_text), 'patch_embeds' | 'patches'} ->
+    embeds (B, S_total, D)."""
+    p = params.vlm
+    if cfg.vlm.vision_tower:
+        feats = vit_forward(p, batch["patches"], cfg.vlm, cfg.norm_eps)
+    else:
+        feats = batch["patch_embeds"]
+    img = project_image(cfg, p, feats).to(TORCH_DTYPES[cfg.dtype])
+    txt = T.embed_tokens(cfg, p.language_model, batch["tokens"])
+    return torch.cat([img, txt], dim=1)
+
+
+def vlm_prefill(cfg: ArchConfig, params, batch: dict):
+    """Prefill over [image tokens | text]; returns logits + cache."""
+    return T.prefill_embeds(cfg, params.vlm.language_model,
+                            vlm_embeds(cfg, params, batch))
+
+
+def vlm_decode_step(cfg: ArchConfig, params, token: torch.Tensor,
+                    cache: dict):
+    return T.decode_lm(cfg, params.vlm.language_model, token, cache)

@@ -1,0 +1,147 @@
+"""Port of the flash-attention forward (repro_torch.kernels.flash_attention)
+against the reference package's Pallas kernel in interpret mode and its
+naive oracle, on the CPU, where the wrapper takes the plain version.
+
+Inputs are made with numpy from a seed and handed to both sides (bf16 by
+the same round-to-nearest-even cast).  Tolerances are the reference's own
+kernel tolerances (tests/test_kernels.py): 2e-5 in fp32 — both sides do
+the whole computation in fp32, only the summation order differs — and
+2e-2 in bf16, where the output is rounded once to bf16 on each side.  The
+kernel itself is held against the plain version on the card by
+``chip_smoke.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import flash_fwd as pallas_flash_fwd
+from repro.kernels import ref as RREF
+from repro_torch.kernels import flash_attention as TFA
+from repro_torch.kernels import ops as TOPS
+from repro_torch.kernels import ref as TREF
+
+# the cases of tests/test_kernels.py: (B, Sq, Skv, H, Hkv, D, Dv, causal,
+# block) — ragged seq, decode-shaped q, MQA with Dq != Dv, off-by-two
+# padding, q continuation (offset)
+FLASH_CASES = [
+    (2, 256, 256, 4, 2, 64, 64, True, 128),
+    (1, 200, 200, 6, 3, 32, 32, True, 128),
+    (2, 1, 384, 4, 4, 64, 64, False, 128),
+    (1, 256, 256, 8, 1, 128, 64, True, 128),
+    (1, 130, 130, 2, 2, 64, 64, True, 128),
+    (2, 128, 256, 4, 2, 64, 64, True, 128),
+]
+DTYPES = {"float32": (np.float32, torch.float32, 2e-5),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+
+
+def to_torch(a: np.ndarray) -> torch.Tensor:
+    a = np.array(a, order="C")
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def as_f32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def make_qkv(case, np_dtype, seed=7):
+    B, Sq, Skv, H, Hkv, D, Dv, causal, _ = case
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, Sq, H, D), np.float32).astype(np_dtype)
+    k = rng.standard_normal((B, Skv, Hkv, D), np.float32).astype(np_dtype)
+    v = rng.standard_normal((B, Skv, Hkv, Dv), np.float32).astype(np_dtype)
+    return q, k, v, (Skv - Sq if causal else 0)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_plain_matches_pallas_kernel_and_oracle(case, dtype):
+    np_dtype, _, tol = DTYPES[dtype]
+    causal, block = case[7], case[8]
+    q, k, v, qoff = make_qkv(case, np_dtype)
+    out, lse = TFA.flash_fwd_plain(to_torch(q), to_torch(k), to_torch(v),
+                                   causal=causal, q_offset=qoff)
+    assert out.dtype == to_torch(q).dtype and lse.dtype == torch.float32
+    assert tuple(out.shape) == q.shape[:3] + (v.shape[3],)
+    assert tuple(lse.shape) == (q.shape[0], q.shape[2], q.shape[1])
+    k_out, k_lse = pallas_flash_fwd(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), causal=causal,
+                                    block_q=block, block_k=block,
+                                    q_offset=qoff, interpret=True)
+    r_out, r_lse = RREF.attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                      jnp.asarray(v), causal, qoff)
+    for want_out, want_lse in ((k_out, k_lse), (r_out, r_lse)):
+        np.testing.assert_allclose(as_f32(out), as_f32(want_out),
+                                   atol=tol, rtol=tol)
+        # lse is fp32 on every side, whatever the inputs' type
+        np.testing.assert_allclose(as_f32(lse), as_f32(want_lse),
+                                   atol=2e-5, rtol=2e-5)
+    # the port's own oracle agrees with the reference's
+    t_out, t_lse = TREF.attention_ref(to_torch(q), to_torch(k), to_torch(v),
+                                      causal, qoff)
+    np.testing.assert_allclose(as_f32(t_out), as_f32(r_out), atol=tol,
+                               rtol=tol)
+    np.testing.assert_allclose(as_f32(t_lse), as_f32(r_lse), atol=2e-5,
+                               rtol=2e-5)
+
+
+@pytest.mark.parametrize("case", [FLASH_CASES[1], FLASH_CASES[5]])
+def test_wrapper_takes_plain_version_on_cpu(case):
+    q, k, v, qoff = make_qkv(case, np.float32, seed=3)
+    tq, tk, tv = to_torch(q), to_torch(k), to_torch(v)
+    before = TFA.launches
+    out, lse = TFA.flash_fwd(tq, tk, tv, causal=case[7], q_offset=qoff)
+    p_out, p_lse = TFA.flash_fwd_plain(tq, tk, tv, causal=case[7],
+                                       q_offset=qoff)
+    assert torch.equal(out, p_out) and torch.equal(lse, p_lse)
+    assert TFA.launches == before           # nothing was launched
+    assert torch.equal(TOPS.flash_attention(tq, tk, tv, case[7], qoff),
+                       p_out)
+
+
+def test_ragged_vit_sequence_and_offset_masks():
+    """The vision tower's 577-token sequence (ragged against any tile)
+    and a causal continuation: plain version against the oracle."""
+    for case in ((1, 577, 577, 2, 2, 64, 64, False, 128),
+                 (1, 65, 577, 2, 1, 64, 64, True, 128)):
+        q, k, v, qoff = make_qkv(case, np.float32, seed=11)
+        out, lse = TFA.flash_fwd_plain(to_torch(q), to_torch(k),
+                                       to_torch(v), causal=case[7],
+                                       q_offset=qoff)
+        r_out, r_lse = RREF.attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                          jnp.asarray(v), case[7], qoff)
+        np.testing.assert_allclose(as_f32(out), as_f32(r_out), atol=2e-5,
+                                   rtol=2e-5)
+        np.testing.assert_allclose(as_f32(lse), as_f32(r_lse), atol=2e-5,
+                                   rtol=2e-5)
+
+
+def _bad_calls():
+    q = torch.zeros(1, 8, 4, 32)
+    k = torch.zeros(1, 8, 2, 32)
+    yield "float16", lambda: TFA.flash_fwd(q.half(), k.half(), k.half())
+    yield "mixed types", lambda: TFA.flash_fwd(q, k.bfloat16(), k)
+    yield "3-D q", lambda: TFA.flash_fwd(q[0], k, k)
+    yield "H % Hkv", lambda: TFA.flash_fwd(torch.zeros(1, 8, 3, 32), k, k)
+    yield "D mismatch", lambda: TFA.flash_fwd(torch.zeros(1, 8, 4, 16), k, k)
+    yield "batch mismatch", lambda: TFA.flash_fwd(
+        torch.zeros(2, 8, 4, 32), k, k)
+    yield "v length", lambda: TFA.flash_fwd(q, k, torch.zeros(1, 7, 2, 32))
+    yield "empty", lambda: TFA.flash_fwd(torch.zeros(1, 0, 4, 32), k, k)
+    yield "negative offset", lambda: TFA.flash_fwd(q, k, k, q_offset=-1)
+    yield "float offset", lambda: TFA.flash_fwd(q, k, k, q_offset=1.0)
+    yield "meta device", lambda: TFA.flash_fwd(
+        q.to("meta"), k.to("meta"), k.to("meta"))
+
+
+@pytest.mark.parametrize("name,call", list(_bad_calls()),
+                         ids=[n for n, _ in _bad_calls()])
+def test_wrapper_refuses_what_the_kernel_does_not_take(name, call):
+    with pytest.raises((TypeError, ValueError)):
+        call()

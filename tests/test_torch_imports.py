@@ -37,6 +37,11 @@ print("BAD", bad)
 for want in ("repro_torch.core.batch_torch", "repro_torch.core.sweep",
              "repro_torch.kernels.shard_factor",
              "repro_torch.kernels.segmented_cummax",
+             "repro_torch.kernels.flash_attention",
+             "repro_torch.kernels.rmsnorm", "repro_torch.kernels.ops",
+             "repro_torch.kernels.ref", "repro_torch.models.param",
+             "repro_torch.models.vit", "repro_torch.models.vlm",
+             "repro_torch.serve.serve_step",
              "repro_torch.kernels._build", "repro_torch.configs.llava15_7b",
              "repro_torch.launch.mesh", "repro_torch.serve.pool"):
     assert want in names, want
@@ -48,7 +53,7 @@ def test_every_module_imports_without_jax_or_reference_package():
     assert r.returncode == 0, r.stderr
     assert "BAD []" in r.stdout, r.stdout
     n = int(r.stdout.split("MODULES")[1].split()[0])
-    assert n >= 35, r.stdout
+    assert n >= 41, r.stdout
 
 
 def test_no_source_line_imports_jax_or_reference_package():
@@ -64,7 +69,7 @@ def test_no_source_line_imports_jax_or_reference_package():
                     checked += 1
     text = open(os.path.join(ROOT, "chip_smoke.py")).read()
     assert not pat.search(text)
-    assert checked >= 35
+    assert checked >= 41
 
 
 DEFAULT_ENTRY = """
@@ -84,6 +89,19 @@ for call in (lambda: SW.SweepEngine().sweep(grid),
         raise SystemExit("default entry point ran without a CUDA device")
 res = SW.SweepEngine().sweep(grid, device="cpu")
 print("CPU_OK", len(res))
+from repro_torch.configs import get_config
+from repro_torch.models import build_model
+from repro_torch.serve import generate
+model = build_model(get_config("smollm-360m").reduced())
+params = model.init(torch.Generator().manual_seed(0), "cpu")
+batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
+try:
+    generate(model, params, batch, 2)
+except RuntimeError as e:
+    assert "CUDA" in str(e) and "device='cpu'" in str(e), e
+else:
+    raise SystemExit("generate ran without a CUDA device")
+print("GEN_OK", tuple(generate(model, params, batch, 2, device="cpu").shape))
 """
 
 
@@ -91,6 +109,7 @@ def test_default_entry_point_raises_without_cuda():
     r = run_fresh(DEFAULT_ENTRY)
     assert r.returncode == 0, r.stdout + r.stderr
     assert "CPU_OK 2" in r.stdout
+    assert "GEN_OK (1, 2)" in r.stdout
 
 
 @pytest.mark.parametrize("extra,rc,needle", [
@@ -124,7 +143,7 @@ def test_cli_rejects_unported_family():
 
 BUILD_WITHOUT_NVCC = """
 from repro_torch.kernels import _build
-assert len(_build.sources()) == 2
+assert len(_build.sources()) == 4
 try:
     _build.load()
 except RuntimeError as e:
