@@ -3,20 +3,25 @@
 
     python3 chip_smoke.py          # needs one CUDA device and nvcc
 
-Drives the port's two paths on the CUDA device — the capacity sweep of
+Drives the port's three paths on the CUDA device — the capacity sweep of
 llava15-7b at its published widths through ``SweepEngine.sweep(grid,
-engine="torch")``, and llava15-7b serving (prefill + greedy decode) at its
-published widths and depth through ``repro_torch.serve.generate`` — and
-holds every hand-written kernel against its plain PyTorch version on the
-card.  Phases (any failure exits non-zero):
+engine="torch")``, llava15-7b serving (prefill + greedy decode) at its
+published widths and depth through ``repro_torch.serve.generate``, and
+llava15-7b training steps at the paper's fig2b setting through
+``repro_torch.train`` — and holds every hand-written kernel against its
+plain PyTorch version on the card.  Phases (any failure exits non-zero):
 
 1. toolchain + card line, then the kernels' build (set-up time);
 2. ``kernels_check``: ``shard_factor`` on randomized step programs and
    ``segmented_cummax`` on random delta stacks, kernel == plain version,
    exact int64 equality (tolerance 0); ``flash_fwd`` and ``rmsnorm_fwd``
-   on the reference's kernel-test cases and at the serving path's shapes,
-   in fp32 (tolerance 2e-5; the plain version's matmuls in full fp32,
+   on the reference's kernel-test cases and at the serving and the
+   training paths' shapes, in fp32 (tolerance 2e-5; the plain version's matmuls in full fp32,
    ``allow_tf32`` off) and bf16 (tolerance 2e-2), on ``out`` and ``lse``;
+   ``flash_bwd`` (the dq and the dk/dv kernels) on the same cases and the
+   training path's shapes, fp32 within 5e-4 and bf16 within 2e-2 of each
+   gradient's scale, and ``rmsnorm_bwd`` (dx and dscale, 1e-4 / 2e-2),
+   each also bit-equal on a second launch; every error also per shape;
 3. ``sweep_large``: the 124,416-cell llava15-7b grid, legacy and liveness
    assembly, device engine == host columnar path column for column;
 4. ``sweep_pipe``: the same grid with a ``pipe`` mesh axis, both schedules
@@ -29,7 +34,19 @@ card.  Phases (any failure exits non-zero):
    ``core.predictor`` prediction for the same request; the kernel path's
    prefill logits against the same prefill through the plain versions,
    and the reduced config on the card against the CPU;
-6. timings: cold / warm wall time, cells/s and the phase split of each
+6. ``train_llava15_7b_stage1`` (full width and depth, LLaVA stage 1) and
+   ``train_llava15_7b_stage2_8l`` (full width, the LM cut to 8 blocks,
+   stage 2): 8 samples x (576 image + 1,472 text) tokens, AdamW, remat
+   "block", 3 steps each: ms and loss per step, launches per step against
+   the reference's program, the allocator's peak beside the byte model's
+   prediction, trainable leaves moved and frozen leaves bit-equal, one
+   step under the profiler; the loss and every trainable leaf's gradient
+   through the fp32 kernels against the fp32 plain versions (within
+   ``FP32_GRAD_TOL`` of each leaf's scale), and the bf16 paths' spread
+   from them as a reading; for stage 2 also the planner's
+   full-depth verdict on an H100 and the reduced config on the card
+   against the CPU;
+7. timings: cold / warm wall time, cells/s and the phase split of each
    sweep, and per kernel — at the largest shape its path gave it — the
    median of CUDA-event-timed calls of its wrapper (``ms``), the kernel's
    own device time from a profiler trace (``device_ms``), the plain
@@ -46,6 +63,7 @@ is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import gc
 import json
 import os
@@ -72,7 +90,8 @@ from repro_torch.core import factors as FA  # noqa: E402
 from repro_torch.core import planner as PL  # noqa: E402
 from repro_torch.core import predictor as PR  # noqa: E402
 from repro_torch.core import sweep as SW  # noqa: E402
-from repro_torch.core.spec import FULL_TRAIN  # noqa: E402
+from repro_torch.core.spec import (FULL_TRAIN, LLAVA_STAGE1,  # noqa: E402
+                                   LLAVA_STAGE2)
 from repro_torch.configs import ShapeConfig, get_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as FL  # noqa: E402
@@ -81,7 +100,10 @@ from repro_torch.kernels import rmsnorm as RN  # noqa: E402
 from repro_torch.kernels import segmented_cummax as SC  # noqa: E402
 from repro_torch.kernels import shard_factor as SF  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import param as PM  # noqa: E402
 from repro_torch.serve import serve_step as SV  # noqa: E402
+from repro_torch.train import (OptimizerConfig, init_train_state,  # noqa: E402
+                               make_train_step, train_state)
 
 DEV = torch.device("cuda", 0)
 SEED = 20260811
@@ -102,6 +124,18 @@ torch.backends.cudnn.allow_tf32 = False
 # patch tokens) + 512 text tokens, 32 greedy new tokens
 SERVE_ARCH = "llava15-7b"
 SERVE_BATCH, SERVE_TEXT, SERVE_NEW = 4, 512, 32
+
+# the training path: llava15-7b at the paper's fig2b setting, 8 samples x
+# (576 image + 1,472 text) = 8 x 2,048 tokens, AdamW, remat "block", 3
+# steps; stage 1 at full depth, stage 2 with the LM cut to 8 of 32 blocks
+TRAIN_ARCH = "llava15-7b"
+TRAIN_BATCH, TRAIN_TEXT, TRAIN_STEPS = 8, 1472, 3
+STAGE2_LAYERS = 8
+# the fp32 kernel path's gradients against the fp32 plain path's, each
+# trainable leaf's max |diff| over its max |grad|: read 4.7e-6 (stage 1)
+# and 7.8e-5 (stage 2, an LM wk) on an H100; the bf16 paths read ~2e-2
+# from each other, so 1e-3 catches a kernel that computes in bf16
+FP32_GRAD_TOL = 1e-3
 
 RESULT_COLUMNS = ("peak_bytes", "budget_bytes", "fits", "offload_bytes",
                   "overlap_slack_bytes", "pool_bytes", "draft_bytes",
@@ -285,8 +319,11 @@ def check_segmented_cummax() -> dict:
             "max_abs_err": max_err}
 
 
-# the reference's kernel-test cases (tests/test_kernels.py) and the serving
-# path's own shapes: (B, Sq, Skv, H, Hkv, D, Dv, causal)
+# the reference's kernel-test cases (tests/test_kernels.py), the serving
+# path's and the training path's own shapes: (B, Sq, Skv, H, Hkv, D, Dv,
+# causal)
+TRAIN_VIT_CASE = (TRAIN_BATCH, 577, 577, 16, 16, 64, 64, False)
+TRAIN_LM_CASE = (TRAIN_BATCH, 2048, 2048, 32, 32, 128, 128, True)
 FLASH_CASES = [
     (2, 256, 256, 4, 2, 64, 64, True),
     (1, 200, 200, 6, 3, 32, 32, True),
@@ -294,12 +331,27 @@ FLASH_CASES = [
     (1, 256, 256, 8, 1, 128, 64, True),
     (1, 130, 130, 2, 2, 64, 64, True),
     (2, 128, 256, 4, 2, 64, 64, True),
-    (4, 577, 577, 16, 16, 64, 64, False),      # vision tower
+    (4, 577, 577, 16, 16, 64, 64, False),      # vision tower, serving
     (4, 1088, 1088, 32, 32, 128, 128, True),   # LM prefill
+    TRAIN_VIT_CASE,                            # vision tower, training
+    TRAIN_LM_CASE,                             # LM, training
 ]
+TRAIN_ROWS = (TRAIN_BATCH * 2048, 4096)        # the LM's RMSNorms, training
 RMSNORM_SHAPES = [(64, 128), (3, 50, 96), (2, 7, 33, 64), (5, 33),
-                  (4 * 1088, 4096), (4, 1, 4096)]
+                  (4 * 1088, 4096), (4, 1, 4096), TRAIN_ROWS]
 TOLERANCE = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def case_key(case) -> str:
+    """The key of one checked shape in a check's ``max_abs_err_by_case``."""
+    return "x".join(str(int(c)) for c in case)
+
+
+def _note(errs: dict, by_case: dict, case, key: str, err: float) -> None:
+    """Record one comparison's max |diff| overall and for its shape."""
+    errs[key] = max(errs.get(key, 0.0), err)
+    row = by_case.setdefault(case_key(case), {})
+    row[key] = max(row.get(key, 0.0), err)
 
 
 def _excess(got, want, tol) -> tuple:
@@ -321,7 +373,7 @@ def _refuses(call, errors=(TypeError, ValueError)) -> bool:
 def check_flash() -> dict:
     gen = torch.Generator(device=DEV)
     gen.manual_seed(SEED)
-    errs = {}
+    errs, by_case = {}, {}
     cases = 0
     for dt in (torch.float32, torch.bfloat16):
         for (b, sq, skv, h, hkv, d, dv, causal) in FLASH_CASES:
@@ -338,8 +390,8 @@ def check_flash() -> dict:
             for what, got, want in (("out", out, p_out),
                                     ("lse", lse, p_lse)):
                 err, over = _excess(got, want, tol)
-                key = f"{what}_{str(dt).split('.')[-1]}"
-                errs[key] = max(errs.get(key, 0.0), err)
+                _note(errs, by_case, (b, sq, skv, h, hkv, d, dv, causal),
+                      f"{what}_{str(dt).split('.')[-1]}", err)
                 if over > 0 or got.shape != want.shape:
                     fail(f"flash_fwd kernel != plain version ({what}, "
                          f"{dt}, case {(b, sq, skv, h, hkv, d, dv, causal)}"
@@ -356,21 +408,16 @@ def check_flash() -> dict:
         if not _refuses(call):
             fail("flash_fwd accepted an input the kernel does not take")
         cases += 1
-    g = q.clone().requires_grad_()
-    if not _refuses(lambda: OPS.flash_attention(g, g, g),
-                    NotImplementedError):
-        fail("ops.flash_attention must refuse a CUDA input that needs "
-             "grad (the backward kernels are not ported)")
-    cases += 1
     return {"name": "flash_fwd", "ok": True, "cases": cases,
             "max_abs_err": max(errs.values()), "max_abs_err_by": errs,
+            "max_abs_err_by_case": by_case,
             "tolerance": {"float32": 2e-5, "bfloat16": 2e-2}}
 
 
 def check_rmsnorm() -> dict:
     gen = torch.Generator(device=DEV)
     gen.manual_seed(SEED + 1)
-    errs = {}
+    errs, by_case = {}, {}
     cases = 0
     for dt in (torch.float32, torch.bfloat16):
         for shape in RMSNORM_SHAPES:
@@ -383,8 +430,7 @@ def check_rmsnorm() -> dict:
                 torch.cuda.synchronize()
                 want = RN.rmsnorm_fwd_plain(xs, sc, 1e-5)
                 err, over = _excess(got, want, TOLERANCE[dt])
-                key = str(dt).split(".")[-1]
-                errs[key] = max(errs.get(key, 0.0), err)
+                _note(errs, by_case, xs.shape, str(dt).split(".")[-1], err)
                 if over > 0 or got.shape != want.shape:
                     fail(f"rmsnorm_fwd kernel != plain version ({dt}, "
                          f"{tuple(xs.shape)}: max abs diff {err})")
@@ -396,13 +442,158 @@ def check_rmsnorm() -> dict:
         if not _refuses(call):
             fail("rmsnorm_fwd accepted an input the kernel does not take")
         cases += 1
-    g = x.clone().requires_grad_()
-    if not _refuses(lambda: OPS.rmsnorm(g, x[0]), NotImplementedError):
-        fail("ops.rmsnorm must refuse a CUDA input that needs grad")
-    cases += 1
     return {"name": "rmsnorm_fwd", "ok": True, "cases": cases,
             "max_abs_err": max(errs.values()), "max_abs_err_by": errs,
+            "max_abs_err_by_case": by_case,
             "tolerance": {"float32": 2e-5, "bfloat16": 2e-2}}
+
+
+# the backward's cases: the reference's six and the training path's two
+# attention shapes (the LM's causal 2,048 and the ViT's ragged 577)
+FLASH_BWD_CASES = FLASH_CASES[:6] + [TRAIN_VIT_CASE, TRAIN_LM_CASE]
+RMSNORM_BWD_SHAPES = RMSNORM_SHAPES[:4] + [TRAIN_ROWS, (40, 96)]
+BWD_TOLERANCE = {"flash": {torch.float32: 5e-4, torch.bfloat16: 2e-2},
+                 "rmsnorm": {torch.float32: 1e-4, torch.bfloat16: 2e-2}}
+
+
+def _bwd_excess(got, want, dt, tol) -> tuple:
+    """(max |got - want|, excess): fp32 as allclose(atol=rtol=tol), bf16
+    against tol times the compared tensor's scale (its max magnitude)."""
+    if dt == torch.float32:
+        return _excess(got, want, tol)
+    d = (got.float() - want.float()).abs()
+    scale = float(want.float().abs().max())
+    return float(d.max()), float(d.max()) - tol * scale
+
+
+def check_flash_bwd() -> dict:
+    """dq, dk and dv of the two kernels against flash_bwd_plain; a second
+    launch bit-equal to the first; the autograd Function's gradients equal
+    the wrapper's."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 3)
+    errs, by_case = {}, {}
+    cases = 0
+    for dt in (torch.float32, torch.bfloat16):
+        tol = BWD_TOLERANCE["flash"][dt]
+        for case in FLASH_BWD_CASES:
+            b, sq, skv, h, hkv, d, dv, causal = case
+            q = torch.randn(b, sq, h, d, generator=gen, device=DEV).to(dt)
+            k = torch.randn(b, skv, hkv, d, generator=gen, device=DEV).to(dt)
+            v = torch.randn(b, skv, hkv, dv, generator=gen,
+                            device=DEV).to(dt)
+            do = torch.randn(b, sq, h, dv, generator=gen, device=DEV).to(dt)
+            qoff = skv - sq if causal else 0
+            out, lse = FL.flash_fwd(q, k, v, causal=causal, q_offset=qoff)
+            got = FL.flash_bwd(q, k, v, out, lse, do, causal=causal,
+                               q_offset=qoff)
+            again = FL.flash_bwd(q, k, v, out, lse, do, causal=causal,
+                                 q_offset=qoff)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, c) for a, c in zip(got, again)):
+                fail(f"flash_bwd: two launches differ ({dt}, case {case})")
+            want = FL.flash_bwd_plain(q, k, v, out, lse, do, causal=causal,
+                                      q_offset=qoff)
+            for what, g, w in zip(("dq", "dk", "dv"), got, want):
+                err, over = _bwd_excess(g, w, dt, tol)
+                _note(errs, by_case, case, f"{what}_{str(dt).split('.')[-1]}",
+                      err)
+                if over > 0 or g.shape != w.shape or g.dtype != w.dtype:
+                    fail(f"flash_bwd kernels != plain version ({what}, "
+                         f"{dt}, case {case}: max abs diff {err}, "
+                         f"tolerance {tol})")
+            cases += 1
+            del q, k, v, do, out, lse, got, again, want
+    # the autograd Function launches the kernels and returns their result
+    q, k, v, do = (torch.randn(2, 130, 4, 64, generator=gen, device=DEV)
+                   .to(torch.bfloat16) for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    n_dq, n_dkv = FL.dq_launches, FL.dkv_launches
+    grads = torch.autograd.grad(OPS.flash_attention(*leaves, True), leaves,
+                                do)
+    if (FL.dq_launches - n_dq, FL.dkv_launches - n_dkv) != (1, 1):
+        fail("ops.flash_attention's backward did not launch each backward "
+             "kernel once")
+    out, lse = FL.flash_fwd(q, k, v, causal=True)
+    want = FL.flash_bwd(q, k, v, out, lse, do, causal=True)
+    if not all(torch.equal(g, w) for g, w in zip(grads, want)):
+        fail("ops.flash_attention's gradients differ from flash_bwd's")
+    cases += 1
+    # what the kernels do not take raises (no fallback)
+    z = torch.zeros(1, 8, 4, 64, device=DEV)
+    lz = torch.zeros(1, 4, 8, device=DEV)
+    bad = [lambda: FL.flash_bwd(z.half(), z.half(), z.half(), z.half(), lz,
+                                z.half()),
+           lambda: FL.flash_bwd(*(t[..., :48] for t in (z, z, z, z)), lz,
+                                z[..., :48]),
+           lambda: FL.flash_bwd(z, z, z, z, lz, torch.zeros(
+               1, 4, 8, 64, device=DEV).transpose(1, 2)),
+           lambda: FL.flash_bwd_dkv(z, z, z, lz, z, lz[:, :2])]
+    for call in bad:
+        if not _refuses(call):
+            fail("flash_bwd accepted an input the kernels do not take")
+        cases += 1
+    return {"name": "flash_bwd", "ok": True, "cases": cases,
+            "max_abs_err": max(errs.values()), "max_abs_err_by": errs,
+            "max_abs_err_by_case": by_case,
+            "deterministic": True,
+            "tolerance": {"float32": 5e-4, "bfloat16": "2e-2 of scale"}}
+
+
+def check_rmsnorm_bwd() -> dict:
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 4)
+    errs, by_case = {}, {}
+    cases = 0
+    for dt in (torch.float32, torch.bfloat16):
+        tol = BWD_TOLERANCE["rmsnorm"][dt]
+        for shape in RMSNORM_BWD_SHAPES:
+            x = torch.randn(shape, generator=gen, device=DEV).to(dt)
+            sc = torch.randn(shape[-1:], generator=gen, device=DEV).to(dt)
+            dy = torch.randn(shape, generator=gen, device=DEV).to(dt)
+            # a row-offset view: off the 16-byte grid where D * elt is not
+            # a multiple of 16 (the scalar path)
+            for xs, dys in ((x, dy), (x.view(-1, shape[-1])[1:],
+                                      dy.view(-1, shape[-1])[1:])):
+                got = RN.rmsnorm_bwd(xs, sc, dys, 1e-5)
+                again = RN.rmsnorm_bwd(xs, sc, dys, 1e-5)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, c) for a, c in zip(got, again)):
+                    fail(f"rmsnorm_bwd: two launches differ ({dt}, "
+                         f"{tuple(xs.shape)})")
+                want = RN.rmsnorm_bwd_plain(xs, sc, dys, 1e-5)
+                for what, g, w in zip(("dx", "dscale"), got, want):
+                    err, over = _excess(g, w, tol)
+                    _note(errs, by_case, xs.shape,
+                          f"{what}_{str(dt).split('.')[-1]}", err)
+                    if over > 0 or g.shape != w.shape or g.dtype != w.dtype:
+                        fail(f"rmsnorm_bwd kernel != plain version ({what},"
+                             f" {dt}, {tuple(xs.shape)}: max abs diff "
+                             f"{err})")
+                cases += 1
+            del x, sc, dy
+    x = torch.randn(6, 64, generator=gen, device=DEV)
+    sc = torch.randn(64, generator=gen, device=DEV)
+    dy = torch.randn(6, 64, generator=gen, device=DEV)
+    xl, sl = x.clone().requires_grad_(), sc.clone().requires_grad_()
+    n = RN.bwd_launches
+    grads = torch.autograd.grad(OPS.rmsnorm(xl, sl), (xl, sl), dy)
+    if RN.bwd_launches - n != 1 or not all(
+            torch.equal(g, w) for g, w in zip(grads, RN.rmsnorm_bwd(x, sc,
+                                                                   dy))):
+        fail("ops.rmsnorm's backward is not one launch of rmsnorm_bwd")
+    cases += 1
+    for call in (lambda: RN.rmsnorm_bwd(x.t(), x[:, 0], x.t()),
+                 lambda: RN.rmsnorm_bwd(x.half(), sc.half(), dy.half()),
+                 lambda: RN.rmsnorm_bwd(x, sc, dy.bfloat16())):
+        if not _refuses(call):
+            fail("rmsnorm_bwd accepted an input the kernel does not take")
+        cases += 1
+    return {"name": "rmsnorm_bwd", "ok": True, "cases": cases,
+            "max_abs_err": max(errs.values()), "max_abs_err_by": errs,
+            "max_abs_err_by_case": by_case,
+            "deterministic": True,
+            "tolerance": {"float32": 1e-4, "bfloat16": 2e-2}}
 
 
 # ---------------------------------------------------------------------------
@@ -441,6 +632,14 @@ class ShapeLog:
 def zero_counts() -> None:
     """Every kernel's launch counter to 0, just before a path runs."""
     SF.launches = SC.launches = FL.launches = RN.launches = 0
+    FL.dq_launches = FL.dkv_launches = RN.bwd_launches = 0
+
+
+def model_counts() -> dict:
+    """The launch counters of the model path's five kernels."""
+    return {"flash_fwd": FL.launches, "flash_dq": FL.dq_launches,
+            "flash_dkv": FL.dkv_launches, "rmsnorm_fwd": RN.launches,
+            "rmsnorm_bwd": RN.bwd_launches}
 
 
 def timed_sweep(engine, grid) -> tuple:
@@ -461,8 +660,8 @@ def run_sweep(name: str, grid: SW.SweepGrid, want_cells: int,
     with log:
         cold, cold_s, cold_stats = timed_sweep(engine, grid)
     n_sf, n_sc = SF.launches, SC.launches
-    if FL.launches or RN.launches:
-        fail(f"{name}: the sweep launched a serving kernel")
+    if any(model_counts().values()):
+        fail(f"{name}: the sweep launched a model kernel")
     warm, warm_s, warm_stats = timed_sweep(engine, grid)
     if len(cold) != want_cells:
         fail(f"{name}: {len(cold)} cells, expected {want_cells}")
@@ -525,17 +724,21 @@ def serve_counts() -> dict:
 
 
 class PlainKernels:
-    """Within the context the serving path takes the kernels' plain
-    versions on the card (the kernel path's end-to-end cross-check)."""
+    """Within the context the model path takes the kernels' plain versions
+    on the card, forward and backward (the kernel path's end-to-end
+    cross-check)."""
 
     def __enter__(self):
-        self._saved = FL.flash_fwd, RN.rmsnorm_fwd
-        FL.flash_fwd, RN.rmsnorm_fwd = FL.flash_fwd_plain, \
-            RN.rmsnorm_fwd_plain
+        self._saved = (FL.flash_fwd, FL.flash_bwd, RN.rmsnorm_fwd,
+                       RN.rmsnorm_bwd)
+        FL.flash_fwd, FL.flash_bwd = FL.flash_fwd_plain, FL.flash_bwd_plain
+        RN.rmsnorm_fwd, RN.rmsnorm_bwd = RN.rmsnorm_fwd_plain, \
+            RN.rmsnorm_bwd_plain
         return self
 
     def __exit__(self, *exc):
-        FL.flash_fwd, RN.rmsnorm_fwd = self._saved
+        (FL.flash_fwd, FL.flash_bwd, RN.rmsnorm_fwd,
+         RN.rmsnorm_bwd) = self._saved
 
 
 def vlm_batch(cfg, gen: torch.Generator, n_batch: int, n_text: int) -> dict:
@@ -605,8 +808,8 @@ def device_breakdown(fn, wall_ms: float, top: int = 6):
     """Device time of one call of ``fn`` from a profiler trace: the sum of
     the CUDA kernels' own times (one stream, so no overlap), the share of
     ``wall_ms`` (the same work timed without the profiler) the card was
-    busy, the two hand-written kernels' part and the top kernels.  None
-    when the profiler reports no device time."""
+    busy, the hand-written kernels' part and the top kernels.  None when
+    the profiler reports no device time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     try:
@@ -631,7 +834,10 @@ def device_breakdown(fn, wall_ms: float, top: int = 6):
         return None
     rows.sort(reverse=True)
     part = {name: sum(r[0] for r in rows if name in r[1])
-            for name in ("flash_fwd_kernel", "rmsnorm_fwd_kernel")}
+            for name in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                         "flash_bwd_dkv_kernel", "rmsnorm_fwd_kernel",
+                         "rmsnorm_bwd_kernel")}
+    part = {k: v for k, v in part.items() if v}
     return {"busy_ms": busy, "wall_ms": wall_ms,
             "busy_share": busy / wall_ms,
             "kernel_ms": part, "kernels": sum(r[2] for r in rows),
@@ -663,6 +869,8 @@ def serve_llava15_7b() -> dict:
     main_launches = serve_counts()
     if SF.launches or SC.launches:
         fail("serving launched a sweep kernel")
+    if FL.dq_launches or FL.dkv_launches or RN.bwd_launches:
+        fail("serving launched a backward kernel")
     if tuple(tokens.shape) != (SERVE_BATCH, SERVE_NEW) or \
             tokens.dtype != torch.int32 or tokens.device.type != DEV.type or \
             not bool(((tokens >= 0) & (tokens < cfg.vocab)).all()):
@@ -792,7 +1000,295 @@ def serve_llava15_7b() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: kernel timings at the main path's shapes
+# phase 6: training llava15-7b
+# ---------------------------------------------------------------------------
+
+
+def train_batch(cfg, gen: torch.Generator, n_batch: int, n_text: int):
+    batch = vlm_batch(cfg, gen, n_batch, n_text)
+    batch["labels"] = torch.randint(0, cfg.vocab, (n_batch, n_text),
+                                    generator=gen, device=gen.device,
+                                    dtype=torch.int32)
+    return batch
+
+
+def train_program(cfg) -> dict:
+    """The reference's launches per step under remat "block" with a frozen
+    vision tower: the ViT's 24 attention forwards; each LM block's
+    attention forward and its two RMSNorms twice (the recompute reruns the
+    block in the backward), its attention backward and RMSNorm backwards
+    once; the final norm once each way."""
+    n = cfg.n_layers
+    return {"flash_fwd": cfg.vlm.vit_layers + 2 * n, "flash_dq": n,
+            "flash_dkv": n, "rmsnorm_fwd": 2 * 2 * n + 1,
+            "rmsnorm_bwd": 2 * n + 1}
+
+
+def checksums_of(tensors: dict) -> dict:
+    """name -> the int64 sum of each tensor's bit patterns: a tensor that
+    changes almost surely changes it."""
+    out = {}
+    for name, t in tensors.items():
+        bits = t.detach().view(torch.int16 if t.element_size() == 2
+                               else torch.int32)
+        out[name] = int(bits.sum(dtype=torch.int64))
+    return out
+
+
+def checksums(params) -> dict:
+    return checksums_of(dict(params.named_parameters()))
+
+
+def loss_and_grads(model, params, batch) -> tuple:
+    """Loss and the trainable leaves' gradients, no update."""
+    named = PM.trainable_params(params)
+    loss, _ = model.loss(params, batch, remat="block")
+    grads = torch.autograd.grad(loss, [p for _, p in named])
+    return float(loss.detach()), dict(zip([n for n, _ in named], grads))
+
+
+def grads_agree(got: dict, want: dict, tol, what: str,
+                problems: list) -> dict:
+    """Per tensor max |got - want| / max |want|; every tensor must stay
+    within ``tol`` of its scale (``tol`` None: a reading, no gate)."""
+    worst, worst_leaf = 0.0, None
+    for name, w in want.items():
+        w = w.float()
+        d = got[name].float().to(w.device) - w
+        rel = float(d.abs().max()) / max(float(w.abs().max()), 1e-30)
+        if rel >= worst:
+            worst, worst_leaf = rel, name
+        if tol is not None and rel > tol:
+            problems.append(f"{what}: {name} differs by {rel:.3g} of its "
+                            f"scale (tolerance {tol})")
+    return {"max_rel_err": worst, "worst_leaf": worst_leaf,
+            "tolerance": tol}
+
+
+def reduced_train_card_vs_cpu(problems: list) -> dict:
+    """The reduced llava15-7b, same weights and batch, one LLaVA stage-2
+    step on the card (kernels) and on the CPU (plain versions): loss,
+    gradients and updated params within 2e-2 of each tensor's scale."""
+    cfg = get_config(TRAIN_ARCH).reduced()
+    model = build_model(cfg)
+    gen = torch.Generator()
+    gen.manual_seed(SEED)
+    params = {"cpu": model.init(gen, "cpu")}
+    batches = {"cpu": train_batch(cfg, gen, 2, 8)}
+    params["card"] = copy.deepcopy(params["cpu"]).to(DEV)
+    batches["card"] = {k: v.to(DEV) for k, v in batches["cpu"].items()}
+    opt_cfg = OptimizerConfig(name="adamw")
+    step = make_train_step(model, LLAVA_STAGE2, opt_cfg, remat="block")
+    before = model_counts()
+    res = {}
+    for side in ("cpu", "card"):
+        st = train_state(params[side], LLAVA_STAGE2, opt_cfg)
+        loss, grads = loss_and_grads(model, st.params, batches[side])
+        st, metrics = step(st, batches[side])
+        res[side] = (loss, grads, dict(st.params.named_parameters()),
+                     float(metrics["loss"]))
+    used = {k: model_counts()[k] - before[k] for k in before}
+    if min(used.values()) <= 0:
+        problems.append(f"reduced card training launched a kernel no time: "
+                        f"{used}")
+    (l_cpu, g_cpu, p_cpu, m_cpu) = res["cpu"]
+    (l_card, g_card, p_card, m_card) = res["card"]
+    for a, b, what in ((l_card, l_cpu, "loss"), (m_card, m_cpu, "step loss")):
+        if abs(a - b) > 2e-2 * max(1.0, abs(b)):
+            problems.append(f"reduced train card/cpu: {what} {a} vs {b}")
+    return {"loss": {"card": l_card, "cpu": l_cpu},
+            "grads": grads_agree(g_card, g_cpu, 2e-2,
+                                 "reduced train card/cpu grads", problems),
+            "params": grads_agree({k: v.detach() for k, v in p_card.items()},
+                                  {k: v.detach() for k, v in p_cpu.items()},
+                                  2e-2, "reduced train card/cpu params",
+                                  problems),
+            "launches": used}
+
+
+def train_phase(name: str, cfg, policy, cut: str, problems: list) -> dict:
+    """TRAIN_STEPS steps of ``policy`` at the fig2b batch through
+    ``init_train_state`` / ``make_train_step`` (the entry points a user
+    calls), each step's time, launches and allocator peak; the gates; one
+    step under the profiler; the kernel path against the plain path; the
+    byte model's prediction for the same config."""
+    model = build_model(cfg)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED)
+    opt_cfg = OptimizerConfig(name="adamw")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = init_train_state(model, policy, opt_cfg, gen, DEV)
+    batch = train_batch(cfg, gen, TRAIN_BATCH, TRAIN_TEXT)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    before = checksums(state.params)
+    masters = {n: st["master"] for n, st in state.opt.items()}
+    masters_before = checksums_of(masters)
+    trainable = set(masters)
+    step = make_train_step(model, policy, opt_cfg, remat="block")
+    want = train_program(cfg)
+
+    steps = []
+    for i in range(TRAIN_STEPS):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        zero_counts()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = model_counts()
+        peak = torch.cuda.max_memory_allocated()
+        loss = float(metrics["loss"])
+        if not np.isfinite(loss) or not np.isfinite(
+                float(metrics["grad_norm"])):
+            fail(f"{name}: step {i} loss {loss} / grad_norm not finite")
+        if SF.launches or SC.launches:
+            fail(f"{name}: training launched a sweep kernel")
+        if launches != want:
+            fail(f"{name}: step {i} launched {launches}, the reference's "
+                 f"program {want}")
+        steps.append({"ms": ms, "loss": loss,
+                      "grad_norm": float(metrics["grad_norm"]),
+                      "peak_bytes": peak, "resident_bytes": resident,
+                      "launches": launches})
+    if int(state.step) != TRAIN_STEPS:
+        fail(f"{name}: step count {int(state.step)}")
+    # a trainable leaf moves in its fp32 master copy (the optimizer's
+    # parameter); its bf16 copy may round back to the same value, as a
+    # norm scale of 1.0 does under steps of ~lr; a frozen leaf is
+    # bit-equal in the model
+    after = checksums(state.params)
+    masters_after = checksums_of(masters)
+    still = sorted(n for n in trainable
+                   if masters_after[n] == masters_before[n])
+    moved = sorted(n for n in before if n not in trainable
+                   and after[n] != before[n])
+    if still or moved or not trainable:
+        problems.append(f"{name}: trainable leaves that did not move "
+                        f"{still[:4]}, frozen leaves that moved {moved[:4]}")
+    bf16_moved = sum(after[n] != before[n] for n in trainable)
+
+    # where the device time goes: one more step under the profiler
+    med_ms = statistics.median(s["ms"] for s in steps)
+    on_device = device_breakdown(lambda: step(state, batch), med_ms, top=8)
+
+    # the kernel path against the plain path, same weights and batch
+    vs_plain = {}
+    zero_counts()
+    k_loss, k_grads = loss_and_grads(model, state.params, batch)
+    if model_counts() != want:
+        problems.append(f"{name}: loss and grads launched {model_counts()}")
+    zero_counts()
+    with PlainKernels():
+        p_loss, p_grads = loss_and_grads(model, state.params, batch)
+    if any(model_counts().values()):
+        problems.append(f"{name}: the plain path launched a kernel")
+    bf16 = {"loss": {"kernels": k_loss, "plain": p_loss},
+            "grads": grads_agree(k_grads, p_grads, None, "", [])}
+    # the gate: the same in fp32 (the fp32 kernels; bf16 rounding out of
+    # the way), on the same weights cast to fp32, every trainable leaf
+    # within FP32_GRAD_TOL of its scale
+    del state.opt, masters
+    gc.collect()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = build_model(cfg32)
+    params32 = state.params.float()
+    f_loss, f_grads = loss_and_grads(model32, params32, batch)
+    with PlainKernels():
+        fp_loss, fp_grads = loss_and_grads(model32, params32, batch)
+    vs_plain["fp32"] = {
+        "loss": {"kernels": f_loss, "plain": fp_loss},
+        "grads": grads_agree(f_grads, fp_grads, FP32_GRAD_TOL,
+                             f"{name} fp32 kernel path vs plain path",
+                             problems)}
+    del fp_grads
+    for what, a, b in (("bf16", k_loss, p_loss), ("fp32", f_loss, fp_loss)):
+        if abs(a - b) > 2e-2 * max(1.0, abs(b)):
+            problems.append(f"{name}: {what} loss {a} through the kernels, "
+                            f"{b} through the plain versions")
+    # a reading: each bf16 path's gradients against the fp32 kernel path's
+    bf16["vs_fp32"] = {path: grads_agree(grads, f_grads, None, "", [])
+                       for path, grads in (("kernels", k_grads),
+                                           ("plain", p_grads))}
+    vs_plain["bf16"] = bf16
+    del f_grads, k_grads, p_grads, params32
+
+    pred = PR.predict(model, policy, FA.PredictContext(
+        kind="train", global_batch=TRAIN_BATCH,
+        seq_len=TRAIN_TEXT + cfg.vlm.n_image_tokens, remat="block",
+        optimizer="adamw", backend="tpu"))
+    peak = max(s["peak_bytes"] for s in steps)
+    out = {"arch": cfg.name, "cut": cut, "policy": policy.name,
+           "n_layers": cfg.n_layers, "batch": TRAIN_BATCH,
+           "tokens_per_sample": TRAIN_TEXT + cfg.vlm.n_image_tokens,
+           "image_tokens": cfg.vlm.n_image_tokens, "text_tokens": TRAIN_TEXT,
+           "params": sum(t.numel() for t in state.params.parameters()),
+           "trainable_params": sum(t.numel() for _, t in
+                                   PM.trainable_params(state.params)),
+           "optimizer": "adamw", "remat": "block", "init_s": init_s,
+           "ms_per_step": [s["ms"] for s in steps],
+           "loss_per_step": [s["loss"] for s in steps],
+           "launches_per_step": steps[-1]["launches"],
+           "launches_total": {k: sum(s["launches"][k] for s in steps)
+                              for k in want},
+           "tokens_per_s": TRAIN_BATCH * (TRAIN_TEXT
+                                          + cfg.vlm.n_image_tokens)
+           / (med_ms / 1e3),
+           "measured_peak_bytes": [s["peak_bytes"] for s in steps],
+           "resident_bytes": steps[0]["resident_bytes"],
+           "predicted": {"peak_bytes": pred.peak_bytes,
+                         "param_bytes": pred.param_bytes,
+                         "grad_bytes": pred.grad_bytes,
+                         "opt_bytes": pred.opt_bytes,
+                         "act_saved_bytes": pred.act_saved_bytes,
+                         "act_transient_bytes": pred.act_transient_bytes},
+           "measured_over_predicted": peak / pred.peak_bytes,
+           "leaves": {"trainable_moved": len(trainable),
+                      "trainable_moved_in_bf16": bf16_moved,
+                      "frozen_bit_equal": len(before) - len(trainable)},
+           "vs_plain": vs_plain, "on_device": on_device}
+    del state, batch, model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_llava15_7b() -> list:
+    """Both training phases; each prints its line before its gates can
+    fail the run."""
+    cfg = get_config(TRAIN_ARCH)
+    problems = []
+    stage1 = train_phase("train_llava15_7b_stage1", cfg, LLAVA_STAGE1,
+                         "none: full width and depth", problems)
+    say("train_llava15_7b_stage1 " + json.dumps(stage1))
+    if problems:
+        fail("; ".join(problems))
+    cut = dataclasses.replace(cfg, n_layers=STAGE2_LAYERS)
+    stage2 = train_phase("train_llava15_7b_stage2_8l", cut, LLAVA_STAGE2,
+                         f"LM depth {STAGE2_LAYERS} of {cfg.n_layers} blocks"
+                         f" (full width)", problems)
+    # full depth does not fit one card: the planner's verdict, printed
+    rep = PL.check(TRAIN_ARCH, ShapeConfig("fig2b", TRAIN_TEXT
+                                           + cfg.vlm.n_image_tokens,
+                                           TRAIN_BATCH, "train"), {},
+                   policy=LLAVA_STAGE2, remat="block", optimizer="adamw",
+                   chip="h100")
+    stage2["full_depth_plan"] = {"chip": "h100", "fits": rep.fits,
+                                 "peak_bytes": rep.peak_bytes,
+                                 "budget_bytes": rep.budget_bytes}
+    stage2["reduced_card_vs_cpu"] = reduced_train_card_vs_cpu(problems)
+    say("train_llava15_7b_stage2_8l " + json.dumps(stage2))
+    if problems:
+        fail("; ".join(problems))
+    return [stage1, stage2]
+
+
+# ---------------------------------------------------------------------------
+# phase 7: kernel timings at the main path's shapes
 # ---------------------------------------------------------------------------
 
 
@@ -975,32 +1471,135 @@ def _rmsnorm_timing(shape: tuple, gen) -> dict:
         "bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes}
 
 
-def time_serving_kernels(checks: dict, launches: dict) -> list:
-    """flash_fwd and rmsnorm_fwd at the serving path's shapes: the
-    entry's own numbers at the largest (LM prefill), the rest under
-    ``other_shapes``."""
+def _flash_bwd_timing(shape: tuple, causal: bool, gen) -> tuple:
+    """The dq and the dk / dv pass at one shape, each with its own bound;
+    the plain version and the library call compute all three gradients,
+    so those two times stand in both rows."""
+    b, sq, h, d = shape
+    q, k, v, do = (torch.randn(b, sq, h, d, generator=gen, device=DEV)
+                   .to(torch.bfloat16) for _ in range(4))
+    out, lse = FL.flash_fwd(q, k, v, causal=causal)
+    _, delta = FL.flash_bwd_dq(q, k, v, out, lse, do, causal=causal)
+    plain_ms = event_ms(lambda: FL.flash_bwd_plain(q, k, v, out, lse, do,
+                                                   causal=causal),
+                        launches=10)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    dot = do.transpose(1, 2)
+    library_ms = event_ms(lambda: torch.autograd.grad(
+        o, (qt, kt, vt), dot, retain_graph=True))
+    scores = b * h * sq * sq * (0.5 if causal else 1.0)
+    tensor = q.numel() * q.element_size()
+    stat = 4 * b * h * sq
+    rows = []
+    for name, n_mm, n_bytes, fn, kern in (
+            # dq pass: s, dp and dq; reads q k v out dout lse, writes dq
+            # and delta
+            ("flash_dq", 3, 6 * tensor + 2 * stat,
+             lambda: FL.flash_bwd_dq(q, k, v, out, lse, do, causal=causal),
+             "flash_bwd_dq_kernel"),
+            # dk / dv pass: s, dp, dv and dk; reads q k v dout lse delta,
+            # writes dk dv
+            ("flash_dkv", 4, 6 * tensor + 2 * stat,
+             lambda: FL.flash_bwd_dkv(q, k, v, lse, do, delta,
+                                      causal=causal),
+             "flash_bwd_dkv_kernel")):
+        n_ops = 2 * n_mm * scores * d
+        bound_ms, bound_by = _bound(n_bytes, n_ops, BF16_OPS_PER_S)
+        rows.append({
+            "shape": {"B": b, "S": sq, "H": h, "D": d, "causal": causal,
+                      "dtype": "bfloat16"},
+            "ms": event_ms(fn), "device_ms": device_ms(fn, kern),
+            "plain_ms": plain_ms, "plain_covers": "dq, dk and dv",
+            "library_ms": library_ms,
+            "library_covers": "dq, dk and dv (SDPA backward)",
+            "bound_ms": bound_ms, "bound_by": bound_by, "flops": n_ops,
+            "bytes": n_bytes})
+    return rows[0], rows[1]
+
+
+def _rmsnorm_bwd_timing(shape: tuple, gen) -> dict:
+    x, dy = (torch.randn(shape, generator=gen, device=DEV)
+             .to(torch.bfloat16) for _ in range(2))
+    sc = torch.randn(shape[-1:], generator=gen, device=DEV) \
+        .to(torch.bfloat16)
+    # x and dy read, dx written, scale read and dscale written once
+    n_bytes = (3 * x.numel() + 2 * sc.numel()) * x.element_size()
+    bound_ms, bound_by = _bound(n_bytes, 10 * x.numel(), ALU_OPS_PER_S)
+    xr, sr = x.detach().requires_grad_(), sc.detach().requires_grad_()
+    y = F.rms_norm(xr, shape[-1:], sr, 1e-5)
+    return {
+        "shape": {"rows": x.numel() // shape[-1], "D": shape[-1],
+                  "dtype": "bfloat16"},
+        "ms": event_ms(lambda: RN.rmsnorm_bwd(x, sc, dy)),
+        "device_ms": device_ms(lambda: RN.rmsnorm_bwd(x, sc, dy),
+                               "rmsnorm_bwd_kernel"),
+        "plain_ms": event_ms(lambda: RN.rmsnorm_bwd_plain(x, sc, dy)),
+        "library_ms": event_ms(lambda: torch.autograd.grad(
+            y, (xr, sr), dy, retain_graph=True)),
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes}
+
+
+def time_model_kernels(checks: dict, launches: dict) -> list:
+    """The five model kernels at the largest shape the main path gave each
+    (the training path's: LM attention (8, 2,048, 32, 128) causal, 16,384
+    RMSNorm rows of 4,096), the entry's own numbers; the other shapes the
+    main path gives them (the ViT's, serving's) under ``other_shapes``."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(SEED + 2)
     cfg = get_config(SERVE_ARCH)
     v = cfg.vlm
     n_patch = (v.vit_image_size // v.vit_patch) ** 2
-    S = n_patch + SERVE_TEXT
-    lm = _flash_timing((SERVE_BATCH, S, cfg.n_heads, cfg.resolved_head_dim),
-                       True, gen)
-    vit = _flash_timing((SERVE_BATCH, n_patch + 1, v.vit_heads,
-                         v.d_vision // v.vit_heads), False, gen)
-    rn = _rmsnorm_timing((SERVE_BATCH * S, cfg.d_model), gen)
-    rn_decode = _rmsnorm_timing((SERVE_BATCH, 1, cfg.d_model), gen)
+    S_serve = n_patch + SERVE_TEXT
+    S_train = TRAIN_TEXT + v.n_image_tokens
+    hd = cfg.resolved_head_dim
+    lm_shape = (TRAIN_BATCH, S_train, cfg.n_heads, hd)
+    vit_heads = (v.vit_heads, v.d_vision // v.vit_heads)
+    b, sq, _, h, _, d, _, _ = TRAIN_LM_CASE
+    if lm_shape != (b, sq, h, d) or TRAIN_ROWS != (TRAIN_BATCH * S_train,
+                                                   cfg.d_model):
+        fail("the checked training shapes are not the training path's")
+    fwd_main = _flash_timing(lm_shape, True, gen)
+    fwd_other = [_flash_timing((TRAIN_BATCH, n_patch + 1) + vit_heads,
+                               False, gen),
+                 _flash_timing((SERVE_BATCH, S_serve, cfg.n_heads, hd),
+                               True, gen),
+                 _flash_timing((SERVE_BATCH, n_patch + 1) + vit_heads,
+                               False, gen)]
+    dq, dkv = _flash_bwd_timing(lm_shape, True, gen)
+    rn_main = _rmsnorm_timing((TRAIN_BATCH * S_train, cfg.d_model), gen)
+    rn_other = [_rmsnorm_timing((SERVE_BATCH * S_serve, cfg.d_model), gen),
+                _rmsnorm_timing((SERVE_BATCH, 1, cfg.d_model), gen)]
+    rn_bwd = _rmsnorm_bwd_timing((TRAIN_BATCH * S_train, cfg.d_model), gen)
     out = []
-    for name, src, repl, main, others in (
+    # per kernel: its check, the outputs of that check that are its own,
+    # and the checked shape it is timed at
+    for name, src, repl, check, mine, case, main, others in (
             ("flash_fwd", "flash_attention.cu",
-             "src/repro/kernels/flash_attention.py:45", lm, [vit]),
+             "src/repro/kernels/flash_attention.py:45", "flash_fwd",
+             ("out", "lse"), TRAIN_LM_CASE, fwd_main, fwd_other),
+            ("flash_dq", "flash_attention_bwd.cu",
+             "src/repro/kernels/flash_attention.py:165", "flash_bwd",
+             ("dq",), TRAIN_LM_CASE, dq, []),
+            ("flash_dkv", "flash_attention_bwd.cu",
+             "src/repro/kernels/flash_attention.py:212", "flash_bwd",
+             ("dk", "dv"), TRAIN_LM_CASE, dkv, []),
             ("rmsnorm_fwd", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:20",
-             rn, [rn_decode])):
+             "rmsnorm_fwd", ("float32", "bfloat16"), TRAIN_ROWS, rn_main,
+             rn_other),
+            ("rmsnorm_bwd", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:28",
+             "rmsnorm_bwd", ("dx", "dscale"), TRAIN_ROWS, rn_bwd, [])):
+        c = checks[check]
+
+        def own(errs):
+            return {k: e for k, e in errs.items() if k.split("_")[0] in mine}
         entry = {"name": name, "route": "cuda",
                  "source": f"src/repro_torch/kernels/csrc/{src}",
                  "replaces": repl, "launches": launches[name],
-                 "max_abs_err": checks[name]["max_abs_err"]}
+                 "max_abs_err": max(own(c["max_abs_err_by"]).values()),
+                 "max_abs_err_at_shape": own(
+                     c["max_abs_err_by_case"][case_key(case)])}
         entry.update(main)
         entry["other_shapes"] = others
         for k in [entry] + others:
@@ -1030,12 +1629,10 @@ def main() -> int:
 
     # phase 2: kernels against their plain versions
     checks = {}
-    for check, module in ((check_shard_factor, SF),
-                          (check_segmented_cummax, SC),
-                          (check_flash, FL), (check_rmsnorm, RN)):
-        before = module.launches
+    for check in (check_shard_factor, check_segmented_cummax, check_flash,
+                  check_rmsnorm, check_flash_bwd, check_rmsnorm_bwd):
         c = check()
-        checks[c["name"]] = dict(c, launches=module.launches - before)
+        checks[c["name"]] = c
     say("kernels_check " + json.dumps(list(checks.values())))
 
     # phases 3-4: the main path
@@ -1053,11 +1650,17 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     serve = serve_llava15_7b()
+    launches.update({k: 0 for k in model_counts()})
     launches.update(serve["launches"]["generate"])
 
-    # phase 6: kernel timings at the main paths' shapes
+    # phase 6: training, stage 1 at full size, stage 2 with 8 LM blocks
+    for phase in train_llava15_7b():
+        for k, n in phase["launches_total"].items():
+            launches[k] += n
+
+    # phase 7: kernel timings at the main paths' shapes
     kernels = time_kernels(log, checks, launches) + \
-        time_serving_kernels(checks, launches)
+        time_model_kernels(checks, launches)
     for k in kernels:
         dev = "not measured" if k["device_ms"] is None \
             else f"{k['device_ms'] * 1e3:.1f} us"

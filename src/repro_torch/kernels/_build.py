@@ -130,5 +130,17 @@ def load():
         lib.rmsnorm_fwd_launch.argtypes = [
             c_ptr, c_ptr, c_ptr, c_int, c_ll, c_int, c_float, c_ptr]
         lib.rmsnorm_fwd_launch.restype = c_int
+        lib.flash_bwd_dq_launch.argtypes = [
+            c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_int,
+            c_int, c_int, c_int, c_int, c_int, c_int, c_int, c_int, c_int,
+            c_float, c_ptr]
+        lib.flash_bwd_dq_launch.restype = c_int
+        lib.flash_bwd_dkv_launch.argtypes = \
+            lib.flash_bwd_dq_launch.argtypes
+        lib.flash_bwd_dkv_launch.restype = c_int
+        lib.rmsnorm_bwd_launch.argtypes = [
+            c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_int, c_ll, c_int, c_int,
+            c_float, c_ptr]
+        lib.rmsnorm_bwd_launch.restype = c_int
         _lib = lib
         return lib

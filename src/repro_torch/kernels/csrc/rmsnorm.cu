@@ -1,5 +1,7 @@
 // rmsnorm_fwd_kernel: y = x * rsqrt(mean(x^2) + eps) * scale, one block per
 // row, statistics in fp32, the result cast back to x's type.
+// rmsnorm_bwd_kernel: its input and scale gradients (after the forward's
+// notes below).
 //
 // Replaces the TPU kernel repro/kernels/rmsnorm.py::_fwd_kernel (driven by
 // rmsnorm_fwd), which streams a (block_rows, D) tile through VMEM.  Here a
@@ -14,6 +16,22 @@
 // and one shared-memory step across warps.  The second pass reads the row
 // again — it was just read by the same block and comes from L1/L2, so
 // device memory sees x once.
+//
+// rmsnorm_bwd_kernel replaces repro/kernels/rmsnorm.py::_bwd_kernel
+// (driven by rmsnorm_bwd): with xhat = x * inv, inv = rsqrt(mean(x^2) +
+// eps), and dxhat = dy * scale,
+//     dx     = inv * (dxhat - xhat * mean(dxhat * xhat))   (x's type)
+//     dscale = sum over rows of dy * xhat                  (fp32)
+// The TPU kernel emits one partial dscale row per (block_rows, D) tile and
+// its wrapper sums them; here one block owns rows_per_block consecutive
+// rows (the wrapper fixes the split from the row count alone, so the
+// result does not depend on the card) and writes one fp32 partial row,
+// and the wrapper sums the partial rows: deterministic, no atomics.
+// Each thread owns the same columns in every row, so its partial sums sit
+// in a D-float shared-memory row that no other thread touches.  Per row:
+// one pass reduces sum x^2 and sum dy * scale * x together (one two-value
+// block reduction), a second pass (from L1/L2) writes dx.  Bound: bytes,
+// 3*R*D*elt (x, dy read, dx written) + D*elt + the partial rows.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -96,6 +114,93 @@ rmsnorm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ scale,
     }
 }
 
+// (a, b) summed over the block; red holds 2 * (warps + 1) floats.  The
+// result has its own slot, so back-to-back calls need no extra barrier.
+__device__ __forceinline__ float2 block_sum2(float a, float b, float* red) {
+    #pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+        a += __shfl_xor_sync(0xffffffffu, a, off);
+        b += __shfl_xor_sync(0xffffffffu, b, off);
+    }
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int n_warps = (blockDim.x + 31) >> 5;
+    if (lane == 0) {
+        red[2 * warp] = a;
+        red[2 * warp + 1] = b;
+    }
+    __syncthreads();
+    if (warp == 0) {
+        a = lane < n_warps ? red[2 * lane] : 0.f;
+        b = lane < n_warps ? red[2 * lane + 1] : 0.f;
+        #pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+            a += __shfl_xor_sync(0xffffffffu, a, off);
+            b += __shfl_xor_sync(0xffffffffu, b, off);
+        }
+        if (lane == 0) {
+            red[2 * (MAX_THREADS / 32)] = a;
+            red[2 * (MAX_THREADS / 32) + 1] = b;
+        }
+    }
+    __syncthreads();
+    return make_float2(red[2 * (MAX_THREADS / 32)],
+                       red[2 * (MAX_THREADS / 32) + 1]);
+}
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(MAX_THREADS)
+rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ scale,
+                   const T* __restrict__ dy, T* __restrict__ dx,
+                   float* __restrict__ dscale_part, long long rows,
+                   int rows_per_block, int D, float eps) {
+    extern __shared__ float ds_acc[];    // this block's partial dscale row
+    __shared__ float red[2 * (MAX_THREADS / 32 + 1)];
+    using P = Pack<T, VEC>;
+    const P* sr = reinterpret_cast<const P*>(scale);
+    const int n_vec = D / VEC;
+    for (int i = threadIdx.x; i < n_vec; i += blockDim.x)
+        #pragma unroll
+        for (int e = 0; e < VEC; ++e) ds_acc[i * VEC + e] = 0.f;
+
+    const long long row0 = (long long)blockIdx.x * rows_per_block;
+    const long long row_end = min(rows, row0 + rows_per_block);
+    for (long long row = row0; row < row_end; ++row) {
+        const P* xr = reinterpret_cast<const P*>(x + row * D);
+        const P* gr = reinterpret_cast<const P*>(dy + row * D);
+        P* dr = reinterpret_cast<P*>(dx + row * D);
+        float ss = 0.f, t = 0.f;         // sum x^2, sum dy * scale * x
+        for (int i = threadIdx.x; i < n_vec; i += blockDim.x) {
+            const P p = xr[i], g = gr[i], s = sr[i];
+            #pragma unroll
+            for (int e = 0; e < VEC; ++e) {
+                const float f = to_f32(p.v[e]);
+                ss = fmaf(f, f, ss);
+                t = fmaf(to_f32(g.v[e]) * to_f32(s.v[e]), f, t);
+            }
+        }
+        const float2 sums = block_sum2(ss, t, red);
+        const float inv = rsqrtf(sums.x / (float)D + eps);
+        const float mean_dot = inv * sums.y / (float)D;  // mean(dxhat*xhat)
+        for (int i = threadIdx.x; i < n_vec; i += blockDim.x) {
+            const P p = xr[i], g = gr[i], s = sr[i];
+            P o;
+            #pragma unroll
+            for (int e = 0; e < VEC; ++e) {
+                const float xhat = to_f32(p.v[e]) * inv;
+                const float gy = to_f32(g.v[e]);
+                o.v[e] = from_f32<T>(
+                    inv * (gy * to_f32(s.v[e]) - xhat * mean_dot));
+                ds_acc[i * VEC + e] = fmaf(gy, xhat, ds_acc[i * VEC + e]);
+            }
+            dr[i] = o;
+        }
+    }
+    float* part = dscale_part + (long long)blockIdx.x * D;
+    for (int i = threadIdx.x; i < n_vec; i += blockDim.x)
+        #pragma unroll
+        for (int e = 0; e < VEC; ++e) part[i * VEC + e] = ds_acc[i * VEC + e];
+}
+
 template <typename T>
 int launch(const void* x, const void* scale, void* y, long long rows, int D,
            float eps, cudaStream_t stream) {
@@ -117,6 +222,35 @@ int launch(const void* x, const void* scale, void* y, long long rows, int D,
     return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_bwd(const void* x, const void* scale, const void* dy, void* dx,
+               void* dscale_part, long long rows, int rows_per_block, int D,
+               float eps, cudaStream_t stream) {
+    constexpr int VEC = 16 / sizeof(T);
+    const bool vec = D % VEC == 0 &&
+        ((uintptr_t)x | (uintptr_t)scale | (uintptr_t)dy |
+         (uintptr_t)dx) % 16 == 0;
+    const int n_vec = vec ? D / VEC : D;
+    int threads = ((n_vec + 31) / 32) * 32;
+    if (threads > MAX_THREADS) threads = MAX_THREADS;
+    const long long blocks = (rows + rows_per_block - 1) / rows_per_block;
+    const size_t smem = (size_t)D * sizeof(float);
+    const T* xt = static_cast<const T*>(x);
+    const T* st = static_cast<const T*>(scale);
+    const T* gt = static_cast<const T*>(dy);
+    T* dt = static_cast<T*>(dx);
+    float* pt = static_cast<float*>(dscale_part);
+    if (vec)
+        rmsnorm_bwd_kernel<T, VEC><<<(unsigned)blocks, threads, smem,
+                                     stream>>>(xt, st, gt, dt, pt, rows,
+                                               rows_per_block, D, eps);
+    else
+        rmsnorm_bwd_kernel<T, 1><<<(unsigned)blocks, threads, smem,
+                                   stream>>>(xt, st, gt, dt, pt, rows,
+                                             rows_per_block, D, eps);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry point.  dtype: 0 = float32, 1 = bfloat16.  Device
@@ -131,5 +265,31 @@ extern "C" int rmsnorm_fwd_launch(const void* x, const void* scale, void* y,
     if (dtype == 0) return launch<float>(x, scale, y, rows, D, eps, st);
     if (dtype == 1)
         return launch<__nv_bfloat16>(x, scale, y, rows, D, eps, st);
+    return -1;
+}
+
+// Plain C entry point of the backward.  dtype: 0 = float32, 1 = bfloat16.
+// Device pointers to contiguous x, dy, dx (rows, D) and scale (D,) in one
+// type, and the fp32 partial rows dscale_part (ceil(rows / rows_per_block),
+// D).  D <= 12032 (its partial row and the reduction slots fit the 48 KB of
+// shared memory a kernel gets without an opt-in).
+// Returns the launch's cudaGetLastError() (0 on success), or -1 on
+// arguments the kernel does not take (the Python wrapper checks first and
+// raises).
+extern "C" int rmsnorm_bwd_launch(const void* x, const void* scale,
+                                  const void* dy, void* dx,
+                                  void* dscale_part, int dtype,
+                                  long long rows, int rows_per_block, int D,
+                                  float eps, void* stream) {
+    if (rows < 1 || D < 1 || D > 12032 || rows_per_block < 1 ||
+        (rows + rows_per_block - 1) / rows_per_block > 0x7fffffffLL)
+        return -1;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (dtype == 0)
+        return launch_bwd<float>(x, scale, dy, dx, dscale_part, rows,
+                                 rows_per_block, D, eps, st);
+    if (dtype == 1)
+        return launch_bwd<__nv_bfloat16>(x, scale, dy, dx, dscale_part, rows,
+                                         rows_per_block, D, eps, st);
     return -1;
 }

@@ -1,31 +1,46 @@
-"""Flash attention, forward: the attention core of every GQA layer and of
-the vision tower.
+"""Flash attention, forward and backward: the attention core of every GQA
+layer and of the vision tower.
 
-* :func:`flash_fwd` — the wrapper: on CUDA tensors it launches the
-  hand-written kernel ``csrc/flash_attention.cu`` (which replaces the TPU
-  kernel ``repro/kernels/flash_attention.py::_fwd_kernel``); on CPU
+* :func:`flash_fwd` — the forward's wrapper: on CUDA tensors it launches
+  the hand-written kernel ``csrc/flash_attention.cu`` (which replaces the
+  TPU kernel ``repro/kernels/flash_attention.py::_fwd_kernel``); on CPU
   tensors it takes the plain version.  It never falls back: CUDA tensors
   the kernel does not take raise.
-* :func:`flash_fwd_plain` — the same function in plain PyTorch: the full
-  score matrix in fp32, softmax, ``lse``.  The cross-check on the device
-  and the CPU path.
-* ``launches`` — how many times the kernel was launched.
+* :func:`flash_bwd` — the backward's wrapper, the same way: on CUDA
+  tensors it launches the two kernels of ``csrc/flash_attention_bwd.cu``
+  through :func:`flash_bwd_dq`, the q-stationary dq pass (replaces
+  ``_dq_kernel``; it also computes ``delta = sum(dout * out)`` of its
+  rows), and then :func:`flash_bwd_dkv`, the kv-stationary dk / dv pass
+  (replaces ``_dkv_kernel``; each block sums over the G query heads of its
+  group and every q tile, so no atomics and bit-equal results from launch
+  to launch).
+* :func:`flash_fwd_plain`, :func:`flash_bwd_plain` — the same functions
+  in plain PyTorch from the full fp32 score matrix, the backward by its
+  explicit formulas (not autograd).  The cross-check on the device and
+  the CPU path.
+* ``launches``, ``dq_launches``, ``dkv_launches`` — how many times each
+  kernel was launched.
 
 Layouts are the reference's: q ``(B, Sq, H, D)``, k ``(B, Skv, Hkv, D)``,
 v ``(B, Skv, Hkv, Dv)`` -> out ``(B, Sq, H, Dv)`` in q's type and lse
-``(B, H, Sq)`` fp32.  GQA maps q head ``h`` to kv head ``h // (H // Hkv)``;
-``causal`` masks ``k_pos > q_offset + q_row``.
+``(B, H, Sq)`` fp32; the gradients take their inputs' shapes and types.
+GQA maps q head ``h`` to kv head ``h // (H // Hkv)``; ``causal`` masks
+``k_pos > q_offset + q_row``.
 
-Bound on an H100: operations, ``4*B*H*Sq*Skv*D`` (half of it when causal)
-over the bf16 tensor-core peak, against ``(q + k + v + out)`` bytes plus
-the lse.  The first kernel computes in fp32 FMA (see the source's note);
-its times stand beside the bound in PERF.md.
+Bound on an H100: operations over the bf16 tensor-core peak —
+``4*B*H*Sq*Skv*D`` forward (half of it when causal) and 2.5x that for the
+backward (FA2's count: the dq pass recomputes s and does dp and dq, the
+dkv pass s, dp, dv and dk) — against the bytes of the tensors read and
+written once.  The kernels compute in fp32 FMA (see the sources' notes);
+their times stand beside the bound in PERF.md.
 
-Tolerance: fp32 inputs agree with the plain version within 2e-5 (both in
-full fp32, no TF32), bf16 within 2e-2 (one rounding of the output);
-tests/test_torch_flash_attention.py holds the plain version against the
-reference package's Pallas kernel in interpret mode, ``chip_smoke.py``
-the kernel against the plain version on the card.
+Tolerance: fp32 forward outputs agree with the plain version within 2e-5
+(both in full fp32, no TF32), fp32 gradients within 5e-4 (longer sums in
+another order), bf16 within 2e-2 of the tensor's scale (one rounding of
+each output); tests/test_torch_flash_attention.py and
+tests/test_torch_flash_backward.py hold the plain versions against the
+reference package's Pallas kernels in interpret mode, ``chip_smoke.py``
+the kernels against the plain versions on the card.
 """
 
 from __future__ import annotations
@@ -38,7 +53,9 @@ NEG_INF = -1e30
 HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (128, 64))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-launches = 0
+launches = 0          # forward kernel
+dq_launches = 0       # backward, dq pass
+dkv_launches = 0      # backward, dk / dv pass
 
 
 def _check(q, k, v, q_offset) -> None:
@@ -120,3 +137,144 @@ def flash_fwd(q, k, v, *, causal: bool = True, q_offset: int = 0):
             f"{q.dtype}")
     launches += 1
     return out, lse
+
+
+def _check_bwd(q, k, v, out, lse, dout, q_offset) -> None:
+    _check(q, k, v, q_offset)
+    B, Sq, H, _ = q.shape
+    want = (B, Sq, H, v.shape[3])
+    for name, t in (("out", out), ("dout", dout)):
+        if not isinstance(t, torch.Tensor) or tuple(t.shape) != want or \
+                t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"flash_bwd: {name} must be {q.dtype} {want} on "
+                             f"{q.device}, got {getattr(t, 'dtype', None)} "
+                             f"{tuple(getattr(t, 'shape', ()))}")
+    if not isinstance(lse, torch.Tensor) or tuple(lse.shape) != (B, H, Sq) \
+            or lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError(f"flash_bwd: lse must be float32 {(B, H, Sq)} on "
+                         f"{q.device}")
+
+
+def flash_bwd_plain(q, k, v, out, lse, dout, *, causal: bool = True,
+                    q_offset: int = 0):
+    """Plain PyTorch backward -> ``(dq, dk, dv)``: the full fp32 score
+    matrix, ``p = exp(s - lse)``, ``delta = sum(dout * out)``, ``ds = p *
+    (dout . v^T - delta)``; dq = scale * ds . k, dk = ds^T . (scale * q),
+    dv = p^T . dout, summed over each kv head's group."""
+    _check_bwd(q, k, v, out, lse, dout, q_offset)
+    B, Sq, H, D = q.shape
+    Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
+    G = H // Hkv
+    scale = D ** -0.5
+    qg = q.float().reshape(B, Sq, Hkv, G, D) * scale
+    kf, vf = k.float(), v.float()
+    do = dout.float().reshape(B, Sq, Hkv, G, Dv)
+    delta = (do * out.float().reshape(B, Sq, Hkv, G, Dv)).sum(-1)
+    p = torch.einsum("bshgd,bthd->bhgst", qg, kf)
+    p.sub_(lse.reshape(B, Hkv, G, Sq, 1)).exp_()            # in place: s -> p
+    if causal:
+        q_pos = q_offset + torch.arange(Sq, device=q.device)
+        keep = torch.arange(Skv, device=q.device)[None, :] <= q_pos[:, None]
+        p.masked_fill_(~keep, 0.0)
+    dv = torch.einsum("bhgst,bshgd->bthd", p, do)
+    ds = torch.einsum("bshgd,bthd->bhgst", do, vf)
+    ds.sub_(delta.permute(0, 2, 3, 1)[..., None]).mul_(p)   # dp -> ds
+    del p
+    dq = torch.einsum("bhgst,bthd->bshgd", ds, kf) * scale
+    dk = torch.einsum("bhgst,bshgd->bthd", ds, qg)
+    return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _check_bwd_kernels(q, k, v, tensors) -> None:
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_bwd kernels run on cuda tensors, got "
+                         f"{q.device}")
+    B, _, H, D = q.shape
+    Dv = v.shape[3]
+    if (D, Dv) not in HEAD_DIMS:
+        raise ValueError(f"flash_bwd kernels are built for (D, Dv) in "
+                         f"{HEAD_DIMS}, got ({D}, {Dv})")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("flash_bwd kernels take contiguous q, k, v, out, "
+                         "lse, dout and delta")
+    if B > 65535 or H > 65535:
+        raise ValueError(f"flash_bwd kernels take B, H <= 65535, got "
+                         f"B={B}, H={H}")
+
+
+def _dims(q, k, v, causal, q_offset) -> tuple:
+    B, Sq, H, D = q.shape
+    return (_DTYPES[q.dtype], B, Sq, k.shape[1], H, k.shape[2], D,
+            v.shape[3], q_offset, int(bool(causal)), D ** -0.5)
+
+
+def flash_bwd_dq(q, k, v, out, lse, dout, *, causal: bool = True,
+                 q_offset: int = 0):
+    """The dq pass alone on CUDA tensors -> ``(dq, delta)``, delta ``(B, H,
+    Sq)`` fp32 for :func:`flash_bwd_dkv`."""
+    global dq_launches
+    _check_bwd(q, k, v, out, lse, dout, q_offset)
+    _check_bwd_kernels(q, k, v, (q, k, v, out, lse, dout))
+    dq = torch.empty_like(q)
+    delta = torch.empty_like(lse)
+    from repro_torch.kernels import _build
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        rc = lib.flash_bwd_dq_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            *_dims(q, k, v, causal, q_offset),
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"flash_bwd dq kernel launch failed (cuda error {rc}) for q "
+            f"{tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, "
+            f"{q.dtype}")
+    dq_launches += 1
+    return dq, delta
+
+
+def flash_bwd_dkv(q, k, v, lse, dout, delta, *, causal: bool = True,
+                  q_offset: int = 0):
+    """The dk / dv pass alone on CUDA tensors -> ``(dk, dv)``; ``delta``
+    from :func:`flash_bwd_dq` (enqueued before it on the same stream)."""
+    global dkv_launches
+    _check_bwd(q, k, v, dout, lse, dout, q_offset)
+    if not isinstance(delta, torch.Tensor) or delta.shape != lse.shape or \
+            delta.dtype != torch.float32 or delta.device != q.device:
+        raise ValueError(f"flash_bwd: delta must be float32 "
+                         f"{tuple(lse.shape)} on {q.device}")
+    _check_bwd_kernels(q, k, v, (q, k, v, lse, dout, delta))
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    from repro_torch.kernels import _build
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        rc = lib.flash_bwd_dkv_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *_dims(q, k, v, causal, q_offset),
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"flash_bwd dk/dv kernel launch failed (cuda error {rc}) for q "
+            f"{tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, "
+            f"{q.dtype}")
+    dkv_launches += 1
+    return dk, dv
+
+
+def flash_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
+              q_offset: int = 0):
+    """Attention backward -> ``(dq, dk, dv)`` for the forward's ``out`` and
+    ``lse``; the two kernels on CUDA tensors (dq pass, then dk / dv pass),
+    the plain version on CPU tensors."""
+    _check_bwd(q, k, v, out, lse, dout, q_offset)
+    if q.device.type == "cpu":
+        return flash_bwd_plain(q, k, v, out, lse, dout, causal=causal,
+                               q_offset=q_offset)
+    dq, delta = flash_bwd_dq(q, k, v, out, lse, dout, causal=causal,
+                             q_offset=q_offset)
+    dk, dv = flash_bwd_dkv(q, k, v, lse, dout, delta, causal=causal,
+                           q_offset=q_offset)
+    return dq, dk, dv

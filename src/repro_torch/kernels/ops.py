@@ -3,16 +3,19 @@
 ``flash_attention`` and ``rmsnorm`` stand where the reference's models call
 their pure-``lax`` twins of the Pallas kernels
 (``repro.models.attention.flash_attention``, ``repro.models.layers.rmsnorm``):
-same signature, same ``(B, S, H, D)`` layouts.  Forward only, for serving:
+same signature, same ``(B, S, H, D)`` layouts.  Each is a
+``torch.autograd.Function`` — the counterpart of the reference's
+``custom_vjp``s (``repro.kernels.ops``) — whose forward is the forward
+kernel and whose backward is the backward kernel(s):
 
-* on a CUDA tensor they launch the kernel (or raise), on a contiguous
-  copy where the caller hands them a strided view (the last position's
+* on a CUDA tensor they launch the kernels (or raise), on contiguous
+  copies where the caller hands them a strided view (the last position's
   ``x[:, -1:]``), as XLA picks the reference's layouts;
-* on a CPU tensor they take the kernel's plain version;
-* on a CUDA input that autograd would have to record (grad mode on and an
-  input that requires grad) they raise ``NotImplementedError``: the
-  backward kernels are not ported yet, and autograd through the plain
-  version is not a stand-in for them.
+* on a CPU tensor the kernels' wrappers take their plain versions, so the
+  CPU tests run the same wiring, forward and backward, as the card.
+
+The attention forward saves ``q, k, v, out, lse`` for its backward; the
+RMSNorm forward saves ``x, scale``.
 """
 
 from __future__ import annotations
@@ -23,25 +26,44 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import rmsnorm as _rn
 
 
-def _refuse_grad(what: str, backward: str, *tensors) -> None:
-    if torch.is_grad_enabled() and any(
-            t.is_cuda and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{what}: the backward kernel{backward} not ported yet; run "
-            f"serving under torch.inference_mode() or on tensors that do "
-            f"not require grad")
+class _FlashAttention(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, q_offset: int):
+        out, lse = _fa.flash_fwd(q, k, v, causal=causal, q_offset=q_offset)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.q_offset = causal, q_offset
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _fa.flash_bwd(q, k, v, out, lse, dout.contiguous(),
+                                   causal=ctx.causal, q_offset=ctx.q_offset)
+        return dq, dk, dv, None, None
+
+
+class _RMSNorm(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, scale, eps: float):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _rn.rmsnorm_fwd(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, dscale = _rn.rmsnorm_bwd(x, scale, dy.contiguous(), ctx.eps)
+        return dx, dscale if ctx.needs_input_grad[1] else None, None
 
 
 def flash_attention(q, k, v, causal: bool = True, q_offset: int = 0):
     """q: (B,Sq,H,D); k/v: (B,Skv,Hkv,D/Dv) -> (B,Sq,H,Dv)."""
-    _refuse_grad("flash_attention", "s (flash _dq_kernel, _dkv_kernel) are",
-                 q, k, v)
-    out, _ = _fa.flash_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
-                           causal=causal, q_offset=q_offset)
-    return out
+    return _FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), causal, q_offset)
 
 
 def rmsnorm(x, scale, eps: float = 1e-5):
     """RMSNorm over the last dim of x (any leading shape)."""
-    _refuse_grad("rmsnorm", " (rmsnorm _bwd_kernel) is", x, scale)
-    return _rn.rmsnorm_fwd(x.contiguous(), scale.contiguous(), eps)
+    return _RMSNorm.apply(x.contiguous(), scale.contiguous(), eps)

@@ -40,7 +40,11 @@ def linear_spec(name: str, d_in: int, d_out: int,
 
 
 def linear(p, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p.w
+    """``x @ w (+ b)`` in the promoted type of x and w, as ``jnp.matmul``
+    types it (an fp32 config keeps the projector's and the patch
+    projection's bf16 weights)."""
+    dt = torch.promote_types(x.dtype, p.w.dtype)
+    y = x.to(dt) @ p.w.to(dt)
     if "b" in p:
         y = y + p.b
     return y

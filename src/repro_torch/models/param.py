@@ -12,8 +12,14 @@ axis.  Here the same tree is a tree of modules:
 
 Both also answer ``p["name"]`` and ``"name" in p``, the reference's dict
 idiom, so each apply reads like its counterpart.  Parameters are created
-with ``requires_grad=False``: this slice serves; training comes with the
-backward kernels.
+with ``requires_grad=False`` (serving records no graph); training turns on
+the trainable ones:
+
+* :func:`set_trainable` — the counterpart of the reference's
+  ``trainable_mask`` + ``partition_params``: sets ``requires_grad`` on
+  every leaf by ``TrainPolicy.is_trainable`` of its module path;
+* :func:`trainable_params` — the ``(name, Parameter)`` pairs that train
+  (``merge_params`` has no counterpart: the tree is never split).
 
 * :func:`init_params` follows the reference's ``_init_leaf`` rules
   (normal scaled by 1/sqrt(fan-in), ``embed`` x 0.02, zeros, ones) in the
@@ -34,7 +40,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.core.spec import ModuleSpec, ParamSpec
+from repro_torch.core.spec import ModuleSpec, ParamSpec, TrainPolicy
 
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -162,3 +168,25 @@ def params_from_numpy(tree: dict, device, spec: ModuleSpec) -> ModuleParams:
 
 def count_params(params: nn.Module) -> int:
     return sum(p.numel() for p in params.parameters())
+
+
+def module_path(name: str) -> str:
+    """The reference's module path (``vlm/language_model/blocks``) of a
+    parameter named ``vlm.language_model.blocks.3.attn.wq``: the layer and
+    leaf names and the index into a stack dropped."""
+    parts = name.split(".")[:-2]
+    return "/".join(p for p in parts if not p.isdigit())
+
+
+def set_trainable(params: ModuleParams, policy: TrainPolicy) -> ModuleParams:
+    """Mark each leaf trainable (``requires_grad``) or frozen by the
+    policy, in place; returns ``params``."""
+    for name, t in params.named_parameters():
+        t.requires_grad_(policy.is_trainable(module_path(name)))
+    return params
+
+
+def trainable_params(params: ModuleParams) -> list:
+    """The ``(name, Parameter)`` pairs that train, in the tree's order."""
+    return [(name, t) for name, t in params.named_parameters()
+            if t.requires_grad]

@@ -6,13 +6,14 @@
 * ``init(generator, device)``      — parameter tree on ``device``
 * ``from_numpy(tree, device)``     — the reference's parameters, carried
   across bit for bit
+* ``loss(params, batch, remat)``   — scalar loss + metrics (training)
 * ``prefill(params, batch)``       — last-position logits + populated cache
 * ``decode_step(params, token, cache)`` — one-token serve step
 * ``init_cache(batch, max_len, device)`` — zeroed cache
 * ``batch_spec(shape)``            — shape/dtype records for every input
 
-The dense-GQA decoder LMs and the VLMs built on them are here, spec and
-serving path; the loss comes with the train step.  The MLA / MoE / SSM /
+The dense-GQA decoder LMs and the VLMs built on them are here: spec,
+training loss and serving path.  The MLA / MoE / SSM /
 hybrid / enc-dec families raise ``NotImplementedError`` until they are
 ported.
 """
@@ -49,6 +50,12 @@ class Model:
 
     def from_numpy(self, tree: dict, device="cuda") -> PM.ModuleParams:
         return PM.params_from_numpy(tree, device, self.spec)
+
+    def loss(self, params, batch: dict, remat=None):
+        if self.cfg.family == "vlm":
+            return V.vlm_loss(self.cfg, params, batch, remat=remat)
+        return T.lm_loss(self.cfg, params, batch["tokens"], batch["labels"],
+                         remat=remat)
 
     def prefill(self, params, batch: dict):
         if self.cfg.family == "vlm":

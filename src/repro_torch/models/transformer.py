@@ -1,14 +1,15 @@
 """Decoder-only LM family: llama / qwen / mistral (GQA, dense FFN).
 
-Spec functions and the serving path.  Blocks are depth-stacked
-(``scanned``) modules in the spec; their parameters are one
+Spec functions, the training forward (``lm_backbone`` under a remat
+policy, ``chunked_xent``, ``lm_loss``) and the serving path.  Blocks are
+depth-stacked (``scanned``) modules in the spec; their parameters are one
 :class:`~repro_torch.models.param.ModuleParams` per block, walked by a
-Python loop where the reference scans.  The loss the byte model describes
-is a chunked, vocab-sharded cross-entropy that never materializes the full
-(B, S, V) logits (``LOSS_CHUNK`` rows at a time); the loss and the train
-step come with the backward kernels.  MLA attention and MoE FFNs are not
-built yet: ``lm_spec`` raises ``NotImplementedError`` for configs that
-need them.
+Python loop where the reference scans, each block under its own
+checkpoint.  The loss is the chunked cross-entropy the byte model
+describes, which never materializes the full (B, S, V) logits
+(``LOSS_CHUNK`` rows at a time, each chunk recomputed in the backward).
+MLA attention and MoE FFNs are not built yet: ``lm_spec`` raises
+``NotImplementedError`` for configs that need them.
 
 The serving functions keep the reference's program so that the memory and
 the launches measured are those of the program the predictor models:
@@ -19,7 +20,10 @@ bf16 whatever the model's type.
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs import ArchConfig
 from repro_torch.core.spec import LayerSpec, ModuleSpec
@@ -91,13 +95,54 @@ def _block_apply(cfg: ArchConfig, bp, x: torch.Tensor,
     return x + L.mlp(bp.ffn, h)
 
 
+# what the "dots" policy saves: the outputs of the matrix products (the
+# q/k/v/o projections, the MLP's three products, and on the CPU path the
+# plain attention's einsums).  The attention core on the card is a kernel
+# behind an autograd Function, not a matmul, so under "dots" it runs again
+# in the backward, and its residuals (q, k, v, out, lse) come from that
+# recompute.
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default,
+                   torch.ops.aten.baddbmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, policy: str):
+    """``fn`` under the reference's remat policy: "none" saves every
+    activation, "block" only ``fn``'s inputs (the block's carry) and
+    reruns ``fn`` in the backward, "dots" the matmul outputs too.
+
+    The reference also pins the scan carry with an XLA optimization
+    barrier (``_pin``) so XLA cannot hoist a convert of the saved stack out
+    of the loop; eager PyTorch has no such rewrite, so nothing stands in
+    for it here."""
+    if policy == "none":
+        return fn
+    if policy == "block":
+        return functools.partial(_ckpt.checkpoint, fn, use_reentrant=False)
+    if policy == "dots":
+        return functools.partial(
+            _ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                _ckpt.create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"remat policy {policy!r}: expected none, block or "
+                     f"dots")
+
+
 def lm_backbone(cfg: ArchConfig, p, embeds: torch.Tensor,
-                positions=None) -> torch.Tensor:
-    """embeds: (B, S, D) -> final-normed hidden (B, S, D)."""
+                positions=None, remat=None) -> torch.Tensor:
+    """embeds: (B, S, D) -> final-normed hidden (B, S, D); each block under
+    the ``remat`` policy (default ``cfg.remat``)."""
     _dense_only(cfg)
+    block = _remat(functools.partial(_block_apply, cfg),
+                   remat if remat is not None else cfg.remat)
     x = embeds
     for bp in p.blocks:
-        x = _block_apply(cfg, bp, x, positions)
+        x = block(bp, x, positions)
     return L.rmsnorm(p.head.final_norm, x, cfg.norm_eps)
 
 
@@ -109,6 +154,57 @@ def lm_logits(cfg: ArchConfig, p, hidden: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
         return L.unembed(p.embed.tok, hidden)
     return L.linear(p.head.lm_head, hidden).float()
+
+
+# ---------------------------------------------------------------------------
+# chunked cross-entropy (never materializes (B, S, V))
+# ---------------------------------------------------------------------------
+
+
+def _chunk_loss(cfg: ArchConfig, p, h: torch.Tensor, labels: torch.Tensor):
+    logits = lm_logits(cfg, p, h)                        # (B, c, V) fp32
+    lse = torch.logsumexp(logits, dim=-1)
+    mask = labels >= 0
+    tgt = logits.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
+    return (torch.where(mask, lse - tgt, 0.0).sum(),
+            mask.sum().to(torch.float32))
+
+
+def chunked_xent(cfg: ArchConfig, p, hidden: torch.Tensor,
+                 labels: torch.Tensor, chunk: int = LOSS_CHUNK):
+    """hidden: (B, S, D); labels: (B, S) with -100 = masked.  Returns
+    (sum_loss, n_tokens), fp32 scalars.  ``chunk`` positions at a time,
+    each chunk's logits recomputed in the backward instead of saved (the
+    reference's ``jax.checkpoint`` per chunk); the last chunk is the
+    ragged rest where the reference pads it with masked labels."""
+    S = hidden.shape[1]
+    chunk = min(chunk, S)
+    fn = functools.partial(_chunk_loss, cfg, p)
+    loss_sum = hidden.new_zeros((), dtype=torch.float32)
+    n_tok = hidden.new_zeros((), dtype=torch.float32)
+    for i in range(0, S, chunk):
+        h, lab = hidden[:, i:i + chunk], labels[:, i:i + chunk]
+        s, n = _ckpt.checkpoint(fn, h, lab, use_reentrant=False)
+        loss_sum = loss_sum + s
+        n_tok = n_tok + n
+    return loss_sum, n_tok
+
+
+def xent_loss(cfg: ArchConfig, p, hidden: torch.Tensor,
+              labels: torch.Tensor):
+    """Mean next-token loss over the unmasked labels -> (loss, metrics)."""
+    loss_sum, n_tok = chunked_xent(cfg, p, hidden, labels)
+    loss = loss_sum / n_tok.clamp_min(1.0)
+    return loss, {"xent": loss.detach(), "n_tok": n_tok}
+
+
+def lm_loss(cfg: ArchConfig, params, tokens: torch.Tensor,
+            labels: torch.Tensor, remat=None):
+    """tokens, labels: (B, S) -> (loss, {"xent", "n_tok"})."""
+    p = params.language_model if "language_model" in params \
+        else next(iter(params.children()))
+    hidden = lm_backbone(cfg, p, embed_tokens(cfg, p, tokens), remat=remat)
+    return xent_loss(cfg, p, hidden, labels)
 
 
 # ---------------------------------------------------------------------------

@@ -6,9 +6,9 @@
 * llava15-7b (paper repro): REAL CLIP ViT-L/14 vision tower (frozen per the
   paper's training stages) + 2-layer MLP projector + Vicuna-7B.
 
-Sequence layout: [projected image tokens | text embeddings].  Specs and
-the serving path (prefill over the image and the prompt, then decode);
-the loss comes with the train step.
+Sequence layout: [projected image tokens | text embeddings].  Specs, the
+training loss (over the text positions) and the serving path (prefill over
+the image and the prompt, then decode).
 """
 
 from __future__ import annotations
@@ -65,6 +65,22 @@ def vlm_embeds(cfg: ArchConfig, params, batch: dict) -> torch.Tensor:
     img = project_image(cfg, p, feats).to(TORCH_DTYPES[cfg.dtype])
     txt = T.embed_tokens(cfg, p.language_model, batch["tokens"])
     return torch.cat([img, txt], dim=1)
+
+
+def vlm_loss(cfg: ArchConfig, params, batch: dict, remat=None):
+    """batch: {'tokens', 'labels': (B, S_text), 'patch_embeds' | 'patches'}
+    -> (loss, {"xent", "n_tok"}).  The image positions are labelled -100,
+    so the loss is over the text.  A frozen tower (leaves that do not
+    require grad, inputs that do not either) records no graph."""
+    embeds = vlm_embeds(cfg, params, batch)
+    B, S_total, _ = embeds.shape
+    n_img = S_total - batch["tokens"].shape[1]
+    lm = params.vlm.language_model
+    hidden = T.lm_backbone(cfg, lm, embeds, remat=remat)
+    labels = torch.cat([torch.full((B, n_img), -100, dtype=torch.int32,
+                                   device=embeds.device),
+                        batch["labels"].to(torch.int32)], dim=1)
+    return T.xent_loss(cfg, lm, hidden, labels)
 
 
 def vlm_prefill(cfg: ArchConfig, params, batch: dict):

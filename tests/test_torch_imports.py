@@ -1,7 +1,9 @@
 """The port stands alone: importing every module of ``repro_torch`` in a
 fresh interpreter pulls in neither ``jax`` nor the reference package, needs
 no ``nvcc`` / ``triton``, and its default entry points refuse to run
-without a CUDA device instead of quietly computing on the host."""
+without a CUDA device instead of quietly computing on the host.  The
+kernel entry points of the models are differentiable, and serving's
+parameters still record no graph."""
 
 import os
 import subprocess
@@ -43,7 +45,9 @@ for want in ("repro_torch.core.batch_torch", "repro_torch.core.sweep",
              "repro_torch.models.vit", "repro_torch.models.vlm",
              "repro_torch.serve.serve_step",
              "repro_torch.kernels._build", "repro_torch.configs.llava15_7b",
-             "repro_torch.launch.mesh", "repro_torch.serve.pool"):
+             "repro_torch.launch.mesh", "repro_torch.serve.pool",
+             "repro_torch.train", "repro_torch.train.optimizer",
+             "repro_torch.train.train_step"):
     assert want in names, want
 """
 
@@ -53,7 +57,7 @@ def test_every_module_imports_without_jax_or_reference_package():
     assert r.returncode == 0, r.stderr
     assert "BAD []" in r.stdout, r.stdout
     n = int(r.stdout.split("MODULES")[1].split()[0])
-    assert n >= 41, r.stdout
+    assert n >= 44, r.stdout
 
 
 def test_no_source_line_imports_jax_or_reference_package():
@@ -69,7 +73,7 @@ def test_no_source_line_imports_jax_or_reference_package():
                     checked += 1
     text = open(os.path.join(ROOT, "chip_smoke.py")).read()
     assert not pat.search(text)
-    assert checked >= 41
+    assert checked >= 44
 
 
 DEFAULT_ENTRY = """
@@ -102,6 +106,17 @@ except RuntimeError as e:
 else:
     raise SystemExit("generate ran without a CUDA device")
 print("GEN_OK", tuple(generate(model, params, batch, 2, device="cpu").shape))
+from repro_torch.core.spec import LLAVA_STAGE1
+from repro_torch.train import OptimizerConfig, init_train_state
+try:
+    init_train_state(model, LLAVA_STAGE1, OptimizerConfig(),
+                     torch.Generator().manual_seed(0))
+except (RuntimeError, AssertionError) as e:
+    assert "CUDA" in str(e), e
+else:
+    raise SystemExit("init_train_state built parameters without a CUDA "
+                     "device")
+print("TRAIN_OK")
 """
 
 
@@ -110,6 +125,7 @@ def test_default_entry_point_raises_without_cuda():
     assert r.returncode == 0, r.stdout + r.stderr
     assert "CPU_OK 2" in r.stdout
     assert "GEN_OK (1, 2)" in r.stdout
+    assert "TRAIN_OK" in r.stdout
 
 
 @pytest.mark.parametrize("extra,rc,needle", [
@@ -143,7 +159,7 @@ def test_cli_rejects_unported_family():
 
 BUILD_WITHOUT_NVCC = """
 from repro_torch.kernels import _build
-assert len(_build.sources()) == 4
+assert len(_build.sources()) == 5
 try:
     _build.load()
 except RuntimeError as e:
@@ -162,3 +178,25 @@ def test_kernel_build_raises_without_nvcc(tmp_path):
     assert r.returncode == 0, r.stderr
     assert "RAISED" in r.stdout
     assert not list(tmp_path.iterdir())
+
+
+def test_kernel_entry_points_are_differentiable_and_serving_is_not():
+    """``kernels.ops`` no longer refuses a graph: its Functions carry
+    gradients to every input that asks; ``init_params`` still makes
+    leaves that record none."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    q = torch.randn(1, 8, 2, 16, requires_grad=True)
+    out = ops.flash_attention(q, q, q, True)
+    assert out.requires_grad and out.grad_fn is not None
+    (g,) = torch.autograd.grad(out.sum(), q)
+    assert g.shape == q.shape and bool(torch.isfinite(g).all())
+    x = torch.randn(3, 16, requires_grad=True)
+    s = torch.ones(16, requires_grad=True)
+    gx, gs = torch.autograd.grad(ops.rmsnorm(x, s).sum(), (x, s))
+    assert gx.shape == x.shape and gs.shape == s.shape
+    model = build_model(get_config("llava15-7b").reduced())
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    assert not any(t.requires_grad for t in params.parameters())
