@@ -3,13 +3,14 @@
 
     python3 chip_smoke.py          # needs one CUDA device and nvcc
 
-Drives the port's three paths on the CUDA device — the capacity sweep of
+Drives the port's four paths on the CUDA device — the capacity sweep of
 llava15-7b at its published widths through ``SweepEngine.sweep(grid,
-engine="torch")``, llava15-7b serving (prefill + greedy decode) at its
-published widths and depth through ``repro_torch.serve.generate``, and
-llava15-7b training steps at the paper's fig2b setting through
-``repro_torch.train`` — and holds every hand-written kernel against its
-plain PyTorch version on the card.  Phases (any failure exits non-zero):
+engine="torch")``, llava15-7b and mamba2-1.3b serving (prefill + greedy
+decode) at their published widths and depths through
+``repro_torch.serve.generate``, and llava15-7b training steps at the
+paper's fig2b setting through ``repro_torch.train`` — and holds every
+hand-written kernel against its plain PyTorch version on the card.
+Phases (any failure exits non-zero):
 
 1. toolchain + card line, then the kernels' build (set-up time);
 2. ``kernels_check``: ``shard_factor`` on randomized step programs and
@@ -21,7 +22,12 @@ plain PyTorch version on the card.  Phases (any failure exits non-zero):
    ``flash_bwd`` (the dq and the dk/dv kernels) on the same cases and the
    training path's shapes, fp32 within 5e-4 and bf16 within 2e-2 of each
    gradient's scale, and ``rmsnorm_bwd`` (dx and dscale, 1e-4 / 2e-2),
-   each also bit-equal on a second launch; every error also per shape;
+   each also bit-equal on a second launch; ``ssd_scan`` on the
+   reference's three SSD cases, a prompt shorter than the chunk and the
+   mamba2 prefill's full-width shape (4, 2,000, 64, 64, 128, 256): y and
+   the final state within 1e-4 in fp32, bf16 y within 2e-2 and the state
+   within 1e-4 of their scales, bit-equal on a second launch and on
+   strided views; every error also per shape;
 3. ``sweep_large``: the 124,416-cell llava15-7b grid, legacy and liveness
    assembly, device engine == host columnar path column for column;
 4. ``sweep_pipe``: the same grid with a ``pipe`` mesh axis, both schedules
@@ -34,6 +40,15 @@ plain PyTorch version on the card.  Phases (any failure exits non-zero):
    ``core.predictor`` prediction for the same request; the kernel path's
    prefill logits against the same prefill through the plain versions,
    and the reduced config on the card against the CPU;
+5b. ``serve_mamba2_1_3b``: mamba2-1.3b at full width and all 48 layers
+   with random weights from a seeded generator on the card, 4 requests
+   of 2,000 prompt tokens, 32 greedy new tokens: the same readings as
+   serving llava15-7b (launches gated exactly: SSD 48 per prefill and
+   none in decode, RMSNorm 97 per prefill and per decode step; the
+   predictor's numbers from ``planner.check``); its prefill through the
+   kernels against the plain versions in bf16 and with the weights cast
+   to fp32, logits and final states (gated in fp32 at ``MAMBA_FP32_TOL``;
+   the bf16 spread is printed);
 6. ``train_llava15_7b_stage1`` (full width and depth, LLaVA stage 1) and
    ``train_llava15_7b_stage2_8l`` (full width, the LM cut to 8 blocks,
    stage 2): 8 samples x (576 image + 1,472 text) tokens, AdamW, remat
@@ -51,7 +66,8 @@ plain PyTorch version on the card.  Phases (any failure exits non-zero):
    median of CUDA-event-timed calls of its wrapper (``ms``), the kernel's
    own device time from a profiler trace (``device_ms``), the plain
    version's time, the roofline bound and the time of the one PyTorch
-   call that computes the same function, where there is one.
+   call that computes the same function, where there is one (none for
+   the SSD scan).
 
 Each path is run with the kernels' launch counters set to 0 just before
 and read just after; a kernel of the path that was launched no time fails
@@ -99,6 +115,7 @@ from repro_torch.kernels import ops as OPS  # noqa: E402
 from repro_torch.kernels import rmsnorm as RN  # noqa: E402
 from repro_torch.kernels import segmented_cummax as SC  # noqa: E402
 from repro_torch.kernels import shard_factor as SF  # noqa: E402
+from repro_torch.kernels import ssd as SSD  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import param as PM  # noqa: E402
 from repro_torch.serve import serve_step as SV  # noqa: E402
@@ -124,6 +141,19 @@ torch.backends.cudnn.allow_tf32 = False
 # patch tokens) + 512 text tokens, 32 greedy new tokens
 SERVE_ARCH = "llava15-7b"
 SERVE_BATCH, SERVE_TEXT, SERVE_NEW = 4, 512, 32
+
+# the SSM serving path: mamba2-1.3b at full width and depth, 4 requests of
+# 2,000 prompt tokens, 32 greedy new tokens
+MAMBA_ARCH = "mamba2-1.3b"
+MAMBA_BATCH, MAMBA_PROMPT, MAMBA_NEW = 4, 2000, 32
+# its full-size prefill, the kernel path against the plain path on the same
+# weights and tokens (max |diff| over the compared tensor's scale): read
+# 1.9e-5 (logits) / 1.6e-5 (states) in fp32 on an H100, while the two bf16
+# paths are 5 % apart and each 6-7 % from fp32 (48 random layers grow
+# every bf16 rounding); 1e-3 in fp32 is 50x that reading and a fiftieth
+# of the bf16 spread.  The SSD kernel's bf16 output is held by check_ssd at
+# this prefill's shape, the RMSNorm's by check_rmsnorm
+MAMBA_FP32_TOL = 1e-3
 
 # the training path: llava15-7b at the paper's fig2b setting, 8 samples x
 # (576 image + 1,472 text) = 8 x 2,048 tokens, AdamW, remat "block", 3
@@ -338,7 +368,10 @@ FLASH_CASES = [
 ]
 TRAIN_ROWS = (TRAIN_BATCH * 2048, 4096)        # the LM's RMSNorms, training
 RMSNORM_SHAPES = [(64, 128), (3, 50, 96), (2, 7, 33, 64), (5, 33),
-                  (4 * 1088, 4096), (4, 1, 4096), TRAIN_ROWS]
+                  (4 * 1088, 4096), (4, 1, 4096), TRAIN_ROWS,
+                  # mamba2 serving: the prefill's gated norm over d_inner
+                  # and block norm, the block norm in a decode step
+                  (4 * 2000, 4096), (4 * 2000, 2048), (4, 1, 2048)]
 TOLERANCE = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
@@ -596,6 +629,109 @@ def check_rmsnorm_bwd() -> dict:
             "tolerance": {"float32": 1e-4, "bfloat16": 2e-2}}
 
 
+# the SSD's cases: the reference's three kernel cases (tests/test_kernels.py),
+# a prompt shorter than the chunk, and the serving path's full-width prefill
+# (4 x 2,000 tokens, 64 heads x 64, d_state 128, chunk 256: a ragged
+# 208-token last chunk); (b, S, H, P, N, chunk)
+SERVE_SSD_CASE = (4, 2000, 64, 64, 128, 256)
+SSD_CASES = [(2, 128, 4, 16, 32, 32), (1, 96, 2, 32, 16, 32),
+             (1, 64, 1, 64, 64, 64), (2, 40, 3, 16, 16, 64), SERVE_SSD_CASE]
+SSD_TOLERANCE = 1e-4          # fp32 y and state; bf16 state, of its scale
+SSD_BF16_Y_TOLERANCE = 2e-2   # bf16 y, of its scale (one rounding of y)
+
+
+def ssd_inputs(case, gen, dtype):
+    """x, dt (post-softplus), A (< 0), B, C on the card.  The reference's
+    test distribution (dt ~ softplus(N(0, 1))) on its own cases; at the
+    serving shape dt ~ softplus(N(0, 1) - 3), ~0.05, so the state carries
+    across chunks as a served model's does."""
+    b, S, H, P, N, _ = case
+    shift = 3.0 if case == SERVE_SSD_CASE else 0.0
+    x = torch.randn(b, S, H, P, generator=gen, device=DEV) * 0.5
+    dt = F.softplus(torch.randn(b, S, H, generator=gen, device=DEV) - shift)
+    A = -torch.exp(torch.randn(H, generator=gen, device=DEV) * 0.3)
+    Bm = torch.randn(b, S, N, generator=gen, device=DEV) * 0.5
+    Cm = torch.randn(b, S, N, generator=gen, device=DEV) * 0.5
+    return x.to(dtype), dt, A, Bm.to(dtype), Cm.to(dtype)
+
+
+def check_ssd() -> dict:
+    """y and the final state of the kernel against ssd_scan_plain on every
+    case, fp32 and bf16; a second launch bit-equal; x, B and C read in
+    place through a token stride (views into one conv-output buffer, as the
+    model hands them) bit-equal to contiguous copies."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 5)
+    errs, by_case = {}, {}
+    cases = 0
+    for dt_ in (torch.float32, torch.bfloat16):
+        tag = str(dt_).split(".")[-1]
+        for case in SSD_CASES:
+            chunk = case[-1]
+            args = ssd_inputs(case, gen, dt_)
+            y, st = SSD.ssd_scan(*args, chunk=chunk)
+            y2, st2 = SSD.ssd_scan(*args, chunk=chunk)
+            torch.cuda.synchronize()
+            if not (torch.equal(y, y2) and torch.equal(st, st2)):
+                fail(f"ssd_scan: two launches differ ({dt_}, case {case})")
+            py, pst = SSD.ssd_scan_plain(*args, chunk=chunk)
+            for what, got, want in (("y", y, py), ("state", st, pst)):
+                if dt_ == torch.float32:
+                    err, over = _excess(got, want, SSD_TOLERANCE)
+                else:
+                    tol = SSD_BF16_Y_TOLERANCE if what == "y" \
+                        else SSD_TOLERANCE
+                    err, over = _bwd_excess(got, want, dt_, tol)
+                _note(errs, by_case, case, f"{what}_{tag}", err)
+                if over > 0 or got.shape != want.shape or \
+                        got.dtype != want.dtype or \
+                        not bool(torch.isfinite(got).all()):
+                    fail(f"ssd_scan kernel != plain version ({what}, {dt_},"
+                         f" case {case}: max abs diff {err})")
+            if case == SERVE_SSD_CASE:
+                x, dtv, A, Bm, Cm = args
+                b, S, H, P, N, _ = case
+                buf = torch.cat([x.reshape(b, S, H * P), Bm, Cm], dim=-1)
+                xv = buf[..., :H * P].view(b, S, H, P)
+                Bv, Cv = buf[..., H * P:H * P + N], buf[..., H * P + N:]
+                yv, stv = SSD.ssd_scan(xv, dtv, A, Bv, Cv, chunk=chunk)
+                torch.cuda.synchronize()
+                if not (torch.equal(yv, y) and torch.equal(stv, st)):
+                    fail(f"ssd_scan on strided views != on contiguous "
+                         f"copies ({dt_})")
+                del buf, xv, Bv, Cv, yv, stv
+            cases += 1
+            del args, y, st, y2, st2, py, pst
+    # what the kernel does not take raises (no fallback)
+    x, dtv, A, Bm, Cm = ssd_inputs((1, 8, 2, 64, 16, 8), gen, torch.float32)
+    for call in (lambda: SSD.ssd_scan(x[..., :48], dtv, A, Bm, Cm),
+                 lambda: SSD.ssd_scan(x, dtv, A, Bm[..., :14], Cm[..., :14]),
+                 lambda: SSD.ssd_scan(x.transpose(2, 3).contiguous()
+                                      .transpose(2, 3), dtv, A, Bm, Cm),
+                 lambda: SSD.ssd_scan(x.half(), dtv, A, Bm.half(),
+                                      Cm.half()),
+                 lambda: SSD.ssd_scan(*ssd_inputs((1, 30000, 2, 64, 128, 1),
+                                                  gen, torch.float32),
+                                      chunk=30000)):
+        if not _refuses(call):
+            fail("ssd_scan accepted an input the kernel does not take")
+        cases += 1
+    # the model's entry point launches the kernel and returns its result
+    n = SSD.launches
+    got = OPS.ssd_scan(x, dtv, A, Bm, Cm, chunk=4)
+    want = SSD.ssd_scan(x, dtv, A, Bm, Cm, chunk=4)
+    if SSD.launches - n != 2 or not all(
+            torch.equal(g, w) for g, w in zip(got, want)):
+        fail("ops.ssd_scan is not one launch of the SSD kernel")
+    cases += 1
+    return {"name": "ssd_scan", "ok": True, "cases": cases,
+            "max_abs_err": max(errs.values()), "max_abs_err_by": errs,
+            "max_abs_err_by_case": by_case, "deterministic": True,
+            "tolerance": {"float32": SSD_TOLERANCE,
+                          "bfloat16": {"y": "2e-2 of scale",
+                                       "state": "1e-4 of scale"}}}
+
+
 # ---------------------------------------------------------------------------
 # phases 3-4: the sweeps
 # ---------------------------------------------------------------------------
@@ -632,7 +768,7 @@ class ShapeLog:
 def zero_counts() -> None:
     """Every kernel's launch counter to 0, just before a path runs."""
     SF.launches = SC.launches = FL.launches = RN.launches = 0
-    FL.dq_launches = FL.dkv_launches = RN.bwd_launches = 0
+    FL.dq_launches = FL.dkv_launches = RN.bwd_launches = SSD.launches = 0
 
 
 def model_counts() -> dict:
@@ -660,7 +796,7 @@ def run_sweep(name: str, grid: SW.SweepGrid, want_cells: int,
     with log:
         cold, cold_s, cold_stats = timed_sweep(engine, grid)
     n_sf, n_sc = SF.launches, SC.launches
-    if any(model_counts().values()):
+    if any(model_counts().values()) or SSD.launches:
         fail(f"{name}: the sweep launched a model kernel")
     warm, warm_s, warm_stats = timed_sweep(engine, grid)
     if len(cold) != want_cells:
@@ -730,15 +866,16 @@ class PlainKernels:
 
     def __enter__(self):
         self._saved = (FL.flash_fwd, FL.flash_bwd, RN.rmsnorm_fwd,
-                       RN.rmsnorm_bwd)
+                       RN.rmsnorm_bwd, SSD.ssd_scan)
         FL.flash_fwd, FL.flash_bwd = FL.flash_fwd_plain, FL.flash_bwd_plain
         RN.rmsnorm_fwd, RN.rmsnorm_bwd = RN.rmsnorm_fwd_plain, \
             RN.rmsnorm_bwd_plain
+        SSD.ssd_scan = SSD.ssd_scan_plain
         return self
 
     def __exit__(self, *exc):
         (FL.flash_fwd, FL.flash_bwd, RN.rmsnorm_fwd,
-         RN.rmsnorm_bwd) = self._saved
+         RN.rmsnorm_bwd, SSD.ssd_scan) = self._saved
 
 
 def vlm_batch(cfg, gen: torch.Generator, n_batch: int, n_text: int) -> dict:
@@ -772,34 +909,38 @@ def logits_agree(got, want, what: str) -> dict:
             "same_tokens": int(same.sum()), "tokens": int(same.numel())}
 
 
-def reduced_card_vs_cpu() -> dict:
-    """The reduced llava15-7b, same weights and batch, on the card
-    (kernels) and on the CPU (plain versions): prefill + 4 decode steps."""
-    cfg = get_config(SERVE_ARCH).reduced()
+def reduced_card_vs_cpu(arch: str, make_batch, counts) -> dict:
+    """The reduced ``arch``, same weights and batch (``make_batch(cfg,
+    generator)`` on the CPU), on the card (kernels) and on the CPU (plain
+    versions): prefill + 4 decode steps; ``counts()`` the kernels the card
+    run must launch."""
+    cfg = get_config(arch).reduced()
     model = build_model(cfg)
     gen = torch.Generator()
     gen.manual_seed(SEED)
     cpu_params = model.init(gen, "cpu")
-    cpu_batch = vlm_batch(cfg, gen, 2, 8)
+    cpu_batch = make_batch(cfg, gen)
     card_params = copy.deepcopy(cpu_params).to(DEV)
     card_batch = {k: v.to(DEV) for k, v in cpu_batch.items()}
     prefill, decode = SV.make_prefill_step(model), SV.make_decode_step(model)
-    before = serve_counts()
+    before = counts()
     out = {}
     lc, cc = prefill(cpu_params, cpu_batch)
     lg, cg = prefill(card_params, card_batch)
-    out["prefill"] = logits_agree(lg.cpu(), lc, "reduced prefill card/cpu")
+    out["prefill"] = logits_agree(lg.cpu(), lc,
+                                  f"reduced {arch} prefill card/cpu")
     cc, cg = SV.pad_cache(cc, 4), SV.pad_cache(cg, 4)
     tok = lc[:, -1].argmax(-1)[:, None].to(torch.int32)
     for i in range(4):
         tok_next, lc, cc = decode(cpu_params, tok, cc)
         _, lg, cg = decode(card_params, tok.to(DEV), cg)
         out[f"decode_{i}"] = logits_agree(lg.cpu(), lc,
-                                          f"reduced decode {i} card/cpu")
+                                          f"reduced {arch} decode {i} "
+                                          f"card/cpu")
         tok = tok_next
-    used = {k: serve_counts()[k] - before[k] for k in before}
+    used = {k: counts()[k] - before[k] for k in before}
     if min(used.values()) <= 0:
-        fail(f"reduced card run launched no kernel: {used}")
+        fail(f"reduced {arch} card run launched no kernel: {used}")
     out["launches"] = used
     return out
 
@@ -836,13 +977,134 @@ def device_breakdown(fn, wall_ms: float, top: int = 6):
     part = {name: sum(r[0] for r in rows if name in r[1])
             for name in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                          "flash_bwd_dkv_kernel", "rmsnorm_fwd_kernel",
-                         "rmsnorm_bwd_kernel")}
+                         "rmsnorm_bwd_kernel", "ssd_scan_kernel")}
     part = {k: v for k, v in part.items() if v}
     return {"busy_ms": busy, "wall_ms": wall_ms,
             "busy_share": busy / wall_ms,
             "kernel_ms": part, "kernels": sum(r[2] for r in rows),
             "top": [{"ms": ms, "count": n, "kernel": key[:90]}
                     for ms, key, n in rows[:top]]}
+
+
+def serve_generate(model, params, batch: dict, n_new: int) -> tuple:
+    """The main path, once, through the entry point a user calls, with the
+    launch counters set to 0 just before: (tokens, seconds)."""
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens = SV.generate(model, params, batch, n_new)
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t0
+    n_batch, vocab = next(iter(batch.values())).shape[0], model.cfg.vocab
+    if tuple(tokens.shape) != (n_batch, n_new) or \
+            tokens.dtype != torch.int32 or tokens.device.type != DEV.type or \
+            not bool(((tokens >= 0) & (tokens < vocab)).all()):
+        fail(f"{model.cfg.name}: generate returned {tokens.dtype} "
+             f"{tuple(tokens.shape)} on {tokens.device}")
+    return tokens, generate_s
+
+
+def serve_by_phase(model, params, batch: dict, tokens, counts,
+                   after_prefill) -> dict:
+    """The program ``generate`` ran, phase by phase: the prefill and the
+    decode loop each timed (host clock around work that ends in a
+    synchronize), with its allocator peak and ``counts()`` read after the
+    counters were set to 0; the generated tokens equal ``tokens``.
+    ``after_prefill(logits, cache)`` checks the prefill's outputs (between
+    the two timed phases) and returns its readings.  Then one more decode
+    step (the cache has room for it) and one more prefill under the
+    profiler."""
+    n_batch, n_new = tokens.shape
+    prefill, decode = SV.make_prefill_step(model), SV.make_decode_step(model)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    zero_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_peak = torch.cuda.max_memory_allocated()
+    prefill_launches = counts()
+    if tuple(logits.shape) != (n_batch, 1, model.cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        fail(f"{model.cfg.name}: prefill logits {tuple(logits.shape)} not "
+             f"finite / shaped")
+    checked = after_prefill(logits, cache)
+
+    cache = SV.pad_cache(cache, n_new)
+    with torch.inference_mode():
+        tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+    out_tokens = [tok]
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    for _ in range(n_new - 1):
+        tok, step_logits, cache = decode(params, tok, cache)
+        out_tokens.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    decode_peak = torch.cuda.max_memory_allocated()
+    decode_launches = counts()
+    if not bool(torch.isfinite(step_logits).all()):
+        fail(f"{model.cfg.name}: decode logits not finite")
+    if not torch.equal(torch.cat(out_tokens, dim=1), tokens):
+        fail(f"{model.cfg.name}: the phase-by-phase run generated other "
+             f"tokens than generate")
+
+    # where the device time goes
+    n_steps = n_new - 1
+    on_device = {
+        "decode_step": device_breakdown(
+            lambda: decode(params, tok, cache), decode_s * 1e3 / n_steps),
+        "prefill": device_breakdown(lambda: prefill(params, batch),
+                                    prefill_s * 1e3)}
+    del cache, logits, step_logits
+    return {"prefill_s": prefill_s, "decode_s": decode_s,
+            "n_steps": n_steps, "resident_bytes": resident,
+            "peaks": {"prefill": prefill_peak, "decode": decode_peak},
+            "launches": {"prefill": prefill_launches,
+                         "decode": decode_launches},
+            "checked": checked, "on_device": on_device}
+
+
+def check_launches(name: str, phases: dict, main: dict, want: dict) -> None:
+    """Launches per phase, and of ``generate`` (their sum), exactly the
+    reference's program."""
+    if phases["launches"] != want:
+        fail(f"{name} launches {phases['launches']} != the reference's "
+             f"program {want}")
+    want_main = {k: want["prefill"][k] + want["decode"][k]
+                 for k in want["prefill"]}
+    if main != want_main:
+        fail(f"{name}: generate launched {main}, expected {want_main}")
+
+
+def serve_readings(n_batch: int, n_new: int, generate_s: float, main: dict,
+                   phases: dict, preds: dict) -> dict:
+    """The common part of a serving phase's line."""
+    n_steps = phases["n_steps"]
+    peaks = phases["peaks"]
+    return {
+        "generate_s": generate_s,
+        "tokens_per_s": n_batch * n_new / generate_s,
+        "prefill_ms": phases["prefill_s"] * 1e3,
+        "decode_ms_per_step": phases["decode_s"] * 1e3 / n_steps,
+        "decode_tokens_per_s": n_batch * n_steps / phases["decode_s"],
+        "launches": {"generate": main,
+                     "prefill": phases["launches"]["prefill"],
+                     "decode_per_step": {
+                         k: v / n_steps for k, v in
+                         phases["launches"]["decode"].items()}},
+        "resident_bytes": phases["resident_bytes"],
+        "measured_peak_bytes": peaks,
+        "predicted": preds,
+        "measured_over_predicted": {
+            k: peaks[k] / preds[k]["peak_bytes"] for k in preds},
+        "on_device": phases["on_device"]}
 
 
 def serve_llava15_7b() -> dict:
@@ -859,101 +1121,43 @@ def serve_llava15_7b() -> dict:
     n_img = (cfg.vlm.vit_image_size // cfg.vlm.vit_patch) ** 2
     S = n_img + SERVE_TEXT
 
-    # the main path, once, through the entry point a user calls
-    zero_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    tokens = SV.generate(model, params, batch, SERVE_NEW)
-    torch.cuda.synchronize()
-    generate_s = time.perf_counter() - t0
+    tokens, generate_s = serve_generate(model, params, batch, SERVE_NEW)
     main_launches = serve_counts()
     if SF.launches or SC.launches:
         fail("serving launched a sweep kernel")
     if FL.dq_launches or FL.dkv_launches or RN.bwd_launches:
         fail("serving launched a backward kernel")
-    if tuple(tokens.shape) != (SERVE_BATCH, SERVE_NEW) or \
-            tokens.dtype != torch.int32 or tokens.device.type != DEV.type or \
-            not bool(((tokens >= 0) & (tokens < cfg.vocab)).all()):
-        fail(f"generate returned {tokens.dtype} {tuple(tokens.shape)} on "
-             f"{tokens.device}")
+    if SSD.launches:
+        fail("llava15-7b serving launched the SSD kernel")
     for name, n in main_launches.items():
         if n <= 0:
             fail(f"serving launched the {name} kernel 0 times")
 
-    # the same program phase by phase: time, peak bytes and launches
-    prefill, decode = SV.make_prefill_step(model), SV.make_decode_step(model)
-    gc.collect()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    resident = torch.cuda.memory_allocated()
-    zero_counts()
-    t0 = time.perf_counter()
-    logits, cache = prefill(params, batch)
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
-    prefill_peak = torch.cuda.max_memory_allocated()
-    prefill_launches = serve_counts()
-    if tuple(logits.shape) != (SERVE_BATCH, 1, cfg.vocab) or \
-            not bool(torch.isfinite(logits).all()):
-        fail(f"prefill logits {tuple(logits.shape)} not finite / shaped")
-    kv_shape = (cfg.n_layers, SERVE_BATCH, S, cfg.n_kv_heads,
-                cfg.resolved_head_dim)
-    if tuple(cache["blocks"]["k"].shape) != kv_shape or \
-            not bool((cache["len"] == S).all()):
-        fail(f"prefill cache {tuple(cache['blocks']['k'].shape)} != "
-             f"{kv_shape}")
-
-    # the kernel path against the same prefill through the plain versions
-    with PlainKernels():
-        plain_logits, plain_cache = prefill(params, batch)
-    prefill_vs_plain = logits_agree(logits[:, -1], plain_logits[:, -1],
-                                    "prefill kernel path vs plain path")
-    del plain_logits, plain_cache
-
-    cache = SV.pad_cache(cache, SERVE_NEW)
-    with torch.inference_mode():
-        tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
-    out_tokens = [tok]
-    gc.collect()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    zero_counts()
-    t0 = time.perf_counter()
-    for _ in range(SERVE_NEW - 1):
-        tok, step_logits, cache = decode(params, tok, cache)
-        out_tokens.append(tok)
-    torch.cuda.synchronize()
-    decode_s = time.perf_counter() - t0
-    decode_peak = torch.cuda.max_memory_allocated()
-    decode_launches = serve_counts()
-    if not bool(torch.isfinite(step_logits).all()):
-        fail("decode logits not finite")
-    if not torch.equal(torch.cat(out_tokens, dim=1), tokens):
-        fail("the phase-by-phase run generated other tokens than generate")
-
-    # where the device time goes: one more decode step (the cache has room
-    # for it) and one more prefill, each under the profiler
-    n_steps = SERVE_NEW - 1
-    on_device = {
-        "decode_step": device_breakdown(
-            lambda: decode(params, tok, cache), decode_s * 1e3 / n_steps),
-        "prefill": device_breakdown(lambda: prefill(params, batch),
-                                    prefill_s * 1e3)}
+    def after_prefill(logits, cache):
+        kv_shape = (cfg.n_layers, SERVE_BATCH, S, cfg.n_kv_heads,
+                    cfg.resolved_head_dim)
+        if tuple(cache["blocks"]["k"].shape) != kv_shape or \
+                not bool((cache["len"] == S).all()):
+            fail(f"prefill cache {tuple(cache['blocks']['k'].shape)} != "
+                 f"{kv_shape}")
+        # the kernel path against the same prefill through the plain
+        # versions
+        with PlainKernels():
+            plain_logits, _ = SV.make_prefill_step(model)(params, batch)
+        return logits_agree(logits[:, -1], plain_logits[:, -1],
+                            "prefill kernel path vs plain path")
+    phases = serve_by_phase(model, params, batch, tokens, serve_counts,
+                            after_prefill)
 
     # the reference's program: 24 ViT + 32 LM flash calls in the prefill;
     # RMSNorm 3 per block (norm1 twice: _prefill_kv and the block) + final,
     # and 2 per block + final in each decode step
-    want = {"prefill": {"flash_fwd": cfg.vlm.vit_layers + cfg.n_layers,
-                        "rmsnorm_fwd": 3 * cfg.n_layers + 1},
-            "decode": {"flash_fwd": 0,
-                       "rmsnorm_fwd": n_steps * (2 * cfg.n_layers + 1)}}
-    got = {"prefill": prefill_launches, "decode": decode_launches}
-    if got != want:
-        fail(f"serving launches {got} != the reference's program {want}")
-    want_main = {k: want["prefill"][k] + want["decode"][k] for k in want[
-        "prefill"]}
-    if main_launches != want_main:
-        fail(f"generate launched {main_launches}, expected {want_main}")
+    n_steps = phases["n_steps"]
+    check_launches("serving", phases, main_launches, {
+        "prefill": {"flash_fwd": cfg.vlm.vit_layers + cfg.n_layers,
+                    "rmsnorm_fwd": 3 * cfg.n_layers + 1},
+        "decode": {"flash_fwd": 0,
+                   "rmsnorm_fwd": n_steps * (2 * cfg.n_layers + 1)}})
 
     # the port's own predictor for the same request (XLA byte model,
     # backend="tpu", as examples/serve_batched.py builds it)
@@ -973,29 +1177,191 @@ def serve_llava15_7b() -> dict:
         "new_tokens": SERVE_NEW, "params": sum(
             t.numel() for t in params.parameters()),
         "init_s": init_s,
-        "generate_s": generate_s,
-        "tokens_per_s": SERVE_BATCH * SERVE_NEW / generate_s,
-        "prefill_ms": prefill_s * 1e3,
-        "decode_ms_per_step": decode_s * 1e3 / n_steps,
-        "decode_tokens_per_s": SERVE_BATCH * n_steps / decode_s,
-        "launches": {"generate": main_launches, "prefill": prefill_launches,
-                     "decode_per_step": {k: v / n_steps for k, v in
-                                         decode_launches.items()}},
-        "resident_bytes": resident,
-        "measured_peak_bytes": {"prefill": prefill_peak,
-                                "decode": decode_peak},
-        "predicted": preds,
-        "measured_over_predicted": {
-            k: {"prefill": prefill_peak, "decode": decode_peak}[k]
-            / preds[k]["peak_bytes"] for k in preds},
-        "prefill_vs_plain": prefill_vs_plain,
-        "on_device": on_device,
+        **serve_readings(SERVE_BATCH, SERVE_NEW, generate_s, main_launches,
+                         phases, preds),
+        "prefill_vs_plain": phases["checked"],
     }
-    del params, cache, logits, step_logits, batch
+    del params, batch, phases
     gc.collect()
     torch.cuda.empty_cache()
-    out["reduced_card_vs_cpu"] = reduced_card_vs_cpu()
+    out["reduced_card_vs_cpu"] = reduced_card_vs_cpu(
+        SERVE_ARCH, lambda cfg, gen: vlm_batch(cfg, gen, 2, 8), serve_counts)
     say("serve_llava15_7b " + json.dumps(out))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: serving mamba2-1.3b
+# ---------------------------------------------------------------------------
+
+
+def mamba_counts() -> dict:
+    return {"ssd_scan": SSD.launches, "rmsnorm_fwd": RN.launches}
+
+
+def _rel(got, want) -> float:
+    """max |got - want| over max(1, max |want|): the serving tests' scale."""
+    got, want = got.float(), want.float().to(got.device)
+    return float((got - want).abs().max()) / max(1.0,
+                                                 float(want.abs().max()))
+
+
+def mamba_prefill_paths(cfg, params, batch) -> dict:
+    """The full-size prefill through the kernels and through the plain
+    versions on the same weights and tokens — in bf16 (the served
+    program) and in fp32 (the weights cast) — as each path's
+    last-position logits and final ssm states, and every pair's distance
+    over the compared tensor's scale."""
+    runs = {}
+
+    def run(tag, model, p):
+        logits, cache = SV.make_prefill_step(model)(p, batch)
+        runs[tag] = (logits[:, -1].float(), cache["blocks"]["ssm"])
+        del logits, cache
+
+    model = build_model(cfg)
+    zero_counts()
+    run("bf16_kernels", model, params)
+    if SSD.launches != cfg.n_layers:
+        fail(f"the kernel path's prefill launched the SSD kernel "
+             f"{SSD.launches} times")
+    with PlainKernels():
+        run("bf16_plain", model, params)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = build_model(cfg32)
+    params32 = copy.deepcopy(params).float()
+    run("fp32_kernels", model32, params32)
+    with PlainKernels():
+        run("fp32_plain", model32, params32)
+    del params32
+    out = {}
+    for a, b in (("fp32_kernels", "fp32_plain"),
+                 ("bf16_kernels", "bf16_plain"),
+                 ("bf16_kernels", "fp32_plain"),
+                 ("bf16_plain", "fp32_plain")):
+        out[f"{a}_vs_{b}"] = {"logits": _rel(runs[a][0], runs[b][0]),
+                              "ssm_state": _rel(runs[a][1], runs[b][1])}
+    # greedy tokens, fp32: equal wherever the plain path's top-2 margin
+    # exceeds twice the fp32 tolerance of the logits' scale
+    want = runs["fp32_plain"][0]
+    scale = max(1.0, float(want.abs().max()))
+    top2 = want.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * MAMBA_FP32_TOL * scale
+    same = runs["fp32_kernels"][0].argmax(-1) == want.argmax(-1)
+    out["fp32_tokens"] = {"clear": int(clear.sum()),
+                          "same_where_clear": int(same[clear].sum()),
+                          "same": int(same.sum()), "of": int(same.numel())}
+    out["bf16_same_greedy_tokens"] = int(
+        (runs["bf16_kernels"][0].argmax(-1)
+         == runs["bf16_plain"][0].argmax(-1)).sum())
+    out["logits_scale"] = float(runs["bf16_plain"][0].abs().max())
+    return out
+
+
+def check_mamba_paths(paths: dict) -> None:
+    """The gates on ``mamba_prefill_paths``: in fp32 the kernel path
+    equals the plain path within MAMBA_FP32_TOL of the logits' and the
+    states' scale, with the same greedy tokens where the margin is clear.
+    The bf16 distances are printed, not gated: at full depth they measure
+    the rounding spread of 48 random layers (PERF.md § 6)."""
+    f = paths["fp32_kernels_vs_fp32_plain"]
+    if max(f.values()) > MAMBA_FP32_TOL:
+        fail(f"mamba2 fp32 prefill, kernel path vs plain path: {f} of "
+             f"scale (tolerance {MAMBA_FP32_TOL})")
+    t = paths["fp32_tokens"]
+    if t["same_where_clear"] != t["clear"]:
+        fail(f"mamba2 fp32 prefill: greedy tokens differ where clear: {t}")
+
+
+def serve_mamba2_1_3b() -> dict:
+    """mamba2-1.3b at full width and depth with random weights from a
+    seeded generator on the card: 4 requests x 2,000 prompt tokens, 32
+    greedy tokens through ``generate``, then the same program phase by
+    phase."""
+    cfg = get_config(MAMBA_ARCH)
+    model = build_model(cfg)
+    meta = model.spec.children[1].layers[1].meta
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(gen, DEV)
+    batch = {"tokens": torch.randint(0, cfg.vocab,
+                                     (MAMBA_BATCH, MAMBA_PROMPT),
+                                     generator=gen, device=DEV,
+                                     dtype=torch.int32)}
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    B_, S = MAMBA_BATCH, MAMBA_PROMPT
+
+    tokens, generate_s = serve_generate(model, params, batch, MAMBA_NEW)
+    main_launches = mamba_counts()
+    if SF.launches or SC.launches or any(
+            v for k, v in model_counts().items() if k != "rmsnorm_fwd"):
+        fail(f"mamba2 serving launched another kernel: {model_counts()}")
+
+    def after_prefill(logits, cache):
+        H, P, N = meta["n_heads"], meta["head_dim"], meta["d_state"]
+        want_shapes = {"ssm": ((cfg.n_layers, B_, H, P, N), torch.float32),
+                       "conv": ((cfg.n_layers, B_, meta["d_conv"] - 1,
+                                 meta["conv_ch"]), torch.bfloat16)}
+        for key, (shape, dtype) in want_shapes.items():
+            leaf = cache["blocks"][key]
+            if tuple(leaf.shape) != shape or leaf.dtype != dtype or \
+                    not bool(torch.isfinite(leaf.float()).all()):
+                fail(f"mamba2 prefill cache {key}: {leaf.dtype} "
+                     f"{tuple(leaf.shape)}, expected {dtype} {shape}")
+        if not bool((cache["len"] == S).all()):
+            fail("mamba2 prefill cache len")
+        # the kernel path against the same prefill through the plain
+        # versions, in bf16 and in fp32
+        paths = mamba_prefill_paths(cfg, params, batch)
+        check_mamba_paths(paths)
+        return paths
+    phases = serve_by_phase(model, params, batch, tokens, mamba_counts,
+                            after_prefill)
+
+    # the reference's program: one SSD per layer in the prefill and none
+    # in decode; RMSNorm twice per layer (block norm, gated norm) + the
+    # final norm in the prefill and in each decode step
+    L, n_steps = cfg.n_layers, phases["n_steps"]
+    check_launches("mamba2 serving", phases, main_launches, {
+        "prefill": {"ssd_scan": L, "rmsnorm_fwd": 2 * L + 1},
+        "decode": {"ssd_scan": 0, "rmsnorm_fwd": n_steps * (2 * L + 1)}})
+
+    # the port's own predictor for the same request (planner.check, the
+    # XLA byte model, backend="tpu", one device)
+    preds = {}
+    for kind, seq in (("prefill", S), ("decode", S + MAMBA_NEW)):
+        rep = PL.check(MAMBA_ARCH, ShapeConfig("serve", seq, B_, kind), {},
+                       backend="tpu", chip="h100")
+        p = rep.prediction
+        preds[kind] = {"peak_bytes": p.peak_bytes,
+                       "param_bytes": p.param_bytes,
+                       "cache_bytes": p.cache_bytes,
+                       "act_transient_bytes": p.act_transient_bytes,
+                       "input_bytes": p.input_bytes,
+                       "fits_h100": rep.fits}
+    out = {
+        "arch": MAMBA_ARCH, "requests": B_, "prompt_tokens": S,
+        "new_tokens": MAMBA_NEW, "n_layers": L,
+        "params": sum(t.numel() for t in params.parameters()),
+        "param_bytes": sum(t.numel() * t.element_size()
+                           for t in params.parameters()),
+        "init_s": init_s,
+        **serve_readings(B_, MAMBA_NEW, generate_s, main_launches, phases,
+                         preds),
+        "prefill_tokens_per_s": B_ * S / phases["prefill_s"],
+        "prefill_vs_plain": phases["checked"],
+    }
+    del params, batch, phases
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["reduced_card_vs_cpu"] = reduced_card_vs_cpu(
+        MAMBA_ARCH, lambda cfg, gen: {"tokens": torch.randint(
+            0, cfg.vocab, (2, 40), generator=gen, dtype=torch.int32)},
+        mamba_counts)
+    say("serve_mamba2_1_3b " + json.dumps(out))
     return out
 
 
@@ -1146,8 +1512,8 @@ def train_phase(name: str, cfg, policy, cut: str, problems: list) -> dict:
         if not np.isfinite(loss) or not np.isfinite(
                 float(metrics["grad_norm"])):
             fail(f"{name}: step {i} loss {loss} / grad_norm not finite")
-        if SF.launches or SC.launches:
-            fail(f"{name}: training launched a sweep kernel")
+        if SF.launches or SC.launches or SSD.launches:
+            fail(f"{name}: training launched a sweep or the SSD kernel")
         if launches != want:
             fail(f"{name}: step {i} launched {launches}, the reference's "
                  f"program {want}")
@@ -1570,7 +1936,8 @@ def time_model_kernels(checks: dict, launches: dict) -> list:
     dq, dkv = _flash_bwd_timing(lm_shape, True, gen)
     rn_main = _rmsnorm_timing((TRAIN_BATCH * S_train, cfg.d_model), gen)
     rn_other = [_rmsnorm_timing((SERVE_BATCH * S_serve, cfg.d_model), gen),
-                _rmsnorm_timing((SERVE_BATCH, 1, cfg.d_model), gen)]
+                _rmsnorm_timing((SERVE_BATCH, 1, cfg.d_model), gen),
+                _rmsnorm_timing((MAMBA_BATCH * MAMBA_PROMPT, 4096), gen)]
     rn_bwd = _rmsnorm_bwd_timing((TRAIN_BATCH * S_train, cfg.d_model), gen)
     out = []
     # per kernel: its check, the outputs of that check that are its own,
@@ -1610,6 +1977,66 @@ def time_model_kernels(checks: dict, launches: dict) -> list:
     return out
 
 
+def ssd_work(case) -> tuple:
+    """(operations, bytes) of one SSD call, as the function needs them:
+    per (b, chunk) the lower triangle of C B^T (Q(Q+1)/2 dot products of
+    length N), which all heads share (G = 1); per (b, h, chunk) its
+    masked product with x dt (Q(Q+1)/2 x P multiply-adds), C state^T and
+    the state update (4QNP); over the chunks the data has, the ragged
+    last one at its own length; x, y, B, C in bf16, dt, A and the final
+    state in fp32, each read or written once."""
+    b, S, H, P, N, chunk = case
+    qs = [min(chunk, S - c0) for c0 in range(0, S, chunk)]
+    n_ops = b * sum(q * (q + 1) * N + H * (q * (q + 1) * P + 4 * q * N * P)
+                    for q in qs)
+    n_bytes = 2 * (2 * b * S * H * P + 2 * b * S * N) + 4 * (
+        b * S * H + H + b * H * P * N)
+    return n_ops, n_bytes
+
+
+def time_ssd(checks: dict, launches: dict) -> dict:
+    """The SSD kernel at the serving path's prefill shape, bf16: the
+    wrapper call (CUDA events, median of 30), the kernel alone (profiler),
+    the plain version; no single PyTorch call computes the SSD scan."""
+    cfg = get_config(MAMBA_ARCH)
+    case = (MAMBA_BATCH, MAMBA_PROMPT, cfg.ssm.n_heads(cfg.d_model),
+            cfg.ssm.head_dim, cfg.ssm.d_state, cfg.ssm.chunk)
+    if case != SERVE_SSD_CASE:
+        fail(f"the checked SSD shape {SERVE_SSD_CASE} is not the serving "
+             f"path's {case}")
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 6)
+    args = ssd_inputs(case, gen, torch.bfloat16)
+    n_ops, n_bytes = ssd_work(case)
+    bound_ms, bound_by = _bound(n_bytes, n_ops, BF16_OPS_PER_S)
+    c = checks["ssd_scan"]
+    b, S, H, P, N, chunk = case
+    entry = {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/ssd.py:25",
+        "launches": launches["ssd_scan"],
+        "max_abs_err": c["max_abs_err"],
+        "max_abs_err_at_shape": c["max_abs_err_by_case"][case_key(case)],
+        "shape": {"b": b, "S": S, "H": H, "P": P, "N": N, "chunk": chunk,
+                  "dtype": "bfloat16"},
+        "ms": event_ms(lambda: SSD.ssd_scan(*args, chunk=chunk)),
+        "device_ms": device_ms(lambda: SSD.ssd_scan(*args, chunk=chunk),
+                               "ssd_scan_kernel"),
+        "plain_ms": event_ms(lambda: SSD.ssd_scan_plain(*args, chunk=chunk),
+                             launches=10),
+        "library_ms": None, "library": "none exists",
+        "bound_ms": bound_ms, "bound_by": bound_by, "flops": n_ops,
+        "bytes": n_bytes,
+        "grid_blocks": b * H, "sms": torch.cuda.get_device_properties(
+            DEV).multi_processor_count,
+        "smem_bytes_per_block": SSD.smem_bytes(P, N, chunk)}
+    if not (entry["ms"] > 0 and entry["plain_ms"] > 0
+            and entry["bound_ms"] > 0):
+        fail("ssd_scan: a timing came back non-positive")
+    return entry
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -1630,7 +2057,8 @@ def main() -> int:
     # phase 2: kernels against their plain versions
     checks = {}
     for check in (check_shard_factor, check_segmented_cummax, check_flash,
-                  check_rmsnorm, check_flash_bwd, check_rmsnorm_bwd):
+                  check_rmsnorm, check_flash_bwd, check_rmsnorm_bwd,
+                  check_ssd):
         c = check()
         checks[c["name"]] = c
     say("kernels_check " + json.dumps(list(checks.values())))
@@ -1653,6 +2081,11 @@ def main() -> int:
     launches.update({k: 0 for k in model_counts()})
     launches.update(serve["launches"]["generate"])
 
+    # phase 5b: serving mamba2-1.3b
+    mamba = serve_mamba2_1_3b()
+    launches["rmsnorm_fwd"] += mamba["launches"]["generate"]["rmsnorm_fwd"]
+    launches["ssd_scan"] = mamba["launches"]["generate"]["ssd_scan"]
+
     # phase 6: training, stage 1 at full size, stage 2 with 8 LM blocks
     for phase in train_llava15_7b():
         for k, n in phase["launches_total"].items():
@@ -1660,7 +2093,7 @@ def main() -> int:
 
     # phase 7: kernel timings at the main paths' shapes
     kernels = time_kernels(log, checks, launches) + \
-        time_model_kernels(checks, launches)
+        time_model_kernels(checks, launches) + [time_ssd(checks, launches)]
     for k in kernels:
         dev = "not measured" if k["device_ms"] is None \
             else f"{k['device_ms'] * 1e3:.1f} us"

@@ -38,7 +38,7 @@ and materialize :class:`SweepResult` rows lazily.
 Not ported yet, and rejected with one clean error naming what is missing:
 calibration profiles and residual models, request mixes and speculative
 draft arches, the ``expert``/``context`` mesh axes, ``keep_predictions``,
-and the MLA / MoE / SSM / hybrid / enc-dec architecture families.
+and the MLA / MoE / hybrid / enc-dec architecture families.
 
 CLI::
 

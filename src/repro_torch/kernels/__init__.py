@@ -14,8 +14,10 @@ autograd Functions run the backward kernels in the backward):
   backward (``flash_bwd``: the dq pass and the dk / dv pass).
 * ``rmsnorm``          — fused RMSNorm forward (``rmsnorm_fwd``) and
   backward (``rmsnorm_bwd``).
+* ``ssd``              — the Mamba-2 chunked SSD scan (``ssd_scan``),
+  forward only, behind every SSM prefill layer.
 
-``ref`` holds the plain-PyTorch oracles of the last two.
+``ref`` holds the plain-PyTorch oracles of the last three.
 
 Each module holds the kernels' wrappers, plain PyTorch versions of the
 same functions (used for CPU tensors and as the on-device cross-check) and

@@ -142,5 +142,10 @@ def load():
             c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_int, c_ll, c_int, c_int,
             c_float, c_ptr]
         lib.rmsnorm_bwd_launch.restype = c_int
+        lib.ssd_scan_launch.argtypes = [
+            c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_int, c_int,
+            c_int, c_int, c_int, c_int, c_int, ctypes.POINTER(c_ll), c_ll,
+            c_ptr]
+        lib.ssd_scan_launch.restype = c_int
         _lib = lib
         return lib

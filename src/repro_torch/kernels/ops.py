@@ -1,4 +1,4 @@
-"""The model code's entry points to the attention and RMSNorm kernels.
+"""The model code's entry points to the attention, RMSNorm and SSD kernels.
 
 ``flash_attention`` and ``rmsnorm`` stand where the reference's models call
 their pure-``lax`` twins of the Pallas kernels
@@ -16,6 +16,12 @@ kernel and whose backward is the backward kernel(s):
 
 The attention forward saves ``q, k, v, out, lse`` for its backward; the
 RMSNorm forward saves ``x, scale``.
+
+``ssd_scan`` stands where the reference's SSM prefill calls the SSD's
+pure-``lax`` twin (``repro.models.mamba.ssd_chunked``); like the
+reference's ``ops.ssd_scan`` it is forward only — no Function, and a
+request for a gradient raises (the SSM family's training, which takes
+``ssd_chunked``, is not ported yet).
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import rmsnorm as _rn
+from repro_torch.kernels import ssd as _ssd
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -67,3 +74,16 @@ def flash_attention(q, k, v, causal: bool = True, q_offset: int = 0):
 def rmsnorm(x, scale, eps: float = 1e-5):
     """RMSNorm over the last dim of x (any leading shape)."""
     return _RMSNorm.apply(x.contiguous(), scale.contiguous(), eps)
+
+
+def ssd_scan(x, dt, A, B, C, chunk: int = 256):
+    """Chunked SSD, forward only.  x: (b,S,H,P); dt: (b,S,H) fp32
+    post-softplus; A: (H,) fp32; B, C: (b,S,N) -> (y (b,S,H,P), final
+    state (b,H,P,N) fp32).  x, B and C may be views (strided tokens)."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in (x, dt, A, B, C)):
+        raise NotImplementedError(
+            "ssd_scan is forward only: the SSM family's training path "
+            "(ssd_chunked) is not ported yet")
+    return _ssd.ssd_scan(x, dt, A, B, C, chunk)

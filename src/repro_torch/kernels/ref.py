@@ -2,9 +2,9 @@
 
 Each function is the mathematical definition the kernel must match,
 written as directly as possible (naive O(S^2) attention with the KV heads
-repeated, an fp32 RMSNorm); the tests hold the kernels' plain versions and
-the reference package against them.  The SSD oracle comes with the SSM
-family.
+repeated, an fp32 RMSNorm, the SSD as its sequential recurrence); the
+tests hold the kernels' plain versions and the reference package against
+them.
 """
 
 from __future__ import annotations
@@ -39,3 +39,23 @@ def rmsnorm_ref(x, scale, eps: float = 1e-5):
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def ssd_ref(x, dt, A, B, C, initial_state=None):
+    """Sequential Mamba-2 SSD recurrence (group size 1).
+
+    x: (b, S, H, P); dt: (b, S, H) post-softplus; A: (H,) negative;
+    B, C: (b, S, N).  Returns (y (b,S,H,P) in x's type, final_state
+    (b,H,P,N) fp32)."""
+    b, S, H, P = x.shape
+    N = B.shape[-1]
+    st = (initial_state.float() if initial_state is not None
+          else x.new_zeros((b, H, P, N), dtype=torch.float32))
+    ys = []
+    for t in range(S):
+        dA = torch.exp(dt[:, t] * A[None, :])             # (b, H)
+        dBx = torch.einsum("bn,bhp,bh->bhpn", B[:, t].float(),
+                           x[:, t].float(), dt[:, t].float())
+        st = st * dA[..., None, None] + dBx
+        ys.append(torch.einsum("bhpn,bn->bhp", st, C[:, t].float()))
+    return torch.stack(ys, 1).to(x.dtype), st

@@ -22,11 +22,13 @@ the trainable ones:
   (``merge_params`` has no counterpart: the tree is never split).
 
 * :func:`init_params` follows the reference's ``_init_leaf`` rules
-  (normal scaled by 1/sqrt(fan-in), ``embed`` x 0.02, zeros, ones) in the
-  spec's dtype, drawing from an explicit ``torch.Generator`` on the
-  target device.  The generator is not JAX's, so the values differ from
-  the reference's for the same seed; tests carry the reference's values
-  across with :func:`params_from_numpy`.
+  (normal scaled by 1/sqrt(fan-in), ``embed`` x 0.02, zeros, ones, the
+  SSM's ``ssm_a`` = log U[1, 16) and ``dt_bias`` = softplus^-1 of a
+  log-uniform dt in [1e-3, 1e-1]) in the spec's dtype, drawing from an
+  explicit ``torch.Generator`` on the target device.  The generator is
+  not JAX's, so the values differ from the reference's for the same
+  seed; tests carry the reference's values across with
+  :func:`params_from_numpy`.
 * :func:`params_from_numpy` takes the reference's parameter tree as numpy
   arrays (stacked leaves included) and returns the port's tree with every
   value bit-equal.
@@ -112,9 +114,20 @@ def _init_leaf(p: ParamSpec, generator: torch.Generator,
         return torch.zeros(shape, dtype=dtype, device=device)
     if p.init == "ones":
         return torch.ones(shape, dtype=dtype, device=device)
+    if p.init == "ssm_a":
+        # Mamba A_log: log of uniform [1, 16)
+        u = torch.rand(shape, generator=generator, dtype=torch.float32,
+                       device=device) * 15.0 + 1.0
+        return torch.log(u).to(dtype)
+    if p.init == "dt_bias":
+        # softplus^-1 of a log-uniform dt in [1e-3, 1e-1]
+        lo, hi = math.log(1e-3), math.log(0.1)
+        dt = torch.exp(torch.rand(shape, generator=generator,
+                                  dtype=torch.float32, device=device)
+                       * (hi - lo) + lo)
+        return (dt + torch.log(-torch.expm1(-dt))).to(dtype)
     if p.init not in ("normal", "embed"):
-        raise NotImplementedError(
-            f"init {p.init!r} (SSM parameters) is not ported yet")
+        raise ValueError(f"unknown init {p.init!r}")
     fan_in = p.shape[0] if len(p.shape) >= 2 else max(
         p.shape[-1] if p.shape else 1, 1)
     scale = p.init_scale / math.sqrt(max(fan_in, 1))

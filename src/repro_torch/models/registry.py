@@ -13,9 +13,10 @@
 * ``batch_spec(shape)``            — shape/dtype records for every input
 
 The dense-GQA decoder LMs and the VLMs built on them are here: spec,
-training loss and serving path.  The MLA / MoE / SSM /
-hybrid / enc-dec families raise ``NotImplementedError`` until they are
-ported.
+training loss and serving path.  The pure-SSM family (mamba2) has its
+spec and serving path; its ``loss`` raises ``NotImplementedError`` until
+its training is ported.  The MLA / MoE / hybrid / enc-dec families raise
+``NotImplementedError`` until they are ported.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 from repro_torch.configs import ArchConfig, ShapeConfig
 from repro_torch.core.spec import ModuleSpec
 from repro_torch.models import param as PM
+from repro_torch.models import ssm_lm as S
 from repro_torch.models import transformer as T
 from repro_torch.models import vlm as V
 
@@ -52,22 +54,33 @@ class Model:
         return PM.params_from_numpy(tree, device, self.spec)
 
     def loss(self, params, batch: dict, remat=None):
+        if self.cfg.family == "ssm":
+            raise NotImplementedError(
+                f"{self.cfg.name}: the SSM family's training (ssm_loss, "
+                f"ssm_backbone, mamba2_forward, ssd_chunked) is not ported "
+                f"yet; it comes with the SSM training slice")
         if self.cfg.family == "vlm":
             return V.vlm_loss(self.cfg, params, batch, remat=remat)
         return T.lm_loss(self.cfg, params, batch["tokens"], batch["labels"],
                          remat=remat)
 
     def prefill(self, params, batch: dict):
+        if self.cfg.family == "ssm":
+            return S.ssm_prefill(self.cfg, params, batch)
         if self.cfg.family == "vlm":
             return V.vlm_prefill(self.cfg, params, batch)
         return T.lm_prefill(self.cfg, params, batch["tokens"])
 
     def decode_step(self, params, token, cache: dict):
+        if self.cfg.family == "ssm":
+            return S.ssm_decode_step(self.cfg, params, token, cache)
         if self.cfg.family == "vlm":
             return V.vlm_decode_step(self.cfg, params, token, cache)
         return T.lm_decode_step(self.cfg, params, token, cache)
 
     def init_cache(self, batch: int, max_len: int, device="cuda") -> dict:
+        if self.cfg.family == "ssm":
+            return S.ssm_init_cache(self.cfg, batch, max_len, device)
         return T.init_kv_cache(self.cfg, batch, max_len, device)
 
     def batch_spec(self, shape: ShapeConfig) -> dict:
@@ -103,8 +116,10 @@ def build_model(cfg: ArchConfig) -> Model:
         return Model(cfg=cfg, spec=T.lm_spec(cfg))
     if fam == "vlm":
         return Model(cfg=cfg, spec=V.vlm_model_spec(cfg))
-    if fam in ("moe", "ssm", "hybrid", "encdec"):
+    if fam == "ssm":
+        return Model(cfg=cfg, spec=S.ssm_model_spec(cfg))
+    if fam in ("moe", "hybrid", "encdec"):
         raise NotImplementedError(
             f"{cfg.name}: the {fam!r} family's spec functions are not ported "
-            f"yet (supported: dense GQA decoders and VLMs)")
+            f"yet (supported: dense GQA decoders, VLMs and pure SSMs)")
     raise ValueError(f"unknown family {fam!r}")

@@ -41,6 +41,8 @@ for want in ("repro_torch.core.batch_torch", "repro_torch.core.sweep",
              "repro_torch.kernels.segmented_cummax",
              "repro_torch.kernels.flash_attention",
              "repro_torch.kernels.rmsnorm", "repro_torch.kernels.ops",
+             "repro_torch.kernels.ssd", "repro_torch.models.mamba",
+             "repro_torch.models.ssm_lm",
              "repro_torch.kernels.ref", "repro_torch.models.param",
              "repro_torch.models.vit", "repro_torch.models.vlm",
              "repro_torch.serve.serve_step",
@@ -151,7 +153,7 @@ def test_cli(extra, rc, needle):
 
 def test_cli_rejects_unported_family():
     r = run_fresh("import sys; from repro_torch.core.sweep import main; "
-                  "sys.exit(main(['--arch', 'mamba2_1_3b', '--chips', '4', "
+                  "sys.exit(main(['--arch', 'zamba2_2_7b', '--chips', '4', "
                   "'--device', 'cpu']))")
     assert r.returncode == 2
     assert "not ported yet" in r.stderr
@@ -159,7 +161,7 @@ def test_cli_rejects_unported_family():
 
 BUILD_WITHOUT_NVCC = """
 from repro_torch.kernels import _build
-assert len(_build.sources()) == 5
+assert len(_build.sources()) == 6
 try:
     _build.load()
 except RuntimeError as e:

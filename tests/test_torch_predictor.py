@@ -16,7 +16,7 @@ from repro_torch.core import planner as PL
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
 SUPPORTED = ("llava15-7b", "llava-next-mistral-7b", "llama3.1-8b",
-             "llama3.2-3b", "smollm-360m", "qwen3-32b")
+             "llama3.2-3b", "smollm-360m", "qwen3-32b", "mamba2-1.3b")
 
 # the canonical cell every snapshot is taken at
 CANON_MESH = {"data": 2, "model": 2}
@@ -73,6 +73,33 @@ def test_check_reproduces_golden(arch, leg):
     assert set(got) == set(want)
     assert not first_divergence(want, got), first_divergence(want, got)
     assert rep.budget_bytes == int(RPL.chip_hbm(CANON_CHIP) * RPL.HEADROOM)
+
+
+# the golden decode_paged leg is taken under a request mix (serve/fleet.py,
+# not ported); an SSM keeps no paged KV, so the mix moves none of its bytes
+# and the mix-free serve knobs reproduce the leg
+PAGED_SERVE = dict(block_size=16, utilization=0.9, prefix_hit_rate=0.5,
+                   prefix_len=256)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b"])
+def test_check_reproduces_paged_golden_without_kv(arch):
+    from repro_torch.serve.pool import ServeSpec
+    with open(os.path.join(GOLDEN_DIR, f"{arch}.json")) as f:
+        want = json.load(f)["decode_paged"]["raw"]
+    rep = PL.check(arch, ShapeConfig("golden", CANON_SEQ, CANON_BATCH,
+                                     "decode"),
+                   dict(CANON_MESH), backend=CANON_BACKEND, chip=CANON_CHIP,
+                   serve=ServeSpec.make(**PAGED_SERVE))
+    got = {c: int(getattr(rep.prediction, c)) for c in COMPONENTS
+           + ("pool_bytes", "hit_saved_bytes", "draft_bytes")}
+    got["per_module"] = {
+        path: {k: (int(v) if k != "trainable" else bool(v))
+               for k, v in m.items()}
+        for path, m in rep.prediction.per_module.items()}
+    assert set(got) == set(want)
+    assert not first_divergence(want, got), first_divergence(want, got)
+    assert got["pool_bytes"] == 0
 
 
 def _sample():

@@ -1,7 +1,8 @@
 """Spec layer of the port against the reference: ``parse_model`` rows are
-equal field for field for the six supported archs under every TrainPolicy
-preset, ``from_reference`` carries a reference tree across unchanged, and
-the families without spec functions raise."""
+equal field for field for the seven supported archs under every
+TrainPolicy preset, ``from_reference`` carries a reference tree across
+unchanged, and the families without spec functions raise (mamba2, which
+serves, raises for its unported training)."""
 
 import dataclasses
 
@@ -17,9 +18,9 @@ from repro_torch.core import spec as TS
 from repro_torch.models import build_model
 
 SUPPORTED = ("llava15-7b", "llava-next-mistral-7b", "llama3.1-8b",
-             "llama3.2-3b", "smollm-360m", "qwen3-32b")
-UNSUPPORTED = ("arctic-480b", "deepseek-v2-lite-16b", "mamba2-1.3b",
-               "minicpm3-4b", "seamless-m4t-large-v2", "zamba2-2.7b")
+             "llama3.2-3b", "smollm-360m", "qwen3-32b", "mamba2-1.3b")
+UNSUPPORTED = ("arctic-480b", "deepseek-v2-lite-16b", "minicpm3-4b",
+               "seamless-m4t-large-v2", "zamba2-2.7b")
 POLICIES = ("FULL_TRAIN", "LLAVA_STAGE1", "LLAVA_STAGE2")
 
 
@@ -84,7 +85,12 @@ def test_batch_spec_equals_reference(arch, kind):
         assert TS.dtype_bytes(got[name].dtype) == ref[name].dtype.itemsize
 
 
-@pytest.mark.parametrize("arch", UNSUPPORTED)
+@pytest.mark.parametrize("arch", UNSUPPORTED + ("mamba2-1.3b",))
 def test_unsupported_families_raise(arch):
+    if arch in SUPPORTED:        # serves; its training is not ported yet
+        model = build_model(get_config(arch))
+        with pytest.raises(NotImplementedError, match="not ported"):
+            model.loss(None, {})
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         build_model(get_config(arch))

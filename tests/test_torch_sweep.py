@@ -54,6 +54,17 @@ GRIDS = {
                             "qwen3-32b", "llava-next-mistral-7b"),
                       chips=8, remats=(None, "none"), grad_accums=(1, 2),
                       global_batches=(8, 32), seq_lens=(512, 1024)),
+    # the pure-SSM family: fp32 state + conv tail in place of a KV cache
+    "mamba2-train": dict(arch="mamba2-1.3b", chips=(4, 8),
+                         chip=("v5e", "h100"),
+                         optimizers=(None, "adafactor"),
+                         remats=("none", "block"), grad_accums=(1, 2),
+                         global_batches=(8, 32), seq_lens=(1024, 4096),
+                         kind="train"),
+    "mamba2-decode": dict(arch="mamba2-1.3b", chips=(4, 8), kind="decode",
+                          global_batches=(4, 16), seq_lens=(2048, 8192),
+                          block_sizes=(0, 16), prefix_hit_rates=(0.0, 0.5),
+                          prefix_len=256),
     "paged-decode": dict(arch=("llava15-7b", "llama3.2-3b"), chips=8,
                          kind="decode", global_batches=(4, 8),
                          seq_lens=(1024, 2048), block_sizes=(0, 16),
@@ -228,8 +239,8 @@ def test_deferred_knobs_are_rejected(knob, engine):
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "minicpm3-4b",
-                                  "mamba2-1.3b", "zamba2-2.7b",
-                                  "seamless-m4t-large-v2", "arctic-480b"])
+                                  "zamba2-2.7b", "seamless-m4t-large-v2",
+                                  "arctic-480b"])
 def test_unsupported_families_are_rejected_by_the_sweep(arch):
     grid = SW.SweepGrid(arch=arch, chips=4, global_batches=(8,),
                         seq_lens=(512,))
