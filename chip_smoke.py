@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
-    python3 chip_smoke.py          # needs one CUDA device and nvcc
+    python3 chip_smoke.py                  # needs one CUDA device and nvcc
+    python3 chip_smoke.py --kernels-only   # phases 1, 2 and the model
+                                           # kernels' timings; no result
 
 Drives the port's four paths on the CUDA device — the capacity sweep of
 llava15-7b at its published widths through ``SweepEngine.sweep(grid,
@@ -12,7 +14,9 @@ paper's fig2b setting through ``repro_torch.train`` — and holds every
 hand-written kernel against its plain PyTorch version on the card.
 Phases (any failure exits non-zero):
 
-1. toolchain + card line, then the kernels' build (set-up time);
+1. toolchain + card line, then the kernels' build (set-up time) and the
+   ``ptxas`` line: registers, spills and stack of the bf16 tensor-core
+   flash kernels from ``ptxas -v``;
 2. ``kernels_check``: ``shard_factor`` on randomized step programs and
    ``segmented_cummax`` on random delta stacks, kernel == plain version,
    exact int64 equality (tolerance 0); ``flash_fwd`` and ``rmsnorm_fwd``
@@ -22,7 +26,9 @@ Phases (any failure exits non-zero):
    ``flash_bwd`` (the dq and the dk/dv kernels) on the same cases and the
    training path's shapes, fp32 within 5e-4 and bf16 within 2e-2 of each
    gradient's scale, and ``rmsnorm_bwd`` (dx and dscale, 1e-4 / 2e-2),
-   each also bit-equal on a second launch; ``ssd_scan`` on the
+   each (the forward too) also bit-equal on a second launch, and every
+   wrapper refusing what its kernel does not take (a bf16 view off the
+   16-byte grid for the tensor-core kernels); ``ssd_scan`` on the
    reference's three SSD cases, a prompt shorter than the chunk and the
    mamba2 prefill's full-width shape (4, 2,000, 64, 64, 128, 256): y and
    the final state within 1e-4 in fp32, bf16 y within 2e-2 and the state
@@ -38,8 +44,9 @@ Phases (any failure exits non-zero):
    per step, tokens/s, kernel launches per phase, the allocator's peak
    bytes of prefill and of the decode loop beside the port's own
    ``core.predictor`` prediction for the same request; the kernel path's
-   prefill logits against the same prefill through the plain versions,
-   and the reduced config on the card against the CPU;
+   prefill logits against the same prefill through the plain versions
+   (the gate), both against the plain prefill of the weights cast to
+   fp32 (a reading), and the reduced config on the card against the CPU;
 5b. ``serve_mamba2_1_3b``: mamba2-1.3b at full width and all 48 layers
    with random weights from a seeded generator on the card, 4 requests
    of 2,000 prompt tokens, 32 greedy new tokens: the same readings as
@@ -58,7 +65,8 @@ Phases (any failure exits non-zero):
    step under the profiler; the loss and every trainable leaf's gradient
    through the fp32 kernels against the fp32 plain versions (within
    ``FP32_GRAD_TOL`` of each leaf's scale), and the bf16 paths' spread
-   from them as a reading; for stage 2 also the planner's
+   from them as a reading (stage 1's again on a line of its own); for
+   stage 2 also the planner's
    full-depth verdict on an H100 and the reduced config on the card
    against the CPU;
 7. timings: cold / warm wall time, cells/s and the phase split of each
@@ -67,7 +75,9 @@ Phases (any failure exits non-zero):
    own device time from a profiler trace (``device_ms``), the plain
    version's time, the roofline bound and the time of the one PyTorch
    call that computes the same function, where there is one (none for
-   the SSD scan).
+   the SSD scan), with ``share_of_bound`` (bound / kernel alone) and
+   ``vs_library`` (kernel alone / library call); the sweep kernels with
+   the L2 flushed before each timed launch (their operands fit in it).
 
 Each path is run with the kernels' launch counters set to 0 just before
 and read just after; a kernel of the path that was launched no time fails
@@ -83,6 +93,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -403,6 +414,14 @@ def _refuses(call, errors=(TypeError, ValueError)) -> bool:
     return False
 
 
+def unaligned_bf16(shape) -> torch.Tensor:
+    """A contiguous bf16 tensor that starts 2 bytes past a 16-byte
+    boundary."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 1, dtype=torch.bfloat16, device=DEV)[1:] \
+        .view(shape)
+
+
 def check_flash() -> dict:
     gen = torch.Generator(device=DEV)
     gen.manual_seed(SEED)
@@ -416,7 +435,11 @@ def check_flash() -> dict:
                             device=DEV).to(dt)
             qoff = skv - sq if causal else 0
             out, lse = FL.flash_fwd(q, k, v, causal=causal, q_offset=qoff)
+            again = FL.flash_fwd(q, k, v, causal=causal, q_offset=qoff)
             torch.cuda.synchronize()
+            if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+                fail(f"flash_fwd: two launches differ ({dt}, case "
+                     f"{(b, sq, skv, h, hkv, d, dv, causal)})")
             p_out, p_lse = FL.flash_fwd_plain(q, k, v, causal=causal,
                                               q_offset=qoff)
             tol = TOLERANCE[dt]
@@ -430,13 +453,15 @@ def check_flash() -> dict:
                          f"{dt}, case {(b, sq, skv, h, hkv, d, dv, causal)}"
                          f": max abs diff {err}, tolerance {tol})")
             cases += 1
-            del q, k, v, out, lse, p_out, p_lse
-    # what the kernel does not take raises (no fallback)
+            del q, k, v, out, lse, again, p_out, p_lse
+    # what the kernels do not take raises (no fallback)
     q = torch.zeros(1, 8, 4, 64, device=DEV)
     bad = [lambda: FL.flash_fwd(q[..., :48], q[..., :48], q[..., :48]),
            lambda: FL.flash_fwd(q.transpose(1, 2), q.transpose(1, 2),
                                 q.transpose(1, 2)),
-           lambda: FL.flash_fwd(q.half(), q.half(), q.half())]
+           lambda: FL.flash_fwd(q.half(), q.half(), q.half()),
+           # contiguous bf16 at a 2-byte offset: off cp.async's 16 bytes
+           lambda: FL.flash_fwd(*[unaligned_bf16(q.shape)] * 3)]
     for call in bad:
         if not _refuses(call):
             fail("flash_fwd accepted an input the kernel does not take")
@@ -444,6 +469,7 @@ def check_flash() -> dict:
     return {"name": "flash_fwd", "ok": True, "cases": cases,
             "max_abs_err": max(errs.values()), "max_abs_err_by": errs,
             "max_abs_err_by_case": by_case,
+            "deterministic": True,
             "tolerance": {"float32": 2e-5, "bfloat16": 2e-2}}
 
 
@@ -561,7 +587,9 @@ def check_flash_bwd() -> dict:
                                 z[..., :48]),
            lambda: FL.flash_bwd(z, z, z, z, lz, torch.zeros(
                1, 4, 8, 64, device=DEV).transpose(1, 2)),
-           lambda: FL.flash_bwd_dkv(z, z, z, lz, z, lz[:, :2])]
+           lambda: FL.flash_bwd_dkv(z, z, z, lz, z, lz[:, :2]),
+           lambda: FL.flash_bwd_dkv(*[unaligned_bf16(z.shape)] * 3, lz,
+                                    unaligned_bf16(z.shape), lz)]
     for call in bad:
         if not _refuses(call):
             fail("flash_bwd accepted an input the kernels do not take")
@@ -778,6 +806,24 @@ def model_counts() -> dict:
             "rmsnorm_bwd": RN.bwd_launches}
 
 
+# the bf16 tensor-core kernels: name in the kernels line -> (CUDA kernel,
+# FL.mma_smem_bytes kind)
+MMA_KERNELS = {"flash_fwd": ("flash_fwd_kernel_mma", "fwd"),
+               "flash_dkv": ("flash_bwd_dkv_kernel_mma", "dkv")}
+
+
+def mma_resources() -> dict:
+    """``ptxas -v``'s registers, spills and stack of every instance of the
+    tensor-core kernels, by ``kernel<D,Dv>``."""
+    out = {}
+    for name, r in _build.kernel_resources().items():
+        for kern, _ in MMA_KERNELS.values():
+            if kern in name:
+                dims = re.findall(r"Li(\d+)E", name)
+                out[f"{kern}<{','.join(dims)}>"] = r
+    return out
+
+
 def timed_sweep(engine, grid) -> tuple:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -888,22 +934,28 @@ def vlm_batch(cfg, gen: torch.Generator, n_batch: int, n_text: int) -> dict:
     return {"patches": patches.to(torch.bfloat16), "tokens": tokens}
 
 
-def logits_agree(got, want, what: str) -> dict:
+def logits_agree(got, want, what: str, problems: list = None) -> dict:
     """The serving tests' tolerance: |got - want| <= 2e-2 * max(1,
     max|want|), and the same greedy token wherever want's top-2 margin
-    exceeds twice that."""
+    exceeds twice that.  A miss fails the run at once, or with
+    ``problems`` is added to it (the caller fails after its line)."""
     got, want = got.float(), want.float()
     scale = max(1.0, float(want.abs().max()))
     err = float((got - want).abs().max())
     top2 = want.topk(2, dim=-1).values
     clear = (top2[..., 0] - top2[..., 1]) > 2 * 2e-2 * scale
     same = got.argmax(-1) == want.argmax(-1)
+    miss = None
     if not bool(torch.isfinite(got).all()):
-        fail(f"{what}: non-finite logits")
-    if err > 2e-2 * scale or not bool(same[clear].all()):
-        fail(f"{what}: max abs diff {err} against tolerance "
-             f"{2e-2 * scale}, greedy tokens equal where clear: "
-             f"{bool(same[clear].all())}")
+        miss = f"{what}: non-finite logits"
+    elif err > 2e-2 * scale or not bool(same[clear].all()):
+        miss = (f"{what}: max abs diff {err} against tolerance "
+                f"{2e-2 * scale}, greedy tokens equal where clear: "
+                f"{bool(same[clear].all())}")
+    if miss and problems is None:
+        fail(miss)
+    if miss:
+        problems.append(miss)
     return {"max_abs_err": err, "scale": scale,
             "clear_tokens": int(clear.sum()),
             "same_tokens": int(same.sum()), "tokens": int(same.numel())}
@@ -974,6 +1026,7 @@ def device_breakdown(fn, wall_ms: float, top: int = 6):
     if not busy:
         return None
     rows.sort(reverse=True)
+    # by substring: "flash_fwd_kernel" also counts flash_fwd_kernel_mma
     part = {name: sum(r[0] for r in rows if name in r[1])
             for name in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                          "flash_bwd_dkv_kernel", "rmsnorm_fwd_kernel",
@@ -1141,11 +1194,26 @@ def serve_llava15_7b() -> dict:
             fail(f"prefill cache {tuple(cache['blocks']['k'].shape)} != "
                  f"{kv_shape}")
         # the kernel path against the same prefill through the plain
-        # versions
+        # versions (the gate)
         with PlainKernels():
             plain_logits, _ = SV.make_prefill_step(model)(params, batch)
-        return logits_agree(logits[:, -1], plain_logits[:, -1],
-                            "prefill kernel path vs plain path")
+        checked = logits_agree(logits[:, -1], plain_logits[:, -1],
+                               "prefill kernel path vs plain path", problems)
+        # a reading: each bf16 path against the same prefill in fp32 (the
+        # weights cast, the plain versions), max |diff| over max(1,
+        # max |fp32 logits|)
+        model32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+        params32 = copy.deepcopy(params).float()   # Module.float() casts
+        with PlainKernels():                        # in place
+            ref, _ = SV.make_prefill_step(model32)(params32, batch)
+        checked["vs_fp32_plain"] = {
+            "kernels": _rel(logits[:, -1], ref[:, -1]),
+            "plain": _rel(plain_logits[:, -1], ref[:, -1])}
+        del model32, params32, ref, plain_logits
+        gc.collect()
+        torch.cuda.empty_cache()
+        return checked
+    problems = []
     phases = serve_by_phase(model, params, batch, tokens, serve_counts,
                             after_prefill)
 
@@ -1187,6 +1255,8 @@ def serve_llava15_7b() -> dict:
     out["reduced_card_vs_cpu"] = reduced_card_vs_cpu(
         SERVE_ARCH, lambda cfg, gen: vlm_batch(cfg, gen, 2, 8), serve_counts)
     say("serve_llava15_7b " + json.dumps(out))
+    if problems:
+        fail("; ".join(problems))
     return out
 
 
@@ -1417,18 +1487,20 @@ def grads_agree(got: dict, want: dict, tol, what: str,
                 problems: list) -> dict:
     """Per tensor max |got - want| / max |want|; every tensor must stay
     within ``tol`` of its scale (``tol`` None: a reading, no gate)."""
-    worst, worst_leaf = 0.0, None
+    worst, worst_leaf, worst_norm = 0.0, None, 0.0
     for name, w in want.items():
         w = w.float()
         d = got[name].float().to(w.device) - w
         rel = float(d.abs().max()) / max(float(w.abs().max()), 1e-30)
+        worst_norm = max(worst_norm, float(d.norm()) /
+                         max(float(w.norm()), 1e-30))
         if rel >= worst:
             worst, worst_leaf = rel, name
         if tol is not None and rel > tol:
             problems.append(f"{what}: {name} differs by {rel:.3g} of its "
                             f"scale (tolerance {tol})")
     return {"max_rel_err": worst, "worst_leaf": worst_leaf,
-            "tolerance": tol}
+            "max_norm_rel_err": worst_norm, "tolerance": tol}
 
 
 def reduced_train_card_vs_cpu(problems: list) -> dict:
@@ -1631,6 +1703,11 @@ def train_llava15_7b() -> list:
     stage1 = train_phase("train_llava15_7b_stage1", cfg, LLAVA_STAGE1,
                          "none: full width and depth", problems)
     say("train_llava15_7b_stage1 " + json.dumps(stage1))
+    spread = stage1["vs_plain"]["bf16"]
+    say("train_llava15_7b_stage1_bf16_spread " + json.dumps({
+        "kernels_vs_fp32": spread["vs_fp32"]["kernels"],
+        "plain_vs_fp32": spread["vs_fp32"]["plain"],
+        "kernels_vs_plain": spread["grads"]}))
     if problems:
         fail("; ".join(problems))
     cut = dataclasses.replace(cfg, n_layers=STAGE2_LAYERS)
@@ -1658,8 +1735,24 @@ def train_llava15_7b() -> list:
 # ---------------------------------------------------------------------------
 
 
-def event_ms(fn, launches: int = 30, warmup: int = 5) -> float:
-    """Median device time of one call, CUDA events around each launch."""
+_L2_SCRATCH = []
+
+
+def flush_l2() -> None:
+    """Write 64 MiB, more than the H100's 50 MB L2, so that the next launch
+    finds none of its operands in the cache."""
+    if not _L2_SCRATCH:
+        _L2_SCRATCH.append(torch.empty(64 << 20, dtype=torch.uint8,
+                                       device=DEV))
+    _L2_SCRATCH[0].fill_(1)
+
+
+def event_ms(fn, launches: int = 30, warmup: int = 5,
+             flush: bool = False) -> float:
+    """Median device time of one call, CUDA events around each launch;
+    with ``flush`` the L2 is flushed before each timed launch, outside the
+    timed interval (for kernels whose operands would otherwise stay in the
+    L2 from one launch to the next)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -1667,6 +1760,8 @@ def event_ms(fn, launches: int = 30, warmup: int = 5) -> float:
     for _ in range(launches):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if flush:
+            flush_l2()
         a.record()
         fn()
         b.record()
@@ -1688,10 +1783,12 @@ def host_ms(fn, calls: int = 30, warmup: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, kernel_name: str, launches: int = 20):
+def device_ms(fn, kernel_name: str, launches: int = 20,
+              flush: bool = False):
     """Mean device time of the named CUDA kernel over ``launches`` calls of
     ``fn``, from a torch.profiler trace — the kernel alone, without the
-    wrapper's host work that the event timing includes.  None when the
+    wrapper's host work that the event timing includes; with ``flush`` an
+    L2 flush (a kernel of its own) before each call.  None when the
     profiler reports no device time for it (then only the event time is
     known, and the report says "not measured")."""
     from torch.profiler import ProfilerActivity, profile
@@ -1701,6 +1798,8 @@ def device_ms(fn, kernel_name: str, launches: int = 20):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(launches):
+                if flush:
+                    flush_l2()
                 fn()
             torch.cuda.synchronize()
     except RuntimeError as e:       # no device tracing on this machine
@@ -1743,18 +1842,20 @@ def time_kernels(log: ShapeLog, checks: dict, launches: dict) -> list:
         "replaces": "src/repro/kernels/shard_factor.py:131",
         "launches": launches["shard_factor"],
         "max_abs_err": checks["shard_factor"]["max_abs_err"],
-        "ms": event_ms(lambda: SF.shard_factor_tensors(dims, sizes, steps)),
+        "ms": event_ms(lambda: SF.shard_factor_tensors(dims, sizes, steps),
+                       flush=True),
         "plain_ms": event_ms(
-            lambda: SF.shard_factor_plain(dims, sizes, steps)),
+            lambda: SF.shard_factor_plain(dims, sizes, steps), flush=True),
         "bound_ms": sf_bound * 1e3,
         "bound_by": "bytes" if sf_bytes / HBM_BYTES_PER_S
         >= sf_ops / ALU_OPS_PER_S else "operations",
         "library_ms": None,
         "device_ms": device_ms(
             lambda: SF.shard_factor_tensors(dims, sizes, steps),
-            "shard_factor_kernel"),
+            "shard_factor_kernel", flush=True),
         "shape": {"n_dims": n_dims, "n_axes": n_axes,
                   "n_steps": len(steps), "n": n},
+        "l2": "flushed before each timed launch",
     }
     # the path the table build really takes: numpy in, upload, launch,
     # read back (host clock, synchronised)
@@ -1776,14 +1877,16 @@ def time_kernels(log: ShapeLog, checks: dict, launches: dict) -> list:
         "replaces": "src/repro/kernels/segmented_cummax.py:63",
         "launches": launches["segmented_cummax"],
         "max_abs_err": checks["segmented_cummax"]["max_abs_err"],
-        "ms": event_ms(lambda: SC.segmented_cummax(deltas)),
-        "plain_ms": event_ms(lambda: SC.segmented_cummax_plain(deltas)),
+        "ms": event_ms(lambda: SC.segmented_cummax(deltas), flush=True),
+        "plain_ms": event_ms(lambda: SC.segmented_cummax_plain(deltas),
+                             flush=True),
         "bound_ms": sc_bound * 1e3,
         "bound_by": "bytes" if sc_bytes / HBM_BYTES_PER_S
         >= sc_ops / ALU_OPS_PER_S else "operations",
         "library_ms": None,
         "device_ms": device_ms(lambda: SC.segmented_cummax(deltas),
-                               "segmented_cummax_kernel"),
+                               "segmented_cummax_kernel", flush=True),
+        "l2": "flushed before each timed launch",
         "shape": {"n_events": n_events, "n": m},
     }
     for k in (sf, sc):
@@ -1811,7 +1914,7 @@ def _flash_timing(shape: tuple, causal: bool, gen) -> dict:
                   "dtype": "bfloat16"},
         "ms": event_ms(lambda: FL.flash_fwd(q, k, v, causal=causal)),
         "device_ms": device_ms(lambda: FL.flash_fwd(q, k, v, causal=causal),
-                               "flash_fwd_kernel"),
+                               "flash_fwd_kernel_mma"),
         "plain_ms": event_ms(
             lambda: FL.flash_fwd_plain(q, k, v, causal=causal), launches=10),
         "library_ms": event_ms(lambda: F.scaled_dot_product_attention(
@@ -1870,7 +1973,7 @@ def _flash_bwd_timing(shape: tuple, causal: bool, gen) -> tuple:
             ("flash_dkv", 4, 6 * tensor + 2 * stat,
              lambda: FL.flash_bwd_dkv(q, k, v, lse, do, delta,
                                       causal=causal),
-             "flash_bwd_dkv_kernel")):
+             "flash_bwd_dkv_kernel_mma")):
         n_ops = 2 * n_mm * scores * d
         bound_ms, bound_by = _bound(n_bytes, n_ops, BF16_OPS_PER_S)
         rows.append({
@@ -1968,6 +2071,14 @@ def time_model_kernels(checks: dict, launches: dict) -> list:
                  "max_abs_err_at_shape": own(
                      c["max_abs_err_by_case"][case_key(case)])}
         entry.update(main)
+        if name in MMA_KERNELS:
+            kern, which = MMA_KERNELS[name]
+            entry["tensor_cores"] = {
+                "kernel": kern, "tile": list(FL.FWD_TILE if which == "fwd"
+                                             else FL.DKV_TILE),
+                "threads": 256,
+                "ptxas": mma_resources().get(f"{kern}<{d},{d}>"),
+                "smem_bytes_per_block": FL.mma_smem_bytes(which, d, d)}
         entry["other_shapes"] = others
         for k in [entry] + others:
             if not (k["ms"] > 0 and k["plain_ms"] > 0 and k["bound_ms"] > 0
@@ -1975,6 +2086,17 @@ def time_model_kernels(checks: dict, launches: dict) -> list:
                 fail(f"{name}: a timing came back non-positive")
         out.append(entry)
     return out
+
+
+def with_ratios(k: dict) -> dict:
+    """``share_of_bound`` = bound / the kernel alone on the device and
+    ``vs_library`` = the kernel alone / the library call (None where a
+    time is missing), on the entry and its other shapes."""
+    for e in [k] + k.get("other_shapes", []):
+        dev, lib = e["device_ms"], e.get("library_ms")
+        e["share_of_bound"] = e["bound_ms"] / dev if dev else None
+        e["vs_library"] = dev / lib if dev and lib else None
+    return k
 
 
 def ssd_work(case) -> tuple:
@@ -2037,10 +2159,33 @@ def time_ssd(checks: dict, launches: dict) -> dict:
     return entry
 
 
+def say_kernel(k: dict) -> None:
+    dev = "not measured" if k["device_ms"] is None \
+        else f"{k['device_ms'] * 1e3:.1f} us"
+    share = "" if k["share_of_bound"] is None \
+        else f", {100 * k['share_of_bound']:.1f} % of the bound"
+    lib = "" if k["vs_library"] is None \
+        else f", {k['vs_library']:.2f}x the library call"
+    say(f"kernel {k['name']}: {k['ms'] * 1e3:.1f} us/call by CUDA "
+        f"events (kernel alone on the device: {dev}; plain "
+        f"{k['plain_ms'] * 1e3:.1f} us, bound "
+        f"{k['bound_ms'] * 1e3:.3f} us by {k['bound_by']}{share}{lib}) at "
+        f"{k['shape']}, {k['launches']} launches on the main path")
+
+
 # ---------------------------------------------------------------------------
 
 
-def main() -> int:
+def main(argv: list) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="On-card smoke test of the "
+                                 "PyTorch/CUDA port.")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="build, check every kernel against its plain "
+                    "version (phase 2) and time the model kernels at the "
+                    "main path's shapes, without driving the main path; "
+                    "prints no result line")
+    args = ap.parse_args(argv)
     t_start = time.perf_counter()
     # phase 1: toolchain, card, build
     smi = run_text(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2053,6 +2198,13 @@ def main() -> int:
     _build.load()
     say(f"build: {len(_build.sources())} CUDA sources in "
         f"{_build.build_seconds:.1f} s (set-up) -> {_build.build_dir()}")
+    resources = mma_resources()
+    say("ptxas " + json.dumps(resources))
+    spills = [k for k, r in resources.items()
+              if r.get("spill_store_bytes") or r.get("spill_load_bytes")]
+    if spills or not resources:
+        print(f"chip_smoke: the tensor-core kernels spill registers or "
+              f"ptxas reported nothing: {spills}", file=sys.stderr)
 
     # phase 2: kernels against their plain versions
     checks = {}
@@ -2062,6 +2214,11 @@ def main() -> int:
         c = check()
         checks[c["name"]] = c
     say("kernels_check " + json.dumps(list(checks.values())))
+    if args.kernels_only:
+        for k in time_model_kernels(checks, {n: None for n in model_counts()}):
+            say_kernel(with_ratios(k))
+        say(f"elapsed: {time.perf_counter() - t_start:.1f} s")
+        return 0
 
     # phases 3-4: the main path
     log = ShapeLog()
@@ -2095,13 +2252,7 @@ def main() -> int:
     kernels = time_kernels(log, checks, launches) + \
         time_model_kernels(checks, launches) + [time_ssd(checks, launches)]
     for k in kernels:
-        dev = "not measured" if k["device_ms"] is None \
-            else f"{k['device_ms'] * 1e3:.1f} us"
-        say(f"kernel {k['name']}: {k['ms'] * 1e3:.1f} us/call by CUDA "
-            f"events (kernel alone on the device: {dev}; plain "
-            f"{k['plain_ms'] * 1e3:.1f} us, bound "
-            f"{k['bound_ms'] * 1e3:.3f} us by {k['bound_by']}) at "
-            f"{k['shape']}, {k['launches']} launches on the main path")
+        say_kernel(with_ratios(k))
     say(f"elapsed: {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(smi)
@@ -2112,4 +2263,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    raise SystemExit(main(sys.argv[1:]))

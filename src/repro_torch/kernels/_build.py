@@ -7,6 +7,9 @@ The library lands in ``build/repro_torch_kernels/`` at the root of the
 checkout (override with ``REPRO_TORCH_BUILD_DIR``), named by a hash of the
 sources and flags, so a second call — or a second process — reuses it and
 an edited source rebuilds.  A failed build raises with ``nvcc``'s output.
+``ptxas -v`` reports each kernel's registers, spills and static shared
+memory; the report is kept beside the library (``*.ptxas.txt``) and
+:func:`kernel_resources` reads it.
 
 ``nvcc`` and ``ctypes`` are touched only inside ``load()``: importing this
 module needs neither.
@@ -24,7 +27,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
@@ -65,17 +68,20 @@ def _digest(srcs: list[Path]) -> str:
     return h.hexdigest()[:16]
 
 
-def _run_all(cmds: list[list[str]]) -> None:
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands in parallel; their joined output."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for c in cmds]
-    failed = []
+    failed, outs = [], []
     for c, p in zip(cmds, procs):
         out, _ = p.communicate()
+        outs.append(out)
         if p.returncode:
             failed.append(f"$ {' '.join(c)}\n{out}")
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return "".join(outs)
 
 
 def _build(lib_path: Path, srcs: list[Path]) -> None:
@@ -85,14 +91,48 @@ def _build(lib_path: Path, srcs: list[Path]) -> None:
     tag = f"{lib_path.stem}.{os.getpid()}"
     objs = [out_dir / f"{tag}.{s.stem}.o" for s in srcs]
     try:
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)]
-                  for s, o in zip(srcs, objs)])
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)]
+                        for s, o in zip(srcs, objs)])
+        _report_path(lib_path).write_text(log)
         tmp = out_dir / f"{tag}.so"
         _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
         os.replace(tmp, lib_path)       # atomic: readers never see half
     finally:
         for o in objs:
             o.unlink(missing_ok=True)
+
+
+def _report_path(lib_path: Path) -> Path:
+    return lib_path.with_suffix(".ptxas.txt")
+
+
+def kernel_resources() -> dict:
+    """Per compiled kernel (by its mangled name) the registers, spill
+    stores / loads and stack bytes that ``ptxas -v`` reported when the
+    library loaded by :func:`load` was built; empty if that report is
+    missing."""
+    if _lib is None:
+        raise RuntimeError("kernel_resources() reads the report of the "
+                           "library load() built: call load() first")
+    path = _report_path(Path(_lib._name))
+    if not path.is_file():
+        return {}
+    out, name, props = {}, None, None
+    for line in path.read_text().splitlines():
+        if "Compiling entry function '" in line:
+            name = line.split("'")[1]
+            out[name] = {}
+        elif "Function properties for " in line:
+            props = line.split("Function properties for ")[1].strip()
+        elif props == name and name and "bytes stack frame" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            out[name].update(stack_bytes=nums[0], spill_store_bytes=nums[1],
+                             spill_load_bytes=nums[2])
+        elif name and "Used" in line and "registers" in line:
+            words = line.replace(",", " ").split()
+            out[name]["registers"] = int(words[words.index("Used") + 1])
+    return out
 
 
 def load():

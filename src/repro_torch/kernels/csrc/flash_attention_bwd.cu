@@ -33,20 +33,48 @@
 // What bounds them on an H100: operations.  The dq pass does three
 // products per score tile (s, dp, dq) and the dkv pass four (s, dp, dv,
 // dk), 2.5x the forward's operations in all (FA2's count), against
-// q + k + v + out + dout + dq + dk + dv bytes plus lse and delta.  Like
-// the forward, this first version computes in fp32 FMA for bf16 and fp32
-// inputs (fp32 gradients must meet 5e-4 without TF32); tensor cores are
-// later work.  The block's 256 threads form a 16 x 16 grid: thread
-// (ty, tx) owns the scores of q rows ty + 16i and KV columns tx + 16j
-// (i, j < 4), and 4 rows x (width / 16) columns of each accumulator.  All
-// tiles sit in shared memory as fp32 with rows padded by one float, so the
-// inner loops read broadcasts or 16 consecutive banks.  Shared memory at
-// head dim 128: dq 148,736 bytes (q, dO, k, v, ds), dkv 165,376 bytes (k,
-// v, q, dO, p, ds), one block per SM, through cudaFuncSetAttribute.
+// q + k + v + out + dout + dq + dk + dv bytes plus lse and delta.
+//
+// flash_bwd_dkv_kernel_mma, the dk / dv pass for bf16 inputs, runs on the
+// tensor cores (m16n8k16 bf16 mma.sync, fp32 accumulation).  One block of
+// 8 warps per (batch, kv head, 128-row KV tile), grid (Hkv, B, KV tiles):
+// the first KV tiles, which under a causal mask meet the most q rows,
+// start first.  K and V stay resident in shared memory; each warp owns 16
+// KV rows and keeps their fp32 dK and dV accumulators in mma fragments
+// (at head dim 128, 64 + 64 registers).  The block walks the G query
+// heads of its group and every 64-row q tile from the causal start, in a
+// fixed order; q, dO and the tile's rows of lse and delta come through
+// cp.async copies, double-buffered (tile i + 1 in flight while tile i
+// computes), rows past Sq zero-filled.  Each q tile is computed in two
+// 32-row halves (16 + 16 registers of scores and dp), in the kv-major
+// orientation, so nothing is transposed through shared memory:
+//   S^T = K Q^T;  P^T = exp(scale S^T - lse) (fp32), rounded to bf16 in
+//   registers;  dV += P^T dO (dO by ldmatrix.trans);  dP^T = V dO^T;
+//   dS^T = P^T (dP^T - delta) -> bf16;  dK += dS^T Q (Q by ldmatrix.trans);
+// dK is multiplied by D^-0.5 once at the end.  A warp skips the halves
+// wholly above its diagonal and masks only the halves on the diagonal or
+// a ragged edge.  Each dk / dv tile is written once: no atomics,
+// bit-equal from one launch to the next.  Per block at head dim 128: 256
+// threads of 253 registers, no spills (ptxas -v for sm_90a, nvcc 12.9;
+// chip_smoke.py prints it), and 140,288 bytes of shared memory (K, V, two
+// q and two dO tiles with rows padded by 16 bytes, so ldmatrix is free of
+// bank conflicts, and two rows each of lse and delta).
+//
+// The dq pass, and the dk / dv pass for fp32 inputs (fp32 gradients must
+// meet 5e-4 without TF32), compute in fp32 FMA on the CUDA cores.  The
+// block's 256 threads form a 16 x 16 grid: thread (ty, tx) owns the
+// scores of q rows ty + 16i and KV columns tx + 16j (i, j < 4), and 4 rows
+// x (width / 16) columns of each accumulator.  All tiles sit in shared
+// memory as fp32 with rows padded by one float, so the inner loops read
+// broadcasts or 16 consecutive banks.  Shared memory at head dim 128: dq
+// 148,736 bytes (q, dO, k, v, ds), fp32 dkv 165,376 bytes (k, v, q, dO, p,
+// ds), one block per SM, through cudaFuncSetAttribute.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
+
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -363,6 +391,263 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
+// ---------------------------------------------------------------------------
+// dk / dv for bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int MMA_BKV = 128;        // kv rows per block, 16 per warp
+constexpr int MMA_BQ = 64;          // q rows per tile, two halves of 32
+constexpr int MMA_THREADS = 256;    // 8 warps
+
+template <int D, int DV>
+struct DkvMmaSmem {                 // byte offsets; bf16 rows padded by 8
+    static constexpr int KS = D + 8;          // k and q rows
+    static constexpr int VS = DV + 8;         // v and dO rows
+    static constexpr int K_OFF = 0;
+    static constexpr int V_OFF = K_OFF + MMA_BKV * KS * 2;
+    static constexpr int Q_OFF = V_OFF + MMA_BKV * VS * 2;      // 2 buffers
+    static constexpr int DO_OFF = Q_OFF + 2 * MMA_BQ * KS * 2;  // 2 buffers
+    static constexpr int LSE_OFF = DO_OFF + 2 * MMA_BQ * VS * 2;
+    static constexpr int DELTA_OFF = LSE_OFF + 2 * MMA_BQ * 4;
+    static constexpr size_t BYTES = DELTA_OFF + 2 * MMA_BQ * 4;
+};
+
+template <int D, int DV>
+__global__ void __launch_bounds__(MMA_THREADS, 1)
+flash_bwd_dkv_kernel_mma(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const __nv_bfloat16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, int Sq, int Skv,
+                         int H, int Hkv, int q_offset, int causal,
+                         float scale) {
+    using S = DkvMmaSmem<D, DV>;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const uint32_t base = tc::smem_addr(smem_raw);
+    const uint32_t sK = base + S::K_OFF, sV = base + S::V_OFF;
+    const uint32_t sQ = base + S::Q_OFF, sO = base + S::DO_OFF;
+    const uint32_t sL = base + S::LSE_OFF, sD = base + S::DELTA_OFF;
+    const float* lse_s = reinterpret_cast<const float*>(smem_raw + S::LSE_OFF);
+    const float* delta_s =
+        reinterpret_cast<const float*>(smem_raw + S::DELTA_OFF);
+
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int hk = blockIdx.x, b = blockIdx.y;
+    const int k0 = blockIdx.z * MMA_BKV;
+    const int G = H / Hkv;
+    const long long q_row = (long long)H * D;
+    const long long o_row = (long long)H * DV;
+    const long long k_row = (long long)Hkv * D;
+    const long long v_row = (long long)Hkv * DV;
+    const long long kb = (long long)b * Skv * k_row + (long long)hk * D;
+    const long long vb = (long long)b * Skv * v_row + (long long)hk * DV;
+
+    for (int i = tid; i < MMA_BKV * (D / 8); i += MMA_THREADS) {
+        const int r = i / (D / 8), c = (i % (D / 8)) * 8, s = k0 + r;
+        const bool in = s < Skv;
+        tc::cp_async16(sK + (r * S::KS + c) * 2,
+                       k + kb + (in ? s : 0) * k_row + c, in);
+    }
+    for (int i = tid; i < MMA_BKV * (DV / 8); i += MMA_THREADS) {
+        const int r = i / (DV / 8), c = (i % (DV / 8)) * 8, s = k0 + r;
+        const bool in = s < Skv;
+        tc::cp_async16(sV + (r * S::VS + c) * 2,
+                       v + vb + (in ? s : 0) * v_row + c, in);
+    }
+
+    // q tiles whose last row lies before this KV tile are fully masked
+    int q_first = 0;
+    if (causal && k0 > q_offset) q_first = ((k0 - q_offset) / MMA_BQ) * MMA_BQ;
+    const int nq = q_first < Sq ? (Sq - q_first + MMA_BQ - 1) / MMA_BQ : 0;
+    const int n_it = G * nq;             // (head of the group, q tile) pairs
+
+    auto load_q = [&](int it, int buf) {
+        const int h = hk * G + it / nq;
+        const int q0 = q_first + (it % nq) * MMA_BQ;
+        const long long qb = (long long)b * Sq * q_row + (long long)h * D;
+        const long long ob = (long long)b * Sq * o_row + (long long)h * DV;
+        const long long stat = ((long long)b * H + h) * Sq;
+        const uint32_t dq_ = sQ + buf * MMA_BQ * S::KS * 2;
+        const uint32_t do_ = sO + buf * MMA_BQ * S::VS * 2;
+        for (int i = tid; i < MMA_BQ * (D / 8); i += MMA_THREADS) {
+            const int r = i / (D / 8), c = (i % (D / 8)) * 8, s = q0 + r;
+            const bool in = s < Sq;
+            tc::cp_async16(dq_ + (r * S::KS + c) * 2,
+                           q + qb + (in ? s : 0) * q_row + c, in);
+        }
+        for (int i = tid; i < MMA_BQ * (DV / 8); i += MMA_THREADS) {
+            const int r = i / (DV / 8), c = (i % (DV / 8)) * 8, s = q0 + r;
+            const bool in = s < Sq;
+            tc::cp_async16(do_ + (r * S::VS + c) * 2,
+                           dout + ob + (in ? s : 0) * o_row + c, in);
+        }
+        if (tid < 2 * MMA_BQ) {
+            const int r = tid % MMA_BQ, s = q0 + r;
+            const bool in = s < Sq;
+            const float* src = tid < MMA_BQ ? lse : delta;
+            const uint32_t dst = tid < MMA_BQ ? sL : sD;
+            tc::cp_async4(dst + (buf * MMA_BQ + r) * 4,
+                          src + stat + (in ? s : 0), in);
+        }
+    };
+    if (n_it > 0) load_q(0, 0);
+    tc::cp_async_commit();               // with K and V
+
+    float dka[D / 8][4], dva[DV / 8][4];
+    #pragma unroll
+    for (int n = 0; n < D / 8; ++n) dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
+    #pragma unroll
+    for (int n = 0; n < DV / 8; ++n) dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
+    const int wrow = k0 + 16 * warp;     // this warp's first kv row
+    const int kp0 = wrow + g, kp1 = kp0 + 8;
+    const float c = scale * tc::LOG2E;
+    const uint32_t kA = sK + ((16 * warp + tc::a_row(lane)) * S::KS +
+                              tc::a_col(lane)) * 2;
+    const uint32_t vA = sV + ((16 * warp + tc::a_row(lane)) * S::VS +
+                              tc::a_col(lane)) * 2;
+
+    for (int it = 0; it < n_it; ++it) {
+        if (it + 1 < n_it) {
+            load_q(it + 1, (it + 1) & 1);
+            tc::cp_async_commit();
+            tc::cp_async_wait<1>();
+        } else {
+            tc::cp_async_wait<0>();
+        }
+        __syncthreads();
+        const int q0 = q_first + (it % nq) * MMA_BQ;
+        const int buf = it & 1;
+        const uint32_t qt = sQ + buf * MMA_BQ * S::KS * 2;
+        const uint32_t ot = sO + buf * MMA_BQ * S::VS * 2;
+        const float* lt = lse_s + buf * MMA_BQ;
+        const float* dt = delta_s + buf * MMA_BQ;
+        #pragma unroll
+        for (int half = 0; half < 2; ++half) {
+            const int qs = 32 * half;
+            const int qpos = q_offset + q0 + qs;   // the half's first q row
+            // every kv row of this warp after every q row: all masked
+            if (causal && wrow > qpos + 31) continue;
+            // S^T = K Q^T (16 kv rows x 32 q rows)
+            float st[4][4];
+            #pragma unroll
+            for (int n = 0; n < 4; ++n) st[n][0] = st[n][1] = st[n][2] = st[n][3] = 0.f;
+            #pragma unroll
+            for (int dc = 0; dc < D / 16; ++dc) {
+                uint32_t ka[4];
+                tc::ldsm_x4(ka, kA + dc * 32);
+                #pragma unroll
+                for (int np = 0; np < 2; ++np) {
+                    uint32_t qr[4];
+                    tc::ldsm_x4(qr, qt + ((qs + np * 16 + tc::bn_row(lane)) *
+                                          S::KS + dc * 16 + tc::bn_col(lane)) * 2);
+                    tc::mma_bf16(st[2 * np], ka, qr[0], qr[1]);
+                    tc::mma_bf16(st[2 * np + 1], ka, qr[2], qr[3]);
+                }
+            }
+            // P^T = exp(scale S^T - lse) in fp32; masked on edge halves
+            const bool edge = q0 + qs + 32 > Sq || wrow + 16 > Skv ||
+                              (causal && wrow + 15 > qpos);
+            uint32_t pa[2][4];
+            #pragma unroll
+            for (int n = 0; n < 4; ++n) {
+                const int qc = qs + n * 8 + 2 * t;
+                const float2 L = *reinterpret_cast<const float2*>(lt + qc);
+                #pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    float p = exp2f(fmaf(st[n][e], c,
+                                         -(e & 1 ? L.y : L.x) * tc::LOG2E));
+                    if (edge) {
+                        const int kp = e < 2 ? kp0 : kp1;
+                        const int qr = q0 + qc + (e & 1);
+                        if (qr >= Sq || kp >= Skv ||
+                            (causal && kp > q_offset + qr))
+                            p = 0.f;
+                    }
+                    st[n][e] = p;
+                }
+                pa[n / 2][(n & 1) * 2] = tc::pack_bf16(st[n][0], st[n][1]);
+                pa[n / 2][(n & 1) * 2 + 1] = tc::pack_bf16(st[n][2], st[n][3]);
+            }
+            // dV += P^T dO
+            #pragma unroll
+            for (int kc = 0; kc < 2; ++kc) {
+                #pragma unroll
+                for (int np = 0; np < DV / 16; ++np) {
+                    uint32_t orr[4];
+                    tc::ldsm_x4_trans(orr, ot + ((qs + kc * 16 + tc::a_row(lane)) *
+                                                 S::VS + np * 16 +
+                                                 tc::a_col(lane)) * 2);
+                    tc::mma_bf16(dva[2 * np], pa[kc], orr[0], orr[1]);
+                    tc::mma_bf16(dva[2 * np + 1], pa[kc], orr[2], orr[3]);
+                }
+            }
+            // dP^T = V dO^T
+            float dp[4][4];
+            #pragma unroll
+            for (int n = 0; n < 4; ++n) dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+            #pragma unroll
+            for (int dc = 0; dc < DV / 16; ++dc) {
+                uint32_t va[4];
+                tc::ldsm_x4(va, vA + dc * 32);
+                #pragma unroll
+                for (int np = 0; np < 2; ++np) {
+                    uint32_t orr[4];
+                    tc::ldsm_x4(orr, ot + ((qs + np * 16 + tc::bn_row(lane)) *
+                                           S::VS + dc * 16 + tc::bn_col(lane)) * 2);
+                    tc::mma_bf16(dp[2 * np], va, orr[0], orr[1]);
+                    tc::mma_bf16(dp[2 * np + 1], va, orr[2], orr[3]);
+                }
+            }
+            // dS^T = P^T (dP^T - delta), rounded to bf16
+            uint32_t da[2][4];
+            #pragma unroll
+            for (int n = 0; n < 4; ++n) {
+                const float2 dl = *reinterpret_cast<const float2*>(
+                    dt + qs + n * 8 + 2 * t);
+                da[n / 2][(n & 1) * 2] = tc::pack_bf16(
+                    st[n][0] * (dp[n][0] - dl.x), st[n][1] * (dp[n][1] - dl.y));
+                da[n / 2][(n & 1) * 2 + 1] = tc::pack_bf16(
+                    st[n][2] * (dp[n][2] - dl.x), st[n][3] * (dp[n][3] - dl.y));
+            }
+            // dK += dS^T Q
+            #pragma unroll
+            for (int kc = 0; kc < 2; ++kc) {
+                #pragma unroll
+                for (int np = 0; np < D / 16; ++np) {
+                    uint32_t qr[4];
+                    tc::ldsm_x4_trans(qr, qt + ((qs + kc * 16 + tc::a_row(lane)) *
+                                                S::KS + np * 16 +
+                                                tc::a_col(lane)) * 2);
+                    tc::mma_bf16(dka[2 * np], da[kc], qr[0], qr[1]);
+                    tc::mma_bf16(dka[2 * np + 1], da[kc], qr[2], qr[3]);
+                }
+            }
+        }
+        __syncthreads();                 // tile it's buffers free again
+    }
+    tc::cp_async_wait<0>();              // K / V when no q tile was met
+
+    #pragma unroll
+    for (int half = 0; half < 2; ++half) {
+        const int s = kp0 + 8 * half;
+        if (s >= Skv) continue;
+        __nv_bfloat16* kr = dk + kb + (long long)s * k_row;
+        __nv_bfloat16* vr = dv + vb + (long long)s * v_row;
+        #pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+            *reinterpret_cast<uint32_t*>(kr + n * 8 + 2 * t) = tc::pack_bf16(
+                dka[n][2 * half] * scale, dka[n][2 * half + 1] * scale);
+        #pragma unroll
+        for (int n = 0; n < DV / 8; ++n)
+            *reinterpret_cast<uint32_t*>(vr + n * 8 + 2 * t) = tc::pack_bf16(
+                dva[n][2 * half], dva[n][2 * half + 1]);
+    }
+}
+
 // above 48 KB of dynamic shared memory a kernel needs an opt-in, once
 template <typename K>
 cudaError_t allow_smem(K kern, size_t bytes, bool& configured) {
@@ -414,12 +699,35 @@ int launch_dkv(const Args& a, cudaStream_t st) {
     return (int)cudaGetLastError();
 }
 
+template <int D, int DV>
+int launch_dkv_mma(const Args& a, cudaStream_t st) {
+    auto kern = flash_bwd_dkv_kernel_mma<D, DV>;
+    constexpr size_t bytes = DkvMmaSmem<D, DV>::BYTES;
+    static bool configured = false;
+    const cudaError_t e = allow_smem(kern, bytes, configured);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid(a.Hkv, a.B, (a.Skv + MMA_BKV - 1) / MMA_BKV);
+    kern<<<grid, MMA_THREADS, bytes, st>>>(
+        static_cast<const __nv_bfloat16*>(a.q),
+        static_cast<const __nv_bfloat16*>(a.k),
+        static_cast<const __nv_bfloat16*>(a.v),
+        static_cast<const __nv_bfloat16*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+        static_cast<__nv_bfloat16*>(a.dk), static_cast<__nv_bfloat16*>(a.dv),
+        a.Sq, a.Skv, a.H, a.Hkv, a.q_offset, a.causal, a.scale);
+    return (int)cudaGetLastError();
+}
+
+// fp32 -> the FMA kernels; bf16 -> the FMA dq kernel and the tensor-core
+// dk / dv kernel
 template <typename T>
 int dispatch(bool dq_pass, int D, int Dv, const Args& a, cudaStream_t st) {
+    constexpr bool BF16 = sizeof(T) == 2;
 #define FLASH_BWD_CASE(d, dv)                                               \
     if (D == d && Dv == dv)                                                 \
         return dq_pass ? launch_dq<T, d, dv>(a, st)                         \
-                       : launch_dkv<T, d, dv>(a, st);
+               : BF16  ? launch_dkv_mma<d, dv>(a, st)                       \
+                       : launch_dkv<float, d, dv>(a, st);
     FLASH_BWD_CASE(16, 16)
     FLASH_BWD_CASE(32, 32)
     FLASH_BWD_CASE(64, 64)
@@ -436,7 +744,19 @@ int run(bool dq_pass, int dtype, int D, int Dv, const Args& a,
         return -1;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (dtype == 0) return dispatch<float>(dq_pass, D, Dv, a, st);
-    if (dtype == 1) return dispatch<__nv_bfloat16>(dq_pass, D, Dv, a, st);
+    if (dtype == 1) {
+        if (!dq_pass) {                  // the tensor-core kernel's copies
+            const uintptr_t any = reinterpret_cast<uintptr_t>(a.q) |
+                                  reinterpret_cast<uintptr_t>(a.k) |
+                                  reinterpret_cast<uintptr_t>(a.v) |
+                                  reinterpret_cast<uintptr_t>(a.dout) |
+                                  reinterpret_cast<uintptr_t>(a.dk) |
+                                  reinterpret_cast<uintptr_t>(a.dv);
+            if (any % 16 || (a.Skv + MMA_BKV - 1) / MMA_BKV > 65535)
+                return -1;
+        }
+        return dispatch<__nv_bfloat16>(dq_pass, D, Dv, a, st);
+    }
     return -1;
 }
 
@@ -445,8 +765,9 @@ int run(bool dq_pass, int dtype, int D, int Dv, const Args& a,
 // Plain C entry points.  dtype: 0 = float32, 1 = bfloat16.  Device
 // pointers to contiguous q / dq (B, Sq, H, D), k / dk (B, Skv, Hkv, D),
 // v / dv (B, Skv, Hkv, Dv), out / dout (B, Sq, H, Dv) in the inputs' type,
-// and lse / delta (B, H, Sq) fp32.  The dq pass writes dq and delta; the
-// dkv pass reads delta and must run after it on the same stream.  Each
+// and lse / delta (B, H, Sq) fp32; for the bf16 dkv pass q, k, v, dout,
+// dk and dv 16-byte aligned.  The dq pass writes dq and delta; the dkv
+// pass reads delta and must run after it on the same stream.  Each
 // returns the launch's cudaGetLastError() (0 on success), or -1 on
 // arguments the kernels do not take (the Python wrapper checks first and
 // raises).

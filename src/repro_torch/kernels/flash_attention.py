@@ -2,10 +2,11 @@
 layer and of the vision tower.
 
 * :func:`flash_fwd` — the forward's wrapper: on CUDA tensors it launches
-  the hand-written kernel ``csrc/flash_attention.cu`` (which replaces the
-  TPU kernel ``repro/kernels/flash_attention.py::_fwd_kernel``); on CPU
-  tensors it takes the plain version.  It never falls back: CUDA tensors
-  the kernel does not take raise.
+  the hand-written kernels of ``csrc/flash_attention.cu`` (which replace
+  the TPU kernel ``repro/kernels/flash_attention.py::_fwd_kernel``): bf16
+  on the tensor cores (``flash_fwd_kernel_mma``), fp32 in fp32 FMA
+  (``flash_fwd_kernel``); on CPU tensors it takes the plain version.  It
+  never falls back: CUDA tensors the kernels do not take raise.
 * :func:`flash_bwd` — the backward's wrapper, the same way: on CUDA
   tensors it launches the two kernels of ``csrc/flash_attention_bwd.cu``
   through :func:`flash_bwd_dq`, the q-stationary dq pass (replaces
@@ -13,7 +14,7 @@ layer and of the vision tower.
   rows), and then :func:`flash_bwd_dkv`, the kv-stationary dk / dv pass
   (replaces ``_dkv_kernel``; each block sums over the G query heads of its
   group and every q tile, so no atomics and bit-equal results from launch
-  to launch).
+  to launch; bf16 on the tensor cores, ``flash_bwd_dkv_kernel_mma``).
 * :func:`flash_fwd_plain`, :func:`flash_bwd_plain` — the same functions
   in plain PyTorch from the full fp32 score matrix, the backward by its
   explicit formulas (not autograd).  The cross-check on the device and
@@ -31,16 +32,24 @@ Bound on an H100: operations over the bf16 tensor-core peak —
 ``4*B*H*Sq*Skv*D`` forward (half of it when causal) and 2.5x that for the
 backward (FA2's count: the dq pass recomputes s and does dp and dq, the
 dkv pass s, dp, dv and dk) — against the bytes of the tensors read and
-written once.  The kernels compute in fp32 FMA (see the sources' notes);
-their times stand beside the bound in PERF.md.
+written once.  The bf16 forward and dk / dv kernels run on the tensor
+cores (bf16 products, fp32 sums; before the second product the forward
+carries the probabilities as two bf16 parts, the dk / dv pass rounds P
+and dS to bf16 once, as FlashAttention-2 does); the fp32 kernels and the
+dq pass compute in fp32 FMA (see the sources' notes).
+Their times stand beside the bound in PERF.md.  The bf16 tensor-core
+kernels copy with 16-byte ``cp.async``, so they take q, k, v, out / dout
+and the gradients at 16-byte aligned addresses (a fresh tensor always
+is; a view at an odd offset raises).
 
 Tolerance: fp32 forward outputs agree with the plain version within 2e-5
 (both in full fp32, no TF32), fp32 gradients within 5e-4 (longer sums in
 another order), bf16 within 2e-2 of the tensor's scale (one rounding of
-each output); tests/test_torch_flash_attention.py and
-tests/test_torch_flash_backward.py hold the plain versions against the
-reference package's Pallas kernels in interpret mode, ``chip_smoke.py``
-the kernels against the plain versions on the card.
+each output, and of P and dS inside the tensor-core dk / dv pass);
+tests/test_torch_flash_attention.py and tests/test_torch_flash_backward.py
+hold the plain versions, and a rounding model of the tensor-core kernels,
+against the reference package's Pallas kernels in interpret mode,
+``chip_smoke.py`` the kernels against the plain versions on the card.
 """
 
 from __future__ import annotations
@@ -53,9 +62,29 @@ NEG_INF = -1e30
 HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (128, 64))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+# the bf16 tensor-core kernels' tiles (csrc/flash_attention.cu,
+# csrc/flash_attention_bwd.cu): forward 128 q rows x 64 kv rows per step,
+# dk / dv 128 kv rows x 64 q rows per step; 8 warps each
+FWD_TILE = (128, 64)
+DKV_TILE = (128, 64)
+
 launches = 0          # forward kernel
 dq_launches = 0       # backward, dq pass
 dkv_launches = 0      # backward, dk / dv pass
+
+
+def mma_smem_bytes(kernel: str, D: int, Dv: int) -> int:
+    """Dynamic shared memory per block of a bf16 tensor-core kernel
+    (``"fwd"`` or ``"dkv"``) at head dims (D, Dv): bf16 rows padded by 8
+    elements; the forward holds the q tile and two K and two V tiles, the
+    dk / dv pass K, V, two q and two dO tiles and two rows each of lse and
+    delta (fp32)."""
+    if kernel == "fwd":
+        bq, bk = FWD_TILE
+        return 2 * (bq * (D + 8) + 2 * bk * (D + 8) + 2 * bk * (Dv + 8))
+    bkv, bq = DKV_TILE
+    return 2 * ((bkv + 2 * bq) * (D + 8) + (bkv + 2 * bq) * (Dv + 8)) \
+        + 2 * 2 * bq * 4
 
 
 def _check(q, k, v, q_offset) -> None:
@@ -120,6 +149,7 @@ def flash_fwd(q, k, v, *, causal: bool = True, q_offset: int = 0):
     if B > 65535 or H > 65535:
         raise ValueError(f"flash_fwd kernel takes B, H <= 65535, got "
                          f"B={B}, H={H}")
+    _check_aligned("flash_fwd", (q, k, v))
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     from repro_torch.kernels import _build
@@ -137,6 +167,16 @@ def flash_fwd(q, k, v, *, causal: bool = True, q_offset: int = 0):
             f"{q.dtype}")
     launches += 1
     return out, lse
+
+
+def _check_aligned(what: str, tensors) -> None:
+    """The bf16 tensor-core kernels copy 16 bytes at a time (``cp.async``):
+    their tensors must start on a 16-byte boundary."""
+    if tensors[0].dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{what}: the bf16 kernel takes tensors at 16-byte "
+                         f"aligned addresses (a view at an odd offset is "
+                         f"not; pass a copy)")
 
 
 def _check_bwd(q, k, v, out, lse, dout, q_offset) -> None:
@@ -246,6 +286,7 @@ def flash_bwd_dkv(q, k, v, lse, dout, delta, *, causal: bool = True,
         raise ValueError(f"flash_bwd: delta must be float32 "
                          f"{tuple(lse.shape)} on {q.device}")
     _check_bwd_kernels(q, k, v, (q, k, v, lse, dout, delta))
+    _check_aligned("flash_bwd dk/dv", (q, k, v, dout))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     from repro_torch.kernels import _build
     lib = _build.load()

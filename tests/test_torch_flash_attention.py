@@ -6,8 +6,12 @@ Inputs are made with numpy from a seed and handed to both sides (bf16 by
 the same round-to-nearest-even cast).  Tolerances are the reference's own
 kernel tolerances (tests/test_kernels.py): 2e-5 in fp32 — both sides do
 the whole computation in fp32, only the summation order differs — and
-2e-2 in bf16, where the output is rounded once to bf16 on each side.  The
-kernel itself is held against the plain version on the card by
+2e-2 in bf16, where the output is rounded once to bf16 on each side.  A
+rounding model of the bf16 tensor-core kernel (probabilities split into
+two bf16 parts before the second product) is held to the Pallas kernel at
+the same bf16 tolerance, which shows that the kernel's roundings fit it.
+The
+kernels themselves are held against the plain version on the card by
 ``chip_smoke.py``.
 """
 
@@ -145,3 +149,87 @@ def _bad_calls():
 def test_wrapper_refuses_what_the_kernel_does_not_take(name, call):
     with pytest.raises((TypeError, ValueError)):
         call()
+
+
+# ---------------------------------------------------------------------------
+# the bf16 tensor-core kernel's roundings (flash_fwd_kernel_mma)
+# ---------------------------------------------------------------------------
+
+def split_bf16(x: torch.Tensor) -> torch.Tensor:
+    """x as the kernel carries it into a product: hi = bf16(x) plus lo =
+    bf16(x - hi), each an exact bf16 operand."""
+    hi = x.to(torch.bfloat16).float()
+    return hi + (x - hi).to(torch.bfloat16).float()
+
+
+def tensor_core_forward_model(q, k, v, causal, q_offset):
+    """A rounding model of ``flash_fwd_kernel_mma`` in plain torch: the
+    products of bf16 q and k summed in fp32, the scale applied to the fp32
+    scores, the probabilities split into two bf16 parts before ``P v``
+    (products of bf16 summed in fp32), the row sums and lse from the fp32
+    probabilities, one rounding of out.  (The kernel splits ``exp(s - m)``
+    against its running max and rescales in fp32; the model takes the
+    final max: the same roundings at other points of the same size.)"""
+    B, Sq, H, D = q.shape
+    Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
+    G = H // Hkv
+    s = torch.einsum("bshgd,bthd->bhgst", q.float().reshape(B, Sq, Hkv, G, D),
+                     k.float()) * D ** -0.5
+    if causal:
+        keep = torch.arange(Skv)[None, :] <= q_offset + torch.arange(Sq)[:, None]
+        s = s.masked_fill(~keep, TFA.NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    o = torch.einsum("bhgst,bthd->bshgd", split_bf16(p), v.float())
+    o = o / l.permute(0, 3, 1, 2, 4)
+    lse = (m + torch.log(l))[..., 0]
+    return (o.reshape(B, Sq, H, Dv).to(torch.bfloat16),
+            lse.reshape(B, H, Sq))
+
+
+# the reference's cases, the vision tower's ragged 577, a causal
+# continuation against a ragged kv length, and the reduced configs' D = 16
+TENSOR_CORE_CASES = FLASH_CASES + [
+    (1, 577, 577, 2, 2, 64, 64, False, 128),
+    (1, 65, 577, 2, 1, 64, 64, True, 128),
+    (2, 70, 70, 2, 2, 16, 16, True, 128),
+]
+
+
+@pytest.mark.parametrize("case", TENSOR_CORE_CASES,
+                         ids=["x".join(map(str, c[:8])) for c in
+                              TENSOR_CORE_CASES])
+def test_tensor_core_roundings_fit_the_bf16_tolerance(case):
+    """Carrying the probabilities as two bf16 parts into the second
+    product, as the tensor-core kernel does, stays within the bf16
+    tolerance of the reference's Pallas kernel (interpret mode): 2e-2, as
+    allclose(atol=rtol), on out, and lse within 2e-5."""
+    causal, block = case[7], case[8]
+    q, k, v, qoff = make_qkv(case, jnp.bfloat16, seed=5)
+    out, lse = tensor_core_forward_model(to_torch(q), to_torch(k),
+                                         to_torch(v), causal, qoff)
+    k_out, k_lse = pallas_flash_fwd(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), causal=causal,
+                                    block_q=block, block_k=block,
+                                    q_offset=qoff, interpret=True)
+    np.testing.assert_allclose(as_f32(out), as_f32(k_out), atol=2e-2,
+                               rtol=2e-2)
+    np.testing.assert_allclose(as_f32(lse), as_f32(k_lse), atol=2e-5,
+                               rtol=2e-5)
+
+
+def test_bf16_kernel_refuses_tensors_off_the_16_byte_grid():
+    """The tensor-core kernel copies 16 bytes at a time: a bf16 view at a
+    2-byte offset is refused before any launch; fp32 (the FMA kernel) and
+    fresh bf16 tensors pass."""
+    base = torch.zeros(1 * 8 * 4 * 64 + 8, dtype=torch.bfloat16)
+    odd = base[1:1 + 8 * 4 * 64].view(1, 8, 4, 64)
+    even = base[8:].view(1, 8, 4, 64)
+    assert odd.is_contiguous() and odd.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        TFA._check_aligned("flash_fwd", (odd, even, even))
+    TFA._check_aligned("flash_fwd", (even, even, even))
+    TFA._check_aligned("flash_fwd", (torch.zeros(9)[1:],))
+    assert TFA.mma_smem_bytes("fwd", 128, 128) == 104448
+    assert TFA.mma_smem_bytes("dkv", 128, 128) == 140288

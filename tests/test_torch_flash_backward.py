@@ -10,8 +10,11 @@ both sides as numpy arrays.  Tolerances: 5e-4 in fp32, the reference's own
 gradient tolerance (tests/test_kernels.py: sums over a whole sequence in
 another order); 2e-2 of the compared tensor's scale in bf16, where each
 gradient is rounded once to bf16 on each side and the Pallas kernel and
-the oracle read bf16 inputs at different points.  The kernels themselves
-are held against the plain version on the card by ``chip_smoke.py``.
+the oracle read bf16 inputs at different points.  A rounding model of the
+bf16 tensor-core dk / dv kernel (P and dS rounded to bf16 before their
+products) is held to the Pallas backward at the same bf16 tolerance.  The
+kernels themselves are held against the plain version on the card by
+``chip_smoke.py``.
 """
 
 import jax
@@ -22,8 +25,14 @@ import torch
 
 from repro.kernels import ref as RREF
 from repro.kernels.flash_attention import flash_bwd as pallas_flash_bwd
+from repro_torch.configs import get_config
+from repro_torch.core.spec import LLAVA_STAGE2
 from repro_torch.kernels import flash_attention as TFA
 from repro_torch.kernels import ops as TOPS
+from repro_torch.models import build_model
+from repro_torch.models import param as TPM
+from repro_torch.train import OptimizerConfig, train_state
+from tests.test_torch_flash_attention import tensor_core_forward_model
 
 # the cases of tests/test_kernels.py: (B, Sq, Skv, H, Hkv, D, Dv, causal,
 # block) — ragged seq, decode-shaped q, MQA with Dq != Dv, off-by-two
@@ -189,3 +198,111 @@ def _bad_calls():
 def test_backward_wrapper_refuses_what_the_kernels_do_not_take(name, call):
     with pytest.raises((TypeError, ValueError)):
         call()
+
+
+# ---------------------------------------------------------------------------
+# the bf16 tensor-core dk / dv kernel's roundings (flash_bwd_dkv_kernel_mma)
+# ---------------------------------------------------------------------------
+
+def tensor_core_dkv_model(q, k, v, out, lse, dout, causal, q_offset):
+    """A rounding model of ``flash_bwd_dkv_kernel_mma`` in plain torch:
+    scores from bf16 products summed in fp32, the scale on the fp32
+    scores, ``P = exp(scale s - lse)`` in fp32, rounded to bf16 for ``dV
+    = P^T dO``; ``dS = P (dP - delta)`` from the fp32 P, rounded to bf16
+    for ``dK = scale dS^T q``; every product of bf16 operands summed in
+    fp32, one rounding of dk and dv."""
+    B, Sq, H, D = q.shape
+    Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
+    G = H // Hkv
+    qf = q.float().reshape(B, Sq, Hkv, G, D)
+    do = dout.float().reshape(B, Sq, Hkv, G, Dv)
+    delta = (do * out.float().reshape(B, Sq, Hkv, G, Dv)).sum(-1)
+    s = torch.einsum("bshgd,bthd->bhgst", qf, k.float()) * D ** -0.5
+    p = torch.exp(s - lse.reshape(B, Hkv, G, Sq, 1))
+    if causal:
+        keep = torch.arange(Skv)[None, :] <= q_offset + torch.arange(Sq)[:, None]
+        p = p.masked_fill(~keep, 0.0)
+    dv = torch.einsum("bhgst,bshgd->bthd", p.to(torch.bfloat16).float(), do)
+    dp = torch.einsum("bshgd,bthd->bhgst", do, v.float())
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    dk = torch.einsum("bhgst,bshgd->bthd", ds.to(torch.bfloat16).float(),
+                      qf) * D ** -0.5
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+# the reference's cases, the vision tower's ragged 577, a causal
+# continuation against a ragged kv length, and the reduced configs' D = 16
+TENSOR_CORE_CASES = FLASH_CASES + [
+    (1, 577, 577, 2, 2, 64, 64, False, 128),
+    (1, 65, 577, 2, 1, 64, 64, True, 128),
+    (2, 70, 70, 2, 2, 16, 16, True, 128),
+]
+
+
+@pytest.mark.parametrize("case", TENSOR_CORE_CASES,
+                         ids=["x".join(map(str, c[:8])) for c in
+                              TENSOR_CORE_CASES])
+def test_tensor_core_dkv_roundings_fit_the_bf16_tolerance(case):
+    """Rounding P and dS to bf16 before the products that make dv and dk,
+    as the tensor-core kernel does, stays within 2e-2 of each gradient's
+    scale of the reference's Pallas backward (interpret mode) on the same
+    out and lse."""
+    causal, block = case[7], case[8]
+    q, k, v, do, qoff = make(case, jnp.bfloat16, seed=5)
+    tq, tk, tv, tdo = map(to_torch, (q, k, v, do))
+    out, lse = TFA.flash_fwd_plain(tq, tk, tv, causal=causal, q_offset=qoff)
+    dk, dv = tensor_core_dkv_model(tq, tk, tv, out, lse, tdo, causal, qoff)
+    assert dk.dtype == dv.dtype == torch.bfloat16
+    _, want_dk, want_dv = pallas_flash_bwd(
+        *map(jnp.asarray, (q, k, v, to_np(out), lse.numpy(), do)),
+        causal=causal, block_q=block, block_k=block, q_offset=qoff,
+        interpret=True)
+    close(dk, want_dk, "bfloat16", "dk vs Pallas _dkv_kernel")
+    close(dv, want_dv, "bfloat16", "dv vs Pallas _dkv_kernel")
+
+
+def test_tensor_core_roundings_keep_the_reduced_vlm_gradients(monkeypatch):
+    """The slice as a whole: the reduced llava15-7b's LLaVA stage-2 loss
+    and gradients (bf16, remat "block"), with attention through the
+    rounding models of the tensor-core kernels (forward; dq as the plain
+    pass, dk / dv as the tensor-core pass), within 2e-2 of each trainable
+    leaf's scale of the same step through the plain versions: the gate
+    chip_smoke.py holds the card's kernel path to against the CPU."""
+    cfg = get_config("llava15-7b").reduced()
+    model = build_model(cfg)
+    gen = torch.Generator()
+    gen.manual_seed(20260811)
+    params = model.init(gen, "cpu")
+    v = cfg.vlm
+    n_patch = (v.vit_image_size // v.vit_patch) ** 2
+    batch = {"patches": (torch.randn(2, n_patch, 3 * v.vit_patch ** 2,
+                                     generator=gen) * 0.3).bfloat16(),
+             "tokens": torch.randint(0, cfg.vocab, (2, 8), generator=gen,
+                                     dtype=torch.int32),
+             "labels": torch.randint(0, cfg.vocab, (2, 8), generator=gen,
+                                     dtype=torch.int32)}
+    state = train_state(params, LLAVA_STAGE2, OptimizerConfig(name="adamw"))
+    named = TPM.trainable_params(state.params)
+
+    def loss_and_grads():
+        loss, _ = model.loss(state.params, batch, remat="block")
+        return float(loss.detach()), torch.autograd.grad(
+            loss, [p for _, p in named])
+
+    want_loss, want = loss_and_grads()
+
+    def fwd(q, k, v, *, causal=True, q_offset=0):
+        return tensor_core_forward_model(q, k, v, causal, q_offset)
+
+    def bwd(q, k, v, out, lse, dout, *, causal=True, q_offset=0):
+        dq, _, _ = TFA.flash_bwd_plain(q, k, v, out, lse, dout,
+                                       causal=causal, q_offset=q_offset)
+        return (dq, *tensor_core_dkv_model(q, k, v, out, lse, dout, causal,
+                                           q_offset))
+
+    monkeypatch.setattr(TFA, "flash_fwd", fwd)
+    monkeypatch.setattr(TFA, "flash_bwd", bwd)
+    got_loss, got = loss_and_grads()
+    assert abs(got_loss - want_loss) <= 2e-2 * max(1.0, abs(want_loss))
+    for (name, _), g, w in zip(named, got, want):
+        close(g, w, "bfloat16", name)
