@@ -23,8 +23,9 @@ Phases (any failure exits non-zero):
    on the reference's kernel-test cases and at the serving and the
    training paths' shapes, in fp32 (tolerance 2e-5; the plain version's matmuls in full fp32,
    ``allow_tf32`` off) and bf16 (tolerance 2e-2), on ``out`` and ``lse``;
-   ``flash_bwd`` (the dq and the dk/dv kernels) on the same cases and the
-   training path's shapes, fp32 within 5e-4 and bf16 within 2e-2 of each
+   ``flash_bwd`` (the dq and the dk/dv kernels) on the same cases, the
+   training path's shapes and the reduced configs' head dim 16, fp32
+   within 5e-4 and bf16 within 2e-2 of each
    gradient's scale, and ``rmsnorm_bwd`` (dx and dscale, 1e-4 / 2e-2),
    each (the forward too) also bit-equal on a second launch, and every
    wrapper refusing what its kernel does not take (a bf16 view off the
@@ -507,9 +508,11 @@ def check_rmsnorm() -> dict:
             "tolerance": {"float32": 2e-5, "bfloat16": 2e-2}}
 
 
-# the backward's cases: the reference's six and the training path's two
-# attention shapes (the LM's causal 2,048 and the ViT's ragged 577)
-FLASH_BWD_CASES = FLASH_CASES[:6] + [TRAIN_VIT_CASE, TRAIN_LM_CASE]
+# the backward's cases: the reference's six, the training path's two
+# attention shapes (the LM's causal 2,048 and the ViT's ragged 577) and
+# the reduced configs' head dim 16 (the reduced card-vs-CPU training run)
+FLASH_BWD_CASES = FLASH_CASES[:6] + [TRAIN_VIT_CASE, TRAIN_LM_CASE,
+                                     (2, 70, 70, 2, 2, 16, 16, True)]
 RMSNORM_BWD_SHAPES = RMSNORM_SHAPES[:4] + [TRAIN_ROWS, (40, 96)]
 BWD_TOLERANCE = {"flash": {torch.float32: 5e-4, torch.bfloat16: 2e-2},
                  "rmsnorm": {torch.float32: 1e-4, torch.bfloat16: 2e-2}}
@@ -588,6 +591,9 @@ def check_flash_bwd() -> dict:
            lambda: FL.flash_bwd(z, z, z, z, lz, torch.zeros(
                1, 4, 8, 64, device=DEV).transpose(1, 2)),
            lambda: FL.flash_bwd_dkv(z, z, z, lz, z, lz[:, :2]),
+           # contiguous bf16 at a 2-byte offset: off cp.async's 16 bytes
+           lambda: FL.flash_bwd_dq(*[unaligned_bf16(z.shape)] * 4, lz,
+                                   unaligned_bf16(z.shape)),
            lambda: FL.flash_bwd_dkv(*[unaligned_bf16(z.shape)] * 3, lz,
                                     unaligned_bf16(z.shape), lz)]
     for call in bad:
@@ -809,7 +815,9 @@ def model_counts() -> dict:
 # the bf16 tensor-core kernels: name in the kernels line -> (CUDA kernel,
 # FL.mma_smem_bytes kind)
 MMA_KERNELS = {"flash_fwd": ("flash_fwd_kernel_mma", "fwd"),
+               "flash_dq": ("flash_bwd_dq_kernel_mma", "dq"),
                "flash_dkv": ("flash_bwd_dkv_kernel_mma", "dkv")}
+MMA_TILES = {"fwd": FL.FWD_TILE, "dq": FL.DQ_TILE, "dkv": FL.DKV_TILE}
 
 
 def mma_resources() -> dict:
@@ -1026,11 +1034,14 @@ def device_breakdown(fn, wall_ms: float, top: int = 6):
     if not busy:
         return None
     rows.sort(reverse=True)
-    # by substring: "flash_fwd_kernel" also counts flash_fwd_kernel_mma
-    part = {name: sum(r[0] for r in rows if name in r[1])
-            for name in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-                         "flash_bwd_dkv_kernel", "rmsnorm_fwd_kernel",
-                         "rmsnorm_bwd_kernel", "ssd_scan_kernel")}
+    # by substring of the demangled name: "flash_fwd_kernel<" is the fp32
+    # FMA kernel, "flash_fwd_kernel_mma" the bf16 tensor-core one
+    part = {name.rstrip("<"): sum(r[0] for r in rows if name in r[1])
+            for name in ("flash_fwd_kernel_mma", "flash_fwd_kernel<",
+                         "flash_bwd_dq_kernel_mma", "flash_bwd_dq_kernel<",
+                         "flash_bwd_dkv_kernel_mma", "flash_bwd_dkv_kernel<",
+                         "rmsnorm_fwd_kernel", "rmsnorm_bwd_kernel",
+                         "ssd_scan_kernel")}
     part = {k: v for k, v in part.items() if v}
     return {"busy_ms": busy, "wall_ms": wall_ms,
             "busy_share": busy / wall_ms,
@@ -1967,7 +1978,7 @@ def _flash_bwd_timing(shape: tuple, causal: bool, gen) -> tuple:
             # and delta
             ("flash_dq", 3, 6 * tensor + 2 * stat,
              lambda: FL.flash_bwd_dq(q, k, v, out, lse, do, causal=causal),
-             "flash_bwd_dq_kernel"),
+             "flash_bwd_dq_kernel_mma"),
             # dk / dv pass: s, dp, dv and dk; reads q k v dout lse delta,
             # writes dk dv
             ("flash_dkv", 4, 6 * tensor + 2 * stat,
@@ -2074,8 +2085,7 @@ def time_model_kernels(checks: dict, launches: dict) -> list:
         if name in MMA_KERNELS:
             kern, which = MMA_KERNELS[name]
             entry["tensor_cores"] = {
-                "kernel": kern, "tile": list(FL.FWD_TILE if which == "fwd"
-                                             else FL.DKV_TILE),
+                "kernel": kern, "tile": list(MMA_TILES[which]),
                 "threads": 256,
                 "ptxas": mma_resources().get(f"{kern}<{d},{d}>"),
                 "smem_bytes_per_block": FL.mma_smem_bytes(which, d, d)}

@@ -1,6 +1,6 @@
-// flash_bwd_dq_kernel / flash_bwd_dkv_kernel: FlashAttention-2 backward
-// with GQA, causal masking from a q offset, for the out + lse that
-// flash_fwd_kernel (flash_attention.cu) saved.
+// flash_bwd_dq_kernel(_mma) / flash_bwd_dkv_kernel(_mma): FlashAttention-2
+// backward with GQA, causal masking from a q offset, for the out + lse
+// that the forward (flash_attention.cu) saved.
 //
 // Replace the TPU kernels repro/kernels/flash_attention.py::_dq_kernel and
 // ::_dkv_kernel (driven by flash_bwd).  On the TPU both are grids whose
@@ -9,14 +9,14 @@
 // order, so each sum lives in one block's registers and the block walks
 // the sequential axis itself:
 //
-// * dq:  one block per (batch, head, 64-row q tile); it loops over the
+// * dq:  one block per (batch, head, q tile); it loops over the
 //   64-row KV tiles, recomputes p = exp(s - lse) under the forward's masks
 //   and adds ds . k to dq, ds = p * (dO . v^T - delta).  dq is multiplied
 //   by D^-0.5 once at the end, as the TPU kernel's finalize does.  The
 //   block also computes delta = sum_d dO * out of its rows (the reference
 //   computes it outside its kernels) and stores it for the dkv kernel,
 //   which runs after it on the same stream.
-// * dkv: one block per (batch, kv head, 64-row KV tile); it loops over the
+// * dkv: one block per (batch, kv head, KV tile); it loops over the
 //   G query heads of the group and every q tile inside the block, adding
 //   p^T . dO to dv and ds^T . (q * D^-0.5) to dk (so dk carries the scale
 //   through the pre-scaled q, as in the TPU kernel), and writes each tile
@@ -27,48 +27,76 @@
 // give p = 0.  Ragged edges are masked in the kernel (rows past Sq / Skv
 // load zeros and are not stored), so the wrapper makes no padded copies.
 // Causal tiles wholly above the diagonal are skipped with the TPU kernels'
-// test on absolute positions: a (q tile, KV tile) pair is computed when
-// k0 <= q_offset + q0 + 63.
+// test on absolute positions: in the fp32 kernels a (64-row q tile, KV
+// tile) pair is computed when k0 <= q_offset + q0 + 63; the tensor-core
+// kernels apply the same test per warp.
 //
 // What bounds them on an H100: operations.  The dq pass does three
 // products per score tile (s, dp, dq) and the dkv pass four (s, dp, dv,
 // dk), 2.5x the forward's operations in all (FA2's count), against
 // q + k + v + out + dout + dq + dk + dv bytes plus lse and delta.
 //
-// flash_bwd_dkv_kernel_mma, the dk / dv pass for bf16 inputs, runs on the
-// tensor cores (m16n8k16 bf16 mma.sync, fp32 accumulation).  One block of
-// 8 warps per (batch, kv head, 128-row KV tile), grid (Hkv, B, KV tiles):
-// the first KV tiles, which under a causal mask meet the most q rows,
-// start first.  K and V stay resident in shared memory; each warp owns 16
-// KV rows and keeps their fp32 dK and dV accumulators in mma fragments
-// (at head dim 128, 64 + 64 registers).  The block walks the G query
-// heads of its group and every 64-row q tile from the causal start, in a
-// fixed order; q, dO and the tile's rows of lse and delta come through
-// cp.async copies, double-buffered (tile i + 1 in flight while tile i
-// computes), rows past Sq zero-filled.  Each q tile is computed in two
-// 32-row halves (16 + 16 registers of scores and dp), in the kv-major
-// orientation, so nothing is transposed through shared memory:
-//   S^T = K Q^T;  P^T = exp(scale S^T - lse) (fp32), rounded to bf16 in
-//   registers;  dV += P^T dO (dO by ldmatrix.trans);  dP^T = V dO^T;
-//   dS^T = P^T (dP^T - delta) -> bf16;  dK += dS^T Q (Q by ldmatrix.trans);
-// dK is multiplied by D^-0.5 once at the end.  A warp skips the halves
-// wholly above its diagonal and masks only the halves on the diagonal or
-// a ragged edge.  Each dk / dv tile is written once: no atomics,
-// bit-equal from one launch to the next.  Per block at head dim 128: 256
-// threads of 253 registers, no spills (ptxas -v for sm_90a, nvcc 12.9;
-// chip_smoke.py prints it), and 140,288 bytes of shared memory (K, V, two
-// q and two dO tiles with rows padded by 16 bytes, so ldmatrix is free of
-// bank conflicts, and two rows each of lse and delta).
+// For bf16 inputs both passes run on the tensor cores (m16n8k16 bf16
+// mma.sync, fp32 accumulation), in blocks of 8 warps (256 threads), with
+// bf16 tiles in shared memory whose rows are padded by 16 bytes, so the 8
+// rows an ldmatrix reads fall in 8 different 4-bank groups:
 //
-// The dq pass, and the dk / dv pass for fp32 inputs (fp32 gradients must
-// meet 5e-4 without TF32), compute in fp32 FMA on the CUDA cores.  The
-// block's 256 threads form a 16 x 16 grid: thread (ty, tx) owns the
-// scores of q rows ty + 16i and KV columns tx + 16j (i, j < 4), and 4 rows
-// x (width / 16) columns of each accumulator.  All tiles sit in shared
-// memory as fp32 with rows padded by one float, so the inner loops read
-// broadcasts or 16 consecutive banks.  Shared memory at head dim 128: dq
-// 148,736 bytes (q, dO, k, v, ds), fp32 dkv 165,376 bytes (k, v, q, dO, p,
-// ds), one block per SM, through cudaFuncSetAttribute.
+// * flash_bwd_dq_kernel_mma: one block per (head, batch, 128-row q tile),
+//   grid (H, B, q tiles) with the q tiles in reverse, so that under a
+//   causal mask the last tiles, which meet the most KV tiles, start first.
+//   The block's q and dO tiles stay resident; 64-row K and V tiles come
+//   through cp.async, double-buffered (tile j + 1 in flight while tile j
+//   computes), rows past Skv zero-filled.  Each warp owns 16 q rows and
+//   their fp32 dQ accumulators (at head dim 128, 64 registers) and reads
+//   its q and dO fragments from shared memory per use.  Per KV tile:
+//     S = Q K^T;  dP = dO V^T;  P = exp(scale S - lse) in fp32;
+//     dS = P (dP - delta) in fp32, packed from the C fragments straight
+//     into A fragments with one rounding to bf16;  dQ += dS K (K by
+//     ldmatrix.trans).
+//   P never enters a product.  dS rounded once keeps the reduced
+//   llava15-7b's bf16 gradients within the 2e-2 gate the card is held to,
+//   as carrying it in two bf16 parts does (the CPU rounding model,
+//   tests/test_torch_flash_backward.py; readings in PERF.md), at half the
+//   products of dS K.  A warp skips the KV tiles wholly
+//   above its rows' diagonal and masks only the tiles that cross the
+//   diagonal or Skv.  On its first tile the block computes delta = sum_d
+//   dO * out of its rows in fp32 and stores it for the dkv pass; dQ is
+//   multiplied by D^-0.5 once at the store.  Per block at head dim 128:
+//   139,264 bytes of shared memory (q, dO, two K and two V tiles), one
+//   block per SM (ptxas -v's registers and spills: chip_smoke.py prints
+//   them).
+// * flash_bwd_dkv_kernel_mma: one block per (kv head, batch, 128-row KV
+//   tile), grid (Hkv, B, KV tiles): the first KV tiles, which under a
+//   causal mask meet the most q rows, start first.  K and V stay resident
+//   in shared memory; each warp owns 16 KV rows and keeps their fp32 dK
+//   and dV accumulators in mma fragments (at head dim 128, 64 + 64
+//   registers).  The block walks the G query heads of its group and every
+//   64-row q tile from the causal start, in a fixed order; q, dO and the
+//   tile's rows of lse and delta come through cp.async copies,
+//   double-buffered, rows past Sq zero-filled.  Each q tile is computed in
+//   two 32-row halves (16 + 16 registers of scores and dp), in the
+//   kv-major orientation, so nothing is transposed through shared memory:
+//     S^T = K Q^T;  P^T = exp(scale S^T - lse) (fp32), rounded to bf16 in
+//     registers;  dV += P^T dO (dO by ldmatrix.trans);  dP^T = V dO^T;
+//     dS^T = P^T (dP^T - delta) -> bf16;  dK += dS^T Q (Q by ldmatrix.trans);
+//   dK is multiplied by D^-0.5 once at the end.  A warp skips the halves
+//   wholly above its diagonal and masks only the halves on the diagonal
+//   or a ragged edge.  Per block at head dim 128: 256 threads of 253
+//   registers, no spills (ptxas -v for sm_90a, nvcc 12.9), and 140,288
+//   bytes of shared memory (K, V, two q and two dO tiles, and two rows
+//   each of lse and delta).
+// Each dq and each dk / dv tile is written once by one block after a
+// fixed loop order: no atomics, bit-equal from one launch to the next.
+//
+// For fp32 inputs (fp32 gradients must meet 5e-4 without TF32) both passes
+// compute in fp32 FMA on the CUDA cores (flash_bwd_dq_kernel,
+// flash_bwd_dkv_kernel).  The block's 256 threads form a 16 x 16 grid:
+// thread (ty, tx) owns the scores of q rows ty + 16i and KV columns tx +
+// 16j (i, j < 4), and 4 rows x (width / 16) columns of each accumulator.
+// All tiles sit in shared memory as fp32 with rows padded by one float, so
+// the inner loops read broadcasts or 16 consecutive banks.  Shared memory
+// at head dim 128: dq 148,736 bytes (q, dO, k, v, ds), dkv 165,376 bytes
+// (k, v, q, dO, p, ds), one block per SM, through cudaFuncSetAttribute.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -82,19 +110,6 @@ constexpr int BQ = 64;          // q rows per tile
 constexpr int BK = 64;          // kv rows per tile
 constexpr int THREADS = 256;    // 16 x 16
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-    return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float x) {
-    return __float2bfloat16(x);          // round to nearest even
-}
-
 __device__ __forceinline__ float half_warp_sum(float v) {
     #pragma unroll
     for (int off = 8; off > 0; off >>= 1)
@@ -104,14 +119,14 @@ __device__ __forceinline__ float half_warp_sum(float v) {
 
 // rows x width tile of a (.., S, heads, width) tensor into shared memory
 // as fp32 (row stride width + 1), times mul; rows past S load zeros.
-template <typename T, int WIDTH, int ROWS>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
+template <int WIDTH, int ROWS>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           long long row_stride, int s0,
                                           int S, float mul) {
     for (int i = threadIdx.x; i < ROWS * WIDTH; i += THREADS) {
         const int r = i / WIDTH, d = i - r * WIDTH, s = s0 + r;
         dst[r * (WIDTH + 1) + d] =
-            s < S ? to_f32(src[(long long)s * row_stride + d]) * mul : 0.f;
+            s < S ? src[(long long)s * row_stride + d] * mul : 0.f;
     }
 }
 
@@ -160,13 +175,13 @@ struct DkvSmem {
         (size_t)(DS_OFF + BQ * (BK + 1)) * sizeof(float);
 };
 
-template <typename T, int D, int DV>
+template <int D, int DV>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ out,
-                    const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ out,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse, float* __restrict__ delta,
-                    T* __restrict__ dq, int Sq, int Skv, int H, int Hkv,
+                    float* __restrict__ dq, int Sq, int Skv, int H, int Hkv,
                     int q_offset, int causal, float scale) {
     using S = DqSmem<D, DV>;
     constexpr int NC = D / 16;           // dq columns per thread
@@ -188,12 +203,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const long long v_row = (long long)Hkv * DV;
     const long long qb = (long long)b * Sq * q_row + (long long)h * D;
     const long long ob = (long long)b * Sq * o_row + (long long)h * DV;
-    const T* kb = k + (long long)b * Skv * k_row + (long long)hk * D;
-    const T* vb = v + (long long)b * Skv * v_row + (long long)hk * DV;
+    const float* kb = k + (long long)b * Skv * k_row + (long long)hk * D;
+    const float* vb = v + (long long)b * Skv * v_row + (long long)hk * DV;
     const long long stat = ((long long)b * H + h) * Sq;   // lse / delta row
 
-    load_tile<T, D, BQ>(Qs, q + qb, q_row, q0, Sq, scale);
-    load_tile<T, DV, BQ>(dOs, dout + ob, o_row, q0, Sq, 1.f);
+    load_tile<D, BQ>(Qs, q + qb, q_row, q0, Sq, scale);
+    load_tile<DV, BQ>(dOs, dout + ob, o_row, q0, Sq, 1.f);
     __syncthreads();
 
     // delta = sum_d dO * out of this thread's 4 rows (fp32), stored for
@@ -204,11 +219,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int r = ty + 16 * i, s = q0 + r;
         float part = 0.f;
         if (s < Sq) {
-            const T* o = out + ob + (long long)s * o_row;
+            const float* o = out + ob + (long long)s * o_row;
             #pragma unroll
             for (int c = 0; c < NV; ++c)
                 part = fmaf(dOs[r * (DV + 1) + tx + 16 * c],
-                            to_f32(o[tx + 16 * c]), part);
+                            o[tx + 16 * c], part);
         }
         delta_r[i] = half_warp_sum(part);
         lse_r[i] = s < Sq ? lse[stat + s] : 0.f;
@@ -225,8 +240,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int kv_end = causal ? min(Skv, q_offset + q0 + BQ) : Skv;
     for (int k0 = 0; k0 < kv_end; k0 += BK) {
         __syncthreads();                 // previous tile fully consumed
-        load_tile<T, D, BK>(Ks, kb, k_row, k0, Skv, 1.f);
-        load_tile<T, DV, BK>(Vs, vb, v_row, k0, Skv, 1.f);
+        load_tile<D, BK>(Ks, kb, k_row, k0, Skv, 1.f);
+        load_tile<DV, BK>(Vs, vb, v_row, k0, Skv, 1.f);
         __syncthreads();
 
         float s[4][4], dp[4][4];
@@ -265,19 +280,19 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < 4; ++i) {
         const int s = q0 + ty + 16 * i;
         if (s >= Sq) continue;
-        T* o = dq + qb + (long long)s * q_row;
+        float* o = dq + qb + (long long)s * q_row;
         #pragma unroll
-        for (int c = 0; c < NC; ++c) o[tx + 16 * c] = from_f32<T>(acc[i][c] * scale);
+        for (int c = 0; c < NC; ++c) o[tx + 16 * c] = acc[i][c] * scale;
     }
 }
 
-template <typename T, int D, int DV>
+template <int D, int DV>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int Sq, int Skv, int H, int Hkv,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int Sq, int Skv, int H, int Hkv,
                      int q_offset, int causal, float scale) {
     using S = DkvSmem<D, DV>;
     constexpr int NC = D / 16;           // dk columns per thread
@@ -301,8 +316,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const long long kb = (long long)b * Skv * k_row + (long long)hk * D;
     const long long vb = (long long)b * Skv * v_row + (long long)hk * DV;
 
-    load_tile<T, D, BK>(Ks, k + kb, k_row, k0, Skv, 1.f);
-    load_tile<T, DV, BK>(Vs, v + vb, v_row, k0, Skv, 1.f);
+    load_tile<D, BK>(Ks, k + kb, k_row, k0, Skv, 1.f);
+    load_tile<DV, BK>(Vs, v + vb, v_row, k0, Skv, 1.f);
 
     float dk_acc[4][NC], dv_acc[4][NV];
     #pragma unroll
@@ -319,13 +334,13 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     for (int g = 0; g < G; ++g) {
         const int h = hk * G + g;
-        const T* qb = q + (long long)b * Sq * q_row + (long long)h * D;
-        const T* ob = dout + (long long)b * Sq * o_row + (long long)h * DV;
+        const float* qb = q + (long long)b * Sq * q_row + (long long)h * D;
+        const float* ob = dout + (long long)b * Sq * o_row + (long long)h * DV;
         const long long stat = ((long long)b * H + h) * Sq;
         for (int q0 = q_first; q0 < Sq; q0 += BQ) {
             __syncthreads();             // previous tiles fully consumed
-            load_tile<T, D, BQ>(Qs, qb, q_row, q0, Sq, scale);
-            load_tile<T, DV, BQ>(dOs, ob, o_row, q0, Sq, 1.f);
+            load_tile<D, BQ>(Qs, qb, q_row, q0, Sq, scale);
+            load_tile<DV, BQ>(dOs, ob, o_row, q0, Sq, 1.f);
             __syncthreads();
 
             float s[4][4], dp[4][4];
@@ -382,12 +397,12 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < 4; ++i) {
         const int s = k0 + ty + 16 * i;
         if (s >= Skv) continue;
-        T* ok = dk + kb + (long long)s * k_row;
-        T* ov = dv + vb + (long long)s * v_row;
+        float* ok = dk + kb + (long long)s * k_row;
+        float* ov = dv + vb + (long long)s * v_row;
         #pragma unroll
-        for (int c = 0; c < NC; ++c) ok[tx + 16 * c] = from_f32<T>(dk_acc[i][c]);
+        for (int c = 0; c < NC; ++c) ok[tx + 16 * c] = dk_acc[i][c];
         #pragma unroll
-        for (int c = 0; c < NV; ++c) ov[tx + 16 * c] = from_f32<T>(dv_acc[i][c]);
+        for (int c = 0; c < NV; ++c) ov[tx + 16 * c] = dv_acc[i][c];
     }
 }
 
@@ -648,6 +663,238 @@ flash_bwd_dkv_kernel_mma(const __nv_bfloat16* __restrict__ q,
     }
 }
 
+// ---------------------------------------------------------------------------
+// dq for bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int DQ_BQ = 128;          // q rows per block, 16 per warp
+constexpr int DQ_BKV = 64;          // kv rows per tile
+
+template <int D, int DV>
+struct DqMmaSmem {                  // byte offsets; bf16 rows padded by 8
+    static constexpr int KS = D + 8;          // q and k rows
+    static constexpr int VS = DV + 8;         // dO and v rows
+    static constexpr int Q_OFF = 0;
+    static constexpr int DO_OFF = Q_OFF + DQ_BQ * KS * 2;
+    static constexpr int K_OFF = DO_OFF + DQ_BQ * VS * 2;
+    static constexpr int V_OFF = K_OFF + 2 * DQ_BKV * KS * 2;     // 2 buffers
+    static constexpr size_t BYTES = V_OFF + 2 * DQ_BKV * VS * 2;  // 2 buffers
+};
+
+template <int D, int DV>
+__global__ void __launch_bounds__(MMA_THREADS, 1)
+flash_bwd_dq_kernel_mma(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const __nv_bfloat16* __restrict__ out,
+                        const __nv_bfloat16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dq, int Sq, int Skv,
+                        int H, int Hkv, int q_offset, int causal,
+                        float scale) {
+    using S = DqMmaSmem<D, DV>;
+    constexpr int NT = DQ_BKV / 8;       // score n-tiles per kv tile
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const uint32_t base = tc::smem_addr(smem_raw);
+    const uint32_t sQ = base + S::Q_OFF, sO = base + S::DO_OFF;
+    const uint32_t sK = base + S::K_OFF, sV = base + S::V_OFF;
+    const __nv_bfloat16* dO_s =
+        reinterpret_cast<const __nv_bfloat16*>(smem_raw + S::DO_OFF);
+
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int h = blockIdx.x, b = blockIdx.y;
+    const int q0 = (gridDim.z - 1 - blockIdx.z) * DQ_BQ;   // heaviest first
+    const int hk = h / (H / Hkv);
+    const long long q_row = (long long)H * D;      // element strides of a
+    const long long o_row = (long long)H * DV;     // sequence position
+    const long long k_row = (long long)Hkv * D;
+    const long long v_row = (long long)Hkv * DV;
+    const long long qb = (long long)b * Sq * q_row + (long long)h * D;
+    const long long ob = (long long)b * Sq * o_row + (long long)h * DV;
+    const __nv_bfloat16* kb = k + (long long)b * Skv * k_row + (long long)hk * D;
+    const __nv_bfloat16* vb = v + (long long)b * Skv * v_row +
+                              (long long)hk * DV;
+    const long long stat = ((long long)b * H + h) * Sq;   // lse / delta row
+
+    // the q and dO tiles, then K / V tile 0: one group of copies
+    for (int i = tid; i < DQ_BQ * (D / 8); i += MMA_THREADS) {
+        const int r = i / (D / 8), c = (i % (D / 8)) * 8, s = q0 + r;
+        const bool in = s < Sq;
+        tc::cp_async16(sQ + (r * S::KS + c) * 2,
+                       q + qb + (in ? s : 0) * q_row + c, in);
+    }
+    for (int i = tid; i < DQ_BQ * (DV / 8); i += MMA_THREADS) {
+        const int r = i / (DV / 8), c = (i % (DV / 8)) * 8, s = q0 + r;
+        const bool in = s < Sq;
+        tc::cp_async16(sO + (r * S::VS + c) * 2,
+                       dout + ob + (in ? s : 0) * o_row + c, in);
+    }
+    auto load_kv = [&](int k0, int buf) {
+        const uint32_t dk = sK + buf * DQ_BKV * S::KS * 2;
+        const uint32_t dv = sV + buf * DQ_BKV * S::VS * 2;
+        for (int i = tid; i < DQ_BKV * (D / 8); i += MMA_THREADS) {
+            const int r = i / (D / 8), c = (i % (D / 8)) * 8, s = k0 + r;
+            const bool in = s < Skv;
+            tc::cp_async16(dk + (r * S::KS + c) * 2,
+                           kb + (in ? s : 0) * k_row + c, in);
+        }
+        for (int i = tid; i < DQ_BKV * (DV / 8); i += MMA_THREADS) {
+            const int r = i / (DV / 8), c = (i % (DV / 8)) * 8, s = k0 + r;
+            const bool in = s < Skv;
+            tc::cp_async16(dv + (r * S::VS + c) * 2,
+                           vb + (in ? s : 0) * v_row + c, in);
+        }
+    };
+    // KV tiles past the block's last row's diagonal are fully masked
+    const int kv_end = causal ? min(Skv, q_offset + q0 + DQ_BQ) : Skv;
+    const int n_tiles = (kv_end + DQ_BKV - 1) / DQ_BKV;
+    load_kv(0, 0);
+    tc::cp_async_commit();
+
+    // this warp's rows: q0 + 16 warp + g and + 8
+    const int wrow = q0 + 16 * warp;
+    const int r0 = wrow + g, r1 = r0 + 8;
+    const int pos0 = q_offset + r0, pos1 = pos0 + 8;
+    const float c = scale * tc::LOG2E;   // exp(scale s) = exp2(c s)
+    float lc0 = 0.f, lc1 = 0.f;          // lse * log2 e of rows r0, r1
+    float dl0 = 0.f, dl1 = 0.f;          // delta of rows r0, r1
+    float acc[D / 8][4];
+    #pragma unroll
+    for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+    const uint32_t qA = sQ + ((16 * warp + tc::a_row(lane)) * S::KS +
+                              tc::a_col(lane)) * 2;
+    const uint32_t oA = sO + ((16 * warp + tc::a_row(lane)) * S::VS +
+                              tc::a_col(lane)) * 2;
+
+    for (int j = 0; j < n_tiles; ++j) {
+        const int k0 = j * DQ_BKV;
+        if (j + 1 < n_tiles) {
+            load_kv(k0 + DQ_BKV, (j + 1) & 1);
+            tc::cp_async_commit();
+            tc::cp_async_wait<1>();
+        } else {
+            tc::cp_async_wait<0>();
+        }
+        __syncthreads();
+        if (j == 0) {
+            // delta = sum_d dO * out of rows r0, r1 in fp32 (dO from the
+            // tile, zero past Sq), stored for the dkv pass; lse of the rows
+            const __nv_bfloat16* o0 = out + ob + (r0 < Sq ? r0 : 0) * o_row;
+            const __nv_bfloat16* o1 = out + ob + (r1 < Sq ? r1 : 0) * o_row;
+            const __nv_bfloat16* d0 = dO_s + (16 * warp + g) * S::VS;
+            const __nv_bfloat16* d1 = d0 + 8 * S::VS;
+            float s0 = 0.f, s1 = 0.f;
+            #pragma unroll
+            for (int n = 0; n < DV / 8; ++n) {
+                const int col = n * 8 + 2 * t;
+                const float2 a0 = __bfloat1622float2(
+                    *reinterpret_cast<const __nv_bfloat162*>(d0 + col));
+                const float2 b0 = __bfloat1622float2(
+                    *reinterpret_cast<const __nv_bfloat162*>(o0 + col));
+                const float2 a1 = __bfloat1622float2(
+                    *reinterpret_cast<const __nv_bfloat162*>(d1 + col));
+                const float2 b1 = __bfloat1622float2(
+                    *reinterpret_cast<const __nv_bfloat162*>(o1 + col));
+                s0 = fmaf(a0.y, b0.y, fmaf(a0.x, b0.x, s0));
+                s1 = fmaf(a1.y, b1.y, fmaf(a1.x, b1.x, s1));
+            }
+            dl0 = tc::quad_sum(s0);
+            dl1 = tc::quad_sum(s1);
+            if (r0 < Sq) lc0 = lse[stat + r0] * tc::LOG2E;
+            if (r1 < Sq) lc1 = lse[stat + r1] * tc::LOG2E;
+            if (t == 0 && r0 < Sq) delta[stat + r0] = dl0;
+            if (t == 0 && r1 < Sq) delta[stat + r1] = dl1;
+        }
+        // tiles wholly above this warp's diagonal add nothing
+        if (!causal || k0 <= q_offset + wrow + 15) {
+            const uint32_t kt = sK + (j & 1) * DQ_BKV * S::KS * 2;
+            const uint32_t vt = sV + (j & 1) * DQ_BKV * S::VS * 2;
+            // S = Q K^T (16 q rows x 64 kv rows)
+            float s[NT][4];
+            #pragma unroll
+            for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+            #pragma unroll
+            for (int dc = 0; dc < D / 16; ++dc) {
+                uint32_t qa[4];
+                tc::ldsm_x4(qa, qA + dc * 32);
+                #pragma unroll
+                for (int np = 0; np < NT / 2; ++np) {
+                    uint32_t kr[4];
+                    tc::ldsm_x4(kr, kt + ((np * 16 + tc::bn_row(lane)) * S::KS +
+                                          dc * 16 + tc::bn_col(lane)) * 2);
+                    tc::mma_bf16(s[2 * np], qa, kr[0], kr[1]);
+                    tc::mma_bf16(s[2 * np + 1], qa, kr[2], kr[3]);
+                }
+            }
+            // dP = dO V^T
+            float dp[NT][4];
+            #pragma unroll
+            for (int n = 0; n < NT; ++n) dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+            #pragma unroll
+            for (int dc = 0; dc < DV / 16; ++dc) {
+                uint32_t oa[4];
+                tc::ldsm_x4(oa, oA + dc * 32);
+                #pragma unroll
+                for (int np = 0; np < NT / 2; ++np) {
+                    uint32_t vr[4];
+                    tc::ldsm_x4(vr, vt + ((np * 16 + tc::bn_row(lane)) * S::VS +
+                                          dc * 16 + tc::bn_col(lane)) * 2);
+                    tc::mma_bf16(dp[2 * np], oa, vr[0], vr[1]);
+                    tc::mma_bf16(dp[2 * np + 1], oa, vr[2], vr[3]);
+                }
+            }
+            // P = exp(scale S - lse) in fp32, masked only where the tile
+            // crosses the diagonal or Skv; dS = P (dP - delta) in fp32,
+            // rounded to bf16 once into the A fragments of dS K
+            const bool edge = k0 + DQ_BKV > Skv ||
+                              (causal && k0 + DQ_BKV - 1 > q_offset + wrow);
+            uint32_t da[NT / 2][4];
+            #pragma unroll
+            for (int n = 0; n < NT; ++n) {
+                #pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    float p = exp2f(fmaf(s[n][e], c, -(e < 2 ? lc0 : lc1)));
+                    if (edge) {
+                        const int kp = k0 + n * 8 + 2 * t + (e & 1);
+                        if (kp >= Skv || (causal && kp > (e < 2 ? pos0 : pos1)))
+                            p = 0.f;
+                    }
+                    s[n][e] = p * (dp[n][e] - (e < 2 ? dl0 : dl1));
+                }
+                da[n / 2][(n & 1) * 2] = tc::pack_bf16(s[n][0], s[n][1]);
+                da[n / 2][(n & 1) * 2 + 1] = tc::pack_bf16(s[n][2], s[n][3]);
+            }
+            // dQ += dS K (K by ldmatrix.trans)
+            #pragma unroll
+            for (int kc = 0; kc < NT / 2; ++kc) {
+                #pragma unroll
+                for (int np = 0; np < D / 16; ++np) {
+                    uint32_t kr[4];
+                    tc::ldsm_x4_trans(kr, kt + ((kc * 16 + tc::a_row(lane)) *
+                                                S::KS + np * 16 +
+                                                tc::a_col(lane)) * 2);
+                    tc::mma_bf16(acc[2 * np], da[kc], kr[0], kr[1]);
+                    tc::mma_bf16(acc[2 * np + 1], da[kc], kr[2], kr[3]);
+                }
+            }
+        }
+        __syncthreads();                 // tile j's buffers free again
+    }
+
+    #pragma unroll
+    for (int half = 0; half < 2; ++half) {
+        const int s = r0 + 8 * half;
+        if (s >= Sq) continue;
+        __nv_bfloat16* row = dq + qb + (long long)s * q_row;
+        #pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+            *reinterpret_cast<uint32_t*>(row + n * 8 + 2 * t) = tc::pack_bf16(
+                acc[n][2 * half] * scale, acc[n][2 * half + 1] * scale);
+    }
+}
+
 // above 48 KB of dynamic shared memory a kernel needs an opt-in, once
 template <typename K>
 cudaError_t allow_smem(K kern, size_t bytes, bool& configured) {
@@ -665,37 +912,57 @@ struct Args {
     float scale;
 };
 
-template <typename T, int D, int DV>
+template <int D, int DV>
 int launch_dq(const Args& a, cudaStream_t st) {
-    auto kern = flash_bwd_dq_kernel<T, D, DV>;
+    auto kern = flash_bwd_dq_kernel<D, DV>;
     constexpr size_t bytes = DqSmem<D, DV>::BYTES;
     static bool configured = false;
     const cudaError_t e = allow_smem(kern, bytes, configured);
     if (e != cudaSuccess) return (int)e;
     const dim3 grid((a.Sq + BQ - 1) / BQ, a.H, a.B);
     kern<<<grid, THREADS, bytes, st>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-        static_cast<const T*>(a.v), static_cast<const T*>(a.out),
-        static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
-        static_cast<float*>(a.delta), static_cast<T*>(a.dq), a.Sq, a.Skv,
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.out),
+        static_cast<const float*>(a.dout), static_cast<const float*>(a.lse),
+        static_cast<float*>(a.delta), static_cast<float*>(a.dq), a.Sq, a.Skv,
         a.H, a.Hkv, a.q_offset, a.causal, a.scale);
     return (int)cudaGetLastError();
 }
 
-template <typename T, int D, int DV>
+template <int D, int DV>
 int launch_dkv(const Args& a, cudaStream_t st) {
-    auto kern = flash_bwd_dkv_kernel<T, D, DV>;
+    auto kern = flash_bwd_dkv_kernel<D, DV>;
     constexpr size_t bytes = DkvSmem<D, DV>::BYTES;
     static bool configured = false;
     const cudaError_t e = allow_smem(kern, bytes, configured);
     if (e != cudaSuccess) return (int)e;
     const dim3 grid((a.Skv + BK - 1) / BK, a.Hkv, a.B);
     kern<<<grid, THREADS, bytes, st>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-        static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-        static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.Sq, a.Skv, a.H,
+        static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.Sq, a.Skv, a.H,
         a.Hkv, a.q_offset, a.causal, a.scale);
+    return (int)cudaGetLastError();
+}
+
+template <int D, int DV>
+int launch_dq_mma(const Args& a, cudaStream_t st) {
+    auto kern = flash_bwd_dq_kernel_mma<D, DV>;
+    constexpr size_t bytes = DqMmaSmem<D, DV>::BYTES;
+    static bool configured = false;
+    const cudaError_t e = allow_smem(kern, bytes, configured);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid(a.H, a.B, (a.Sq + DQ_BQ - 1) / DQ_BQ);
+    kern<<<grid, MMA_THREADS, bytes, st>>>(
+        static_cast<const __nv_bfloat16*>(a.q),
+        static_cast<const __nv_bfloat16*>(a.k),
+        static_cast<const __nv_bfloat16*>(a.v),
+        static_cast<const __nv_bfloat16*>(a.out),
+        static_cast<const __nv_bfloat16*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<float*>(a.delta),
+        static_cast<__nv_bfloat16*>(a.dq), a.Sq, a.Skv, a.H, a.Hkv,
+        a.q_offset, a.causal, a.scale);
     return (int)cudaGetLastError();
 }
 
@@ -718,16 +985,15 @@ int launch_dkv_mma(const Args& a, cudaStream_t st) {
     return (int)cudaGetLastError();
 }
 
-// fp32 -> the FMA kernels; bf16 -> the FMA dq kernel and the tensor-core
-// dk / dv kernel
-template <typename T>
+// fp32 -> the FMA kernels; bf16 -> the tensor-core kernels
+template <bool MMA>
 int dispatch(bool dq_pass, int D, int Dv, const Args& a, cudaStream_t st) {
-    constexpr bool BF16 = sizeof(T) == 2;
 #define FLASH_BWD_CASE(d, dv)                                               \
     if (D == d && Dv == dv)                                                 \
-        return dq_pass ? launch_dq<T, d, dv>(a, st)                         \
-               : BF16  ? launch_dkv_mma<d, dv>(a, st)                       \
-                       : launch_dkv<float, d, dv>(a, st);
+        return MMA ? (dq_pass ? launch_dq_mma<d, dv>(a, st)                 \
+                              : launch_dkv_mma<d, dv>(a, st))               \
+                   : (dq_pass ? launch_dq<d, dv>(a, st)              \
+                              : launch_dkv<d, dv>(a, st));
     FLASH_BWD_CASE(16, 16)
     FLASH_BWD_CASE(32, 32)
     FLASH_BWD_CASE(64, 64)
@@ -743,19 +1009,20 @@ int run(bool dq_pass, int dtype, int D, int Dv, const Args& a,
         a.H % a.Hkv || a.Sq < 1 || a.Skv < 1 || a.q_offset < 0)
         return -1;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (dtype == 0) return dispatch<float>(dq_pass, D, Dv, a, st);
-    if (dtype == 1) {
-        if (!dq_pass) {                  // the tensor-core kernel's copies
-            const uintptr_t any = reinterpret_cast<uintptr_t>(a.q) |
-                                  reinterpret_cast<uintptr_t>(a.k) |
-                                  reinterpret_cast<uintptr_t>(a.v) |
-                                  reinterpret_cast<uintptr_t>(a.dout) |
-                                  reinterpret_cast<uintptr_t>(a.dk) |
-                                  reinterpret_cast<uintptr_t>(a.dv);
-            if (any % 16 || (a.Skv + MMA_BKV - 1) / MMA_BKV > 65535)
-                return -1;
-        }
-        return dispatch<__nv_bfloat16>(dq_pass, D, Dv, a, st);
+    if (dtype == 0) return dispatch<false>(dq_pass, D, Dv, a, st);
+    if (dtype == 1) {                    // the tensor-core kernels' copies
+        const uintptr_t any = reinterpret_cast<uintptr_t>(a.q) |
+                              reinterpret_cast<uintptr_t>(a.k) |
+                              reinterpret_cast<uintptr_t>(a.v) |
+                              reinterpret_cast<uintptr_t>(a.out) |
+                              reinterpret_cast<uintptr_t>(a.dout) |
+                              reinterpret_cast<uintptr_t>(a.dq) |
+                              reinterpret_cast<uintptr_t>(a.dk) |
+                              reinterpret_cast<uintptr_t>(a.dv);
+        const int tiles = dq_pass ? (a.Sq + DQ_BQ - 1) / DQ_BQ
+                                  : (a.Skv + MMA_BKV - 1) / MMA_BKV;
+        if (any % 16 || tiles > 65535) return -1;
+        return dispatch<true>(dq_pass, D, Dv, a, st);
     }
     return -1;
 }
@@ -765,9 +1032,10 @@ int run(bool dq_pass, int dtype, int D, int Dv, const Args& a,
 // Plain C entry points.  dtype: 0 = float32, 1 = bfloat16.  Device
 // pointers to contiguous q / dq (B, Sq, H, D), k / dk (B, Skv, Hkv, D),
 // v / dv (B, Skv, Hkv, Dv), out / dout (B, Sq, H, Dv) in the inputs' type,
-// and lse / delta (B, H, Sq) fp32; for the bf16 dkv pass q, k, v, dout,
-// dk and dv 16-byte aligned.  The dq pass writes dq and delta; the dkv
-// pass reads delta and must run after it on the same stream.  Each
+// and lse / delta (B, H, Sq) fp32; for bf16 (the tensor-core kernels'
+// cp.async copies) q, k, v, out, dout and the gradients 16-byte aligned,
+// in both passes.  The dq pass writes dq and delta; the dkv pass reads
+// delta and must run after it on the same stream.  Each
 // returns the launch's cudaGetLastError() (0 on success), or -1 on
 // arguments the kernels do not take (the Python wrapper checks first and
 // raises).

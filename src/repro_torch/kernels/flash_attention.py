@@ -11,10 +11,12 @@ layer and of the vision tower.
   tensors it launches the two kernels of ``csrc/flash_attention_bwd.cu``
   through :func:`flash_bwd_dq`, the q-stationary dq pass (replaces
   ``_dq_kernel``; it also computes ``delta = sum(dout * out)`` of its
-  rows), and then :func:`flash_bwd_dkv`, the kv-stationary dk / dv pass
-  (replaces ``_dkv_kernel``; each block sums over the G query heads of its
-  group and every q tile, so no atomics and bit-equal results from launch
-  to launch; bf16 on the tensor cores, ``flash_bwd_dkv_kernel_mma``).
+  rows; bf16 on the tensor cores, ``flash_bwd_dq_kernel_mma``), and then
+  :func:`flash_bwd_dkv`, the kv-stationary dk / dv pass (replaces
+  ``_dkv_kernel``; each block sums over the G query heads of its group
+  and every q tile; bf16 on the tensor cores,
+  ``flash_bwd_dkv_kernel_mma``).  Each block writes its tile of a gradient
+  once: no atomics, bit-equal results from launch to launch.
 * :func:`flash_fwd_plain`, :func:`flash_bwd_plain` — the same functions
   in plain PyTorch from the full fp32 score matrix, the backward by its
   explicit formulas (not autograd).  The cross-check on the device and
@@ -32,11 +34,11 @@ Bound on an H100: operations over the bf16 tensor-core peak —
 ``4*B*H*Sq*Skv*D`` forward (half of it when causal) and 2.5x that for the
 backward (FA2's count: the dq pass recomputes s and does dp and dq, the
 dkv pass s, dp, dv and dk) — against the bytes of the tensors read and
-written once.  The bf16 forward and dk / dv kernels run on the tensor
-cores (bf16 products, fp32 sums; before the second product the forward
-carries the probabilities as two bf16 parts, the dk / dv pass rounds P
-and dS to bf16 once, as FlashAttention-2 does); the fp32 kernels and the
-dq pass compute in fp32 FMA (see the sources' notes).
+written once.  The bf16 kernels run on the tensor cores (bf16 products,
+fp32 sums; before the second product the forward carries the
+probabilities as two bf16 parts, the dq pass rounds dS to bf16 once, the
+dk / dv pass P and dS, as FlashAttention-2 does); the fp32 kernels
+compute in fp32 FMA (see the sources' notes).
 Their times stand beside the bound in PERF.md.  The bf16 tensor-core
 kernels copy with 16-byte ``cp.async``, so they take q, k, v, out / dout
 and the gradients at 16-byte aligned addresses (a fresh tensor always
@@ -45,7 +47,7 @@ is; a view at an odd offset raises).
 Tolerance: fp32 forward outputs agree with the plain version within 2e-5
 (both in full fp32, no TF32), fp32 gradients within 5e-4 (longer sums in
 another order), bf16 within 2e-2 of the tensor's scale (one rounding of
-each output, and of P and dS inside the tensor-core dk / dv pass);
+each output, and of dS, and P, inside the tensor-core backward passes);
 tests/test_torch_flash_attention.py and tests/test_torch_flash_backward.py
 hold the plain versions, and a rounding model of the tensor-core kernels,
 against the reference package's Pallas kernels in interpret mode,
@@ -63,9 +65,10 @@ HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (128, 64))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # the bf16 tensor-core kernels' tiles (csrc/flash_attention.cu,
-# csrc/flash_attention_bwd.cu): forward 128 q rows x 64 kv rows per step,
-# dk / dv 128 kv rows x 64 q rows per step; 8 warps each
+# csrc/flash_attention_bwd.cu): forward and dq 128 q rows x 64 kv rows per
+# step, dk / dv 128 kv rows x 64 q rows per step; 8 warps each
 FWD_TILE = (128, 64)
+DQ_TILE = (128, 64)
 DKV_TILE = (128, 64)
 
 launches = 0          # forward kernel
@@ -75,13 +78,17 @@ dkv_launches = 0      # backward, dk / dv pass
 
 def mma_smem_bytes(kernel: str, D: int, Dv: int) -> int:
     """Dynamic shared memory per block of a bf16 tensor-core kernel
-    (``"fwd"`` or ``"dkv"``) at head dims (D, Dv): bf16 rows padded by 8
-    elements; the forward holds the q tile and two K and two V tiles, the
+    (``"fwd"``, ``"dq"`` or ``"dkv"``) at head dims (D, Dv): bf16 rows
+    padded by 8 elements; the forward holds the q tile and two K and two V
+    tiles, the dq pass the q and dO tiles and two K and two V tiles, the
     dk / dv pass K, V, two q and two dO tiles and two rows each of lse and
     delta (fp32)."""
     if kernel == "fwd":
         bq, bk = FWD_TILE
         return 2 * (bq * (D + 8) + 2 * bk * (D + 8) + 2 * bk * (Dv + 8))
+    if kernel == "dq":
+        bq, bk = DQ_TILE
+        return 2 * ((bq + 2 * bk) * (D + 8) + (bq + 2 * bk) * (Dv + 8))
     bkv, bq = DKV_TILE
     return 2 * ((bkv + 2 * bq) * (D + 8) + (bkv + 2 * bq) * (Dv + 8)) \
         + 2 * 2 * bq * 4
@@ -252,10 +259,13 @@ def _dims(q, k, v, causal, q_offset) -> tuple:
 def flash_bwd_dq(q, k, v, out, lse, dout, *, causal: bool = True,
                  q_offset: int = 0):
     """The dq pass alone on CUDA tensors -> ``(dq, delta)``, delta ``(B, H,
-    Sq)`` fp32 for :func:`flash_bwd_dkv`."""
+    Sq)`` fp32 for :func:`flash_bwd_dkv`: bf16 on the tensor cores
+    (``flash_bwd_dq_kernel_mma``, dS rounded to bf16 once before ``dS k``),
+    fp32 in fp32 FMA (``flash_bwd_dq_kernel``)."""
     global dq_launches
     _check_bwd(q, k, v, out, lse, dout, q_offset)
     _check_bwd_kernels(q, k, v, (q, k, v, out, lse, dout))
+    _check_aligned("flash_bwd dq", (q, k, v, out, dout))
     dq = torch.empty_like(q)
     delta = torch.empty_like(lse)
     from repro_torch.kernels import _build

@@ -233,3 +233,4 @@ def test_bf16_kernel_refuses_tensors_off_the_16_byte_grid():
     TFA._check_aligned("flash_fwd", (torch.zeros(9)[1:],))
     assert TFA.mma_smem_bytes("fwd", 128, 128) == 104448
     assert TFA.mma_smem_bytes("dkv", 128, 128) == 140288
+    assert TFA.mma_smem_bytes("dq", 128, 128) == 139264
