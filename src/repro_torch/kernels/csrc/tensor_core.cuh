@@ -1,7 +1,7 @@
-// Building blocks of the bf16 tensor-core flash kernels (flash_attention.cu,
-// flash_attention_bwd.cu): asynchronous 16-byte copies into shared memory,
-// ldmatrix fragment loads and the m16n8k16 bf16 mma of sm_80+ (all in
-// sm_90a), as inline PTX.
+// Building blocks of the bf16 tensor-core kernels (flash_attention.cu,
+// flash_attention_bwd.cu, ssd.cu): asynchronous 16- and 8-byte copies into
+// shared memory, ldmatrix fragment loads and the m16n8k16 bf16 mma of
+// sm_80+ (all in sm_90a), as inline PTX.
 //
 // Fragment layouts of mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32
 // for lane l of a warp, g = l / 4, t = l % 4 (PTX ISA, "Matrix fragments
@@ -25,7 +25,10 @@
 //     of n-tile 0 and registers 2, 3 of n-tile 1;
 //   * a B operand stored k-major (B[k][n] at row k, column n — V for P V)
 //     loads with .trans, lane l addressing row (l % 8) + 8((l / 8) % 2),
-//     column 8(l / 16): again b0, b1 of n-tile 0, then of n-tile 1.
+//     column 8(l / 16): again b0, b1 of n-tile 0, then of n-tile 1;
+//   * an A operand stored k-major (A[m][k] at row k, column m — x for the
+//     SSD's x^T B) loads with .trans, lane l addressing the B operand's
+//     n-major row (l % 8) + 8(l / 16), column 8((l / 8) % 2).
 // A C fragment of 16 x 16 (two n-tiles) packs into the A fragment of the
 // next product without leaving registers: a0 = (c0, c1) and a1 = (c2, c3)
 // of n-tile 0, a2 and a3 the same of n-tile 1.
@@ -47,6 +50,13 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool full) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                  :: "r"(dst), "l"(src), "r"(full ? 16 : 0) : "memory");
+}
+
+// 8 bytes global -> shared, zero-filled when !full
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
+                                          bool full) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(full ? 8 : 0) : "memory");
 }
 
 // 4 bytes global -> shared, zero-filled when !full
@@ -130,7 +140,8 @@ __device__ __forceinline__ int bn_row(int lane) {
 __device__ __forceinline__ int bn_col(int lane) {
     return ((lane >> 3) & 1) * 8;
 }
-// the k-major (.trans) B operand uses a_row / a_col
+// the k-major (.trans) B operand uses a_row / a_col, the k-major A operand
+// bn_row / bn_col
 
 constexpr float LOG2E = 1.4426950408889634f;
 

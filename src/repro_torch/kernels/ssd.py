@@ -1,16 +1,17 @@
 """The Mamba-2 SSD (state-space duality) scan: the chunked dual form behind
 every prefill of the SSM family, forward only.
 
-* :func:`ssd_scan` — the wrapper: on CUDA tensors it launches the
-  hand-written kernel ``csrc/ssd.cu`` (which replaces the TPU kernel
-  ``repro/kernels/ssd.py::_ssd_kernel``); on CPU tensors it takes the
-  plain version.  It never falls back: CUDA tensors the kernel does not
-  take raise.
+* :func:`ssd_scan` — the wrapper: on CUDA tensors it launches one of the
+  hand-written kernels of ``csrc/ssd.cu`` (which replace the TPU kernel
+  ``repro/kernels/ssd.py::_ssd_kernel``): bf16 inputs go to
+  ``ssd_scan_kernel_mma`` on the tensor cores, fp32 inputs to the fp32 FMA
+  ``ssd_scan_kernel``.  On CPU tensors it takes the plain version.  It
+  never falls back: CUDA tensors the kernels do not take raise.
 * :func:`ssd_scan_plain` — the same function in plain fp32 PyTorch, the
   chunked form with the reference kernel's algebra (per chunk the decay
   matrix ``L``, ``C B^T``, the diagonal and the off-diagonal term, then the
   state pass).  The cross-check on the device and the CPU path.
-* ``launches`` — how many times the kernel was launched.
+* ``launches`` — how many times a kernel was launched.
 
 Shapes (group size 1, the group dim squeezed): x ``(b, S, H, P)``, dt
 ``(b, S, H)`` fp32 after softplus, A ``(H,)`` fp32 and negative, B and C
@@ -19,18 +20,35 @@ x's type and the final state ``(b, H, P, N)`` fp32.  ``chunk`` is cut to
 S; the last chunk is the ragged rest, which is the reference's zero
 padding (dt = 0 there).
 
-The kernel reads x, B and C in place through their batch and token
+The kernels read x, B and C in place through their batch and token
 strides (the model hands views into the conv output), so they need only
-be dense along their last dims (x along h and p).
+be dense along their last dims (x along h and p); the bf16 kernel copies
+x in 16-byte and B, C in 8- or 16-byte pieces, so there x must start and
+step on the 16-byte grid and B and C on the 8-byte grid.  N is any
+multiple of 4 (the bf16 kernel pads it to 16 with zeros in shared
+memory); P is one of ``HEAD_DIMS``.
 
-Bound on an H100: operations, ``2Q^2N + 2Q^2P + 4QNP`` per (b, h, chunk)
-at the bf16 tensor-core rate, against x, y, dt, B, C and the state in
-bytes.  Tolerance: 1e-4 in fp32 (the reference's own, against the
-sequential recurrence); bf16 y within 2e-2 of its scale (one rounding of
-y), the fp32 state within 1e-4 of its scale.  tests/test_torch_ssd.py
-holds the plain version against the reference package's Pallas kernel in
-interpret mode, its recurrence and its lax twin; ``chip_smoke.py`` the
-kernel against the plain version on the card.
+Design of the bf16 kernel: one block of 4 warps per (b, h) walks the
+chunks in order with the fp32 state in shared memory; per 64-row
+sub-tiles, ``C state^T``, ``S = C B^T`` and ``(L o S dt) x`` on m16n8k16
+bf16 ``mma.sync`` (x, B and C exact, the score operand rounded once, the
+state rounded once as the operand of ``C state^T``); the state update
+``(x w)^T B`` with ``w = dt exp(a_tot - a_cum)`` carries ``x w`` as two
+bf16 parts (hi + lo), since one rounding misses the state's 1e-4;
+``cp.async`` double-buffered sub-tiles, each query sub-tile visiting the
+resident key sub-tile first; 109,584 bytes of shared memory at the
+serving config, two blocks per SM.
+
+Bound on an H100: bytes (x, y, dt, B, C and the state) against operations
+(the lower triangle of ``C B^T`` once per (b, chunk), since heads share B
+and C, its masked product with x and ``4QNP`` per (b, h, chunk)) at the
+bf16 tensor-core rate.  Tolerance: 1e-4 in fp32 (the reference's own,
+against the sequential recurrence); bf16 y within 2e-2 of its scale (one
+rounding of y), the fp32 state within 1e-4 of its scale.
+tests/test_torch_ssd.py holds the plain version against the reference
+package's Pallas kernel in interpret mode, its recurrence and its lax twin,
+and a rounding model of the bf16 kernel against the plain version;
+``chip_smoke.py`` the kernels against the plain version on the card.
 """
 
 from __future__ import annotations
@@ -39,19 +57,39 @@ import torch
 import torch.nn.functional as F
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)       # the kernel's template instances
+HEAD_DIMS = (16, 32, 64, 128)       # the kernels' template instances
 TQ, LDK = 64, 68                    # sub-tile rows, padded n-major stride
+MMA_WARPS = 4                       # warps of the bf16 kernel's block
 MAX_SMEM = 232448                   # what an H100 block may opt into
 
 launches = 0
 
 
 def smem_bytes(P: int, N: int, chunk: int) -> int:
-    """The kernel's dynamic shared memory for (P, N, chunk): the C and B
-    sub-tiles (n-major), the x dt rows, the score tile, the state and the
+    """The fp32 kernel's dynamic shared memory for (P, N, chunk): the C and
+    B sub-tiles (n-major), the x dt rows, the score tile, the state and the
     chunk's running sum of a, all fp32."""
     return 4 * (2 * N * LDK + TQ * P + TQ * LDK + N * P
                 + -(-chunk // TQ) * TQ)
+
+
+def mma_smem_bytes(P: int, N: int, chunk: int) -> int:
+    """The bf16 tensor-core kernel's dynamic shared memory for (P, N,
+    chunk) (``MmaLayout`` in csrc/ssd.cu): the fp32 state, the bf16 C
+    sub-tile, two B and two x sub-tiles, rows padded by 16 bytes and N by
+    zeros to a multiple of 16, then dt of two chunks, a_cum and w of the
+    chunk and the scan's warp totals in fp32."""
+    ld = -(-N // 16) * 16 + 8
+    qpad = -(-chunk // TQ) * TQ
+    return (4 * P * ld + 2 * 3 * TQ * ld + 2 * 2 * TQ * (P + 8)
+            + 4 * (4 * qpad + MMA_WARPS))
+
+
+def _on_grid(t: torch.Tensor, n_bytes: int) -> bool:
+    """t's start and batch / token strides lie on the n_bytes grid."""
+    step = n_bytes // t.element_size()
+    return t.data_ptr() % n_bytes == 0 and t.stride(0) % step == 0 and \
+        t.stride(1) % step == 0
 
 
 def _check(x, dt, A, B, C, chunk) -> None:
@@ -98,7 +136,13 @@ def check_kernel_operands(x, dt, A, B, C, chunk: int) -> int:
                                      and A.is_contiguous()):
         raise ValueError("ssd_scan kernel takes x dense along (H, P), B and "
                          "C dense along N, contiguous dt and A")
-    need = smem_bytes(P, N, chunk)
+    if x.dtype == torch.bfloat16 and not (
+            _on_grid(x, 16) and _on_grid(B, 8) and _on_grid(C, 8)):
+        raise ValueError("ssd_scan bf16 kernel copies x in 16-byte and B, C "
+                         "in 8-byte pieces: x must start and step on the "
+                         "16-byte grid, B and C on the 8-byte grid")
+    need = (mma_smem_bytes if x.dtype == torch.bfloat16 else smem_bytes)(
+        P, N, chunk)
     if need > MAX_SMEM or b > 65535:
         raise ValueError(f"ssd_scan kernel: P {P}, N {N}, chunk {chunk} "
                          f"need {need} B of shared memory (at most "
