@@ -18,12 +18,15 @@ Phases (any failure exits non-zero):
 1. toolchain + card line, then the kernels' build (set-up time) and the
    ``ptxas`` line: registers, spills and stack of the bf16 tensor-core
    flash and SSD kernels from ``ptxas -v``;
-2. ``kernels_check``: ``shard_factor`` on randomized step programs and
-   ``segmented_cummax`` on random delta stacks, kernel == plain version,
-   exact int64 equality (tolerance 0); ``flash_fwd`` and ``rmsnorm_fwd``
-   on the reference's kernel-test cases and at the serving and the
-   training paths' shapes, in fp32 (tolerance 2e-5; the plain version's matmuls in full fp32,
-   ``allow_tf32`` off) and bf16 (tolerance 2e-2), on ``out`` and ``lse``;
+2. ``kernels_check``: ``shard_factor`` on randomized step programs, one
+   request per launch and packed builds of up to 400 requests per launch
+   (broadcast operands, dims past 2^31, the kernel's limits; bit-equal on
+   a second launch; requests past the limits and malformed buffers
+   refused), and ``segmented_cummax`` on random delta stacks, kernel ==
+   plain version, exact int64 equality (tolerance 0); ``flash_fwd`` and
+   ``rmsnorm_fwd`` on the reference's kernel-test cases and at the
+   serving and the training paths' shapes, in fp32 (tolerance 2e-5; the
+   plain version's matmuls in full fp32, ``allow_tf32`` off) and bf16 (tolerance 2e-2), on ``out`` and ``lse``;
    ``flash_bwd`` (the dq and the dk/dv kernels) on the same cases, the
    training path's shapes and the reduced configs' head dim 16, fp32
    within 5e-4 and bf16 within 2e-2 of each
@@ -39,7 +42,8 @@ Phases (any failure exits non-zero):
    scales, bit-equal on a second launch and on strided views, bf16
    operands off the copies' grid refused; every error also per shape;
 3. ``sweep_large``: the 124,416-cell llava15-7b grid, legacy and liveness
-   assembly, device engine == host columnar path column for column;
+   assembly, device engine == host columnar path column for column; one
+   ``shard_factor`` launch per stage table build (``table_builds``);
 4. ``sweep_pipe``: the same grid with a ``pipe`` mesh axis, both schedules
    and three microbatch counts (1,959,552 cells), liveness assembly;
 5. ``serve_llava15_7b``: the 7B VLM with random weights from a seeded
@@ -73,7 +77,9 @@ Phases (any failure exits non-zero):
    from them as a reading (stage 1's again on a line of its own); for
    stage 2 also the planner's
    full-depth verdict on an H100 and the reduced config on the card
-   against the CPU;
+   against the CPU; then one stage-2 step each of Adafactor and 8-bit
+   Adam, their optimizer state's bytes gated to equal the byte model's
+   ``opt_bytes_for`` per leaf;
 7. timings: cold / warm wall time, cells/s and the phase split of each
    sweep, and per kernel — at the largest shape its path gave it — the
    median of CUDA-event-timed calls of its wrapper (``ms``), the kernel's
@@ -82,7 +88,14 @@ Phases (any failure exits non-zero):
    call that computes the same function, where there is one (none for
    the SSD scan), with ``share_of_bound`` (bound / kernel alone) and
    ``vs_library`` (kernel alone / library call); the sweep kernels with
-   the L2 flushed before each timed launch (their operands fit in it).
+   the L2 flushed before each timed launch (their operands fit in it),
+   ``shard_factor`` at the packed shape of the sweeps' largest table
+   build.
+
+The ``sweep_resident`` line gives the bytes the sweeps leave allocated,
+which every later allocator peak includes (none: the sweep engines are
+gone and the shape log is kept on the host); each serving and training
+line gives ``resident_at_start_bytes``.
 
 Each path is run with the kernels' launch counters set to 0 just before
 and read just after; a kernel of the path that was launched no time fails
@@ -135,8 +148,10 @@ from repro_torch.kernels import ssd as SSD  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import param as PM  # noqa: E402
 from repro_torch.serve import serve_step as SV  # noqa: E402
+from repro_torch.core.parser import parse_model  # noqa: E402
 from repro_torch.train import (OptimizerConfig, init_train_state,  # noqa: E402
                                make_train_step, train_state)
+from repro_torch.train import optimizer as TO  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 SEED = 20260811
@@ -271,6 +286,112 @@ def random_program(rng, n_cells):
     return dims, axes, sizes, rules, extra
 
 
+def random_request(rng):
+    """One request of a table build: a random program over operands of one
+    random broadcast family — scalars, rows (n,), columns (m, 1), full
+    (m, n) and 3-dim shapes, one-cell shapes — with, by chance, empty
+    programs and FSDP/ZeRO ``extra`` passes."""
+    m, n = int(rng.integers(1, 6)), int(rng.integers(1, 3000))
+    shapes = [[()], [(), (n,), (1,)],
+              [(), (n,), (m, 1), (m, n), (1, n), (1, 1)],
+              [(), (n,), (m, 1), (m, n), (2, 1, 1), (2, m, n), (1, 1, n)]
+              ][int(rng.integers(0, 4))]
+    dims, axes, _, rules, extra = random_program(rng, 1)
+
+    def operand(values):
+        shape = shapes[int(rng.integers(0, len(shapes)))]
+        return rng.choice(values, size=shape).astype(np.int64)
+    dims = [operand([1, 2, 3, 4, 6, 8, 12, 16, 24, 64, 2 ** 31 - 1,
+                     2 ** 31, 3 * 2 ** 31, 2 ** 40]) for _ in dims]
+    sizes = {a: operand([1, 1, 2, 4, 8, 2 ** 16]) for a in MESH_AXES}
+    return dims, axes, sizes, rules, extra
+
+
+def limit_request(n_dims, n_axes, dup=0):
+    """``n_dims`` dims over ``n_axes`` mesh axes, every dim taking every
+    axis in both passes: ``2 * n_dims * n_axes + dup`` steps."""
+    mesh = [f"a{i}" for i in range(n_axes)]
+    rules = {f"x{i}": tuple(mesh) + (mesh[0],) * (dup if i == 0 else 0)
+             for i in range(n_dims)}
+    dims = [np.array([2 ** 40, 2 ** 20, 2 ** 8 * 3, 1]) for _ in
+            range(n_dims)]
+    return dims, tuple(rules), {a: np.array([2, 2, 2, 2]) for a in mesh}, \
+        rules, tuple(mesh)
+
+
+def check_batched_shard_factor() -> tuple:
+    """Packed builds of many requests: the batched kernel == its batched
+    plain version on the card and == the host numpy path per request,
+    exactly; bit-equal on a second launch; the kernel's limits equal the
+    wrapper's, and requests beyond them or malformed buffers refused."""
+    import ctypes
+    lim = [ctypes.c_int() for _ in range(4)]
+    _build.load().shard_factor_limits(*map(ctypes.byref, lim))
+    if [v.value for v in lim] != [SF.MAX_DIMS, SF.MAX_AXES, SF.MAX_STEPS,
+                                  SF.TILE]:
+        fail(f"shard_factor kernel limits {[v.value for v in lim]} != the "
+             f"wrapper's")
+    rng = np.random.default_rng(SEED + 1)
+    cases = max_err = 0
+    builds = [[random_request(rng) for _ in range(k)]
+              for k in (1, 2, 7, 60, 150, 400)]
+    builds.append([limit_request(SF.MAX_DIMS, SF.MAX_AXES),
+                   limit_request(1, 1)] + builds[2])
+    for reqs in builds:
+        batch = SF.ShardFactorBatch()
+        keys = [batch.add(*r) for r in reqs]
+        if not len(batch):
+            continue
+        dev = batch.pack().to(DEV)
+        got = SF.shard_factor_batch(dev)
+        again = SF.shard_factor_batch(dev)
+        want = SF.shard_factor_batch_plain(dev)
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max()) if got.numel() else 0
+        max_err = max(max_err, err)
+        if err or not torch.equal(got, again):
+            fail(f"batched shard_factor kernel != plain version or not "
+                 f"bit-equal on relaunch ({len(batch)} requests, max abs "
+                 f"diff {err})")
+        answers = batch.resolve(DEV)
+        for r, key in zip(reqs, keys):
+            host = B.batch_shard_factor(*r)
+            if key is not None and not np.array_equal(answers[key], host):
+                fail("batched shard_factor != the host numpy path")
+        cases += 1
+    refused = 0
+    for over in (limit_request(SF.MAX_DIMS + 1, 4),
+                 limit_request(4, SF.MAX_AXES + 1),
+                 limit_request(SF.MAX_DIMS, SF.MAX_AXES, dup=1)):
+        batch = SF.ShardFactorBatch()
+        batch.add(*over)
+        try:
+            batch.resolve(DEV)
+        except ValueError:
+            refused += 1
+    dev = batch_of(builds[2]).to(DEV)
+    strided = torch.zeros((2 * dev.operands.numel(),), dtype=torch.int64,
+                          device=DEV)[::2]
+    for bad in (dataclasses.replace(dev, operands=strided),
+                dataclasses.replace(dev, tiles=dev.tiles.to(torch.int32)),
+                dev.host):
+        try:
+            SF.shard_factor_batch(bad)
+        except (TypeError, ValueError):
+            refused += 1
+    if refused != 6:
+        fail(f"shard_factor_batch refused {refused} of 6 requests or "
+             f"buffers the kernel does not take")
+    return cases + refused, max_err
+
+
+def batch_of(reqs) -> "SF.Packed":
+    batch = SF.ShardFactorBatch()
+    for r in reqs:
+        batch.add(*r)
+    return batch.pack()
+
+
 def check_shard_factor() -> dict:
     rng = np.random.default_rng(SEED)
     sizes_plan = [1] * 40 + [17] * 110 + [4608] * 50 + [1 << 20] * 8
@@ -318,18 +439,18 @@ def check_shard_factor() -> dict:
         fail("shard_factor empty program must return ones")
     # what the kernel does not take raises (no fallback)
     d = torch.ones((2, 8), dtype=torch.int64, device=DEV)
-    strided = torch.ones((8, 2), dtype=torch.int64, device=DEV).t()
     too_many = torch.ones((SF.MAX_DIMS + 1, 8), dtype=torch.int64,
                           device=DEV)
-    for bad in (d.to(torch.int32), strided, too_many):
+    for bad in (d.to(torch.int32), too_many):
         try:
             SF.shard_factor_tensors(bad, d, [(0, 0, 0)])
         except (TypeError, ValueError):
             cases += 1
         else:
             fail("shard_factor accepted an operand the kernel does not take")
-    return {"name": "shard_factor", "ok": True, "cases": cases,
-            "max_abs_err": max_err}
+    batched, err = check_batched_shard_factor()
+    return {"name": "shard_factor", "ok": True, "cases": cases + batched,
+            "max_abs_err": max(max_err, err)}
 
 
 def check_segmented_cummax() -> dict:
@@ -793,31 +914,37 @@ def check_ssd() -> dict:
 
 
 class ShapeLog:
-    """Remembers, per kernel, the largest operands a sweep handed to its
-    wrapper (so phase 5 times the kernels at the main path's shapes)."""
+    """Remembers, per sweep kernel, the largest operands the sweeps handed
+    to its wrapper — the packed table build with the most cells (its host
+    buffers), the largest delta stack (a device copy, moved to the host by
+    :meth:`to_host` once the sweeps are over) — so phase 7 times the
+    kernels at the main path's shapes, and the serving and training
+    phases' allocator peaks hold nothing of the sweeps."""
 
     def __init__(self):
-        self.sf = None          # (dims, sizes, steps)
-        self.sc = None          # deltas
-        self._sf, self._sc = SF.shard_factor_tensors, SC.segmented_cummax
+        self.sf = None          # SF.Packed (host)
+        self.sc = None          # deltas (host)
+        self._sf, self._sc = SF.shard_factor_batch, SC.segmented_cummax
 
     def __enter__(self):
-        def sf(dims, sizes, steps):
-            if self.sf is None or dims.shape[1] * (
-                    dims.shape[0] + sizes.shape[0]) > self.sf[0].shape[1] * (
-                    self.sf[0].shape[0] + self.sf[1].shape[0]):
-                self.sf = (dims.clone(), sizes.clone(), tuple(steps))
-            return self._sf(dims, sizes, steps)
+        def sf(b):
+            if self.sf is None or b.host.n_out > self.sf.n_out:
+                self.sf = b.host
+            return self._sf(b)
 
         def sc(deltas):
             if self.sc is None or deltas.numel() > self.sc.numel():
                 self.sc = deltas.clone()
             return self._sc(deltas)
-        SF.shard_factor_tensors, SC.segmented_cummax = sf, sc
+        SF.shard_factor_batch, SC.segmented_cummax = sf, sc
         return self
 
     def __exit__(self, *exc):
-        SF.shard_factor_tensors, SC.segmented_cummax = self._sf, self._sc
+        SF.shard_factor_batch, SC.segmented_cummax = self._sf, self._sc
+
+    def to_host(self) -> None:
+        if self.sc is not None:
+            self.sc = self.sc.cpu()
 
 
 def zero_counts() -> None:
@@ -857,11 +984,28 @@ def mma_resources() -> dict:
 
 
 def timed_sweep(engine, grid) -> tuple:
+    """The sweep on the card, timed; its phase split, and the time the
+    interpreter's garbage collector took inside it (``gc_s``, by
+    generation ``gc_runs``: a collection can land in any timed phase)."""
+    gc_time = {"s": 0.0, "runs": [0, 0, 0]}
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_time["t0"] = time.perf_counter()
+        else:
+            gc_time["s"] += time.perf_counter() - gc_time["t0"]
+            gc_time["runs"][info["generation"]] += 1
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = engine.sweep(grid, engine="torch", device="cuda")
-    torch.cuda.synchronize()
-    return res, time.perf_counter() - t0, dict(engine.last_sweep_stats)
+    gc.callbacks.append(on_gc)
+    try:
+        t0 = time.perf_counter()
+        res = engine.sweep(grid, engine="torch", device="cuda")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        gc.callbacks.remove(on_gc)
+    return res, dt, dict(engine.last_sweep_stats, gc_s=gc_time["s"],
+                         gc_runs=gc_time["runs"])
 
 
 def run_sweep(name: str, grid: SW.SweepGrid, want_cells: int,
@@ -894,8 +1038,10 @@ def run_sweep(name: str, grid: SW.SweepGrid, want_cells: int,
             or not (peak > 0).all():
         fail(f"{name}: peak_bytes must be positive int64 of {want_cells}")
     live = grid.assembly == "liveness"
-    if n_sf <= 0:
-        fail(f"{name}: the sweep launched the shard_factor kernel 0 times")
+    if n_sf <= 0 or n_sf != cold_stats["table_builds"]:
+        fail(f"{name}: the sweep launched the shard_factor kernel {n_sf} "
+             f"times for {cold_stats['table_builds']} table builds (one "
+             f"launch per build)")
     if live and n_sc <= 0:
         fail(f"{name}: the liveness sweep launched the segmented_cummax "
              f"kernel 0 times")
@@ -919,6 +1065,8 @@ def run_sweep(name: str, grid: SW.SweepGrid, want_cells: int,
     out = {"sweep": name, "cells": want_cells, "assembly": grid.assembly,
            "meshes": len(grid.meshes()), "fit": int(cold.fit_count),
            "launches": {"shard_factor": n_sf, "segmented_cummax": n_sc},
+           "table_builds": cold_stats["table_builds"],
+           "shard_factor_requests": cold_stats["shard_factor_requests"],
            "cold_s": cold_s, "warm_s": warm_s, "host_numpy_s": host_s,
            "cold_cells_per_s": want_cells / cold_s,
            "warm_cells_per_s": want_cells / warm_s,
@@ -1201,6 +1349,7 @@ def serve_llava15_7b() -> dict:
     gen = torch.Generator(device=DEV)
     gen.manual_seed(SEED)
     torch.cuda.synchronize()
+    at_start = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     params = model.init(gen, DEV)
     batch = vlm_batch(cfg, gen, SERVE_BATCH, SERVE_TEXT)
@@ -1279,7 +1428,7 @@ def serve_llava15_7b() -> dict:
         "prompt_tokens": S, "image_tokens": n_img, "text_tokens": SERVE_TEXT,
         "new_tokens": SERVE_NEW, "params": sum(
             t.numel() for t in params.parameters()),
-        "init_s": init_s,
+        "init_s": init_s, "resident_at_start_bytes": at_start,
         **serve_readings(SERVE_BATCH, SERVE_NEW, generate_s, main_launches,
                          phases, preds),
         "prefill_vs_plain": phases["checked"],
@@ -1400,6 +1549,7 @@ def serve_mamba2_1_3b() -> dict:
     gen = torch.Generator(device=DEV)
     gen.manual_seed(SEED)
     torch.cuda.synchronize()
+    at_start = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     params = model.init(gen, DEV)
     batch = {"tokens": torch.randint(0, cfg.vocab,
@@ -1465,7 +1615,7 @@ def serve_mamba2_1_3b() -> dict:
         "params": sum(t.numel() for t in params.parameters()),
         "param_bytes": sum(t.numel() * t.element_size()
                            for t in params.parameters()),
-        "init_s": init_s,
+        "init_s": init_s, "resident_at_start_bytes": at_start,
         **serve_readings(B_, MAMBA_NEW, generate_s, main_launches, phases,
                          preds),
         "prefill_tokens_per_s": B_ * S / phases["prefill_s"],
@@ -1604,13 +1754,18 @@ def train_phase(name: str, cfg, policy, cut: str, problems: list) -> dict:
     gen.manual_seed(SEED)
     opt_cfg = OptimizerConfig(name="adamw")
     torch.cuda.synchronize()
+    at_start = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     state = init_train_state(model, policy, opt_cfg, gen, DEV)
     batch = train_batch(cfg, gen, TRAIN_BATCH, TRAIN_TEXT)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     before = checksums(state.params)
-    masters = {n: st["master"] for n, st in state.opt.items()}
+    # each trainable tensor's slice of its leaf's (stacked) fp32 master
+    masters = {n: state.opt[leaf.name]["master"][i] if leaf.stacked
+               else state.opt[leaf.name]["master"]
+               for leaf in PM.trainable_leaves(state.params)
+               for i, (n, _) in enumerate(leaf.params)}
     masters_before = checksums_of(masters)
     trainable = set(masters)
     step = make_train_step(model, policy, opt_cfg, remat="block")
@@ -1622,11 +1777,14 @@ def train_phase(name: str, cfg, policy, cut: str, problems: list) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         resident = torch.cuda.memory_allocated()
+        segments = torch.cuda.memory_stats().get("segment.all.allocated", 0)
         zero_counts()
         t0 = time.perf_counter()
         state, metrics = step(state, batch)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
+        segments = torch.cuda.memory_stats().get(
+            "segment.all.allocated", 0) - segments
         launches = model_counts()
         peak = torch.cuda.max_memory_allocated()
         loss = float(metrics["loss"])
@@ -1641,6 +1799,7 @@ def train_phase(name: str, cfg, policy, cut: str, problems: list) -> dict:
         steps.append({"ms": ms, "loss": loss,
                       "grad_norm": float(metrics["grad_norm"]),
                       "peak_bytes": peak, "resident_bytes": resident,
+                      "segments_allocated": segments,
                       "launches": launches})
     if int(state.step) != TRAIN_STEPS:
         fail(f"{name}: step count {int(state.step)}")
@@ -1726,6 +1885,9 @@ def train_phase(name: str, cfg, policy, cut: str, problems: list) -> dict:
                                           + cfg.vlm.n_image_tokens)
            / (med_ms / 1e3),
            "measured_peak_bytes": [s["peak_bytes"] for s in steps],
+           # allocator segments (cudaMalloc calls) each step made
+           "segments_allocated": [s["segments_allocated"] for s in steps],
+           "resident_at_start_bytes": at_start,
            "resident_bytes": steps[0]["resident_bytes"],
            "predicted": {"peak_bytes": pred.peak_bytes,
                          "param_bytes": pred.param_bytes,
@@ -1777,6 +1939,86 @@ def train_llava15_7b() -> list:
     if problems:
         fail("; ".join(problems))
     return [stage1, stage2]
+
+
+def byte_model_state(model, policy, opt_cfg) -> dict:
+    """The byte model's optimizer-state bytes of each trainable leaf:
+    ``core.factors.opt_bytes_for`` of the leaf's stacked shape, on one
+    device (no sharding), by the leaf's name."""
+    out = {}
+    for r in parse_model(model.spec, policy):
+        if not r.trainable:
+            continue
+        for pname, p in r.layer.params.items():
+            shape, _ = FA._stacked(p, r)
+            out[f"{r.module_path.replace('/', '.')}.{r.layer.name}."
+                f"{pname}"] = FA.opt_bytes_for(
+                    p, shape, opt_cfg.name, opt_cfg.master_fp32) \
+                * (1 if r.scanned else r.repeat)
+    return out
+
+
+def train_optimizers() -> dict:
+    """llava15-7b stage 2 at full width with the LM cut to 8 blocks (as
+    ``train_llava15_7b_stage2_8l``), one step each of Adafactor and 8-bit
+    Adam through ``train_state`` / ``make_train_step``: the state's bytes
+    per leaf gated to equal the byte model's ``opt_bytes_for`` exactly
+    (the allocator's growth over the state's making a reading), the step
+    time, its launches against the reference's program, its peak.  Its
+    launches are not the kernels line's (the AdamW phases are)."""
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=STAGE2_LAYERS)
+    model = build_model(cfg)
+    want_launches = train_program(cfg)
+    out = {"arch": cfg.name, "policy": LLAVA_STAGE2.name,
+           "n_layers": cfg.n_layers, "batch": TRAIN_BATCH,
+           "tokens_per_sample": TRAIN_TEXT + cfg.vlm.n_image_tokens}
+    for name in ("adafactor", "adamw8bit"):
+        opt_cfg = OptimizerConfig(name=name)
+        gen = torch.Generator(device=DEV)
+        gen.manual_seed(SEED)
+        params = model.init(gen, DEV)
+        batch = train_batch(cfg, gen, TRAIN_BATCH, TRAIN_TEXT)
+        torch.cuda.synchronize()
+        a0 = torch.cuda.memory_allocated()
+        state = train_state(params, LLAVA_STAGE2, opt_cfg)
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated() - a0
+        got = TO.state_bytes(state.opt)
+        want = byte_model_state(model, LLAVA_STAGE2, opt_cfg)
+        step = make_train_step(model, LLAVA_STAGE2, opt_cfg, remat="block")
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = model_counts()
+        loss = float(metrics["loss"])
+        norms = [n for n in got if n.endswith("norm1.scale")]
+        out[name] = {
+            "state_bytes": sum(got.values()),
+            "byte_model_state_bytes": sum(want.values()),
+            "leaves": len(got), "allocator_growth_bytes": grown,
+            "stacked_norm_state": {n: {k: list(v.shape) for k, v in
+                                       state.opt[n].items()}
+                                   for n in norms},
+            "step_ms": ms, "loss": loss, "launches": launches,
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+        say(f"train_llava15_7b_stage2_8l_{name} " + json.dumps(out[name]))
+        if got != want:
+            bad = sorted(n for n in set(got) | set(want)
+                         if got.get(n) != want.get(n))
+            fail(f"{name}: state bytes differ from opt_bytes_for at "
+                 f"{bad[:4]}")
+        if launches != want_launches or not np.isfinite(loss):
+            fail(f"{name}: step launched {launches} (the reference's "
+                 f"program {want_launches}), loss {loss}")
+        del state, params, batch, step, metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1864,14 +2106,27 @@ def device_ms(fn, kernel_name: str, launches: int = 20,
     return None
 
 
+def shard_factor_work(p: "SF.Packed") -> tuple:
+    """Bytes and operations of one batched launch on ``p``: every packed
+    buffer read once (the compact operands, descriptors, request table,
+    programs and tiles) and 8 bytes written per cell; 4 int64 operations
+    (multiply, remainder, compare, select) per step and cell."""
+    n_bytes = 8 * (p.operands.size + p.rows.size + p.requests.size
+                   + p.steps.size + p.tiles.size + p.n_out)
+    n_ops = 4 * int((p.requests[:, SF.REQ_STEPS]
+                     * p.requests[:, SF.REQ_N]).sum())
+    return n_bytes, n_ops
+
+
 def time_kernels(log: ShapeLog, checks: dict, launches: dict) -> list:
     # the kernels once more against their plain versions, now on the very
     # operands the sweeps handed them
-    dims, sizes, steps = log.sf
-    deltas = log.sc
+    packed = log.sf
+    dev = packed.to(DEV)
+    deltas = log.sc.to(DEV)
     for name, got, want in (
-            ("shard_factor", SF.shard_factor_tensors(dims, sizes, steps),
-             SF.shard_factor_plain(dims, sizes, steps)),
+            ("shard_factor", SF.shard_factor_batch(dev),
+             SF.shard_factor_batch_plain(dev)),
             ("segmented_cummax", SC.segmented_cummax(deltas),
              SC.segmented_cummax_plain(deltas))):
         torch.cuda.synchronize()
@@ -1880,10 +2135,7 @@ def time_kernels(log: ShapeLog, checks: dict, launches: dict) -> list:
         if err:
             fail(f"{name} kernel != plain version on the sweep's own "
                  f"operands (max abs diff {err})")
-    n_dims, n = dims.shape
-    n_axes = sizes.shape[0]
-    sf_bytes = (n_dims + n_axes + 1) * 8 * n
-    sf_ops = 4 * len(steps) * n          # mul, mod, compare, mask per step
+    sf_bytes, sf_ops = shard_factor_work(packed)
     sf_bound = max(sf_bytes / HBM_BYTES_PER_S, sf_ops / ALU_OPS_PER_S)
     sf = {
         "name": "shard_factor", "route": "cuda",
@@ -1891,30 +2143,26 @@ def time_kernels(log: ShapeLog, checks: dict, launches: dict) -> list:
         "replaces": "src/repro/kernels/shard_factor.py:131",
         "launches": launches["shard_factor"],
         "max_abs_err": checks["shard_factor"]["max_abs_err"],
-        "ms": event_ms(lambda: SF.shard_factor_tensors(dims, sizes, steps),
-                       flush=True),
-        "plain_ms": event_ms(
-            lambda: SF.shard_factor_plain(dims, sizes, steps), flush=True),
+        "ms": event_ms(lambda: SF.shard_factor_batch(dev), flush=True),
+        "plain_ms": event_ms(lambda: SF.shard_factor_batch_plain(dev),
+                             flush=True),
         "bound_ms": sf_bound * 1e3,
         "bound_by": "bytes" if sf_bytes / HBM_BYTES_PER_S
         >= sf_ops / ALU_OPS_PER_S else "operations",
         "library_ms": None,
-        "device_ms": device_ms(
-            lambda: SF.shard_factor_tensors(dims, sizes, steps),
-            "shard_factor_kernel", flush=True),
-        "shape": {"n_dims": n_dims, "n_axes": n_axes,
-                  "n_steps": len(steps), "n": n},
+        "device_ms": device_ms(lambda: SF.shard_factor_batch(dev),
+                               "shard_factor_batch_kernel", flush=True),
+        "shape": {"requests": len(packed.requests), "cells": packed.n_out,
+                  "operands": packed.operands.size,
+                  "steps": len(packed.steps), "tiles": len(packed.tiles)},
+        "bytes": sf_bytes, "operations": sf_ops,
         "l2": "flushed before each timed launch",
     }
-    # the path the table build really takes: numpy in, upload, launch,
-    # read back (host clock, synchronised)
-    d_np, s_np = dims.cpu().numpy(), sizes.cpu().numpy()
-
-    def twin():
-        out = SF.shard_factor_tensors(torch.from_numpy(d_np).to(DEV),
-                                      torch.from_numpy(s_np).to(DEV), steps)
-        return out.cpu().numpy()
-    sf["host_roundtrip_ms"] = host_ms(twin)
+    # the path the table build really takes: the packed host buffers up
+    # in one copy from pinned memory, one launch, one read-back (host
+    # clock, synchronised)
+    sf["host_roundtrip_ms"] = host_ms(
+        lambda: SF.shard_factor_batch(packed.to(DEV)).cpu())
 
     n_events, m = deltas.shape
     sc_bytes = (n_events + 1) * 8 * m
@@ -2275,6 +2523,8 @@ def main(argv: list) -> int:
         return 0
 
     # phases 3-4: the main path
+    gc.collect()
+    before_sweeps = torch.cuda.memory_allocated()
     log = ShapeLog()
     sweeps = [run_sweep("sweep_large_legacy", large_grid("legacy"),
                         124416, log),
@@ -2285,9 +2535,18 @@ def main(argv: list) -> int:
                 for k in ("shard_factor", "segmented_cummax")}
 
     # phase 5: serving (the sweeps' device state is gone with their
-    # engines; release the cached blocks before the 7B weights)
+    # engines and the shape log goes to the host; release the cached
+    # blocks before the 7B weights).  What the sweeps leave allocated is
+    # in every later phase's allocator peak: printed, so a moved peak can
+    # be held to it
+    log.to_host()
     gc.collect()
     torch.cuda.empty_cache()
+    say("sweep_resident " + json.dumps({
+        "allocated_before_sweeps_bytes": before_sweeps,
+        "allocated_after_sweeps_bytes": torch.cuda.memory_allocated(),
+        "left_by_sweeps_bytes": torch.cuda.memory_allocated()
+        - before_sweeps}))
     serve = serve_llava15_7b()
     launches.update({k: 0 for k in model_counts()})
     launches.update(serve["launches"]["generate"])
@@ -2297,10 +2556,12 @@ def main(argv: list) -> int:
     launches["rmsnorm_fwd"] += mamba["launches"]["generate"]["rmsnorm_fwd"]
     launches["ssd_scan"] = mamba["launches"]["generate"]["ssd_scan"]
 
-    # phase 6: training, stage 1 at full size, stage 2 with 8 LM blocks
+    # phase 6: training, stage 1 at full size, stage 2 with 8 LM blocks,
+    # then stage 2's Adafactor and 8-bit Adam steps
     for phase in train_llava15_7b():
         for k, n in phase["launches_total"].items():
             launches[k] += n
+    train_optimizers()
 
     # phase 7: kernel timings at the main paths' shapes
     kernels = time_kernels(log, checks, launches) + \

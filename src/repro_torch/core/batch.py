@@ -61,9 +61,10 @@ from repro_torch.mesh_ctx import CONTEXT_AXIS, PIPE_AXIS
 
 I64 = np.int64
 
-# Optional accelerated shard-factor twin (the CUDA kernel), installed by
-# ``repro_torch.kernels.shard_factor.use_backend`` — None means the numpy
-# path below runs.
+# Optional shard-factor implementation, installed for a table build by
+# ``repro_torch.kernels.shard_factor.resolve_batched`` (which records the
+# build's requests, then answers them from one batched launch) — None
+# means the numpy path below runs.
 _shard_factor_impl = None
 
 # Optional accelerated segmented-cummax twin for the liveness assembly

@@ -7,10 +7,13 @@ O(cells) work runs as int64 tensor ops on a device:
 
 * the per-stage component tables come from the SAME host
   :func:`repro_torch.core.batch._stage_tables` the numpy engine uses (one
-  source of truth for every TermSpec / shard-factor evaluation) — and while
-  the engine targets a CUDA device, every shard denominator of that build
-  goes through the ``shard_factor`` CUDA kernel
-  (:func:`repro_torch.kernels.shard_factor.use_backend`);
+  source of truth for every TermSpec / shard-factor evaluation), run
+  twice by :func:`repro_torch.kernels.shard_factor.resolve_batched`: the
+  first run records every shard denominator the stage's build asks for,
+  one batched ``shard_factor`` call resolves them all (one upload, one
+  launch of the CUDA kernel on a CUDA device — its plain version on the
+  CPU — and one read-back), the second run builds the tables from the
+  answers;
 * the tables are **folded** on the host into compound gather tables — the
   saved-activation table absorbs the schedule stash multiplier on its knob
   axis, the static group absorbs the optimizer-update transient.  Folding
@@ -45,7 +48,7 @@ engine against the host columnar path column for column.
 
 from __future__ import annotations
 
-import contextlib
+import functools
 import time
 
 import numpy as np
@@ -236,9 +239,9 @@ def _group_tables(engine, grid, cols, cfg, model, rows, rules, rep_ctx,
                   pp: int, jobs: int, drafts, device, stats: dict) -> dict:
     """Folded + stage-stacked DEVICE tables for one (arch, pipeline-degree)
     group, cached on the engine by everything that determines their values
-    so repeated sweeps skip straight to the device composition.  While the
-    target is a CUDA device the host build resolves every shard
-    denominator through the ``shard_factor`` kernel."""
+    so repeated sweeps skip straight to the device composition.  Each
+    stage's table build resolves its shard denominators with one batched
+    ``shard_factor`` call on ``device``."""
     key = ("torch_tables", arch, grid.policy, cols.kind, cols.backend, pp,
            tuple(_mesh_key(cols.meshes[i]) for i in mesh_ids),
            opt_res, remat_eval, cols.offs, cols.serves, cols.pairs,
@@ -251,15 +254,15 @@ def _group_tables(engine, grid, cols, cfg, model, rows, rules, rep_ctx,
     t0 = time.perf_counter()
     plan = engine._stage_plan(arch, grid.policy, pp)
     folded = []
-    route = SF.use_backend(device) if device.type == "cuda" \
-        else contextlib.nullcontext()
-    with route:
-        for s, srows in enumerate(plan.stages):
-            tabs = B._stage_tables_jobs(
-                cfg, model, list(srows), rules, rep_ctx, cols, env, None,
-                opt_res, remat_eval, mesh_ids, s, pp, jobs, drafts)
-            folded.append(_fold_stage(
-                tabs, env, pp, s, liveness=grid.assembly == "liveness"))
+    for s, srows in enumerate(plan.stages):
+        tabs, batch = SF.resolve_batched(functools.partial(
+            B._stage_tables_jobs, cfg, model, list(srows), rules, rep_ctx,
+            cols, env, None, opt_res, remat_eval, mesh_ids, s, pp, jobs,
+            drafts), device)
+        stats["table_builds"] += 1
+        stats["shard_factor_requests"] += len(batch)
+        folded.append(_fold_stage(
+            tabs, env, pp, s, liveness=grid.assembly == "liveness"))
     stacked = {k: np.stack([f[k] for f in folded]) for k in folded[0]}
     t1 = time.perf_counter()
     out = cache[key] = tables_to_device(stacked, device)
@@ -294,6 +297,7 @@ def sweep_columnar_torch(engine, grid, jobs: int = 1,
     t_cols = time.perf_counter()
     cols = B.build_columns(grid)
     stats = {"device": str(device), "groups": 0, "table_cache_hits": 0,
+             "table_builds": 0, "shard_factor_requests": 0,
              "columns_s": time.perf_counter() - t_cols,
              "table_build_s": 0.0, "upload_s": 0.0, "compose_s": 0.0,
              "copy_s": 0.0, "finalize_s": 0.0}

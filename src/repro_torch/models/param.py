@@ -7,8 +7,9 @@ axis.  Here the same tree is a tree of modules:
 * :class:`LayerParams` — one layer's tensors as ``nn.Parameter``s, named
   as in the spec (``params.language_model.blocks[3].attn.wq``);
 * :class:`ModuleParams` — a spec module: its layers and child modules by
-  name; a scanned (stacked) module is an ``nn.ModuleList`` of per-layer
-  :class:`ModuleParams`, so every block owns its own tensors.
+  name; a scanned (stacked) module is a :class:`StackParams` (an
+  ``nn.ModuleList``) of per-layer :class:`ModuleParams`, so every block
+  owns its own tensors.
 
 Both also answer ``p["name"]`` and ``"name" in p``, the reference's dict
 idiom, so each apply reads like its counterpart.  Parameters are created
@@ -19,7 +20,10 @@ the trainable ones:
   ``trainable_mask`` + ``partition_params``: sets ``requires_grad`` on
   every leaf by ``TrainPolicy.is_trainable`` of its module path;
 * :func:`trainable_params` — the ``(name, Parameter)`` pairs that train
-  (``merge_params`` has no counterpart: the tree is never split).
+  (``merge_params`` has no counterpart: the tree is never split);
+* :func:`trainable_leaves` — the same tensors grouped by the reference's
+  leaf (:class:`Leaf`): one leaf of a scanned module is the stack of its
+  layers' tensors, which the reference's optimizers update as one array.
 
 * :func:`init_params` follows the reference's ``_init_leaf`` rules
   (normal scaled by 1/sqrt(fan-in), ``embed`` x 0.02, zeros, ones, the
@@ -37,6 +41,7 @@ the trainable ones:
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -73,6 +78,11 @@ class ModuleParams(_Named, nn.Module):
             self.add_module(name, child)
 
 
+class StackParams(nn.ModuleList):
+    """A scanned module of the spec: one :class:`ModuleParams` per layer.
+    The reference stacks each of its leaves on a leading layers axis."""
+
+
 def _stacked(mod: ModuleSpec) -> bool:
     return mod.repeat > 1 or mod.scanned
 
@@ -94,7 +104,7 @@ def _build(spec: ModuleSpec, make_leaf) -> ModuleParams:
                     raise NotImplementedError(
                         f"{child.name}: a stacked module inside a stacked "
                         f"module is not ported yet")
-                out[child.name] = nn.ModuleList(
+                out[child.name] = StackParams(
                     [module(child, path + (child.name,), (i, child.repeat))
                      for i in range(child.repeat)])
             else:
@@ -203,3 +213,59 @@ def trainable_params(params: ModuleParams) -> list:
     """The ``(name, Parameter)`` pairs that train, in the tree's order."""
     return [(name, t) for name, t in params.named_parameters()
             if t.requires_grad]
+
+
+@dataclass(frozen=True)
+class Leaf:
+    """One leaf of the reference's parameter tree over the port's tensors.
+
+    A leaf of a scanned module stacks its layers' tensors on a leading
+    axis of ``len(params)``; every other leaf is one tensor.  ``name`` is
+    the reference's path with dots (``vlm.language_model.blocks.attn.wq``),
+    ``params`` the port's ``(name, tensor)`` pairs in layer order."""
+
+    name: str
+    params: tuple
+    stacked: bool
+
+    @property
+    def shape(self) -> tuple:
+        """The reference's shape of the leaf (stacked: layers first)."""
+        t = self.params[0][1]
+        return ((len(self.params),) if self.stacked else ()) \
+            + tuple(t.shape)
+
+
+def group_leaves(params: ModuleParams, named: list) -> list:
+    """``named`` (``(name, tensor)`` pairs of ``params``, e.g.
+    :func:`trainable_params`) grouped into :class:`Leaf`s, in order of
+    first appearance.  Which tensors form a stack is read from the tree's
+    :class:`StackParams`, which ``_build`` makes exactly for the spec's
+    scanned modules; a stack must come whole."""
+    stacks = {name: len(m) for name, m in params.named_modules()
+              if isinstance(m, StackParams)}
+    groups: dict = {}
+    for name, t in named:
+        stack = next((s for s in stacks if name.startswith(s + ".")), None)
+        if stack is None:
+            groups[name] = (None, [(0, name, t)])
+            continue
+        layer, rest = name[len(stack) + 1:].split(".", 1)
+        groups.setdefault(f"{stack}.{rest}", (stack, []))[1].append(
+            (int(layer), name, t))
+    out = []
+    for leaf, (stack, items) in groups.items():
+        items.sort(key=lambda it: it[0])
+        if stack is not None and [i for i, _, _ in items] \
+                != list(range(stacks[stack])):
+            raise ValueError(f"{leaf}: {len(items)} of the stack's "
+                             f"{stacks[stack]} layers given; a stacked "
+                             f"leaf is updated whole")
+        out.append(Leaf(leaf, tuple((n, t) for _, n, t in items),
+                        stack is not None))
+    return out
+
+
+def trainable_leaves(params: ModuleParams) -> list:
+    """The trainable tensors grouped by the reference's leaf."""
+    return group_leaves(params, trainable_params(params))

@@ -12,7 +12,9 @@ and donates the state; here the step is eager PyTorch on one device:
   tower records no graph and gets no gradient;
 * the optimizer updates the parameters and its state in place, and the
   returned :class:`TrainState` holds the same tensors as the one passed
-  in (the counterpart of the reference's donation);
+  in (the counterpart of the reference's donation); its state is keyed
+  by the reference's leaves (``param.trainable_leaves``), a scanned
+  module's layers stacked;
 * ``zero_shardings`` has no meaning on one device: only ``None`` is
   taken.
 
@@ -37,7 +39,7 @@ from repro_torch.train.optimizer import (OptimizerConfig, apply_updates,
 @dataclass
 class TrainState:
     params: PM.ModuleParams   # full model params (compute dtype)
-    opt: dict                 # optimizer state of the trainable leaves
+    opt: dict                 # optimizer state by the reference's leaf
     step: torch.Tensor        # int32 scalar on the params' device
 
 
@@ -49,7 +51,7 @@ def train_state(params: PM.ModuleParams, policy: TrainPolicy,
     PM.set_trainable(params, policy)
     device = next(params.parameters()).device
     return TrainState(params=params,
-                      opt=init_opt_state(PM.trainable_params(params),
+                      opt=init_opt_state(PM.trainable_leaves(params),
                                          opt_cfg),
                       step=torch.zeros((), dtype=torch.int32,
                                        device=device))
@@ -135,8 +137,9 @@ def make_train_step(model: Model, policy: TrainPolicy,
         if compress_grads:
             grads = _compress_grads_int8(grads)
         step = state.step + 1
-        apply_updates(trainable, grads, state.opt, step.to(torch.float32),
-                      opt_cfg)
+        apply_updates(PM.group_leaves(params, trainable),
+                      {n: g for (n, _), g in zip(trainable, grads)},
+                      state.opt, step.to(torch.float32), opt_cfg)
         metrics = dict(metrics, loss=loss, grad_norm=_global_norm(grads))
         return TrainState(params=params, opt=state.opt, step=step), metrics
 

@@ -204,6 +204,30 @@ def test_cpu_device_launches_no_kernel_and_installs_no_seam():
     assert BT.B._liveness_peak_impl is None
 
 
+@pytest.mark.parametrize("jobs", [1, 3])
+@pytest.mark.parametrize("name", ["pipe", "pipe-offload", "paged-decode",
+                                  "dense-zoo"])
+def test_one_batched_shard_factor_call_per_table_build(name, jobs,
+                                                       monkeypatch):
+    """Every shard denominator of a stage's table build comes from ONE
+    batched ``shard_factor`` call (the plain version on the CPU; the
+    kernel, one launch, on a card), also with the build split over worker
+    threads; the grid still equals the reference's numpy engine."""
+    calls = []
+    real = SF.shard_factor_batch
+    monkeypatch.setattr(SF, "shard_factor_batch",
+                        lambda b: calls.append(len(b.host.requests))
+                        or real(b))
+    engine = SW.SweepEngine()
+    got = engine.sweep(grids(name, "liveness", SW), engine="torch",
+                       device="cpu", jobs=jobs)
+    stats = engine.last_sweep_stats
+    assert len(calls) == stats["table_builds"] >= stats["groups"] > 0
+    assert sum(calls) == stats["shard_factor_requests"]
+    ref = RS.SweepEngine().sweep(grids(name, "liveness", RS))
+    assert_same_columns(got, ref, "torch")
+
+
 def test_jobs_split_is_order_identical():
     grid = grids("llava-train", "liveness", SW)
     one = SW.SweepEngine().sweep(grid, engine="torch", device="cpu")
