@@ -6,11 +6,14 @@
                                            # kernels' timings (the SSD's
                                            # too); no result
 
-Drives the port's four paths on the CUDA device — the capacity sweep of
+Drives the port's paths on the CUDA device — the capacity sweep of
 llava15-7b at its published widths through ``SweepEngine.sweep(grid,
-engine="torch")``, llava15-7b and mamba2-1.3b serving (prefill + greedy
-decode) at their published widths and depths through
-``repro_torch.serve.generate``, and llava15-7b training steps at the
+engine="torch")``, the same sweep over the five other-family archs
+(MoE, MLA, hybrid, enc-dec) with the expert and context mesh axes, the planner's search queries
+(``planner.plan_min_chips`` / ``plan_frontier`` / ``plan_max_concurrency``
+/ ``plan_replicas``) on the torch engine, llava15-7b and mamba2-1.3b
+serving (prefill + greedy decode) at their published widths and depths
+through ``repro_torch.serve.generate``, and llava15-7b training steps at the
 paper's fig2b setting through ``repro_torch.train`` — and holds every
 hand-written kernel against its plain PyTorch version on the card.
 Phases (any failure exits non-zero):
@@ -46,6 +49,26 @@ Phases (any failure exits non-zero):
    ``shard_factor`` launch per stage table build (``table_builds``);
 4. ``sweep_pipe``: the same grid with a ``pipe`` mesh axis, both schedules
    and three microbatch counts (1,959,552 cells), liveness assembly;
+4b. ``sweep_moe_epcp``: the two MoE archs (arctic-480b, and
+   deepseek-v2-lite-16b with its MLA attention) at their published widths
+   over every legal expert x context x model x data split of 64/128/256
+   chips (299 meshes, 1,377,792 cells), liveness assembly: the checks of
+   phase 3, the fit count and the int64 sum of ``peak_bytes`` equal to the
+   reference's, and among the six cells held to ``planner.check`` one with
+   ``expert > 1`` and one with ``context > 1``;
+4c. ``sweep_new_archs``: minicpm3-4b (MLA), seamless-m4t-large-v2 (the
+   speech-text encoder-decoder) and zamba2-2.7b (the hybrid) over data x
+   model x context meshes (78 meshes, 539,136 cells), legacy assembly, the
+   same checks;
+4d. ``search``: ``plan_min_chips`` of deepseek-v2-lite-16b and
+   arctic-480b with the expert and context axes (pruned on the card, also
+   with the oracle on), ``plan_frontier`` of seamless-m4t-large-v2,
+   ``plan_max_concurrency`` of zamba2-2.7b at 524,288 and minicpm3-4b at
+   32,768 tokens (host probes; their exhaustive twin, every concurrency up
+   to the cap, swept on the card and on the host), ``plan_replicas`` and
+   ``adam_state_bytes``: each answer equal to the exhaustive host search
+   and to the reference's; one ``shard_factor`` launch per table build
+   that asks for a denominator;
 5. ``serve_llava15_7b``: the 7B VLM with random weights from a seeded
    generator on the card, 4 requests of one 336x336 image (576 patch
    tokens) + 512 text tokens, 32 greedy new tokens: prefill ms, decode ms
@@ -134,6 +157,7 @@ from repro_torch.core import batch as B  # noqa: E402
 from repro_torch.core import factors as FA  # noqa: E402
 from repro_torch.core import planner as PL  # noqa: E402
 from repro_torch.core import predictor as PR  # noqa: E402
+from repro_torch.core import search as SR  # noqa: E402
 from repro_torch.core import sweep as SW  # noqa: E402
 from repro_torch.core.spec import (FULL_TRAIN, LLAVA_STAGE1,  # noqa: E402
                                    LLAVA_STAGE2)
@@ -255,6 +279,46 @@ def pipe_grid() -> SW.SweepGrid:
     g.schedules = ("1f1b", "gpipe")
     g.microbatches = (1, 4, 8)
     return g
+
+
+NEW_ARCH_KNOBS = dict(
+    chips=(64, 128, 256), chip=("v5e", "v6e", "h100"),
+    optimizers=(None, "adamw8bit"), remats=("block", "dots"),
+    grad_accums=(1, 2, 4, 8),
+    global_batches=(8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192,
+                    16384),
+    seq_lens=(512, 1024, 2048, 4096), backend="tpu")
+
+
+def moe_epcp_grid() -> SW.SweepGrid:
+    """Both MoE archs at their published widths (deepseek-v2-lite-16b with
+    its MLA attention) over every legal expert x context x model x data
+    split of the three pod sizes, liveness assembly: 299 meshes,
+    1,377,792 cells."""
+    return SW.SweepGrid(arch=("deepseek-v2-lite-16b", "arctic-480b"),
+                        mesh_axes=("data", "model", "expert", "context"),
+                        max_axis={"expert": 64, "context": 8},
+                        assembly="liveness", **NEW_ARCH_KNOBS)
+
+
+def new_archs_grid() -> SW.SweepGrid:
+    """The dense MLA arch, the speech-text encoder-decoder and the hybrid
+    over data x model x context meshes, legacy assembly: 78 meshes,
+    539,136 cells."""
+    return SW.SweepGrid(arch=("minicpm3-4b", "seamless-m4t-large-v2",
+                              "zamba2-2.7b"),
+                        mesh_axes=("data", "model", "context"),
+                        max_axis={"context": 8}, assembly="legacy",
+                        **NEW_ARCH_KNOBS)
+
+
+# the reference's answers on these two grids: the fit count and the int64
+# sum of peak_bytes that the JAX package's numpy engine
+# (repro.core.sweep.SweepEngine().sweep(grid, engine="numpy")) gives on the
+# same grids; tests/test_torch_search.py holds a slice of each grid to that
+# engine on the CPU
+MOE_EPCP_WANT = {"fit": 373348, "peak_sum": 661631732375195328}
+NEW_ARCHS_WANT = {"fit": 283794, "peak_sum": 129472898769989760}
 
 
 # ---------------------------------------------------------------------------
@@ -1009,10 +1073,13 @@ def timed_sweep(engine, grid) -> tuple:
 
 
 def run_sweep(name: str, grid: SW.SweepGrid, want_cells: int,
-              log: ShapeLog) -> dict:
+              log: ShapeLog, want: dict = None, cover: tuple = ()) -> dict:
     """One path of the main path: cold run with the launch counters read
     around it, a warm run on the same engine, and the comparison with the
-    host columnar path."""
+    host columnar path.  ``want`` holds the reference's ``fit`` count and
+    int64 ``peak_sum``, where known; each ``(label, mesh predicate)`` of
+    ``cover`` puts one cell whose mesh satisfies it among the six held to
+    ``planner.check``."""
     engine = SW.SweepEngine()
     zero_counts()
     with log:
@@ -1049,10 +1116,26 @@ def run_sweep(name: str, grid: SW.SweepGrid, want_cells: int,
         fail(f"{name}: legacy assembly must not launch segmented_cummax")
     if warm_stats["table_cache_hits"] != warm_stats["groups"]:
         fail(f"{name}: the warm sweep rebuilt its tables")
+    fit, peak_sum = int(cold.fit_count), int(peak.sum())
+    if want is not None and (fit, peak_sum) != (want["fit"],
+                                                want["peak_sum"]):
+        fail(f"{name}: {fit} cells fit, sum of peak_bytes {peak_sum}; the "
+             f"reference's {want['fit']}, {want['peak_sum']}")
     # a few cells against the un-memoized scalar predictor
     rng = np.random.default_rng(SEED)
-    for i in rng.choice(want_cells, size=6, replace=False).tolist():
+    picks = []
+    for label, pred in cover:
+        codes = [c for c, m in enumerate(cold.columns.meshes) if pred(m)]
+        pool = np.flatnonzero(np.isin(cold.columns.mesh_c, codes))
+        if not len(pool):
+            fail(f"{name}: no cell of the grid has {label}")
+        picks.append(int(rng.choice(pool)))
+    picks += rng.choice(want_cells, size=6 - len(picks),
+                        replace=False).tolist()
+    checked = []
+    for i in picks:
         r = cold.columns.result(i)
+        checked.append(r.mesh_shape)
         rep = PL.check(
             r.arch, ShapeConfig("cell", r.seq_len, r.global_batch, r.kind),
             r.mesh_shape, backend=r.backend, grad_accum=r.grad_accum,
@@ -1063,7 +1146,8 @@ def run_sweep(name: str, grid: SW.SweepGrid, want_cells: int,
             fail(f"{name}: cell {i} peak {r.peak_bytes} != planner.check "
                  f"{rep.peak_bytes}")
     out = {"sweep": name, "cells": want_cells, "assembly": grid.assembly,
-           "meshes": len(grid.meshes()), "fit": int(cold.fit_count),
+           "meshes": len(grid.meshes()), "fit": fit,
+           "peak_bytes_sum": peak_sum, "checked_meshes": checked,
            "launches": {"shard_factor": n_sf, "segmented_cummax": n_sc},
            "table_builds": cold_stats["table_builds"],
            "shard_factor_requests": cold_stats["shard_factor_requests"],
@@ -1074,6 +1158,225 @@ def run_sweep(name: str, grid: SW.SweepGrid, want_cells: int,
            "cold_split": cold_stats, "warm_split": warm_stats}
     say("sweep " + json.dumps(out))
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: the planner's search queries
+# ---------------------------------------------------------------------------
+
+
+class CountingEngine(SW.SweepEngine):
+    """A sweep engine that sums the table builds of the torch-engine
+    sweeps it runs (a pruned search runs one sweep per slice), and those
+    of them that asked for a shard denominator other than 1 — each of
+    which is one ``shard_factor`` launch."""
+
+    def __init__(self):
+        super().__init__()
+        self.table_builds = self.sf_batches = self.sweeps = 0
+
+    def sweep(self, grid, *args, engine="torch", **kw):
+        res = super().sweep(grid, *args, engine=engine, **kw)
+        if engine == "torch":
+            self.table_builds += self.last_sweep_stats["table_builds"]
+            self.sf_batches += self.last_sweep_stats["shard_factor_batches"]
+            self.sweeps += 1
+        return res
+
+
+# the queries and the reference's answers (the JAX package's planner on
+# its numpy engine, pruned and exhaustive agreeing): chip count, mesh,
+# microbatches, schedule, peak bytes; cells evaluated / pruned
+SEARCH_MIN_CHIPS = {
+    "deepseek-v2-lite-16b": (
+        dict(chips=(8, 16, 32, 64, 128, 256)),
+        (8, {"data": 1, "model": 4, "expert": 1, "context": 1, "pipe": 2},
+         8, "1f1b", 58394783744), (210, 5136)),
+    "arctic-480b": (
+        dict(chips=(64, 128, 256, 512), max_ep=128),
+        (64, {"data": 32, "model": 1, "expert": 1, "context": 1, "pipe": 2},
+         8, "1f1b", 68127506308), (1080, 6468)),
+}
+SEARCH_FRONTIER = ("seamless-m4t-large-v2", dict(chips=(1, 2, 4, 8, 16)),
+                   [(1, 8), (2, 128), (4, 256), (8, 256), (16, 256)])
+# (arch, context length) -> (max concurrent sequences, peak bytes there)
+SEARCH_CONCURRENCY = {("zamba2-2.7b", 524288): (1, 58949008004),
+                      ("minicpm3-4b", 32768): (44, 78942319664)}
+# minicpm3-4b at 50 QPS x 10 s of 32,768-token contexts: in flight, per
+# replica, replicas
+SEARCH_FLEET = (500, 44, 12)
+ARCTIC_ADAM_BYTES = 5722203303936
+
+
+def timed_ms(fn) -> tuple:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def card_launches(name: str, engine: CountingEngine) -> dict:
+    """The sweep kernels' launches since the counters were zeroed: one
+    ``shard_factor`` launch per table build that asked for a denominator
+    (a slice whose meshes shard nothing asks for none), no
+    ``segmented_cummax`` (the searches' grids take the legacy assembly),
+    no model kernel."""
+    if any(model_counts().values()) or SSD.launches:
+        fail(f"{name}: the search launched a model kernel")
+    if SF.launches != engine.sf_batches or SC.launches:
+        fail(f"{name}: {SF.launches} shard_factor / {SC.launches} "
+             f"segmented_cummax launches for {engine.table_builds} table "
+             f"builds, {engine.sf_batches} of them with requests (one "
+             f"shard_factor launch per such build, legacy assembly)")
+    return {"shard_factor": SF.launches, "segmented_cummax": SC.launches}
+
+
+def say_search(out: dict) -> dict:
+    say("search " + json.dumps(out))
+    return out
+
+
+def search_min_chips(arch: str) -> dict:
+    q, want, work = SEARCH_MIN_CHIPS[arch]
+    kw = dict(chip="h100", allow_ep=True, allow_cp=True, **q)
+    engine, stats = CountingEngine(), SR.SearchStats()
+    zero_counts()
+    got, card_ms = timed_ms(lambda: PL.plan_min_chips(
+        arch, "train_4k", engine=engine, stats=stats, **kw))
+    launches = card_launches(f"plan_min_chips {arch}", engine)
+    host, host_ms = timed_ms(lambda: PL.plan_min_chips(
+        arch, "train_4k", search="exhaustive", compute_engine="numpy", **kw))
+    grid = PL._search_grid(arch, PL._resolve_shape("train_4k"), q["chips"],
+                           "h100", FULL_TRAIN, "tpu", PL.HEADROOM, True, 8,
+                           True, q.get("max_ep", 8), True, 8, (1, 4, 8),
+                           ("1f1b", "gpipe"), None)
+    try:
+        SR._assert_same_cell(got, host, f"{arch} card vs host exhaustive")
+        oracle = SR.min_chips_search(grid, engine=SW.SweepEngine(),
+                                     oracle=True)
+        SR._assert_same_cell(oracle, got, f"{arch} oracle")
+    except AssertionError as e:
+        fail(f"plan_min_chips {arch}: {e}")
+    answer = (got.n_chips, got.mesh_shape, got.microbatches, got.schedule,
+              got.peak_bytes)
+    if answer != want or (stats.cells_evaluated, stats.cells_pruned) != work:
+        fail(f"plan_min_chips {arch}: {answer}, {stats.cells_evaluated} / "
+             f"{stats.cells_pruned} cells; the reference's {want}, {work}")
+    return say_search({
+        "query": f"plan_min_chips {arch} train_4k h100 ep cp",
+        "answer": {"n_chips": got.n_chips, "mesh": got.mesh_shape,
+                   "microbatches": got.microbatches,
+                   "schedule": got.schedule, "peak_bytes": got.peak_bytes},
+        "cells_evaluated": stats.cells_evaluated,
+        "cells_pruned": stats.cells_pruned, "slices": engine.sweeps,
+        "launches": launches, "table_builds": engine.table_builds,
+        "table_builds_with_requests": engine.sf_batches,
+        "oracle": "pruned == exhaustive on the card",
+        "pruned_card_ms": card_ms, "exhaustive_host_ms": host_ms})
+
+
+def search_frontier() -> dict:
+    arch, q, want = SEARCH_FRONTIER
+    kw = dict(chip="h100", allow_cp=True, **q)
+    engine, stats = CountingEngine(), SR.SearchStats()
+    zero_counts()
+    got, card_ms = timed_ms(lambda: PL.plan_frontier(
+        arch, "train_4k", engine=engine, stats=stats, **kw))
+    launches = card_launches(f"plan_frontier {arch}", engine)
+    host, host_ms = timed_ms(lambda: PL.plan_frontier(
+        arch, "train_4k", search="exhaustive", compute_engine="numpy", **kw))
+    if not got == host == want:
+        fail(f"plan_frontier {arch}: card {got}, host exhaustive {host}, "
+             f"the reference's {want}")
+    return say_search({
+        "query": f"plan_frontier {arch} train_4k h100 cp",
+        "answer": got, "cells_evaluated": stats.cells_evaluated,
+        "cells_pruned": stats.cells_pruned, "slices": engine.sweeps,
+        "launches": launches, "table_builds": engine.table_builds,
+        "table_builds_with_requests": engine.sf_batches,
+        "pruned_card_ms": card_ms, "exhaustive_host_ms": host_ms})
+
+
+def search_concurrency(arch: str, seq: int) -> dict:
+    """The aligned-ladder search probes the memoized scalar path (host
+    arithmetic, no kernel); its exhaustive twin sweeps every concurrency
+    1..cap on the mesh, on the card and on the host."""
+    want = SEARCH_CONCURRENCY[(arch, seq)]
+    stats = SR.SearchStats()
+    zero_counts()
+    rep, pruned_ms = timed_ms(lambda: PL.plan_max_concurrency(
+        arch, seq, chip="h100", kind="decode", stats=stats))
+    card_launches(f"plan_max_concurrency {arch}", CountingEngine())
+    cap = 65536
+    grid = SW.SweepGrid(arch=arch, mesh_shapes=[rep.mesh_shape],
+                        kind="decode", chip="h100",
+                        global_batches=tuple(range(1, cap + 1)),
+                        grad_accums=(1,), seq_lens=(seq,))
+    engine = CountingEngine()
+    zero_counts()
+    card, card_ms = timed_ms(
+        lambda: engine.sweep(grid, engine="torch").max_global_batch())
+    launches = card_launches(f"exhaustive concurrency {arch}", engine)
+    host, host_ms = timed_ms(lambda: SW.SweepEngine().sweep(
+        grid, engine="numpy").max_global_batch())
+    got = (rep.max_concurrency, rep.peak_bytes)
+    for tag, r in (("card", card), ("host", host)):
+        if (r.global_batch, r.peak_bytes) != got:
+            fail(f"plan_max_concurrency {arch}: {got} != the exhaustive "
+                 f"{tag} sweep's {(r.global_batch, r.peak_bytes)}")
+    if got != want:
+        fail(f"plan_max_concurrency {arch}: {got}; the reference's {want}")
+    return say_search({
+        "query": f"plan_max_concurrency {arch} {seq} h100 decode",
+        "answer": {"max_concurrency": rep.max_concurrency,
+                   "peak_bytes": rep.peak_bytes,
+                   "budget_bytes": rep.budget_bytes},
+        "probes": stats.probes, "exhaustive_cells": cap,
+        "launches": launches, "table_builds": engine.table_builds,
+        "table_builds_with_requests": engine.sf_batches,
+        "pruned_host_ms": pruned_ms, "exhaustive_card_ms": card_ms,
+        "exhaustive_host_ms": host_ms})
+
+
+def search_fleet(per_replica: int) -> dict:
+    zero_counts()
+    fleet, ms = timed_ms(lambda: PL.plan_replicas("minicpm3-4b", 50, 32768,
+                                                  chip="h100"))
+    card_launches("plan_replicas", CountingEngine())
+    got = (fleet.concurrent_requests, fleet.per_replica, fleet.replicas)
+    exhaustive = -(-fleet.concurrent_requests // per_replica)
+    if got != SEARCH_FLEET or fleet.replicas != exhaustive:
+        fail(f"plan_replicas minicpm3-4b: {got}; the reference's "
+             f"{SEARCH_FLEET}, {exhaustive} replicas from the exhaustive "
+             f"concurrency")
+    adam = PL.adam_state_bytes("arctic-480b")
+    if adam != ARCTIC_ADAM_BYTES:
+        fail(f"adam_state_bytes arctic-480b: {adam}; the reference's "
+             f"{ARCTIC_ADAM_BYTES}")
+    return say_search({
+        "query": "plan_replicas minicpm3-4b 50 QPS 32768 h100; "
+                 "adam_state_bytes arctic-480b",
+        "answer": {"in_flight": fleet.concurrent_requests,
+                   "per_replica": fleet.per_replica,
+                   "replicas": fleet.replicas,
+                   "total_chips": fleet.total_chips,
+                   "arctic_adam_state_bytes": adam},
+        "pruned_host_ms": ms})
+
+
+def run_searches() -> dict:
+    """Phase 4d: each query once; the sweep kernels' launches of the runs
+    gated to one shard_factor launch per table build."""
+    outs = [search_min_chips(a) for a in SEARCH_MIN_CHIPS]
+    outs.append(search_frontier())
+    conc = {arch: search_concurrency(arch, seq)
+            for arch, seq in SEARCH_CONCURRENCY}
+    outs += list(conc.values())
+    outs.append(search_fleet(
+        conc["minicpm3-4b"]["answer"]["max_concurrency"]))
+    return {k: sum(o.get("launches", {}).get(k, 0) for o in outs)
+            for k in ("shard_factor", "segmented_cummax")}
 
 
 # ---------------------------------------------------------------------------
@@ -2530,9 +2833,22 @@ def main(argv: list) -> int:
                         124416, log),
               run_sweep("sweep_large_liveness", large_grid("liveness"),
                         124416, log),
-              run_sweep("sweep_pipe_liveness", pipe_grid(), 1959552, log)]
+              run_sweep("sweep_pipe_liveness", pipe_grid(), 1959552, log),
+              # phases 4b-4c: the five archs added last, with the expert
+              # and context mesh axes
+              run_sweep("sweep_moe_epcp", moe_epcp_grid(), 1377792, log,
+                        want=MOE_EPCP_WANT,
+                        cover=(("expert > 1", lambda m: m["expert"] > 1),
+                               ("context > 1", lambda m: m["context"] > 1))),
+              run_sweep("sweep_new_archs", new_archs_grid(), 539136, log,
+                        want=NEW_ARCHS_WANT,
+                        cover=(("context > 1",
+                                lambda m: m["context"] > 1),))]
     launches = {k: sum(s["launches"][k] for s in sweeps)
                 for k in ("shard_factor", "segmented_cummax")}
+    # phase 4d: the planner's search queries
+    for k, n in run_searches().items():
+        launches[k] += n
 
     # phase 5: serving (the sweeps' device state is gone with their
     # engines and the shape log goes to the host; release the cached

@@ -261,6 +261,8 @@ def _group_tables(engine, grid, cols, cfg, model, rows, rules, rep_ctx,
             drafts), device)
         stats["table_builds"] += 1
         stats["shard_factor_requests"] += len(batch)
+        # a build whose every denominator is 1 asks for nothing: no launch
+        stats["shard_factor_batches"] += bool(len(batch))
         folded.append(_fold_stage(
             tabs, env, pp, s, liveness=grid.assembly == "liveness"))
     stacked = {k: np.stack([f[k] for f in folded]) for k in folded[0]}
@@ -298,6 +300,7 @@ def sweep_columnar_torch(engine, grid, jobs: int = 1,
     cols = B.build_columns(grid)
     stats = {"device": str(device), "groups": 0, "table_cache_hits": 0,
              "table_builds": 0, "shard_factor_requests": 0,
+             "shard_factor_batches": 0,
              "columns_s": time.perf_counter() - t_cols,
              "table_build_s": 0.0, "upload_s": 0.0, "compose_s": 0.0,
              "copy_s": 0.0, "finalize_s": 0.0}

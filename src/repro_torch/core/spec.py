@@ -229,11 +229,17 @@ def from_reference(d: dict) -> ModuleSpec:
                        dtype=a["dtype"], axes=tuple(a["axes"]))
 
     def layer(l: dict) -> LayerSpec:
+        meta = dict(l["meta"])
+        # asdict flattened the config objects the spec functions put into
+        # meta (an MLA layer's MLAConfig, read by attribute downstream)
+        if isinstance(meta.get("mla"), dict):
+            from repro_torch.configs import MLAConfig
+            meta["mla"] = MLAConfig(**meta["mla"])
         return LayerSpec(
             name=l["name"], kind=l["kind"],
             params={k: param(p) for k, p in l["params"].items()},
             acts=[act(a) for a in l["acts"]],
-            flops_per_token=l["flops_per_token"], meta=dict(l["meta"]))
+            flops_per_token=l["flops_per_token"], meta=meta)
 
     return ModuleSpec(
         name=d["name"], modality=d["modality"],

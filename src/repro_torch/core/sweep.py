@@ -35,10 +35,15 @@ chips for this shape") and markdown/CSV report writers built on
 :mod:`repro_torch.core.report`; columnar sweeps answer the queries on arrays
 and materialize :class:`SweepResult` rows lazily.
 
+Every registered architecture sweeps, over any of the ``data``, ``model``,
+``expert``, ``context`` and ``pipe`` mesh axes; an illegal expert/context
+layout is rejected up front by ``planner.check_parallel``.  Grids with
+``keep_predictions=True`` take the per-cell path of the numpy engine, which
+keeps each cell's ``PredictedMemory``; the torch engine refuses them.
+
 Not ported yet, and rejected with one clean error naming what is missing:
 calibration profiles and residual models, request mixes and speculative
-draft arches, the ``expert``/``context`` mesh axes, ``keep_predictions``,
-and the MLA / MoE / hybrid / enc-dec architecture families.
+draft arches.
 
 CLI::
 
@@ -47,6 +52,11 @@ CLI::
     PYTHONPATH=src python -m repro_torch.core.sweep --arch llama3_1_8b \
         --chips 64 --mesh-axes data,model,pipe --max-pipe 4 \
         --schedule 1f1b,gpipe --microbatches 1,4,8 --batch 64 --seq-len 4096
+    PYTHONPATH=src python -m repro_torch.core.sweep \
+        --arch deepseek_v2_lite_16b --chips 64 \
+        --mesh-axes data,model,expert,context,pipe \
+        --max-expert 8 --max-context 4 --max-pipe 4 --batch 64 \
+        --seq-len 4096
 
 ``--device cpu`` runs the torch engine on the host; ``--engine numpy``
 selects the host columnar path; ``--dry-run`` prints the per-knob
@@ -235,18 +245,6 @@ class SweepGrid:
                 "speculative-decode draft arches are not ported yet "
                 "(serve/fleet.py and the draft arch state are missing); "
                 "use draft_archs=('',)")
-        if self.keep_predictions:
-            raise NotImplementedError(
-                "keep_predictions (per-cell PredictedMemory breakdowns "
-                "from a sweep) is not ported yet; use planner.check for "
-                "a single cell's breakdown")
-        for mesh in self.meshes():
-            for axis in ("expert", "context"):
-                if axis in mesh:
-                    raise NotImplementedError(
-                        f"the {axis!r} mesh axis is not ported yet (the "
-                        f"MoE / ring-attention spec functions are "
-                        f"missing); sweep data/model/pipe axes only")
 
     def check_schedules(self) -> tuple:
         """Validate the schedule axis up front — the columnar path never
@@ -913,6 +911,40 @@ class SweepEngine:
             fits=pred.peak_bytes <= budget,
             prediction=pred if keep_prediction else None)
 
+    def report(self, arch: str, shape, mesh_shape: dict, *,
+               policy: TrainPolicy = FULL_TRAIN, backend: str = "tpu",
+               budget_bytes: int, grad_accum: int = 1,
+               remat: Optional[str] = None,
+               optimizer: Optional[str] = None, chip: str = "v5e",
+               profile=None, microbatches: int = 1,
+               schedule: str = "1f1b", serve=None,
+               offload_opt: bool = False,
+               assembly: str = "legacy",
+               residual=None) -> PL.PlanReport:
+        """PlanReport-shaped single-cell evaluation (planner.plan's
+        memoized backend); byte-identical to ``planner.check``.
+        Calibration (``profile``, ``residual``) is not ported yet and is
+        rejected."""
+        PL.reject_calibration(profile, residual)
+        shape = PL._resolve_shape(shape)
+        cfg, _, _ = self._arch_state(arch, policy)
+        ctx = PL.make_context(cfg, mesh_shape, kind=shape.kind,
+                              global_batch=shape.global_batch,
+                              seq_len=shape.seq_len, backend=backend,
+                              grad_accum=grad_accum, remat=remat,
+                              optimizer=optimizer,
+                              microbatches=microbatches,
+                              schedule=schedule, serve=serve,
+                              offload_opt=offload_opt)
+        pred = self.predict_cell(arch, policy, ctx, chip=chip,
+                                 assembly=assembly)
+        return PL.PlanReport(arch=arch, shape=shape.name,
+                             fits=pred.peak_bytes <= budget_bytes,
+                             peak_bytes=pred.peak_bytes,
+                             budget_bytes=budget_bytes,
+                             grad_accum=grad_accum,
+                             remat=remat or cfg.remat, prediction=pred)
+
     def sweep(self, grid: SweepGrid, mode: str = "columnar",
               jobs: int = 1, engine: str = "torch",
               device: Optional[str] = None) -> SweepResults:
@@ -925,7 +957,10 @@ class SweepEngine:
         build, then the per-cell composition as int64 tensor ops on
         ``device`` (:mod:`repro_torch.core.batch_torch`) — or ``"numpy"``,
         the host columnar path of :mod:`repro_torch.core.batch`.  Results
-        are byte-identical.
+        are byte-identical.  Grids with ``keep_predictions=True`` take the
+        per-cell path of the numpy engine (columnar mode does not
+        materialize PredictedMemory breakdowns); the torch engine refuses
+        them.
 
         ``device`` is the torch engine's device, ``"cuda"`` when None.
         On a CUDA device the shard denominators and the liveness
@@ -947,6 +982,11 @@ class SweepEngine:
                 raise ValueError(
                     "engine='torch' lowers the columnar path; it cannot "
                     "drive mode='cell' (use engine='numpy')")
+            if grid.keep_predictions:
+                raise ValueError(
+                    "engine='torch' does not materialize PredictedMemory "
+                    "breakdowns; use engine='numpy' with "
+                    "keep_predictions=True")
             from repro_torch.core import batch_torch as BT
             return BT.sweep_columnar_torch(self, grid, jobs=jobs,
                                            device=device)
@@ -954,11 +994,12 @@ class SweepEngine:
             raise ValueError(
                 "device applies to engine='torch' only; engine='numpy' "
                 "always runs on the host")
-        if mode == "columnar":
+        if mode == "columnar" and not grid.keep_predictions:
             from repro_torch.core import batch as B
             return B.sweep_columnar(self, grid, jobs=jobs)
         t0 = time.perf_counter()
         results = [self.evaluate(cell, grid.policy, grid.headroom,
+                                 grid.keep_predictions,
                                  assembly=grid.assembly)
                    for cell in grid.cells()]
         return SweepResults(grid=grid, results=results,
@@ -1097,6 +1138,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                    help="cap the model (TP) axis size")
     p.add_argument("--max-pipe", type=int, default=None,
                    help="cap the pipe (PP) axis size")
+    p.add_argument("--max-expert", type=int, default=None,
+                   help="cap the expert (EP) axis size")
+    p.add_argument("--max-context", type=int, default=None,
+                   help="cap the context (CP) axis size")
     p.add_argument("--schedule", default="1f1b",
                    help="comma list of pipeline schedules (1f1b,gpipe)")
     p.add_argument("--microbatches", type=_int_list, default=(1,),
@@ -1214,6 +1259,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         max_axis["model"] = args.max_model
     if args.max_pipe:
         max_axis["pipe"] = args.max_pipe
+    if args.max_expert:
+        max_axis["expert"] = args.max_expert
+    if args.max_context:
+        max_axis["context"] = args.max_context
     grid = SweepGrid(
         arch=arch,
         chips=args.chips,
@@ -1236,18 +1285,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                            "both": (False, True)}[args.offload_optimizer],
         assembly=args.assembly)
     try:
-        # reject knobs that are not ported yet, serve knobs on train
-        # kinds / bad block alignment / out-of-range rates / optimizer
-        # offload on serve kinds, and architecture families without
-        # spec functions — with a clean argparse error, before any
-        # evaluation
+        # reject knobs that are not ported yet, illegal expert/context
+        # layouts, serve knobs on train kinds / bad block alignment /
+        # out-of-range rates and optimizer offload on serve kinds — with a
+        # clean argparse error, before any evaluation
         grid.check_supported()
         grid.check_parallel()
         grid.check_serve()
         grid.check_offload()
-        from repro_torch.configs import get_config
-        from repro_torch.models import build_model
-        build_model(get_config(arch))
     except (ValueError, NotImplementedError) as e:
         p.error(str(e))
 

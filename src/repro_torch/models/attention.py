@@ -1,14 +1,16 @@
-"""Attention: GQA (llama/qwen/mistral-style).
+"""Attention: GQA (llama/qwen/mistral-style) and MLA (deepseek/minicpm-style).
 
-* ``gqa_spec`` — the parameter leaves and saved activations of a
-  grouped-query attention layer as the memory predictor reads them;
+* ``gqa_spec`` / ``mla_spec`` — the parameter leaves and saved activations
+  of a grouped-query / multi-head latent attention layer as the memory
+  predictor reads them;
 * ``gqa_forward`` — full-sequence attention through the flash kernel
   (``kernels.ops.flash_attention``), where the reference calls its
   pure-``lax`` twin of the Pallas kernel;
 * ``gqa_decode`` / ``decode_attention`` — one token against the KV cache,
   plain PyTorch as in the reference (no kernel there either).
 
-The MLA variant is not ported yet.
+The MLA forward (``mla_forward`` / ``mla_decode``) is not ported yet: it
+comes with the runnable MLA family (ROADMAP A7b) and raises until then.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ from typing import Optional
 import torch
 
 from repro_torch.core.spec import (ActTerm, LayerSpec, ParamSpec,
-                                   AXIS_EMBED, AXIS_HEADS, AXIS_KV_HEADS)
+                                   AXIS_EMBED, AXIS_HEADS, AXIS_KV_HEADS,
+                                   AXIS_LORA)
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope
 
@@ -67,6 +70,70 @@ def gqa_spec(name: str, d_model: int, n_heads: int, n_kv_heads: int,
               "head_dim": head_dim, "qk_norm": qk_norm, "d_model": d_model,
               "kv_bytes_per_token": 2 * n_kv_heads * head_dim,
               "attn_kind": "gqa"})
+
+
+def mla_spec(name: str, d_model: int, n_heads: int, mla,
+             dtype: str = "bfloat16") -> LayerSpec:
+    """DeepSeek-V2-style multi-head latent attention.
+
+    Decode caches only (kv_lora + rope_dim) per token — the spec records
+    that via ``kv_bytes_per_token`` so cache prediction is exact.
+    """
+    qk_head = mla.qk_nope_head_dim + mla.qk_rope_head_dim
+    params: dict[str, ParamSpec] = {}
+    if mla.q_lora_rank:
+        params["wq_a"] = ParamSpec((d_model, mla.q_lora_rank), dtype,
+                                   (AXIS_EMBED, AXIS_LORA))
+        params["q_norm"] = ParamSpec((mla.q_lora_rank,), dtype, (None,),
+                                     init="ones")
+        params["wq_b"] = ParamSpec((mla.q_lora_rank, n_heads * qk_head),
+                                   dtype, (AXIS_LORA, AXIS_HEADS))
+        q_flops = 2.0 * d_model * mla.q_lora_rank \
+            + 2.0 * mla.q_lora_rank * n_heads * qk_head
+    else:
+        params["wq"] = ParamSpec((d_model, n_heads * qk_head), dtype,
+                                 (AXIS_EMBED, AXIS_HEADS))
+        q_flops = 2.0 * d_model * n_heads * qk_head
+    params.update({
+        "wkv_a": ParamSpec((d_model, mla.kv_lora_rank + mla.qk_rope_head_dim),
+                           dtype, (AXIS_EMBED, None)),
+        "kv_norm": ParamSpec((mla.kv_lora_rank,), dtype, (None,), init="ones"),
+        "wkv_b": ParamSpec((mla.kv_lora_rank,
+                            n_heads * (mla.qk_nope_head_dim + mla.v_head_dim)),
+                           dtype, (AXIS_LORA, AXIS_HEADS)),
+        "wo": ParamSpec((n_heads * mla.v_head_dim, d_model), dtype,
+                        (AXIS_HEADS, AXIS_EMBED)),
+    })
+    flops = (q_flops
+             + 2.0 * d_model * (mla.kv_lora_rank + mla.qk_rope_head_dim)
+             + 2.0 * mla.kv_lora_rank * n_heads
+             * (mla.qk_nope_head_dim + mla.v_head_dim)
+             + 2.0 * n_heads * mla.v_head_dim * d_model)
+    return LayerSpec(
+        name=name, kind="attention", params=params,
+        acts=[
+            ActTerm(f"{name}.in", ("B", "S", d_model), dtype,
+                    ("batch", "seq", AXIS_EMBED)),
+            ActTerm(f"{name}.q", ("B", "S", n_heads, qk_head), dtype,
+                    ("batch", "seq", AXIS_HEADS, None)),
+            ActTerm(f"{name}.kv_latent", ("B", "S",
+                                          mla.kv_lora_rank + mla.qk_rope_head_dim),
+                    dtype, ("batch", "seq", None)),
+            ActTerm(f"{name}.k", ("B", "S", n_heads, qk_head), dtype,
+                    ("batch", "seq", AXIS_HEADS, None)),
+            ActTerm(f"{name}.v", ("B", "S", n_heads, mla.v_head_dim), dtype,
+                    ("batch", "seq", AXIS_HEADS, None)),
+            ActTerm(f"{name}.ctx", ("B", "S", n_heads, mla.v_head_dim), dtype,
+                    ("batch", "seq", AXIS_HEADS, None)),
+            ActTerm(f"{name}.lse", ("B", n_heads, "S"), "float32",
+                    ("batch", "heads", "seq")),
+        ],
+        flops_per_token=flops,
+        meta={"n_heads": n_heads, "head_dim": qk_head,
+              "v_head_dim": mla.v_head_dim, "mla": mla,
+              "d_model": d_model,
+              "kv_bytes_per_token": 2 * (mla.kv_lora_rank + mla.qk_rope_head_dim),
+              "attn_kind": "mla"})
 
 
 # ---------------------------------------------------------------------------
@@ -142,7 +209,9 @@ def decode_attention(q, k_cache, v_cache, kv_len):
 
 
 def mla_forward(*args, **kwargs):
-    raise NotImplementedError("MLA attention is not ported yet")
+    raise NotImplementedError(
+        "MLA attention's forward (mla_forward, mla_decode) is not ported "
+        "yet: it comes with the runnable MLA family (ROADMAP A7b)")
 
 
 mla_decode = mla_forward

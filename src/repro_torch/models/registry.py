@@ -12,11 +12,15 @@
 * ``init_cache(batch, max_len, device)`` — zeroed cache
 * ``batch_spec(shape)``            — shape/dtype records for every input
 
-The dense-GQA decoder LMs and the VLMs built on them are here: spec,
-training loss and serving path.  The pure-SSM family (mamba2) has its
-spec and serving path; its ``loss`` raises ``NotImplementedError`` until
-its training is ported.  The MLA / MoE / hybrid / enc-dec families raise
-``NotImplementedError`` until they are ported.
+Every family's ``spec`` and ``batch_spec`` are here, so ``planner.check``
+and the capacity sweep take all twelve archs.  The dense-GQA decoder LMs
+and the VLMs built on them also have their training loss and serving
+path; the pure-SSM family (mamba2) its serving path (its ``loss`` raises
+``NotImplementedError`` until its training is ported).  For the MoE,
+hybrid and enc-dec families and for MLA configs every forward entry point
+(``init``, ``from_numpy``, ``loss``, ``prefill``, ``decode_step``,
+``init_cache``) raises ``NotImplementedError`` naming the ROADMAP item
+that ports it (A7b–e): a model whose spec builds never half-runs.
 """
 
 from __future__ import annotations
@@ -27,10 +31,19 @@ import torch
 
 from repro_torch.configs import ArchConfig, ShapeConfig
 from repro_torch.core.spec import ModuleSpec
+from repro_torch.models import encdec as E
+from repro_torch.models import hybrid as H
 from repro_torch.models import param as PM
 from repro_torch.models import ssm_lm as S
 from repro_torch.models import transformer as T
 from repro_torch.models import vlm as V
+
+# families (and MLA attention) whose forward is not ported yet -> the
+# ROADMAP item that ports it
+_UNPORTED_FORWARD = {"moe": "the MoE FFN (ROADMAP A7c)",
+                     "hybrid": "the hybrid SSM + shared attention "
+                               "(ROADMAP A7d)",
+                     "encdec": "the encoder-decoder (ROADMAP A7e)"}
 
 
 @dataclass(frozen=True)
@@ -46,14 +59,30 @@ class Model:
     cfg: ArchConfig
     spec: ModuleSpec
 
+    def _forward_ported(self) -> None:
+        """Raise for a model whose spec builds but whose forward is not
+        ported yet — before any parameter is made or any input read."""
+        missing = [_UNPORTED_FORWARD[self.cfg.family]] \
+            if self.cfg.family in _UNPORTED_FORWARD else []
+        if self.cfg.mla:
+            missing.append("MLA attention (ROADMAP A7b)")
+        if missing:
+            raise NotImplementedError(
+                f"{self.cfg.name}: the forward of {' and '.join(missing)} "
+                f"is not ported yet; its spec is, so planner.check and the "
+                f"capacity sweep take this arch")
+
     def init(self, generator: torch.Generator,
              device="cuda") -> PM.ModuleParams:
+        self._forward_ported()
         return PM.init_params(self.spec, generator, device)
 
     def from_numpy(self, tree: dict, device="cuda") -> PM.ModuleParams:
+        self._forward_ported()
         return PM.params_from_numpy(tree, device, self.spec)
 
     def loss(self, params, batch: dict, remat=None):
+        self._forward_ported()
         if self.cfg.family == "ssm":
             raise NotImplementedError(
                 f"{self.cfg.name}: the SSM family's training (ssm_loss, "
@@ -65,6 +94,7 @@ class Model:
                          remat=remat)
 
     def prefill(self, params, batch: dict):
+        self._forward_ported()
         if self.cfg.family == "ssm":
             return S.ssm_prefill(self.cfg, params, batch)
         if self.cfg.family == "vlm":
@@ -72,6 +102,7 @@ class Model:
         return T.lm_prefill(self.cfg, params, batch["tokens"])
 
     def decode_step(self, params, token, cache: dict):
+        self._forward_ported()
         if self.cfg.family == "ssm":
             return S.ssm_decode_step(self.cfg, params, token, cache)
         if self.cfg.family == "vlm":
@@ -79,6 +110,7 @@ class Model:
         return T.lm_decode_step(self.cfg, params, token, cache)
 
     def init_cache(self, batch: int, max_len: int, device="cuda") -> dict:
+        self._forward_ported()
         if self.cfg.family == "ssm":
             return S.ssm_init_cache(self.cfg, batch, max_len, device)
         return T.init_kv_cache(self.cfg, batch, max_len, device)
@@ -104,6 +136,14 @@ class Model:
             if shape.kind == "prefill":
                 batch.pop("labels")
             return batch
+        if cfg.family == "encdec":
+            T_enc = int(S * cfg.encdec.enc_seq_ratio)
+            batch = {"frames": ShapeDtype(
+                        (B, T_enc, cfg.encdec.d_frontend), cfg.dtype),
+                     "tokens": tok(B, S), "labels": tok(B, S)}
+            if shape.kind == "prefill":
+                batch.pop("labels")
+            return batch
         batch = {"tokens": tok(B, S), "labels": tok(B, S)}
         if shape.kind == "prefill":
             batch.pop("labels")
@@ -112,14 +152,14 @@ class Model:
 
 def build_model(cfg: ArchConfig) -> Model:
     fam = cfg.family
-    if fam == "dense":
+    if fam in ("dense", "moe"):
         return Model(cfg=cfg, spec=T.lm_spec(cfg))
     if fam == "vlm":
         return Model(cfg=cfg, spec=V.vlm_model_spec(cfg))
     if fam == "ssm":
         return Model(cfg=cfg, spec=S.ssm_model_spec(cfg))
-    if fam in ("moe", "hybrid", "encdec"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {fam!r} family's spec functions are not ported "
-            f"yet (supported: dense GQA decoders, VLMs and pure SSMs)")
+    if fam == "hybrid":
+        return Model(cfg=cfg, spec=H.hybrid_model_spec(cfg))
+    if fam == "encdec":
+        return Model(cfg=cfg, spec=E.encdec_model_spec(cfg))
     raise ValueError(f"unknown family {fam!r}")

@@ -1,6 +1,8 @@
-"""Decoder-only LM family: llama / qwen / mistral (GQA, dense FFN).
+"""Decoder-only LM family: llama / qwen / mistral (GQA), minicpm /
+deepseek (MLA), dense or MoE FFN.
 
-Spec functions, the training forward (``lm_backbone`` under a remat
+Spec functions of every member; for the dense-GQA members also the
+training forward (``lm_backbone`` under a remat
 policy, ``chunked_xent``, ``lm_loss``) and the serving path.  Blocks are
 depth-stacked (``scanned``) modules in the spec; their parameters are one
 :class:`~repro_torch.models.param.ModuleParams` per block, walked by a
@@ -8,7 +10,8 @@ Python loop where the reference scans, each block under its own
 checkpoint.  The loss is the chunked cross-entropy the byte model
 describes, which never materializes the full (B, S, V) logits
 (``LOSS_CHUNK`` rows at a time, each chunk recomputed in the backward).
-MLA attention and MoE FFNs are not built yet: ``lm_spec`` raises
+The forward of MLA attention and MoE FFN blocks is not ported yet (ROADMAP
+A7b, A7c): the forward and serving functions raise
 ``NotImplementedError`` for configs that need them.
 
 The serving functions keep the reference's program so that the memory and
@@ -29,37 +32,52 @@ from repro_torch.configs import ArchConfig
 from repro_torch.core.spec import LayerSpec, ModuleSpec
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.models.attention import gqa_decode, gqa_forward, gqa_spec
+from repro_torch.models.attention import (gqa_decode, gqa_forward, gqa_spec,
+                                          mla_spec)
+from repro_torch.models.moe import moe_spec
 
 LOSS_CHUNK = 512
 
 
 def attn_spec_for(cfg: ArchConfig) -> LayerSpec:
     if cfg.mla:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA attention spec function is not ported yet")
+        return mla_spec("attn", cfg.d_model, cfg.n_heads, cfg.mla, cfg.dtype)
     return gqa_spec("attn", cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                     cfg.resolved_head_dim, cfg.qk_norm, cfg.dtype)
 
 
-def _block_layers(cfg: ArchConfig) -> list[LayerSpec]:
-    return [L.rmsnorm_spec("norm1", cfg.d_model, cfg.dtype),
-            attn_spec_for(cfg),
-            L.rmsnorm_spec("norm2", cfg.d_model, cfg.dtype),
-            L.mlp_spec("ffn", cfg.d_model, cfg.d_ff, cfg.dtype)]
+def _block_layers(cfg: ArchConfig, ffn: str) -> list[LayerSpec]:
+    layers = [L.rmsnorm_spec("norm1", cfg.d_model, cfg.dtype),
+              attn_spec_for(cfg),
+              L.rmsnorm_spec("norm2", cfg.d_model, cfg.dtype)]
+    if ffn == "moe":
+        layers.append(moe_spec("ffn", cfg.d_model, cfg.moe, cfg.dtype))
+        if cfg.moe.dense_residual:
+            layers.append(L.mlp_spec("dense_ffn", cfg.d_model, cfg.d_ff,
+                                     cfg.dtype))
+    else:
+        layers.append(L.mlp_spec("ffn", cfg.d_model, cfg.d_ff, cfg.dtype))
+    return layers
 
 
 def lm_spec(cfg: ArchConfig, name: str = "language_model") -> ModuleSpec:
-    if cfg.moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE FFN spec function is not ported yet")
     children = [ModuleSpec(
         name="embed", modality="text",
         layers=[L.embedding_spec("tok", cfg.vocab, cfg.d_model, cfg.dtype,
                                  tied=cfg.tie_embeddings)])]
-    children.append(ModuleSpec(
-        name="blocks", modality="text", repeat=cfg.n_layers,
-        scanned=True, layers=_block_layers(cfg)))
+    n_moe_dense = cfg.moe.n_dense_layers if cfg.moe else 0
+    if cfg.moe:
+        if n_moe_dense:
+            children.append(ModuleSpec(
+                name="dense_blocks", modality="text", repeat=n_moe_dense,
+                scanned=True, layers=_block_layers(cfg, "mlp")))
+        children.append(ModuleSpec(
+            name="blocks", modality="text", repeat=cfg.n_layers - n_moe_dense,
+            scanned=True, layers=_block_layers(cfg, "moe")))
+    else:
+        children.append(ModuleSpec(
+            name="blocks", modality="text", repeat=cfg.n_layers,
+            scanned=True, layers=_block_layers(cfg, "mlp")))
     final = [L.rmsnorm_spec("final_norm", cfg.d_model, cfg.dtype)]
     if not cfg.tie_embeddings:
         final.append(L.lm_head_spec("lm_head", cfg.d_model, cfg.vocab,
@@ -76,7 +94,8 @@ def lm_spec(cfg: ArchConfig, name: str = "language_model") -> ModuleSpec:
 def _dense_only(cfg: ArchConfig) -> None:
     if cfg.mla or cfg.moe:
         raise NotImplementedError(
-            f"{cfg.name}: MLA attention / MoE FFN blocks are not ported yet")
+            f"{cfg.name}: the forward of MLA attention / MoE FFN blocks is "
+            f"not ported yet (ROADMAP A7b, A7c)")
 
 
 def _attn_apply(cfg: ArchConfig, ap, h: torch.Tensor,

@@ -42,7 +42,9 @@ for want in ("repro_torch.core.batch_torch", "repro_torch.core.sweep",
              "repro_torch.kernels.flash_attention",
              "repro_torch.kernels.rmsnorm", "repro_torch.kernels.ops",
              "repro_torch.kernels.ssd", "repro_torch.models.mamba",
-             "repro_torch.models.ssm_lm",
+             "repro_torch.models.ssm_lm", "repro_torch.models.moe",
+             "repro_torch.models.hybrid", "repro_torch.models.encdec",
+             "repro_torch.core.search", "repro_torch.core.planner",
              "repro_torch.kernels.ref", "repro_torch.models.param",
              "repro_torch.models.vit", "repro_torch.models.vlm",
              "repro_torch.serve.serve_step",
@@ -141,7 +143,7 @@ def test_default_entry_point_raises_without_cuda():
     (("--device", "cpu", "--draft-arch", "smollm-360m"), 2,
      "not ported yet"),
     (("--device", "cpu", "--mesh", "data=2,expert=2"), 2,
-     "'expert' mesh axis is not ported"),
+     "dense arch"),
 ])
 def test_cli(extra, rc, needle):
     code = ("import sys; from repro_torch.core.sweep import main; "
@@ -152,11 +154,13 @@ def test_cli(extra, rc, needle):
 
 
 def test_cli_rejects_unported_family():
+    """Every family sweeps now: the hybrid zamba2-2.7b on the host."""
     r = run_fresh("import sys; from repro_torch.core.sweep import main; "
                   "sys.exit(main(['--arch', 'zamba2_2_7b', '--chips', '4', "
                   "'--device', 'cpu']))")
-    assert r.returncode == 2
-    assert "not ported yet" in r.stderr
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "engine=torch, device=cpu" in r.stdout
+    assert "zamba2-2.7b" in r.stdout
 
 
 BUILD_WITHOUT_NVCC = """

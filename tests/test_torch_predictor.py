@@ -11,12 +11,11 @@ import pytest
 
 from repro.configs import ShapeConfig as RShape
 from repro.core import planner as RPL
-from repro_torch.configs import ShapeConfig
+from repro_torch.configs import ShapeConfig, registered_archs
 from repro_torch.core import planner as PL
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
-SUPPORTED = ("llava15-7b", "llava-next-mistral-7b", "llama3.1-8b",
-             "llama3.2-3b", "smollm-360m", "qwen3-32b", "mamba2-1.3b")
+SUPPORTED = tuple(registered_archs())
 
 # the canonical cell every snapshot is taken at
 CANON_MESH = {"data": 2, "model": 2}

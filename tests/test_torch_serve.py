@@ -385,5 +385,13 @@ def test_unported_families_raise(arch):
         with pytest.raises(NotImplementedError, match="not ported"):
             model.loss(None, {})
         return
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(get_config(arch).reduced())
+    # the spec builds (planner.check and the sweep take it); its serving
+    # entry points raise before any parameter is made
+    model = build_model(get_config(arch).reduced())
+    assert model.spec.param_count > 0
+    for call in (lambda: model.init(torch.Generator().manual_seed(0), "cpu"),
+                 lambda: model.prefill(None, {}),
+                 lambda: model.decode_step(None, None, {}),
+                 lambda: model.init_cache(1, 8, "cpu")):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            call()

@@ -1,8 +1,10 @@
 """Spec layer of the port against the reference: ``parse_model`` rows are
-equal field for field for the seven supported archs under every
-TrainPolicy preset, ``from_reference`` carries a reference tree across
-unchanged, and the families without spec functions raise (mamba2, which
-serves, raises for its unported training)."""
+equal field for field for all twelve archs under every TrainPolicy
+preset, ``from_reference`` carries a reference tree across unchanged (an
+MLA layer's config object included, so the carried tree predicts the same
+bytes), and the families whose forward is not ported raise from every
+forward entry point (mamba2, which serves, raises for its unported
+training)."""
 
 import dataclasses
 
@@ -17,10 +19,11 @@ from repro_torch.core import parser as TP
 from repro_torch.core import spec as TS
 from repro_torch.models import build_model
 
-SUPPORTED = ("llava15-7b", "llava-next-mistral-7b", "llama3.1-8b",
-             "llama3.2-3b", "smollm-360m", "qwen3-32b", "mamba2-1.3b")
+SUPPORTED = tuple(registered_archs())
+# the archs whose spec is ported but whose forward is not (ROADMAP A7)
 UNSUPPORTED = ("arctic-480b", "deepseek-v2-lite-16b", "minicpm3-4b",
                "seamless-m4t-large-v2", "zamba2-2.7b")
+MLA_ARCHS = ("deepseek-v2-lite-16b", "minicpm3-4b")
 POLICIES = ("FULL_TRAIN", "LLAVA_STAGE1", "LLAVA_STAGE2")
 
 
@@ -32,7 +35,7 @@ def row_dict(r) -> dict:
 def test_registry_lists_the_same_archs():
     from repro.configs import registered_archs as ref_archs
     assert list(registered_archs()) == list(ref_archs())
-    assert set(SUPPORTED) | set(UNSUPPORTED) == set(registered_archs())
+    assert set(UNSUPPORTED) < set(SUPPORTED) == set(registered_archs())
 
 
 @pytest.mark.parametrize("arch", registered_archs())
@@ -85,12 +88,50 @@ def test_batch_spec_equals_reference(arch, kind):
         assert TS.dtype_bytes(got[name].dtype) == ref[name].dtype.itemsize
 
 
+@pytest.mark.parametrize("arch", MLA_ARCHS)
+def test_carried_mla_tree_predicts_like_the_ports_own(arch):
+    """``from_reference`` rebuilds the MLAConfig that ``asdict`` flattened
+    into the attention layer's meta, which the predictor reads by
+    attribute: the carried reference tree predicts the port's own bytes,
+    every component and module, for each step kind at the golden cell."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core import planner as PL
+    from repro_torch.core import predictor as PR
+    from repro_torch.models.registry import Model
+
+    cfg = get_config(arch)
+    own = build_model(cfg)
+    carried = Model(cfg=cfg, spec=TS.from_reference(
+        dataclasses.asdict(ref_build(ref_config(arch)).spec)))
+    for kind in ("train", "prefill", "decode"):
+        shape = ShapeConfig("golden", 1024, 8, kind)
+        ctx = PL.make_context(cfg, {"data": 2, "model": 2}, kind=kind,
+                              global_batch=shape.global_batch,
+                              seq_len=shape.seq_len, backend="tpu")
+        got = PR.predict(carried, TS.FULL_TRAIN, ctx, chip="v5e")
+        want = PR.predict(own, TS.FULL_TRAIN, ctx, chip="v5e")
+        assert dataclasses.asdict(got) == dataclasses.asdict(want), kind
+        assert got.peak_bytes > 0
+
+
 @pytest.mark.parametrize("arch", UNSUPPORTED + ("mamba2-1.3b",))
 def test_unsupported_families_raise(arch):
-    if arch in SUPPORTED:        # serves; its training is not ported yet
-        model = build_model(get_config(arch))
+    """A spec that builds never hands back a model that half-runs: every
+    forward entry point of the unported families raises, naming the
+    ROADMAP item that ports it."""
+    import torch
+    model = build_model(get_config(arch))
+    if arch == "mamba2-1.3b":    # serves; its training is not ported yet
         with pytest.raises(NotImplementedError, match="not ported"):
             model.loss(None, {})
         return
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(get_config(arch))
+    calls = (lambda: model.init(torch.Generator().manual_seed(0), "cpu"),
+             lambda: model.from_numpy({}, "cpu"),
+             lambda: model.loss(None, {}),
+             lambda: model.prefill(None, {}),
+             lambda: model.decode_step(None, None, {}),
+             lambda: model.init_cache(1, 8, "cpu"))
+    for call in calls:
+        with pytest.raises(NotImplementedError,
+                           match=r"A7[b-e].*not ported yet"):
+            call()

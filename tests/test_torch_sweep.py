@@ -3,6 +3,8 @@
 against the reference package's numpy engine on the same grids.  Every
 column is an integer (or a bool): tolerance 0."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -70,6 +72,21 @@ GRIDS = {
                          seq_lens=(1024, 2048), block_sizes=(0, 16),
                          utilizations=(1.0, 0.9),
                          prefix_hit_rates=(0.0, 0.5), prefix_len=256),
+    # the MoE archs (deepseek's MLA attention too) over expert x context
+    # meshes, and the other three new families over context meshes
+    "moe-epcp": dict(arch=("deepseek-v2-lite-16b", "arctic-480b"),
+                     chips=(16, 32), mesh_axes=("data", "model", "expert",
+                                                "context"),
+                     max_axis={"expert": 8, "context": 4},
+                     chip=("v5e", "h100"), optimizers=(None, "adamw8bit"),
+                     grad_accums=(1, 2), global_batches=(16, 64),
+                     seq_lens=(1024,)),
+    "new-archs": dict(arch=("minicpm3-4b", "seamless-m4t-large-v2",
+                            "zamba2-2.7b"),
+                      chips=(8, 16), mesh_axes=("data", "model", "context"),
+                      max_axis={"context": 4}, chip=("v5e", "h100"),
+                      remats=("block", "dots"), grad_accums=(1, 2),
+                      global_batches=(8, 32), seq_lens=(1024, 2048)),
 }
 
 
@@ -223,6 +240,7 @@ def test_one_batched_shard_factor_call_per_table_build(name, jobs,
                        device="cpu", jobs=jobs)
     stats = engine.last_sweep_stats
     assert len(calls) == stats["table_builds"] >= stats["groups"] > 0
+    assert stats["shard_factor_batches"] == len(calls)
     assert sum(calls) == stats["shard_factor_requests"]
     ref = RS.SweepEngine().sweep(grids(name, "liveness", RS))
     assert_same_columns(got, ref, "torch")
@@ -241,11 +259,6 @@ DEFERRED = {
     "mixes": (dict(kind="decode", mixes=(None, object())), "request mixes"),
     "draft_archs": (dict(kind="decode", draft_archs=("", "smollm-360m")),
                     "draft arches"),
-    "keep_predictions": (dict(keep_predictions=True), "keep_predictions"),
-    "expert-axis": (dict(mesh_axes=("data", "model", "expert")),
-                    "'expert' mesh axis"),
-    "context-axis": (dict(mesh_shapes=[{"data": 2, "context": 2}]),
-                     "'context' mesh axis"),
 }
 
 
@@ -262,14 +275,29 @@ def test_deferred_knobs_are_rejected(knob, engine):
             **({"device": "cpu"} if engine == "torch" else {}))
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "minicpm3-4b",
-                                  "zamba2-2.7b", "seamless-m4t-large-v2",
-                                  "arctic-480b"])
-def test_unsupported_families_are_rejected_by_the_sweep(arch):
-    grid = SW.SweepGrid(arch=arch, chips=4, global_batches=(8,),
-                        seq_lens=(512,))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        SW.SweepEngine().sweep(grid, engine="torch", device="cpu")
+@pytest.mark.parametrize("engine", ["torch", "numpy"])
+def test_keep_predictions(engine):
+    """The numpy engine takes the cell path and keeps each cell's
+    PredictedMemory, equal to the reference's; the torch engine does not
+    materialize breakdowns and refuses the grid."""
+    kw = dict(arch="deepseek-v2-lite-16b",
+              mesh_shapes=[{"data": 2, "expert": 2},
+                           {"data": 1, "context": 2, "pipe": 2}],
+              schedules=("1f1b", "gpipe"), microbatches=(1, 4),
+              global_batches=(8,), seq_lens=(1024,), keep_predictions=True)
+    grid = SW.SweepGrid(**kw)
+    if engine == "torch":
+        with pytest.raises(ValueError, match="keep_predictions"):
+            SW.SweepEngine().sweep(grid, engine="torch", device="cpu")
+        return
+    got = SW.SweepEngine().sweep(grid, engine="numpy")
+    ref = RS.SweepEngine().sweep(RS.SweepGrid(**kw))
+    assert got.columns is None and len(got) == len(ref) > 0
+    for a, b in zip(got.results, ref.results):
+        assert a.prediction is not None
+        assert dataclasses.asdict(a.prediction) \
+            == dataclasses.asdict(b.prediction)
+        assert (a.peak_bytes, a.fits) == (b.peak_bytes, b.fits)
 
 
 def test_engine_and_mode_validation():
