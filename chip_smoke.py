@@ -11,7 +11,10 @@ llava15-7b at its published widths through ``SweepEngine.sweep(grid,
 engine="torch")``, the same sweep over the five other-family archs
 (MoE, MLA, hybrid, enc-dec) with the expert and context mesh axes, the planner's search queries
 (``planner.plan_min_chips`` / ``plan_frontier`` / ``plan_max_concurrency``
-/ ``plan_replicas``) on the torch engine, llava15-7b and mamba2-1.3b
+/ ``plan_replicas``) on the torch engine, the calibration pipeline
+(``repro_torch.calibrate``) and the sweeps and searches under its fitted
+profiles, the serving fleet's request mixes and speculative drafts,
+llava15-7b and mamba2-1.3b
 serving (prefill + greedy decode) at their published widths and depths
 through ``repro_torch.serve.generate``, and llava15-7b training steps at the
 paper's fig2b setting through ``repro_torch.train`` — and holds every
@@ -69,6 +72,32 @@ Phases (any failure exits non-zero):
    ``adam_state_bytes``: each answer equal to the exhaustive host search
    and to the reference's; one ``shard_factor`` launch per table build
    that asks for a denominator;
+4e. ``calibrate`` (host): a ``CalibrationProfile`` fitted by
+   ``calibrate.fit_profile`` on the bundled measurement fixture under each
+   assembly, and a ``ResidualModel`` over it (``fit_residual``): their
+   hashes equal to the reference's, the MAPE table by family improved in
+   every family; no kernel runs;
+4f. ``sweep_calibrated_legacy``: the 124,416-cell grid under the fitted
+   legacy profile (v5e, v6e and h100: three chip offsets), and
+   ``sweep_calibrated_pipe``: the 1,959,552-cell pipe grid under the
+   fitted liveness profile — the checks of phase 3, the fit count and the
+   int64 sum of ``peak_bytes`` equal to the reference's, one cell of each
+   chip among the six held to ``planner.check(profile=...)``; each then
+   again on the same (warm) engine under the goldens' profile, which must
+   build its own tables and give the reference's answer;
+4g. ``sweep_fleet_legacy`` / ``_liveness``: llava15-7b decode over 22
+   meshes x 3 chips x 8 batches x 4 contexts x 72 serving specs (block
+   sizes 0 / 16, utilizations 1 / 0.9, hit rates 0 / 0.5, the mixes
+   ``0.25:512x1,2048x3``, ``0.5`` and none, drafts none / smollm-360m /
+   llama3.2-3b): 152,064 cells, the checks of phase 3 with each checked
+   cell's pool / draft / hit bytes, and the sums of those columns equal
+   to the reference's;
+4h. ``search`` under calibration and mixes: ``plan_min_chips`` of
+   arctic-480b under the fitted legacy profile (the floor off: every
+   count up to the answer swept) and ``plan_max_concurrency`` of
+   llama3.2-3b under a request mix and a draft (its exhaustive twin to
+   4,096 sequences on the card and on the host), each equal to the
+   reference's;
 5. ``serve_llava15_7b``: the 7B VLM with random weights from a seeded
    generator on the card, 4 requests of one 336x336 image (576 patch
    tokens) + 512 text tokens, 32 greedy new tokens: prefill ms, decode ms
@@ -153,6 +182,11 @@ if not torch.cuda.is_available():
 
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.calibrate import fit as CF  # noqa: E402
+from repro_torch.calibrate import learned as CL  # noqa: E402
+from repro_torch.calibrate import report as CR  # noqa: E402
+from repro_torch.calibrate.measurements import MeasurementStore  # noqa: E402
+from repro_torch.calibrate.profile import CalibrationProfile  # noqa: E402
 from repro_torch.core import batch as B  # noqa: E402
 from repro_torch.core import factors as FA  # noqa: E402
 from repro_torch.core import planner as PL  # noqa: E402
@@ -172,6 +206,8 @@ from repro_torch.kernels import ssd as SSD  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import param as PM  # noqa: E402
 from repro_torch.serve import serve_step as SV  # noqa: E402
+from repro_torch.serve.fleet import parse_mix  # noqa: E402
+from repro_torch.serve.pool import ServeSpec  # noqa: E402
 from repro_torch.core.parser import parse_model  # noqa: E402
 from repro_torch.train import (OptimizerConfig, init_train_state,  # noqa: E402
                                make_train_step, train_state)
@@ -231,8 +267,8 @@ FP32_GRAD_TOL = 1e-3
 RESULT_COLUMNS = ("peak_bytes", "budget_bytes", "fits", "offload_bytes",
                   "overlap_slack_bytes", "pool_bytes", "draft_bytes",
                   "hit_saved_bytes", "arch_c", "chip_c", "mesh_c", "opt_c",
-                  "remat_c", "sched_c", "microbatches", "grad_accum",
-                  "global_batch", "seq_len")
+                  "remat_c", "sched_c", "srv_c", "off_c", "microbatches",
+                  "grad_accum", "global_batch", "seq_len")
 
 
 def say(*a):
@@ -312,13 +348,70 @@ def new_archs_grid() -> SW.SweepGrid:
                         **NEW_ARCH_KNOBS)
 
 
-# the reference's answers on these two grids: the fit count and the int64
-# sum of peak_bytes that the JAX package's numpy engine
+# the mixes of the reference's serving tests: a 25 % prefill share over a
+# 1:3 histogram of 512- and 2,048-token contexts, a 50 % prefill share at
+# the cell's context, and none
+FLEET_MIXES = ("0.25:512x1,2048x3", "0.5", "")
+FLEET_DRAFTS = ("", "smollm-360m", "llama3.2-3b")
+
+
+def fleet_grid(assembly: str) -> SW.SweepGrid:
+    """The serving fleet of llava15-7b: decode over every 2-axis mesh of
+    8-64 chips x chip type x batch x context, crossed with paged-KV block
+    sizes, pool utilizations, prefix-cache hit rates, request mixes and
+    speculative draft arches: 22 meshes x 72 serve specs, 152,064
+    cells."""
+    return SW.SweepGrid(
+        arch="llava15-7b", chips=(8, 16, 32, 64), chip=("v5e", "v6e", "h100"),
+        kind="decode", grad_accums=(1,),
+        global_batches=(1, 2, 4, 8, 16, 32, 64, 128),
+        seq_lens=(1024, 2048, 4096, 8192), block_sizes=(0, 16),
+        utilizations=(1.0, 0.9), prefix_hit_rates=(0.0, 0.5),
+        prefix_len=512, mixes=tuple(parse_mix(m) for m in FLEET_MIXES),
+        draft_archs=FLEET_DRAFTS, backend="tpu", assembly=assembly)
+
+
+FLEET_CELLS = 152064
+
+# the reference's answers on these grids: the fit count and the int64 sum
+# of peak_bytes that the JAX package's numpy engine
 # (repro.core.sweep.SweepEngine().sweep(grid, engine="numpy")) gives on the
-# same grids; tests/test_torch_search.py holds a slice of each grid to that
-# engine on the CPU
+# same grids — under the same profiles for the calibrated ones;
+# tests/test_torch_search.py, test_torch_sweep.py and test_torch_fleet.py
+# hold slices of these grids to that engine on the CPU
 MOE_EPCP_WANT = {"fit": 373348, "peak_sum": 661631732375195328}
 NEW_ARCHS_WANT = {"fit": 283794, "peak_sum": 129472898769989760}
+CAL_LEGACY_WANT = {"fit": 72352, "peak_sum": 13678326505963620}
+GOLDEN_LEGACY_WANT = {"fit": 69171, "peak_sum": 13782902127276123}
+CAL_PIPE_WANT = {"fit": 1199654, "peak_sum": 231198367000426587}
+GOLDEN_PIPE_WANT = {"fit": 1225187, "peak_sum": 198650680808859066}
+# the fleet's serving provenance is the same under both assemblies: the
+# sums of pool_bytes, draft_bytes and hit_saved_bytes
+FLEET_SERVE_SUMS = {"pool_bytes": 840082358126592,
+                    "draft_bytes": 235669025519616,
+                    "hit_saved_bytes": 70665715795968}
+FLEET_WANT = {
+    "legacy": {"fit": 135920, "peak_sum": 1874368055829504,
+               **FLEET_SERVE_SUMS},
+    "liveness": {"fit": 135920, "peak_sum": 1874320679253504,
+                 **FLEET_SERVE_SUMS}}
+
+# phase 4e: the calibration fitted on the bundled measurement fixture (the
+# deterministic synthetic set, 144 cells of six families).  The JAX
+# package's fit on the same fixture (NNLS through scipy) gives these
+# profile hashes and, for the residual models fitted over them, these model
+# hashes; tests/test_torch_calibrate.py holds the whole JSON on the CPU
+CALIBRATION_FIXTURE = os.path.join(HERE, "benchmarks", "fixtures",
+                                   "calibration_measurements.json")
+CALIBRATION_WANT = {"legacy": ("837704a3226a942b", "a45dc699cb21105b"),
+                    "liveness": ("e6cabd0dd686f8cf", "c06d2ccca886f30c")}
+# the goldens' fixed non-identity profile (tests/golden/*.json, calibrated
+# variant): a second profile the warm engine must not serve from the
+# fitted profile's tables
+GOLDEN_PROFILE = CalibrationProfile(
+    coefficients={"static": 1.0417, "act_saved": 0.9313,
+                  "act_transient": 1.1902, "overhead": 0.8641},
+    chip_constant_bytes={"v5e": 134217728, "*": 33554432})
 
 
 # ---------------------------------------------------------------------------
@@ -1073,14 +1166,20 @@ def timed_sweep(engine, grid) -> tuple:
 
 
 def run_sweep(name: str, grid: SW.SweepGrid, want_cells: int,
-              log: ShapeLog, want: dict = None, cover: tuple = ()) -> dict:
+              log: ShapeLog, want: dict = None, cover: tuple = (),
+              engine: SW.SweepEngine = None,
+              chip_cover: bool = False) -> dict:
     """One path of the main path: cold run with the launch counters read
     around it, a warm run on the same engine, and the comparison with the
     host columnar path.  ``want`` holds the reference's ``fit`` count and
-    int64 ``peak_sum``, where known; each ``(label, mesh predicate)`` of
-    ``cover`` puts one cell whose mesh satisfies it among the six held to
-    ``planner.check``."""
-    engine = SW.SweepEngine()
+    int64 ``peak_sum`` (and the sums of the serving columns it names),
+    where known; each ``(label, mesh predicate)`` of ``cover`` puts one
+    cell whose mesh satisfies it among the six held to ``planner.check``
+    (under the grid's profile and each cell's serving knobs), and
+    ``chip_cover`` one cell of each chip type (a profile's offset differs
+    per chip).  ``engine`` (a fresh one when None) may hold an earlier
+    sweep's tables: a grid under another profile must build its own."""
+    engine = engine or SW.SweepEngine()
     zero_counts()
     with log:
         cold, cold_s, cold_stats = timed_sweep(engine, grid)
@@ -1117,10 +1216,13 @@ def run_sweep(name: str, grid: SW.SweepGrid, want_cells: int,
     if warm_stats["table_cache_hits"] != warm_stats["groups"]:
         fail(f"{name}: the warm sweep rebuilt its tables")
     fit, peak_sum = int(cold.fit_count), int(peak.sum())
-    if want is not None and (fit, peak_sum) != (want["fit"],
-                                                want["peak_sum"]):
-        fail(f"{name}: {fit} cells fit, sum of peak_bytes {peak_sum}; the "
-             f"reference's {want['fit']}, {want['peak_sum']}")
+    # the serving provenance columns' sums, where the reference's are known
+    serve_sums = {c: int(getattr(cold.columns, c).sum())
+                  for c in ("pool_bytes", "draft_bytes", "hit_saved_bytes")
+                  if want is not None and c in want}
+    got = {"fit": fit, "peak_sum": peak_sum, **serve_sums}
+    if want is not None and got != want:
+        fail(f"{name}: {got}; the reference's {want}")
     # a few cells against the un-memoized scalar predictor
     rng = np.random.default_rng(SEED)
     picks = []
@@ -1130,7 +1232,11 @@ def run_sweep(name: str, grid: SW.SweepGrid, want_cells: int,
         if not len(pool):
             fail(f"{name}: no cell of the grid has {label}")
         picks.append(int(rng.choice(pool)))
-    picks += rng.choice(want_cells, size=6 - len(picks),
+    if chip_cover:
+        for ci in range(len(cold.columns.chip_names)):
+            picks.append(int(rng.choice(
+                np.flatnonzero(cold.columns.chip_c == ci))))
+    picks += rng.choice(want_cells, size=max(6 - len(picks), 0),
                         replace=False).tolist()
     checked = []
     for i in picks:
@@ -1141,13 +1247,20 @@ def run_sweep(name: str, grid: SW.SweepGrid, want_cells: int,
             r.mesh_shape, backend=r.backend, grad_accum=r.grad_accum,
             remat=r.remat, optimizer=r.optimizer, chip=r.chip,
             microbatches=r.microbatches, schedule=r.schedule,
-            offload_opt=r.offload, assembly=grid.assembly)
-        if rep.peak_bytes != r.peak_bytes or rep.fits != r.fits:
+            offload_opt=r.offload, assembly=grid.assembly,
+            profile=grid.profile, serve=r.serve)
+        if rep.peak_bytes != r.peak_bytes or rep.fits != r.fits \
+                or (rep.prediction.pool_bytes, rep.prediction.draft_bytes,
+                    rep.prediction.hit_saved_bytes) \
+                != (r.pool_bytes, r.draft_bytes, r.hit_saved_bytes):
             fail(f"{name}: cell {i} peak {r.peak_bytes} != planner.check "
                  f"{rep.peak_bytes}")
     out = {"sweep": name, "cells": want_cells, "assembly": grid.assembly,
+           "profile": None if grid.profile is None
+           else grid.profile.profile_hash,
            "meshes": len(grid.meshes()), "fit": fit,
-           "peak_bytes_sum": peak_sum, "checked_meshes": checked,
+           "peak_bytes_sum": peak_sum, "serve_sums": serve_sums,
+           "checked_meshes": checked,
            "launches": {"shard_factor": n_sf, "segmented_cummax": n_sc},
            "table_builds": cold_stats["table_builds"],
            "shard_factor_requests": cold_stats["shard_factor_requests"],
@@ -1158,6 +1271,76 @@ def run_sweep(name: str, grid: SW.SweepGrid, want_cells: int,
            "cold_split": cold_stats, "warm_split": warm_stats}
     say("sweep " + json.dumps(out))
     return out
+
+
+# ---------------------------------------------------------------------------
+# phases 4e-4g: calibration, the calibrated sweeps, the serving fleet
+# ---------------------------------------------------------------------------
+
+
+def run_calibrate() -> dict:
+    """Phase 4e (host): fit a CalibrationProfile under each assembly on the
+    measurement fixture, and a residual model over it; their hashes are
+    gated to the reference's, and the accuracy table (MAPE by family, raw /
+    calibrated / learned) must improve every family.  Host arithmetic: no
+    kernel runs.  Returns the fitted profiles by assembly."""
+    store = MeasurementStore.load(CALIBRATION_FIXTURE)
+    engine = SW.SweepEngine()
+    profiles = {}
+    zero_counts()
+    for asm, (want_p, want_r) in CALIBRATION_WANT.items():
+        t0 = time.perf_counter()
+        prof = CF.fit_profile(store, engine=engine, assembly=asm)
+        t1 = time.perf_counter()
+        res = CL.fit_residual(store, profile=prof, engine=engine,
+                              assembly=asm)
+        t2 = time.perf_counter()
+        rep = CR.evaluate(store, prof, by="family", engine=engine,
+                          assembly=asm, residual=res)
+        got = (prof.profile_hash, res.model_hash)
+        say("calibrate " + json.dumps({
+            "assembly": asm, "measurements": len(store),
+            "profile_hash": got[0], "model_hash": got[1],
+            "coefficients": prof.coefficients,
+            "chip_constant_bytes": prof.chip_constant_bytes,
+            "mape_by_family_pct": {r.group: [r.mape_raw, r.mape_calibrated,
+                                             r.mape_learned]
+                                   for r in rep.rows},
+            "mape_pct": [rep.mape_raw, rep.mape_calibrated,
+                         rep.mape_learned],
+            "fit_s": t1 - t0, "residual_fit_s": t2 - t1,
+            "evaluate_s": time.perf_counter() - t2}))
+        if got != (want_p, want_r):
+            fail(f"calibrate {asm}: profile / residual hashes {got}; the "
+                 f"reference's {(want_p, want_r)}")
+        if not rep.all_groups_improved \
+                or not rep.mape_learned <= rep.mape_calibrated \
+                < rep.mape_raw:
+            fail(f"calibrate {asm}: the calibrated MAPE does not improve "
+                 f"every family")
+        profiles[asm] = prof
+    if any(model_counts().values()) or SSD.launches or SF.launches \
+            or SC.launches:
+        fail("calibrate: the host fit launched a kernel")
+    return profiles
+
+
+def run_calibrated(name: str, grid: SW.SweepGrid, want_cells: int,
+                   log: ShapeLog, want: dict, golden_want: dict) -> list:
+    """A calibrated sweep (``run_sweep`` under the grid's fitted profile),
+    then the same engine, warm, under the goldens' profile: a new profile
+    is a new table build (no cache hit), each chip's slice gets that
+    profile's offset, and the answer is the reference's."""
+    engine = SW.SweepEngine()
+    first = run_sweep(name, grid, want_cells, log, want=want,
+                      engine=engine, chip_cover=True)
+    golden = dataclasses.replace(grid, profile=GOLDEN_PROFILE)
+    second = run_sweep(f"{name}_then_golden", golden, want_cells, log,
+                       want=golden_want, engine=engine, chip_cover=True)
+    if second["cold_split"]["table_cache_hits"] != 0:
+        fail(f"{name}: the warm engine served the golden profile from the "
+             f"fitted profile's tables")
+    return [first, second]
 
 
 # ---------------------------------------------------------------------------
@@ -1206,6 +1389,22 @@ SEARCH_CONCURRENCY = {("zamba2-2.7b", 524288): (1, 58949008004),
 # replica, replicas
 SEARCH_FLEET = (500, 44, 12)
 ARCTIC_ADAM_BYTES = 5722203303936
+# phase 4h: arctic-480b's smallest pod under the fitted legacy profile.
+# The statics floor is off under a profile (a fitted coefficient below 1
+# could scale bytes under it), so every count up to the answer is swept:
+# cells evaluated / pruned 2,184 / 1,560, where the raw search evaluates
+# 1,776 and prunes 1,968 (the 16-chip count by the floor)
+SEARCH_CAL_MIN_CHIPS = (
+    "arctic-480b", dict(chips=(16, 32, 64, 128), max_ep=128),
+    (64, {"data": 64, "model": 1, "expert": 1, "context": 1, "pipe": 1},
+     1, "1f1b", 62216530853), (2184, 1560), (1776, 1968))
+# llama3.2-3b's concurrency at 8,192-token contexts on one h100 under
+# paged serving with a request mix and a draft: max concurrent sequences,
+# peak bytes there, probes; 52 sequences without the mix
+SEARCH_MIX_SERVE = dict(block_size=16, utilization=0.9, prefix_hit_rate=0.5,
+                        prefix_len=1024, draft_arch="smollm-360m")
+SEARCH_MIX = ("llama3.2-3b", 8192, "0.25:2048x1,8192x3", (74, 78576519336),
+              52)
 
 
 def timed_ms(fn) -> tuple:
@@ -1363,6 +1562,111 @@ def search_fleet(per_replica: int) -> dict:
                    "total_chips": fleet.total_chips,
                    "arctic_adam_state_bytes": adam},
         "pruned_host_ms": ms})
+
+
+def search_calibrated_min_chips(profile) -> dict:
+    """plan_min_chips under the fitted profile: pruned on the card with the
+    floor off (nothing pruned below the answer), equal to the exhaustive
+    host search under the same profile and to the reference's."""
+    arch, q, want, work, raw_work = SEARCH_CAL_MIN_CHIPS
+    kw = dict(chip="h100", allow_ep=True, allow_cp=True, **q)
+    engine, stats = CountingEngine(), SR.SearchStats()
+    zero_counts()
+    got, card_ms = timed_ms(lambda: PL.plan_min_chips(
+        arch, "train_4k", engine=engine, stats=stats, profile=profile,
+        **kw))
+    launches = card_launches(f"calibrated plan_min_chips {arch}", engine)
+    host, host_ms = timed_ms(lambda: PL.plan_min_chips(
+        arch, "train_4k", search="exhaustive", compute_engine="numpy",
+        profile=profile, **kw))
+    raw = SR.SearchStats()
+    PL.plan_min_chips(arch, "train_4k", compute_engine="numpy", stats=raw,
+                      **kw)
+    try:
+        SR._assert_same_cell(got, host, f"{arch} card vs host exhaustive")
+    except AssertionError as e:
+        fail(f"calibrated plan_min_chips {arch}: {e}")
+    answer = (got.n_chips, got.mesh_shape, got.microbatches, got.schedule,
+              got.peak_bytes)
+    counts = (stats.cells_evaluated, stats.cells_pruned)
+    raw_counts = (raw.cells_evaluated, raw.cells_pruned)
+    out = say_search({
+        "query": f"plan_min_chips {arch} train_4k h100 ep cp, profile "
+                 f"{profile.profile_hash}",
+        "answer": {"n_chips": got.n_chips, "mesh": got.mesh_shape,
+                   "microbatches": got.microbatches,
+                   "schedule": got.schedule, "peak_bytes": got.peak_bytes},
+        "cells_evaluated": counts[0], "cells_pruned": counts[1],
+        "raw_cells_evaluated": raw_counts[0],
+        "raw_cells_pruned": raw_counts[1], "slices": engine.sweeps,
+        "launches": launches, "table_builds": engine.table_builds,
+        "table_builds_with_requests": engine.sf_batches,
+        "pruned_card_ms": card_ms, "exhaustive_host_ms": host_ms})
+    if (answer, counts, raw_counts) != (want, work, raw_work):
+        fail(f"calibrated plan_min_chips {arch}: {answer}, {counts}, raw "
+             f"{raw_counts}; the reference's {want}, {work}, {raw_work}")
+    return out
+
+
+def search_concurrency_mix() -> dict:
+    """plan_max_concurrency under a request mix and a draft (host probes),
+    its exhaustive twin swept on the card and on the host up to 4,096
+    sequences, each equal to the reference's answer."""
+    arch, seq, mix, want, no_mix = SEARCH_MIX
+    serve = ServeSpec.make(mix=parse_mix(mix), **SEARCH_MIX_SERVE)
+    stats = SR.SearchStats()
+    zero_counts()
+    rep, pruned_ms = timed_ms(lambda: PL.plan_max_concurrency(
+        arch, seq, chip="h100", kind="decode", serve=serve, stats=stats))
+    card_launches(f"plan_max_concurrency {arch} mix", CountingEngine())
+    plain = PL.plan_max_concurrency(
+        arch, seq, chip="h100", kind="decode",
+        serve=ServeSpec.make(**SEARCH_MIX_SERVE)).max_concurrency
+    cap = 4096
+    grid = SW.SweepGrid(
+        arch=arch, mesh_shapes=[rep.mesh_shape], kind="decode", chip="h100",
+        global_batches=tuple(range(1, cap + 1)), grad_accums=(1,),
+        seq_lens=(seq,), block_sizes=(serve.block_size,),
+        utilizations=(serve.util_bp / 10000,),
+        prefix_hit_rates=(serve.hit_bp / 10000,),
+        prefix_len=serve.prefix_len, mixes=(serve.mix,),
+        draft_archs=(serve.draft_arch,))
+    engine = CountingEngine()
+    zero_counts()
+    card, card_ms = timed_ms(
+        lambda: engine.sweep(grid, engine="torch").max_global_batch())
+    launches = card_launches(f"exhaustive concurrency {arch} mix", engine)
+    host, host_ms = timed_ms(lambda: SW.SweepEngine().sweep(
+        grid, engine="numpy").max_global_batch())
+    got = (rep.max_concurrency, rep.peak_bytes)
+    out = say_search({
+        "query": f"plan_max_concurrency {arch} {seq} h100 decode, mix "
+                 f"{mix}, paged, draft {serve.draft_arch}",
+        "answer": {"max_concurrency": rep.max_concurrency,
+                   "peak_bytes": rep.peak_bytes,
+                   "budget_bytes": rep.budget_bytes,
+                   "without_mix": plain},
+        "probes": stats.probes, "exhaustive_cells": cap,
+        "launches": launches, "table_builds": engine.table_builds,
+        "table_builds_with_requests": engine.sf_batches,
+        "pruned_host_ms": pruned_ms, "exhaustive_card_ms": card_ms,
+        "exhaustive_host_ms": host_ms})
+    for tag, r in (("card", card), ("host", host)):
+        if (r.global_batch, r.peak_bytes) != got:
+            fail(f"plan_max_concurrency {arch} mix: {got} != the "
+                 f"exhaustive {tag} sweep's {(r.global_batch, r.peak_bytes)}")
+    if (got, plain) != (want, no_mix):
+        fail(f"plan_max_concurrency {arch} mix: {got}, {plain} without the "
+             f"mix; the reference's {want}, {no_mix}")
+    return out
+
+
+def run_calibrated_searches(profile) -> dict:
+    """Phase 4h: the searches this slice opens, under the fitted profile
+    and under a request mix; launches as in phase 4d."""
+    outs = [search_calibrated_min_chips(profile), search_concurrency_mix()]
+    return {k: sum(o.get("launches", {}).get(k, 0) for o in outs)
+            for k in ("shard_factor", "segmented_cummax")}
 
 
 def run_searches() -> dict:
@@ -2844,11 +3148,29 @@ def main(argv: list) -> int:
                         want=NEW_ARCHS_WANT,
                         cover=(("context > 1",
                                 lambda m: m["context"] > 1),))]
-    launches = {k: sum(s["launches"][k] for s in sweeps)
-                for k in ("shard_factor", "segmented_cummax")}
     # phase 4d: the planner's search queries
-    for k, n in run_searches().items():
-        launches[k] += n
+    searches = [run_searches()]
+    # phase 4e: calibration fitted on the host; 4f: the calibrated sweeps,
+    # each followed by the same engine under the goldens' profile
+    profiles = run_calibrate()
+    sweeps += run_calibrated("sweep_calibrated_legacy",
+                             dataclasses.replace(large_grid("legacy"),
+                                                 profile=profiles["legacy"]),
+                             124416, log, CAL_LEGACY_WANT, GOLDEN_LEGACY_WANT)
+    sweeps += run_calibrated("sweep_calibrated_pipe",
+                             dataclasses.replace(
+                                 pipe_grid(), profile=profiles["liveness"]),
+                             1959552, log, CAL_PIPE_WANT, GOLDEN_PIPE_WANT)
+    # phase 4g: the serving fleet, request mixes and drafts, both
+    # assemblies
+    sweeps += [run_sweep(f"sweep_fleet_{asm}", fleet_grid(asm), FLEET_CELLS,
+                         log, want=FLEET_WANT[asm])
+               for asm in ("legacy", "liveness")]
+    # phase 4h: the searches under the fitted profile and under a mix
+    searches.append(run_calibrated_searches(profiles["legacy"]))
+    launches = {k: sum(s["launches"][k] for s in sweeps)
+                + sum(q[k] for q in searches)
+                for k in ("shard_factor", "segmented_cummax")}
 
     # phase 5: serving (the sweeps' device state is gone with their
     # engines and the shape log goes to the host; release the cached

@@ -30,10 +30,9 @@ NumPy kernels that evaluate ALL cells of a
   per-stage tables compose exactly like the scalar per-stage
   ``assemble``, the schedule's in-flight stash scales the saved-act
   column, and the cell's peak is the elementwise max over stages;
-* a calibration profile (not ported yet; the sweep entry points reject
-  one) would apply as a vectorized affine transform per stage (one
-  multiply + round per term group), maxed over stages like the scalar
-  path — the ``profile`` branches below are kept for it.
+* :class:`~repro_torch.calibrate.profile.CalibrationProfile` application
+  is a vectorized affine transform per stage (one multiply + round per
+  term group), maxed over stages like the scalar path.
 
 Everything is exact int64 + floor-division arithmetic (float enters only
 where the scalar path itself uses floats: the calibration coefficients

@@ -16,14 +16,21 @@ O(cells) work runs as int64 tensor ops on a device:
   answers;
 * the tables are **folded** on the host into compound gather tables — the
   saved-activation table absorbs the schedule stash multiplier on its knob
-  axis, the static group absorbs the optimizer-update transient.  Folding
+  axis, the static group absorbs the optimizer-update transient, and a
+  calibration profile's per-term-group ``rint`` scaling is applied in
+  table space, in float64 (``CalibrationProfile.scale_batch``).  Folding
   is exact: every fold either pre-applies an elementwise op that commutes
-  with the gather (``x*stash[t2]``) or merges tables indexed by the same
-  code tuple (integer addition), so each cell's folded value is bit-equal
-  to the numpy engine's gather-then-combine value;
+  with the gather (``rint(c*x)``, ``x*stash[t2]``) or merges tables indexed
+  by the same code tuple (integer addition), so each cell's folded value
+  is bit-equal to the numpy engine's gather-then-combine value.  The
+  act_transient group does not add under ``rint``, so a profile folds it
+  into one ``ctr`` table over ``(opt, off, t2)``;
 * the composition domain drops from ``n_cells`` to ``n_meshes x inner``
-  knob tuples: the chip axis never enters the stage max, and the per-chip
-  HBM budget is applied by the shared result finalizer;
+  knob tuples: the chip axis never enters the stage max (a profile's
+  per-chip offset is a per-stage constant, so adding it to each chip's
+  slice after the max — outside the strictly-greater peak-stage compare,
+  which it shifts uniformly — is exact), and the per-chip HBM budget is
+  applied by the shared result finalizer;
 * a Python loop walks the pipeline stages of the stacked tables with
   running ``(best, pool, draft, hit, offload, slack)`` tensors, reproducing
   the numpy loop's strictly-greater peak-stage provenance update;
@@ -35,11 +42,12 @@ O(cells) work runs as int64 tensor ops on a device:
   trip;
 * folded tables are cached on the engine AS DEVICE TENSORS, keyed by
   everything that determines their values (arch, policy, meshes, knob
-  axes, assembly, device), so a repeated sweep skips the host table build
-  and the upload and goes straight to the device composition.
+  axes, profile hash, assembly, device), so a repeated sweep skips the
+  host table build and the upload and goes straight to the device
+  composition.
 
-Calibration profiles are not ported yet (the sweep entry points reject
-them), so the profile-scaled folds of the reference engine are absent.
+A learned residual model is applied per cell, which this engine does not
+do: it refuses such grids (``engine='numpy'`` takes them).
 
 Byte-identity to the reference package's numpy engine is asserted in
 tests/test_torch_sweep.py; on a CUDA device ``chip_smoke.py`` holds this
@@ -86,12 +94,14 @@ def compose(tabs: dict, idx: tuple, n_lm: int, inner: int, *,
     """Compose the stage-stacked device tables ``tabs`` (leading axis =
     pipeline stage) over the ``(n_lm, inner)`` domain.
 
-    ``idx`` holds the int64 device code vectors ``(c_aff, c_b, c_ho, t2)``
-    (each ``(inner,)``; ``c_ho`` may be empty when unused).  Returns the
+    ``idx`` holds the int64 device code vectors ``(c_aff, c_b, c_ctr, c_ho,
+    t2)`` (each ``(inner,)``; ``c_ctr`` is empty without a profile's
+    ``ctr`` table, ``c_ho`` when unused).  Returns the
     ``(best, pool, draft, hit, offload, slack)`` tensors, each
     ``(n_lm, inner)`` int64 on the tables' device — the winning stage is
     the first with a strictly greater peak, as in the host loop."""
-    c_aff, c_b, c_ho, t2 = idx
+    c_aff, c_b, c_ctr, c_ho, t2 = idx
+    has_profile = "ctr" in tabs
     device = tabs["aff"].device
     zeros = lambda: torch.zeros((n_lm, inner), dtype=torch.int64,
                                 device=device)
@@ -103,6 +113,10 @@ def compose(tabs: dict, idx: tuple, n_lm: int, inner: int, *,
     for s in range(tabs["aff"].shape[0]):
         xs = {k: v[s] for k, v in tabs.items()}
         if live:
+            # under a profile the folded tables hold the telescoped
+            # act_transient deltas, the last of them in ``ctr``
+            ot = take(xs["ctr"], c_ctr) if has_profile \
+                else take(xs["otr"], c_ho)
             comps = {
                 "base": take(xs["aff"], c_aff),
                 "inputs": take(xs["inp"], t2),
@@ -112,7 +126,7 @@ def compose(tabs: dict, idx: tuple, n_lm: int, inner: int, *,
                 "boundary": take(xs["bd"], t2),
                 "transient": take(xs["tr"], t2),
                 "embed": xs["emb"],
-                "opt_transient": take(xs["otr"], c_ho),
+                "opt_transient": ot,
                 "out_copy": xs["ocp"][:, None],
             }
             if serve:
@@ -138,6 +152,8 @@ def compose(tabs: dict, idx: tuple, n_lm: int, inner: int, *,
         else:
             speak = (take(xs["aff"], c_aff) + take(xs["b"], c_b)
                      + take(xs["base"], t2))
+            if has_profile:
+                speak = speak + take(xs["ctr"], c_ctr)
             if serve:
                 p = take(xs["pool"], t2)
                 d = take(xs["drf"], t2)
@@ -167,23 +183,30 @@ def compose(tabs: dict, idx: tuple, n_lm: int, inner: int, *,
 
 
 def _fold_stage(tabs: "B._StageTables", env, pp: int, stage: int,
-                liveness: bool = False) -> dict:
+                liveness: bool = False, profile=None) -> dict:
     """Fold one stage's component tables into compound gather tables.
 
     Returns 2-D ``(n_lm, K)`` arrays whose flattened trailing codes the
     composition gathers with:
 
-    * ``aff``  — static group (+ optimizer transient on the legacy path),
+    * ``aff``  — static group (+ optimizer transient when unscaled),
       code ``(opt*n_off + off)*2 + cls``;
     * ``b``    — saved activations with the schedule stash folded per
       (schedule-class, remat), code ``(gpipe*n_r + remat)*T + t2``;
     * ``base`` — transient+overhead terms indexed by ``t2`` alone;
+    * ``ctr``  — profile only: the act_transient rint group
+      (transient+boundary+embed+opt_trans), code ``(opt*n_off+off)*T+t2``;
     * ``pool/drf/hit`` (serve) and ``ho`` (offload provenance).
 
     Under the liveness assembly the event-program components stay separate
     instead (``tr``/``bd``/``lss``/``inp``/``cch``/``otr``/``ocp``/``emb``)
     and ``aff`` becomes the persistent base: the static group MINUS the
-    out-copy, which is live only in the optimizer-update window.
+    out-copy, which is live only in the optimizer-update window.  Under a
+    profile ``emb``/``bd``/``tr``/``ctr`` hold the TELESCOPED act_transient
+    deltas (cumulative scaled prefixes in ``liveness.TRANSIENT_ORDER``,
+    ``ctr`` replacing ``otr``), so their sum gives back the legacy rint
+    group exactly.  Every scaling is ``profile.scale_batch``: a float64
+    product and round-half-even, on the host.
     """
     eff_m = env["_eff_m"]
     # schedule stash per knob tuple: 1F1B stage s stashes min(pp-s, m),
@@ -195,7 +218,14 @@ def _fold_stage(tabs: "B._StageTables", env, pp: int, stage: int,
     T = tabs.transient.shape[1]
     sv = tabs.saved[None, :, :, :] * stash[:, None, None, :]
     out: dict = {}
-    if liveness:
+    if profile is not None:
+        sc = profile.scale_batch
+        e = np.asarray(tabs.embed, I64)
+        sv = sc(sv, "act_saved")
+        # the act_transient rint group over (opt, off, t2)
+        ctr = sc((tabs.transient + tabs.boundary + e)[:, None, None, :]
+                 + tabs.opt_trans[:, :, :, None], "act_transient")
+    if liveness and profile is None:
         aff = tabs.static_sum - tabs.outcopy[:, None, None, None]
         out["ocp"] = tabs.outcopy
         out["emb"] = np.asarray(tabs.embed, I64)
@@ -203,19 +233,43 @@ def _fold_stage(tabs: "B._StageTables", env, pp: int, stage: int,
         out["lss"], out["inp"] = tabs.loss, tabs.inputs
         out["cch"] = tabs.cache
         out["otr"] = np.ascontiguousarray(tabs.opt_trans).reshape(n_lm, -1)
-    else:
+    elif liveness:
+        aff = tabs.static_scaled - tabs.outcopy_scaled[:, None, None, None]
+        out["ocp"] = tabs.outcopy_scaled
+        p1 = sc(e, "act_transient")
+        p2 = sc(e + tabs.boundary, "act_transient")
+        p3 = sc(e + tabs.boundary + tabs.transient, "act_transient")
+        out["emb"], out["bd"], out["tr"] = p1, p2 - p1, p3 - p2
+        out["ctr"] = np.ascontiguousarray(
+            ctr - p3[:, None, None, :]).reshape(n_lm, -1)
+        out["lss"] = sc(tabs.loss, "overhead")
+        out["inp"] = sc(tabs.inputs, "overhead")
+        out["cch"] = sc(tabs.cache, "overhead")
+    elif profile is None:
         aff = tabs.static_sum + tabs.opt_trans[:, :, :, None]
         out["base"] = np.ascontiguousarray(
             tabs.transient + tabs.loss + tabs.inputs + tabs.cache
             + tabs.boundary + tabs.embed, dtype=I64)
+    else:
+        aff = tabs.static_scaled
+        out["ctr"] = np.ascontiguousarray(ctr).reshape(n_lm, -1)
+        out["base"] = np.ascontiguousarray(
+            sc(tabs.loss, "overhead") + sc(tabs.inputs, "overhead")
+            + sc(tabs.cache, "overhead"), dtype=I64)
     out["aff"] = np.ascontiguousarray(aff).reshape(n_lm, -1)
     # (2, n_r, n_lm, T) -> (n_lm, 2*n_r*T) with (gpipe, remat) leading
     out["b"] = np.ascontiguousarray(
         sv.transpose(2, 0, 1, 3)).reshape(n_lm, 2 * n_r * T)
     if tabs.pool is not None:
-        out["pool"], out["hit"] = tabs.pool, tabs.pool_saved
-        out["drf"] = tabs.draft if tabs.draft is not None \
-            else np.zeros_like(tabs.pool)
+        pool, hit = tabs.pool, tabs.pool_saved
+        drf = tabs.draft if tabs.draft is not None \
+            else np.zeros_like(pool)
+        if profile is not None:
+            # the paged pool scales with the cache group, the draft
+            # model's residency with the statics (profile.apply)
+            pool, hit = sc(pool, "overhead"), sc(hit, "overhead")
+            drf = sc(drf, "static")
+        out["pool"], out["hit"], out["drf"] = pool, hit, drf
     if tabs.host_opt is not None:
         out["ho"] = np.ascontiguousarray(tabs.host_opt).reshape(n_lm, -1)
     return out
@@ -241,11 +295,15 @@ def _group_tables(engine, grid, cols, cfg, model, rows, rules, rep_ctx,
     group, cached on the engine by everything that determines their values
     so repeated sweeps skip straight to the device composition.  Each
     stage's table build resolves its shard denominators with one batched
-    ``shard_factor`` call on ``device``."""
+    ``shard_factor`` call on ``device``.  The grid's calibration profile
+    is folded in on the host, and its hash keys the cache."""
+    from repro_torch.calibrate.profile import profile_hash_of
+    profile = grid.profile
     key = ("torch_tables", arch, grid.policy, cols.kind, cols.backend, pp,
            tuple(_mesh_key(cols.meshes[i]) for i in mesh_ids),
            opt_res, remat_eval, cols.offs, cols.serves, cols.pairs,
-           cols.seqs, cols.mbs, grid.assembly, str(device))
+           cols.seqs, cols.mbs, profile_hash_of(profile), grid.assembly,
+           str(device))
     cache = engine.__dict__.setdefault("_torch_table_cache", {})
     hit = cache.get(key)
     if hit is not None:
@@ -257,14 +315,15 @@ def _group_tables(engine, grid, cols, cfg, model, rows, rules, rep_ctx,
     for s, srows in enumerate(plan.stages):
         tabs, batch = SF.resolve_batched(functools.partial(
             B._stage_tables_jobs, cfg, model, list(srows), rules, rep_ctx,
-            cols, env, None, opt_res, remat_eval, mesh_ids, s, pp, jobs,
+            cols, env, profile, opt_res, remat_eval, mesh_ids, s, pp, jobs,
             drafts), device)
         stats["table_builds"] += 1
         stats["shard_factor_requests"] += len(batch)
         # a build whose every denominator is 1 asks for nothing: no launch
         stats["shard_factor_batches"] += bool(len(batch))
         folded.append(_fold_stage(
-            tabs, env, pp, s, liveness=grid.assembly == "liveness"))
+            tabs, env, pp, s, liveness=grid.assembly == "liveness",
+            profile=profile))
     stacked = {k: np.stack([f[k] for f in folded]) for k in folded[0]}
     t1 = time.perf_counter()
     out = cache[key] = tables_to_device(stacked, device)
@@ -282,15 +341,21 @@ def sweep_columnar_torch(engine, grid, jobs: int = 1,
                          device=None) -> "SW.SweepResults":
     """Drop-in twin of :func:`repro_torch.core.batch.sweep_columnar` running
     the per-cell composition on ``device`` (``cuda`` when None);
-    byte-identical results.  The phase split of the run (column lowering,
-    host table build, upload, device composition, result copy, result
-    finalizer, cache hits) is left on the engine as
-    ``engine.last_sweep_stats``."""
+    byte-identical results, with or without a calibration profile.  A
+    grid with a learned residual model is refused: its correction is
+    applied per cell, on the numpy engine's cell path.  The phase split
+    of the run (column lowering, host table build, upload, device
+    composition, result copy, result finalizer, cache hits) is left on
+    the engine as ``engine.last_sweep_stats``."""
     t0 = time.perf_counter()
     device = resolve_device(device)
     sync = (lambda: torch.cuda.synchronize(device)) \
         if device.type == "cuda" else (lambda: None)
-    grid.check_supported()
+    if grid.residual_model is not None:
+        raise ValueError(
+            "engine='torch' does not apply learned residual models; use "
+            "engine='numpy' (the residual grid routes through the cell "
+            "path)")
     grid.check_parallel()
     grid.check_serve()
     grid.check_offload()
@@ -308,6 +373,7 @@ def sweep_columnar_torch(engine, grid, jobs: int = 1,
     if cols.n == 0:
         return SW.SweepResults(grid=grid, results=[],
                                elapsed_s=time.perf_counter() - t0)
+    profile = grid.profile
     n = cols.n
     n_pairs, n_seq = len(cols.pairs), len(cols.seqs)
     n_chip, n_mesh = len(cols.chips), len(cols.meshes)
@@ -388,11 +454,14 @@ def sweep_columnar_torch(engine, grid, jobs: int = 1,
             n_lm = len(mesh_ids)
             c_aff = (o_i * n_off + f_i) * 2 + cls_i
             c_b = (gp_i * n_r + r_i) * T + t2
-            c_ho = o_i * n_off + f_i if off_grp or live_mode \
+            c_ctr = (o_i * n_off + f_i) * T + t2 if profile is not None \
+                else np.zeros(0, I64)
+            c_ho = o_i * n_off + f_i \
+                if off_grp or (live_mode and profile is None) \
                 else np.zeros(0, I64)
             sync()
             t1 = time.perf_counter()
-            idx = tuple(to_dev(c) for c in (c_aff, c_b, c_ho, t2))
+            idx = tuple(to_dev(c) for c in (c_aff, c_b, c_ctr, c_ho, t2))
             best, bp, bd, bh, bo, bs = compose(
                 tabs, idx, n_lm, inner, serve=bool(serve_grp),
                 off=bool(off_grp), assembly=grid.assembly, kind=cols.kind)
@@ -409,6 +478,13 @@ def sweep_columnar_torch(engine, grid, jobs: int = 1,
                 slack_v[:, mesh_ids, :] = to_host(bs)
             stats["compose_s"] += t2_clock - t1
             stats["copy_s"] += time.perf_counter() - t2_clock
+        if profile is not None:
+            # per-chip calibration offset on each chip's slice of the
+            # broadcast stage max (the liveness slack is a difference of
+            # two peaks, so the offset cancels there)
+            chip_off = np.array([profile.chip_offset(c)
+                                 for c in cols.chips], I64)
+            peak_v += chip_off[:, None, None]
         per_opt = np.array([B._intern(opt_tbl, opt_names, o)
                             for o in opt_res], I64)
         res_opt_c[sl] = per_opt[cols.opt_c[sl]]

@@ -19,8 +19,10 @@ This is also where arctic-480b's published memory plan comes from: Adam's
 fp32 states alone (~5.2 TiB) can never fit a 256-chip v5e pod, which the
 guard flags analytically (``adam_state_bytes``).
 
-Calibration (``profile=``, ``residual=``) is not ported yet: every entry
-point rejects it with one clean ``NotImplementedError``.
+Every entry point takes a calibration profile (``profile=``, a
+:class:`repro_torch.calibrate.profile.CalibrationProfile`); ``check`` and
+``plan`` also take a learned residual model (``residual=``,
+:class:`repro_torch.calibrate.learned.ResidualModel`).
 """
 
 from __future__ import annotations
@@ -64,15 +66,6 @@ CHIPS: dict[str, ChipSpec] = {
 V5E_HBM = CHIPS["v5e"].hbm_bytes      # backward-compat alias
 # The runtime reserves working space; plan against a fraction of physical HBM.
 HEADROOM = 0.92
-
-
-def reject_calibration(profile=None, residual=None) -> None:
-    """Calibration profiles and residual models are not ported yet."""
-    if profile is not None or residual is not None:
-        raise NotImplementedError(
-            "calibration profiles / residual models are not ported yet "
-            "(the calibrate package is missing); pass profile=None, "
-            "residual=None")
 
 
 def chip_hbm(chip: str) -> int:
@@ -275,9 +268,12 @@ def check(arch: str, shape_name, mesh_shape: dict,
     """Reference single-cell evaluation: fresh build, no caches.
 
     ``shape_name`` may be a registered shape name ("train_4k") or a
-    ShapeConfig; ``hbm_bytes`` overrides the ``chip`` lookup when given.
-    Calibration (``profile``, ``residual``) is not ported yet and is
-    rejected.  A mesh with a ``pipe`` axis is evaluated per-pipeline-stage
+    ShapeConfig; ``hbm_bytes`` overrides the ``chip`` lookup when given;
+    ``profile`` (a repro_torch.calibrate CalibrationProfile) corrects the
+    prediction with measurement-fitted per-term coefficients + the
+    ``chip`` constant, and ``residual`` (a repro_torch.calibrate.learned
+    ResidualModel) adds the learned per-family correction on top.  A
+    mesh with a ``pipe`` axis is evaluated per-pipeline-stage
     (core.stages) and the worst stage reported.
     ``assembly="liveness"`` checks against the interval-overlap peak
     (core.liveness) instead of the Eq.1 sum-of-maxima.
@@ -285,7 +281,6 @@ def check(arch: str, shape_name, mesh_shape: dict,
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
-    reject_calibration(profile, residual)
     cfg = get_config(arch)
     shape = _resolve_shape(shape_name)
     model = build_model(cfg)
@@ -296,7 +291,12 @@ def check(arch: str, shape_name, mesh_shape: dict,
                        optimizer=optimizer, microbatches=microbatches,
                        schedule=schedule, serve=serve,
                        offload_opt=offload_opt)
-    pred = PR.predict(model, policy, ctx, chip=chip, assembly=assembly)
+    pred = PR.predict(model, policy, ctx, profile=profile, chip=chip,
+                      assembly=assembly)
+    if residual is not None:
+        from repro_torch.calibrate.learned import apply_residual
+        pred = apply_residual(pred, residual, cfg.family, ctx,
+                              profile=profile)
     budget = int((hbm_bytes if hbm_bytes is not None
                   else chip_hbm(chip)) * headroom)
     return PlanReport(arch=arch, shape=shape.name,
@@ -316,9 +316,10 @@ def plan(arch: str, shape_name, mesh_shape: dict,
 
     Delegates to the memoized sweep engine so the candidate evaluations
     share the parsed model and the batch-independent factor sums; pass
-    ``engine`` (a SweepEngine) to share those caches across calls, and
+    ``engine`` (a SweepEngine) to share those caches across calls,
+    ``profile`` to plan against calibrated predictions (plus
+    ``residual`` for the learned per-family correction), and
     ``assembly="liveness"`` to plan against the interval-overlap peak.
-    Calibration (``profile``, ``residual``) is rejected (not ported).
     """
     from repro_torch.core import sweep as SW
     from repro_torch.configs import get_config

@@ -45,9 +45,12 @@ The sliced sweeps run on ``compute_engine="torch"`` (default; the
 columnar engine of :mod:`repro_torch.core.batch_torch` on ``device``,
 ``"cuda"`` when None: every slice is one cold table build, one
 ``shard_factor`` launch per pipeline stage, and a read-back) or on
-``compute_engine="numpy"``, the host columnar path.  Calibration
-profiles, under which the reference disables the floor, are not ported
-yet (the sweep rejects them).
+``compute_engine="numpy"``, the host columnar path.
+
+Pruning is disabled (searches degrade to exhaustive slicing, still
+early-exiting) when a CalibrationProfile is active — fitted coefficients
+and chip offsets void the raw-byte floor — so calibrated answers stay
+exact too.
 """
 
 from __future__ import annotations
@@ -163,13 +166,14 @@ def static_floor_bytes(arch: str, policy, kind: str = "train",
 
 def _floor_for(grid) -> int:
     """The statics floor valid for EVERY cell of the grid: the min over
-    its arch / kind / optimizer axes.  Optimizer states are included only
-    when no cell can offload them to the host tier.  (Under a calibration
-    profile the reference returns 0 — no pruning — since fitted
-    coefficients could scale raw bytes down; the port's sweeps reject
-    profiles until calibration is ported.)"""
+    its arch / kind / optimizer axes (0 disables pruning — used when a
+    profile is active, whose fitted coefficients could scale raw bytes
+    down).  Optimizer states are included only when no cell can offload
+    them to the host tier."""
     from repro_torch.core.sweep import _seq
 
+    if grid.profile is not None:
+        return 0
     include_opt = True not in grid.offloads()
     opts = tuple(_seq(grid.optimizers)) or (None,)
     return min(static_floor_bytes(a, grid.policy, kind=k, optimizer=o,

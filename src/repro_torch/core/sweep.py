@@ -41,9 +41,14 @@ layout is rejected up front by ``planner.check_parallel``.  Grids with
 ``keep_predictions=True`` take the per-cell path of the numpy engine, which
 keeps each cell's ``PredictedMemory``; the torch engine refuses them.
 
-Not ported yet, and rejected with one clean error naming what is missing:
-calibration profiles and residual models, request mixes and speculative
-draft arches.
+A :class:`~repro_torch.calibrate.profile.CalibrationProfile` scales every
+cell on every path (the torch engine folds it into its tables on the host,
+in float64, and adds the per-chip offset after the stage max).  A learned
+residual model (:mod:`repro_torch.calibrate.learned`) is applied per cell,
+so its grids take the cell path of the numpy engine; the torch engine
+refuses them.  Serving grids sweep request mixes
+(:class:`repro_torch.serve.fleet.RequestMix`) and speculative-decode draft
+arches.
 
 CLI::
 
@@ -141,17 +146,20 @@ class SweepGrid:
     backend: str = "tpu"
     headroom: float = PL.HEADROOM
     keep_predictions: bool = False
-    # calibration knobs (a measurement-fitted profile and a learned
-    # per-family residual model): the calibrate package is not ported
-    # yet, so anything but None is rejected by check_supported()
+    # measurement-fitted CalibrationProfile (repro_torch.calibrate) applied
+    # to every cell; its hash participates in the engine's memo keys
     profile: object = None
+    # learned per-family ResidualModel (repro_torch.calibrate.learned)
+    # applied on top of the profile; its model_hash joins the memo keys the
+    # same way.  None keeps every cell bit-identical to the profile-only
+    # path.
     residual_model: object = None
     # serving-fleet knobs (serve kinds only; the all-neutral combo is
     # normalized to serve=None so it stays bit-identical to a pre-serve
     # cell): paged-KV block sizes (0 = contiguous), pool utilizations,
-    # prefix-cache hit rates over a shared prefix_len-token prefix.
-    # Request mixes and speculative-decode draft arches ("" = none) are
-    # not ported yet: anything but the neutral value is rejected.
+    # prefix-cache hit rates over a shared prefix_len-token prefix,
+    # request mixes (repro_torch.serve.fleet.RequestMix or None), and
+    # speculative-decode draft arches ("" = none).
     block_sizes: Sequence[int] = (0,)
     utilizations: Sequence[float] = (1.0,)
     prefix_hit_rates: Sequence[float] = (0.0,)
@@ -190,6 +198,7 @@ class SweepGrid:
         The all-neutral combination maps to ``None`` (no serve spec), so
         a default grid has a single-element ``(None,)`` axis and every
         cell is bit-identical to a pre-serve sweep."""
+        from repro_torch.serve.fleet import RequestMix
         from repro_torch.serve.pool import ServeSpec
         mixes = self.mixes if isinstance(self.mixes, (tuple, list)) \
             else (self.mixes,)
@@ -199,6 +208,10 @@ class SweepGrid:
             for u in _seq(self.utilizations):
                 for h in _seq(self.prefix_hit_rates):
                     for m in mixes:
+                        if m is not None and not isinstance(m, RequestMix):
+                            raise ValueError(
+                                f"mixes entries must be RequestMix or "
+                                f"None, got {m!r}")
                         for d in _seq(self.draft_archs):
                             spec = ServeSpec.make(
                                 block_size=int(b or 0),
@@ -221,30 +234,6 @@ class SweepGrid:
                 * len(_seq(self.remats)) * len(_seq(self.schedules))
                 * len(_seq(self.microbatches)) * len(self.serve_specs())
                 * pairs * len(_seq(self.seq_lens)))
-
-    def check_supported(self) -> None:
-        """Reject, with one clean error naming what is missing, every
-        knob whose machinery is not ported yet — never silently ignore
-        it.  Called by every sweep entry point before any evaluation."""
-        if self.profile is not None:
-            raise NotImplementedError(
-                "calibration profiles are not ported yet (the calibrate "
-                "package is missing); use profile=None")
-        if self.residual_model is not None:
-            raise NotImplementedError(
-                "learned residual models are not ported yet (the "
-                "calibrate package is missing); use residual_model=None")
-        mixes = self.mixes if isinstance(self.mixes, (tuple, list)) \
-            else (self.mixes,)
-        if any(m is not None for m in mixes):
-            raise NotImplementedError(
-                "request mixes are not ported yet (serve/fleet.py is "
-                "missing); use mixes=(None,)")
-        if any(d for d in _seq(self.draft_archs)):
-            raise NotImplementedError(
-                "speculative-decode draft arches are not ported yet "
-                "(serve/fleet.py and the draft arch state are missing); "
-                "use draft_archs=('',)")
 
     def check_schedules(self) -> tuple:
         """Validate the schedule axis up front — the columnar path never
@@ -768,23 +757,41 @@ class SweepEngine:
     def predict_cell(self, arch: str, policy: TrainPolicy,
                      ctx, profile=None,
                      chip: Optional[str] = None,
-                     assembly: str = "legacy") -> PR.PredictedMemory:
+                     assembly: str = "legacy",
+                     residual=None) -> PR.PredictedMemory:
         """Memoized twin of ``PR.predict(model, policy, ctx)``.
 
-        The component caches are keyed WITHOUT the assembly mode — the
-        cached StaticTerms/ActTermsAgg/OverheadTerms are raw Eq.1 values
-        shared between legacy and liveness, which is exactly the
-        single-source-of-truth property the liveness event program
-        relies on; the mode joins only the assembled-cell keys.  Cached
+        The component caches are keyed WITHOUT the profile and the
+        assembly mode — the cached StaticTerms/ActTermsAgg/OverheadTerms
+        are raw Eq.1 values a profile never touches, shared between raw
+        and calibrated evaluations and between legacy and liveness, which
+        is exactly the single-source-of-truth property the liveness event
+        program relies on.  The profile is applied at assemble time and
+        its hash keys the assembled-cell cache, as does the mode, so a
+        cell assembled under one profile is never served under another.
+        A learned ``residual`` model corrects the assembled prediction;
+        the corrected cell caches under the base key plus ``model_hash``,
+        and ``residual=None`` shares the exact base objects.  Cached
         predictions are shared objects — treat them as read-only, as all
         callers do."""
-        return self._predict_base(arch, policy, ctx, profile, chip,
-                                  assembly)[0]
+        pred, pkey = self._predict_base(arch, policy, ctx, profile, chip,
+                                        assembly)
+        if residual is None:
+            return pred
+        rkey = (pkey, "residual", residual.model_hash)
+        hit = self._pred.get(rkey)
+        if hit is None:
+            from repro_torch.calibrate.learned import apply_residual
+            cfg, _, _ = self._arch_state(arch, policy)
+            hit = self._pred[rkey] = apply_residual(
+                pred, residual, cfg.family, ctx, profile=profile)
+        return hit
 
     def _predict_base(self, arch: str, policy: TrainPolicy, ctx,
                       profile=None, chip: Optional[str] = None,
                       assembly: str = "legacy"):
-        """(prediction, assembled-cell memo key) — predict_cell's body."""
+        """(prediction, assembled-cell memo key) — predict_cell's body,
+        before any residual correction."""
         cfg, model, rows = self._arch_state(arch, policy)
         mkey = tuple(sorted(ctx.mesh_shape.items()))
         base = (arch, policy, ctx.kind, mkey, ctx.backend)
@@ -881,7 +888,8 @@ class SweepEngine:
     def evaluate(self, cell: SweepCell, policy: TrainPolicy = FULL_TRAIN,
                  headroom: float = PL.HEADROOM,
                  keep_prediction: bool = False,
-                 profile=None, assembly: str = "legacy") -> SweepResult:
+                 profile=None, assembly: str = "legacy",
+                 residual=None) -> SweepResult:
         cfg, _, _ = self._arch_state(cell.arch, policy)
         ctx = PL.make_context(cfg, cell.mesh_shape, kind=cell.kind,
                               global_batch=cell.global_batch,
@@ -892,7 +900,8 @@ class SweepEngine:
                               schedule=cell.schedule, serve=cell.serve,
                               offload_opt=cell.offload)
         pred = self.predict_cell(cell.arch, policy, ctx, profile=profile,
-                                 chip=cell.chip, assembly=assembly)
+                                 chip=cell.chip, assembly=assembly,
+                                 residual=residual)
         budget = int(PL.chip_hbm(cell.chip) * headroom)
         return SweepResult(
             arch=cell.arch, chip=cell.chip, mesh_shape=cell.mesh_shape,
@@ -922,10 +931,7 @@ class SweepEngine:
                assembly: str = "legacy",
                residual=None) -> PL.PlanReport:
         """PlanReport-shaped single-cell evaluation (planner.plan's
-        memoized backend); byte-identical to ``planner.check``.
-        Calibration (``profile``, ``residual``) is not ported yet and is
-        rejected."""
-        PL.reject_calibration(profile, residual)
+        memoized backend); byte-identical to ``planner.check``."""
         shape = PL._resolve_shape(shape)
         cfg, _, _ = self._arch_state(arch, policy)
         ctx = PL.make_context(cfg, mesh_shape, kind=shape.kind,
@@ -936,8 +942,9 @@ class SweepEngine:
                               microbatches=microbatches,
                               schedule=schedule, serve=serve,
                               offload_opt=offload_opt)
-        pred = self.predict_cell(arch, policy, ctx, chip=chip,
-                                 assembly=assembly)
+        pred = self.predict_cell(arch, policy, ctx, profile=profile,
+                                 chip=chip, assembly=assembly,
+                                 residual=residual)
         return PL.PlanReport(arch=arch, shape=shape.name,
                              fits=pred.peak_bytes <= budget_bytes,
                              peak_bytes=pred.peak_bytes,
@@ -957,10 +964,12 @@ class SweepEngine:
         build, then the per-cell composition as int64 tensor ops on
         ``device`` (:mod:`repro_torch.core.batch_torch`) — or ``"numpy"``,
         the host columnar path of :mod:`repro_torch.core.batch`.  Results
-        are byte-identical.  Grids with ``keep_predictions=True`` take the
-        per-cell path of the numpy engine (columnar mode does not
-        materialize PredictedMemory breakdowns); the torch engine refuses
-        them.
+        are byte-identical, with or without a calibration profile.  Grids
+        with ``keep_predictions=True`` take the per-cell path of the numpy
+        engine (columnar mode does not materialize PredictedMemory
+        breakdowns), as do grids with a learned ``residual_model`` (the
+        correction is applied per cell in ``predict_cell``); the torch
+        engine refuses both.
 
         ``device`` is the torch engine's device, ``"cuda"`` when None.
         On a CUDA device the shard denominators and the liveness
@@ -976,7 +985,6 @@ class SweepEngine:
         if engine not in ("torch", "numpy"):
             raise ValueError(
                 f"unknown sweep engine {engine!r}; use 'torch' or 'numpy'")
-        grid.check_supported()
         if engine == "torch":
             if mode == "cell":
                 raise ValueError(
@@ -994,13 +1002,16 @@ class SweepEngine:
             raise ValueError(
                 "device applies to engine='torch' only; engine='numpy' "
                 "always runs on the host")
-        if mode == "columnar" and not grid.keep_predictions:
+        if mode == "columnar" and not grid.keep_predictions \
+                and grid.residual_model is None:
             from repro_torch.core import batch as B
             return B.sweep_columnar(self, grid, jobs=jobs)
         t0 = time.perf_counter()
         results = [self.evaluate(cell, grid.policy, grid.headroom,
                                  grid.keep_predictions,
-                                 assembly=grid.assembly)
+                                 profile=grid.profile,
+                                 assembly=grid.assembly,
+                                 residual=grid.residual_model)
                    for cell in grid.cells()]
         return SweepResults(grid=grid, results=results,
                             elapsed_s=time.perf_counter() - t0)
@@ -1179,10 +1190,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                    help="shared-prefix token count the hit rate discounts")
     p.add_argument("--mix", action="append", default=None,
                    metavar="P[:LxW,...]",
-                   help="in-flight request mix (not ported yet: rejected)")
+                   help="in-flight request mix: prefill fraction P plus "
+                        "an optional final-context histogram, e.g. "
+                        "0.3:512x1,2048x3 (repeatable)")
     p.add_argument("--draft-arch", default="",
-                   help="speculative-decode draft arches (not ported "
-                        "yet: rejected)")
+                   help="comma list of speculative-decode draft arches "
+                        "('' = none); decode kind only")
     p.add_argument("--offload-optimizer", default="off",
                    choices=("off", "on", "both"),
                    help="optimizer-state host offload (Eq.1 offload "
@@ -1192,11 +1205,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     p.add_argument("--backend", default="tpu", choices=("tpu", "cpu"))
     p.add_argument("--headroom", type=float, default=PL.HEADROOM)
     p.add_argument("--profile", metavar="PATH", default=None,
-                   help="calibration profile JSON (not ported yet: "
-                        "rejected)")
+                   help="CalibrationProfile JSON (python -m "
+                        "repro_torch.calibrate fit) applied to every "
+                        "cell's prediction")
     p.add_argument("--residual-model", metavar="PATH", default=None,
-                   help="learned residual model JSON (not ported yet: "
-                        "rejected)")
+                   help="learned ResidualModel JSON (python -m "
+                        "repro_torch.calibrate fit-residual) applied on top "
+                        "of --profile; needs --engine numpy (the cell "
+                        "path)")
     p.add_argument("--mode", choices=("columnar", "cell"),
                    default="columnar",
                    help="columnar: vectorized batch evaluation (default); "
@@ -1241,17 +1257,33 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 raise ValueError(
                     f"unknown schedule {s!r}; known: {SCHEDULES}")
         meshes = [_parse_mesh(m) for m in args.mesh] if args.mesh else None
+        from repro_torch.serve.fleet import parse_mix
+        mixes = tuple(parse_mix(m) for m in args.mix) if args.mix \
+            else (None,)
     except (KeyError, ValueError) as e:
         p.error(str(e))
-    for flag, given, what in (
-            ("--profile", args.profile, "calibration profiles"),
-            ("--residual-model", args.residual_model,
-             "learned residual models"),
-            ("--mix", args.mix, "request mixes"),
-            ("--draft-arch", args.draft_arch,
-             "speculative-decode draft arches")):
-        if given:
-            p.error(f"{flag}: {what} are not ported yet")
+    profile = None
+    if args.profile:
+        from repro_torch.calibrate.profile import CalibrationProfile
+        try:
+            profile = CalibrationProfile.load(args.profile)
+        except (OSError, ValueError) as e:
+            p.error(f"--profile: {e}")
+    residual = None
+    if args.residual_model:
+        from repro_torch.calibrate.learned import ResidualModel
+        try:
+            residual = ResidualModel.load(args.residual_model)
+        except (OSError, ValueError) as e:
+            p.error(f"--residual-model: {e}")
+        if residual.base_profile_hash != (profile.profile_hash
+                                          if profile else None):
+            p.error(f"--residual-model was fitted over profile "
+                    f"{residual.base_profile_hash or 'raw'}; pass the "
+                    f"matching --profile")
+        if args.engine != "numpy":
+            p.error("--residual-model routes through the cell path; "
+                    "use --engine numpy")
     if args.engine == "numpy" and args.device is not None:
         p.error("--device applies to --engine torch only")
     max_axis = {}
@@ -1277,23 +1309,25 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         grad_accums=args.accum, global_batches=args.batch,
         seq_lens=args.seq_len, kind=args.kind,
         policy=POLICIES[args.policy], backend=args.backend,
-        headroom=args.headroom,
+        headroom=args.headroom, profile=profile,
+        residual_model=residual,
         block_sizes=args.block_size, utilizations=args.utilization,
         prefix_hit_rates=args.prefix_hit_rate,
-        prefix_len=args.prefix_len,
+        prefix_len=args.prefix_len, mixes=mixes,
+        draft_archs=tuple(args.draft_arch.split(","))
+        if args.draft_arch else ("",),
         offload_optimizer={"off": (False,), "on": (True,),
                            "both": (False, True)}[args.offload_optimizer],
         assembly=args.assembly)
     try:
-        # reject knobs that are not ported yet, illegal expert/context
-        # layouts, serve knobs on train kinds / bad block alignment /
-        # out-of-range rates and optimizer offload on serve kinds — with a
-        # clean argparse error, before any evaluation
-        grid.check_supported()
+        # reject illegal expert/context layouts, serve knobs on train
+        # kinds / bad block alignment / out-of-range rates / unknown draft
+        # arches and optimizer offload on serve kinds — with a clean
+        # argparse error, before any evaluation
         grid.check_parallel()
         grid.check_serve()
         grid.check_offload()
-    except (ValueError, NotImplementedError) as e:
+    except ValueError as e:
         p.error(str(e))
 
     if args.mode == "cell" and args.engine != "numpy":
@@ -1323,7 +1357,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     n_fit = res.fit_count
     title = (f"capacity sweep: {arch} {args.kind} on {args.chip} "
              f"({args.backend} prediction)"
-             + (" [liveness]" if args.assembly == "liveness" else ""))
+             + (" [liveness]" if args.assembly == "liveness" else "")
+             + (f" [profile {profile.profile_hash}]" if profile else "")
+             + (f" [residual {residual.model_hash}]" if residual else ""))
     print(f"# {title}")
     print(f"{len(res)} cells in {res.elapsed_s:.3f}s "
           f"({res.cells_per_sec:,.0f} cells/s, mode={args.mode}, "

@@ -19,7 +19,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional
 
-BP = 10000  # basis-point denominator: all rates are ints x 1e-4
+from repro_torch.serve.fleet import BP, RequestMix, expected_len
 
 #: paged-KV blocks must be a positive multiple of this token quantum so
 #: block tables stay lane-aligned with the page-aligned head dims
@@ -34,8 +34,7 @@ class ServeSpec:
     is pool utilization x1e-4 (allocated bytes are inflated by its
     inverse); ``hit_bp`` x1e-4 of the shared ``prefix_len``-token prefix
     is served from the prefix cache instead of per-sequence blocks;
-    ``mix`` reshapes tokens-per-slot for continuous batching (the
-    request-mix math is not ported yet, so only ``mix=None`` is accepted);
+    ``mix`` reshapes tokens-per-slot for continuous batching;
     ``draft_arch`` adds speculative-decode draft-model residency.
     """
 
@@ -43,14 +42,10 @@ class ServeSpec:
     util_bp: int = BP
     hit_bp: int = 0
     prefix_len: int = 0
-    mix: Optional[object] = None
+    mix: Optional[RequestMix] = None
     draft_arch: str = ""
 
     def __post_init__(self):
-        if self.mix is not None:
-            raise NotImplementedError(
-                "request mixes are not ported yet (serve/fleet.py is "
-                "missing); use mix=None")
         if self.block_size < 0 or (
                 self.block_size and self.block_size % PAGE_TOKENS):
             raise ValueError(
@@ -73,7 +68,7 @@ class ServeSpec:
     @classmethod
     def make(cls, block_size: int = 0, utilization: float = 1.0,
              prefix_hit_rate: float = 0.0, prefix_len: int = 0,
-             mix: Optional[object] = None,
+             mix: Optional[RequestMix] = None,
              draft_arch: str = "") -> "ServeSpec":
         """Float-friendly constructor; rates are rounded to basis points."""
         return cls(block_size=int(block_size),
@@ -89,6 +84,7 @@ class ServeSpec:
         bit-identical."""
         return (self.block_size == 0 and self.util_bp == BP
                 and self.hit_bp == 0
+                and (self.mix is None or self.mix.is_identity)
                 and not self.draft_arch)
 
 
@@ -119,7 +115,7 @@ def pool_accounting(seq_len: int, spec: ServeSpec) -> PoolAccounting:
     allocator can hand out — and alignment also keeps the ``cache_seq``
     shard divisibility of the pool terms independent of the hit rate).
     Contiguous allocation (``block_size=0``) inflates raw tokens."""
-    live = int(seq_len)            # no request mix: slots run to seq_len
+    live = expected_len(seq_len, spec.mix)
     shared = min(spec.prefix_len, live) if spec.hit_bp else 0
     unique = live - spec.hit_bp * shared // BP
     if spec.block_size:

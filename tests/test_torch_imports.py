@@ -51,8 +51,25 @@ for want in ("repro_torch.core.batch_torch", "repro_torch.core.sweep",
              "repro_torch.kernels._build", "repro_torch.configs.llava15_7b",
              "repro_torch.launch.mesh", "repro_torch.serve.pool",
              "repro_torch.train", "repro_torch.train.optimizer",
-             "repro_torch.train.train_step"):
+             "repro_torch.train.train_step", "repro_torch.serve.fleet",
+             "repro_torch.autopilot.watch", "repro_torch.calibrate",
+             "repro_torch.calibrate.__main__", "repro_torch.calibrate.fit",
+             "repro_torch.calibrate.learned",
+             "repro_torch.calibrate.measurements",
+             "repro_torch.calibrate.paths", "repro_torch.calibrate.profile",
+             "repro_torch.calibrate.report",
+             "repro_torch.calibrate.residual",
+             "repro_torch.calibrate.synthetic"):
     assert want in names, want
+# the calibrate package's lazy exports name the port's own modules
+import repro_torch.calibrate as C
+for name in C.__all__:
+    getattr(C, name)
+assert all(m.startswith("repro_torch.calibrate.")
+           for m in C._EXPORTS.values())
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro", "triton"))
+print("BAD_AFTER_EXPORTS", bad)
 """
 
 
@@ -60,8 +77,9 @@ def test_every_module_imports_without_jax_or_reference_package():
     r = run_fresh(IMPORT_ALL)
     assert r.returncode == 0, r.stderr
     assert "BAD []" in r.stdout, r.stdout
+    assert "BAD_AFTER_EXPORTS []" in r.stdout, r.stdout
     n = int(r.stdout.split("MODULES")[1].split()[0])
-    assert n >= 44, r.stdout
+    assert n >= 58, r.stdout
 
 
 def test_no_source_line_imports_jax_or_reference_package():
@@ -77,7 +95,7 @@ def test_no_source_line_imports_jax_or_reference_package():
                     checked += 1
     text = open(os.path.join(ROOT, "chip_smoke.py")).read()
     assert not pat.search(text)
-    assert checked >= 44
+    assert checked >= 58
 
 
 DEFAULT_ENTRY = """
@@ -138,10 +156,11 @@ def test_default_entry_point_raises_without_cuda():
     (("--device", "cpu"), 0, "engine=torch, device=cpu"),
     (("--engine", "numpy"), 0, "engine=numpy"),
     (("--engine", "numpy", "--device", "cpu"), 2, "--engine torch only"),
-    (("--device", "cpu", "--profile", "p.json"), 2, "not ported yet"),
-    (("--device", "cpu", "--mix", "0.3"), 2, "not ported yet"),
-    (("--device", "cpu", "--draft-arch", "smollm-360m"), 2,
-     "not ported yet"),
+    (("--device", "cpu", "--profile", "missing.json"), 2, "--profile: "),
+    (("--device", "cpu", "--kind", "decode", "--mix", "0.3"), 0,
+     "engine=torch, device=cpu"),
+    (("--device", "cpu", "--kind", "decode", "--draft-arch",
+      "smollm-360m"), 0, "engine=torch, device=cpu"),
     (("--device", "cpu", "--mesh", "data=2,expert=2"), 2,
      "dense arch"),
 ])
@@ -206,3 +225,52 @@ def test_kernel_entry_points_are_differentiable_and_serving_is_not():
     model = build_model(get_config("llava15-7b").reduced())
     params = model.init(torch.Generator().manual_seed(0), "cpu")
     assert not any(t.requires_grad for t in params.parameters())
+
+
+def test_cli_calibration_flags(tmp_path):
+    """``--profile`` and ``--residual-model`` load fitted files; the
+    profiled torch table equals the reference CLI's; a residual model
+    needs ``--engine numpy`` and the profile it was fitted over."""
+    fixture = os.path.join(ROOT, "benchmarks", "fixtures",
+                           "calibration_measurements.json")
+    prof, res = str(tmp_path / "p.json"), str(tmp_path / "r.json")
+    fit = run_fresh(
+        "from repro_torch.calibrate.__main__ import main\n"
+        f"assert main(['fit', '--measurements', {fixture!r}, '--out', "
+        f"{prof!r}]) == 0\n"
+        f"assert main(['fit-residual', '--measurements', {fixture!r}, "
+        f"'--profile', {prof!r}, '--out', {res!r}]) == 0\n")
+    assert fit.returncode == 0, fit.stdout + fit.stderr
+    argv = ["--arch", "llava15_7b", "--chips", "8", "--chip", "v5e,h100",
+            "--batch", "16,64", "--seq-len", "2048", "--profile", prof]
+
+    def cli(module, *extra):
+        return run_fresh(f"import sys; from {module} import main; "
+                         f"sys.exit(main({[*argv, *extra]!r}))")
+
+    env_ref = dict(os.environ)
+    env_ref["PYTHONPATH"] = SRC
+    env_ref["JAX_PLATFORMS"] = "cpu"
+    ref = subprocess.run(
+        [sys.executable, "-c", "import sys; from repro.core.sweep import "
+         f"main; sys.exit(main({argv!r}))"], env=env_ref,
+        capture_output=True, text=True, timeout=300)
+    assert ref.returncode == 0, ref.stderr
+    got = cli("repro_torch.core.sweep", "--device", "cpu")
+    assert got.returncode == 0, got.stdout + got.stderr
+    strip = lambda out: [ln for ln in out.splitlines()
+                         if " cells in " not in ln]
+    assert strip(got.stdout) == strip(ref.stdout)
+    assert "[profile " in got.stdout
+    bad = cli("repro_torch.core.sweep", "--device", "cpu",
+              "--residual-model", res)
+    assert bad.returncode == 2 and "--engine numpy" in bad.stderr
+    ok = cli("repro_torch.core.sweep", "--engine", "numpy",
+             "--residual-model", res)
+    assert ok.returncode == 0, ok.stdout + ok.stderr
+    assert "[residual " in ok.stdout
+    argv = [a for a in argv if a not in ("--profile", prof)]
+    unbound = cli("repro_torch.core.sweep", "--engine", "numpy",
+                  "--residual-model", res)
+    assert unbound.returncode == 2 and "matching --profile" in \
+        unbound.stderr

@@ -1,7 +1,8 @@
 """Scalar predictor of the port: ``planner.check`` reproduces the frozen
-goldens (``tests/golden/<arch>.json``, ``raw`` variant) byte for byte and
-equals the reference package's un-memoized ``planner.check`` cell for cell
-on a pipeline / schedule / offload sample.  Integers: tolerance 0."""
+goldens (``tests/golden/<arch>.json``, the ``raw`` and the ``calibrated``
+variant of every leg) byte for byte and equals the reference package's
+un-memoized ``planner.check`` cell for cell on a pipeline / schedule /
+offload sample, with and without calibration.  Integers: tolerance 0."""
 
 import itertools
 import json
@@ -11,6 +12,7 @@ import pytest
 
 from repro.configs import ShapeConfig as RShape
 from repro.core import planner as RPL
+from repro_torch.calibrate.profile import CalibrationProfile
 from repro_torch.configs import ShapeConfig, registered_archs
 from repro_torch.core import planner as PL
 
@@ -23,6 +25,12 @@ CANON_SEQ = 1024
 CANON_BATCH = 8
 CANON_CHIP = "v5e"
 CANON_BACKEND = "tpu"
+# the fixed non-identity profile of the goldens' calibrated variant
+GOLDEN_PROFILE = CalibrationProfile(
+    coefficients={"static": 1.0417, "act_saved": 0.9313,
+                  "act_transient": 1.1902, "overhead": 0.8641},
+    chip_constant_bytes={"v5e": 134217728, "*": 33554432})
+VARIANTS = {"raw": None, "calibrated": GOLDEN_PROFILE}
 
 COMPONENTS = ("param_bytes", "grad_bytes", "opt_bytes", "act_saved_bytes",
               "act_transient_bytes", "loss_bytes", "input_bytes",
@@ -55,50 +63,66 @@ def first_divergence(want: dict, got: dict, prefix: str = "") -> str:
     return f"{prefix}: structural difference"
 
 
+def _golden_of(prediction, variant, components):
+    """The golden payload of one leg: the components, plus the per-module
+    table on the raw variant (the calibrated variant freezes no table)."""
+    got = {c: int(getattr(prediction, c)) for c in components}
+    if variant == "raw":
+        got["per_module"] = {
+            path: {k: (int(v) if k != "trainable" else bool(v))
+                   for k, v in m.items()}
+            for path, m in prediction.per_module.items()}
+    return got
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
 @pytest.mark.parametrize("leg", sorted(LEGS))
 @pytest.mark.parametrize("arch", SUPPORTED)
-def test_check_reproduces_golden(arch, leg):
+def test_check_reproduces_golden(arch, leg, variant):
     with open(os.path.join(GOLDEN_DIR, f"{arch}.json")) as f:
-        want = json.load(f)[leg]["raw"]
+        want = json.load(f)[leg][variant]
     kind, offload, assembly, extra = LEGS[leg]
     rep = PL.check(arch, ShapeConfig("golden", CANON_SEQ, CANON_BATCH, kind),
                    dict(CANON_MESH), backend=CANON_BACKEND, chip=CANON_CHIP,
-                   offload_opt=offload, assembly=assembly)
-    got = {c: int(getattr(rep.prediction, c)) for c in COMPONENTS + extra}
-    got["per_module"] = {
-        path: {k: (int(v) if k != "trainable" else bool(v))
-               for k, v in m.items()}
-        for path, m in rep.prediction.per_module.items()}
+                   offload_opt=offload, assembly=assembly,
+                   profile=VARIANTS[variant])
+    got = _golden_of(rep.prediction, variant, COMPONENTS + extra)
     assert set(got) == set(want)
     assert not first_divergence(want, got), first_divergence(want, got)
     assert rep.budget_bytes == int(RPL.chip_hbm(CANON_CHIP) * RPL.HEADROOM)
 
 
-# the golden decode_paged leg is taken under a request mix (serve/fleet.py,
-# not ported); an SSM keeps no paged KV, so the mix moves none of its bytes
-# and the mix-free serve knobs reproduce the leg
-PAGED_SERVE = dict(block_size=16, utilization=0.9, prefix_hit_rate=0.5,
-                   prefix_len=256)
-
-
-@pytest.mark.parametrize("arch", ["mamba2-1.3b"])
-def test_check_reproduces_paged_golden_without_kv(arch):
+def canon_serve():
+    """The ServeSpec of the golden decode_paged leg: 16-token blocks at
+    0.9 pool utilization, 0.5 prefix-cache hit rate over a 256-token
+    shared prefix, and a 25%-prefill request mix."""
+    from repro_torch.serve.fleet import RequestMix
     from repro_torch.serve.pool import ServeSpec
+    return ServeSpec.make(
+        block_size=16, utilization=0.9, prefix_hit_rate=0.5,
+        prefix_len=256,
+        mix=RequestMix.make(0.25, ((512, 1), (CANON_SEQ, 3))))
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+@pytest.mark.parametrize("arch", SUPPORTED)
+def test_check_reproduces_paged_golden_without_kv(arch, variant):
+    """The decode_paged leg under its request mix, raw and calibrated.  (An
+    SSM keeps no paged KV, so its pool stays empty under the mix.)"""
     with open(os.path.join(GOLDEN_DIR, f"{arch}.json")) as f:
-        want = json.load(f)["decode_paged"]["raw"]
+        want = json.load(f)["decode_paged"][variant]
     rep = PL.check(arch, ShapeConfig("golden", CANON_SEQ, CANON_BATCH,
                                      "decode"),
                    dict(CANON_MESH), backend=CANON_BACKEND, chip=CANON_CHIP,
-                   serve=ServeSpec.make(**PAGED_SERVE))
-    got = {c: int(getattr(rep.prediction, c)) for c in COMPONENTS
-           + ("pool_bytes", "hit_saved_bytes", "draft_bytes")}
-    got["per_module"] = {
-        path: {k: (int(v) if k != "trainable" else bool(v))
-               for k, v in m.items()}
-        for path, m in rep.prediction.per_module.items()}
+                   serve=canon_serve(), profile=VARIANTS[variant])
+    got = _golden_of(rep.prediction, variant, COMPONENTS
+                     + ("pool_bytes", "hit_saved_bytes", "draft_bytes"))
     assert set(got) == set(want)
     assert not first_divergence(want, got), first_divergence(want, got)
-    assert got["pool_bytes"] == 0
+    if arch == "mamba2-1.3b":
+        assert got["pool_bytes"] == 0
+    else:
+        assert got["pool_bytes"] > 0
 
 
 def _sample():
@@ -148,9 +172,36 @@ def test_check_equals_reference_on_serve_kinds(kind, backend):
 
 
 def test_check_rejects_calibration():
-    with pytest.raises(NotImplementedError, match="not ported"):
+    """Calibration, refused by earlier slices, now equals the reference:
+    ``check`` under a profile, and under a profile plus a learned residual
+    model; a residual fitted over another profile is refused as the
+    reference refuses it."""
+    from repro.calibrate import learned as RL
+    from repro.calibrate.profile import CalibrationProfile as RProfile
+    from repro_torch.calibrate import learned as TL
+    rprof = RProfile(coefficients=dict(GOLDEN_PROFILE.coefficients),
+                     chip_constant_bytes=dict(
+                         GOLDEN_PROFILE.chip_constant_bytes))
+    w = [0.01 * (i % 4) for i in range(len(TL.FEATURE_NAMES))]
+    d = {"schema_version": 1, "kind": "residual_model",
+         "features": list(TL.FEATURE_NAMES), "families": {"vlm": w},
+         "global": None, "base_profile_hash": GOLDEN_PROFILE.profile_hash,
+         "created": "", "source": {}, "fit": {}}
+    res, rres = TL.ResidualModel.from_dict(d), RL.ResidualModel.from_dict(d)
+    for mesh in (dict(CANON_MESH), {"data": 2, "model": 2, "pipe": 2}):
+        for kw, rkw in ((dict(profile=GOLDEN_PROFILE), dict(profile=rprof)),
+                        (dict(profile=GOLDEN_PROFILE, residual=res),
+                         dict(profile=rprof, residual=rres))):
+            got = PL.check("llava15-7b", ShapeConfig("s", 1024, 8, "train"),
+                           dict(mesh), chip="h100", **kw)
+            ref = RPL.check("llava15-7b", RShape("s", 1024, 8, "train"),
+                            dict(mesh), chip="h100", **rkw)
+            for c in COMPONENTS + ("residual_bytes",):
+                assert getattr(got.prediction, c) \
+                    == getattr(ref.prediction, c), c
+            assert (got.peak_bytes, got.fits) == (ref.peak_bytes, ref.fits)
+        assert got.prediction.residual_bytes != 0
+        assert got.prediction.calibration_bytes == 33554432
+    with pytest.raises(ValueError, match="fitted over profile"):
         PL.check("llava15-7b", ShapeConfig("s", 1024, 8, "train"),
-                 dict(CANON_MESH), profile=object())
-    with pytest.raises(NotImplementedError, match="not ported"):
-        PL.check("llava15-7b", ShapeConfig("s", 1024, 8, "train"),
-                 dict(CANON_MESH), residual=object())
+                 dict(CANON_MESH), residual=res)

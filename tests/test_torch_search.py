@@ -46,6 +46,44 @@ def shapes(seq, gb, kind):
     return ShapeConfig("q", seq, gb, kind), RShape("q", seq, gb, kind)
 
 
+GOLDEN = dict(coefficients={"static": 1.0417, "act_saved": 0.9313,
+                            "act_transient": 1.1902, "overhead": 0.8641},
+              chip_constant_bytes={"v5e": 134217728, "*": 33554432})
+
+
+def profiles(**kw):
+    """The same CalibrationProfile in the port and in the reference."""
+    from repro.calibrate.profile import CalibrationProfile as RProfile
+    from repro_torch.calibrate.profile import CalibrationProfile
+    kw = {**GOLDEN, **kw}
+    return CalibrationProfile(**kw), RProfile(**kw)
+
+
+def residuals(prof, rprof):
+    """A fixed learned residual model over each side's profile."""
+    from repro.calibrate import learned as RL
+    from repro_torch.calibrate import learned as TL
+    w = [0.02 * ((i % 3) - 1) for i in range(len(TL.FEATURE_NAMES))]
+    d = {"schema_version": 1, "kind": "residual_model",
+         "features": list(TL.FEATURE_NAMES), "families": {},
+         "global": w, "created": "", "source": {}, "fit": {}}
+    return (TL.ResidualModel.from_dict(
+                dict(d, base_profile_hash=prof.profile_hash)),
+            RL.ResidualModel.from_dict(
+                dict(d, base_profile_hash=rprof.profile_hash)))
+
+
+def serve_specs(**kw):
+    """The same ServeSpec (a request mix parsed from ``mix``) in both."""
+    from repro.serve.fleet import parse_mix as rparse
+    from repro.serve.pool import ServeSpec as RServe
+    from repro_torch.serve.fleet import parse_mix
+    from repro_torch.serve.pool import ServeSpec
+    mix = kw.pop("mix", "")
+    return (ServeSpec.make(mix=parse_mix(mix), **kw),
+            RServe.make(mix=rparse(mix), **kw))
+
+
 # ---------------------------------------------------------------------------
 # statics floor soundness
 # ---------------------------------------------------------------------------
@@ -217,17 +255,32 @@ def test_unknown_search_and_calibration_rejected(eng):
     with pytest.raises(ValueError, match="search"):
         PL.plan_frontier("llama3.2-3b", shape, chips=(4,), engine=eng,
                          search="greedy", compute_engine="numpy")
-    for call in (lambda: PL.plan_min_chips("llama3.2-3b", shape,
-                                           chips=(4,), profile=object()),
-                 lambda: PL.plan_frontier("llama3.2-3b", shape, chips=(4,),
-                                          profile=object()),
-                 lambda: PL.plan("llama3.2-3b", shape,
-                                 {"data": 2, "model": 2},
-                                 residual=object()),
-                 lambda: PL.plan_max_concurrency("llama3.2-3b", 2048,
-                                                 profile=object())):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            call()
+    # calibration, refused by earlier slices: every query now takes a
+    # profile (plan also a residual model) and gives the reference's answer
+    prof, rprof = profiles()
+    rshape = RShape("q", 2048, 16, "train")
+    got = PL.plan_min_chips("llama3.2-3b", shape, chips=(4, 8, 16),
+                            engine=eng, profile=prof, device="cpu")
+    ref = RPL.plan_min_chips("llama3.2-3b", rshape, chips=(4, 8, 16),
+                             profile=rprof)
+    assert cell_of(got) == cell_of(ref) and got is not None
+    got = PL.plan_frontier("llama3.2-3b", shape, chips=(4, 8, 16),
+                           engine=eng, profile=prof, device="cpu")
+    assert got == RPL.plan_frontier("llama3.2-3b", rshape,
+                                    chips=(4, 8, 16), profile=rprof)
+    assert got
+    res, rres = residuals(prof, rprof)
+    got = PL.plan("llama3.2-3b", shape, {"data": 2, "model": 2},
+                  profile=prof, residual=res)
+    ref = RPL.plan("llama3.2-3b", rshape, {"data": 2, "model": 2},
+                   profile=rprof, residual=rres)
+    assert (got.peak_bytes, got.fits, got.grad_accum, got.note) \
+        == (ref.peak_bytes, ref.fits, ref.grad_accum, ref.note)
+    assert got.prediction.residual_bytes \
+        == ref.prediction.residual_bytes != 0
+    got = PL.plan_max_concurrency("llama3.2-3b", 2048, profile=prof)
+    ref = RPL.plan_max_concurrency("llama3.2-3b", 2048, profile=rprof)
+    assert str(got) == str(ref) and got.max_concurrency > 0
 
 
 def test_search_runs_on_the_card_by_default(eng, monkeypatch):
@@ -534,3 +587,94 @@ def test_card_sweep_slice_equals_reference(name):
     if "expert" in kw["mesh_axes"]:
         assert any(m["expert"] > 1 for m in meshes)
     assert any(m["context"] > 1 for m in meshes)
+
+
+# ---------------------------------------------------------------------------
+# calibrated searches and request mixes
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("compute_engine,kw", ENGINES,
+                         ids=[e for e, _ in ENGINES])
+@pytest.mark.parametrize("arch,shape,chips,q", [
+    ("llama3.1-8b", (4096, 16, "train"), (8, 16, 32), {}),
+    ("deepseek-v2-lite-16b", (2048, 16, "train"), (8, 16, 32),
+     {"allow_ep": True, "max_ep": 4}),
+], ids=["llama3.1-8b", "deepseek-ep"])
+def test_min_chips_under_profile_equals_reference(eng, ref_eng,
+                                                  compute_engine, kw, arch,
+                                                  shape, chips, q):
+    """Under a profile the statics floor is off (a fitted coefficient
+    below 1 could scale bytes under it), so nothing is pruned; the answer
+    equals the exhaustive search and the reference's.  A profile that
+    scales bytes DOWN makes a smaller pod fit than the raw answer."""
+    shape, rshape = shapes(*shape)
+    for coefs in (GOLDEN["coefficients"],
+                  {"static": 0.55, "act_saved": 0.6,
+                   "act_transient": 0.7, "overhead": 0.9}):
+        prof, rprof = profiles(coefficients=coefs)
+        st = SR.SearchStats()
+        got = PL.plan_min_chips(arch, shape, chips=chips, engine=eng,
+                                profile=prof, stats=st,
+                                compute_engine=compute_engine, **kw, **q)
+        exh = PL.plan_min_chips(arch, shape, chips=chips, engine=eng,
+                                profile=prof, search="exhaustive",
+                                compute_engine="numpy", **q)
+        ref = RPL.plan_min_chips(arch, rshape, chips=chips, engine=ref_eng,
+                                 profile=rprof, **q)
+        assert cell_of(got) == cell_of(exh) == cell_of(ref)
+        # the floor is off: every count up to the answer's is swept whole
+        grid = PL._search_grid(arch, shape, chips, "v5e", FULL_TRAIN,
+                               "tpu", PL.HEADROOM, True, 8,
+                               q.get("allow_ep", False), q.get("max_ep", 8),
+                               False, 8, (1, 4, 8), ("1f1b", "gpipe"), prof)
+        assert SR._floor_for(grid) == 0
+        last = got.n_chips if got is not None else max(chips)
+        assert st.cells_evaluated == sum(
+            SR._slice(grid, meshes).size()
+            for n, meshes in SR._by_count(grid).items() if n <= last)
+    raw = PL.plan_min_chips(arch, shape, chips=chips, engine=eng,
+                            compute_engine="numpy", **q)
+    if raw is not None and got is not None:
+        assert got.n_chips <= raw.n_chips
+
+
+MIX_QUERIES = [
+    ("llama3.2-3b", 8192, {"data": 1, "model": 2},
+     dict(block_size=16, utilization=0.9, prefix_hit_rate=0.5,
+          prefix_len=1024, mix="0.25:2048x1,8192x3")),
+    ("llama3.2-3b", 4096, {"data": 2, "model": 2},
+     dict(block_size=0, mix="0.5")),
+    ("llava15-7b", 2048, {"data": 1, "model": 4},
+     dict(block_size=16, mix="0.25:512x1,2048x3",
+          draft_arch="smollm-360m")),
+]
+
+
+@pytest.mark.parametrize("arch,seq,mesh,knobs", MIX_QUERIES,
+                         ids=["llama3.2-3b-paged", "llama3.2-3b-d2",
+                              "llava15-7b-draft"])
+def test_max_concurrency_under_mix_equals_reference(eng, ref_eng, arch,
+                                                     seq, mesh, knobs):
+    """plan_max_concurrency / plan_replicas under a request mix equal the
+    reference's; a mix that holds less context per slot admits at least
+    as many sequences as the mix-free knobs."""
+    serve, rserve = serve_specs(**knobs)
+    st, rst = SR.SearchStats(), RSR.SearchStats()
+    got = PL.plan_max_concurrency(arch, seq, mesh_shape=mesh, serve=serve,
+                                  cap=4096, engine=eng, stats=st)
+    ref = RPL.plan_max_concurrency(arch, seq, mesh_shape=mesh,
+                                   serve=rserve, cap=4096, engine=ref_eng,
+                                   stats=rst)
+    assert (got.max_concurrency, got.peak_bytes, got.budget_bytes) \
+        == (ref.max_concurrency, ref.peak_bytes, ref.budget_bytes)
+    assert st.probes == rst.probes and got.max_concurrency > 0
+    plain, _ = serve_specs(**dict(knobs, mix=""))
+    base = PL.plan_max_concurrency(arch, seq, mesh_shape=mesh, serve=plain,
+                                   cap=4096, engine=eng)
+    assert got.max_concurrency >= base.max_concurrency
+    rep = PL.plan_replicas(arch, 40, seq, mesh_shape=mesh, serve=serve,
+                           engine=eng)
+    rrep = RPL.plan_replicas(arch, 40, seq, mesh_shape=mesh, serve=rserve,
+                             engine=ref_eng)
+    assert str(rep) == str(rrep)

@@ -253,26 +253,207 @@ def test_jobs_split_is_order_identical():
     assert_same_columns(many, one, "jobs")
 
 
+GOLDEN_COEFS = {"static": 1.0417, "act_saved": 0.9313,
+                "act_transient": 1.1902, "overhead": 0.8641}
+GOLDEN_CHIPS = {"v5e": 134217728, "*": 33554432}
+# a second profile, scaling bytes down, with its own per-chip offsets
+SECOND_COEFS = {"static": 0.97, "act_saved": 1.2125,
+                "act_transient": 0.8333, "overhead": 1.05}
+SECOND_CHIPS = {"h100": 1073741824, "v6e": 268435456}
+
+
+def profile_of(module, coefs=GOLDEN_COEFS, chips=GOLDEN_CHIPS):
+    """The same CalibrationProfile in the port (``module is SW``) or the
+    reference package."""
+    if module is SW:
+        from repro_torch.calibrate.profile import CalibrationProfile
+    else:
+        from repro.calibrate.profile import CalibrationProfile
+    return CalibrationProfile(coefficients=dict(coefs),
+                              chip_constant_bytes=dict(chips))
+
+
+def residual_of(module, profile):
+    """A fixed learned residual model over ``profile``, in either
+    package (17 weights per family, GiB scale)."""
+    if module is SW:
+        from repro_torch.calibrate import learned
+    else:
+        from repro.calibrate import learned
+    w = tuple(round(0.013 * ((i * 7) % 5 - 2), 4) for i in range(17))
+    return learned.ResidualModel.from_dict({
+        "schema_version": 1, "kind": "residual_model",
+        "features": list(learned.FEATURE_NAMES),
+        "families": {"vlm": list(w)},
+        "global": [x / 2 for x in w],
+        "base_profile_hash": profile.profile_hash,
+        "created": "", "source": {}, "fit": {}})
+
+
+def mix_of(module, text):
+    if module is SW:
+        from repro_torch.serve.fleet import parse_mix
+    else:
+        from repro.serve.fleet import parse_mix
+    return parse_mix(text)
+
+
+# the knobs earlier slices deferred (each was refused with a
+# NotImplementedError): every one now sweeps on both engines to the
+# reference's numpy engine; the torch engine refuses only the residual
+# grid, whose correction is applied per cell, and names the engine that
+# takes it
 DEFERRED = {
-    "profile": (dict(profile=object()), "calibration profiles"),
-    "residual_model": (dict(residual_model=object()), "residual models"),
-    "mixes": (dict(kind="decode", mixes=(None, object())), "request mixes"),
-    "draft_archs": (dict(kind="decode", draft_archs=("", "smollm-360m")),
-                    "draft arches"),
+    "profile": lambda m: dict(profile=profile_of(m)),
+    "residual_model": lambda m: dict(profile=profile_of(m),
+                                     residual_model=residual_of(
+                                         m, profile_of(m))),
+    "mixes": lambda m: dict(kind="decode", mixes=(
+        None, mix_of(m, "0.25:512x1,2048x3"), mix_of(m, "0.5"))),
+    "draft_archs": lambda m: dict(kind="decode",
+                                  draft_archs=("", "smollm-360m")),
 }
 
 
 @pytest.mark.parametrize("engine", ["torch", "numpy"])
 @pytest.mark.parametrize("knob", sorted(DEFERRED))
 def test_deferred_knobs_are_rejected(knob, engine):
-    kw, what = DEFERRED[knob]
-    grid = SW.SweepGrid(**{**dict(arch="llava15-7b", chips=4,
-                                  global_batches=(8,), seq_lens=(512,)),
-                           **kw})
-    with pytest.raises(NotImplementedError, match=what):
-        SW.SweepEngine().sweep(
-            grid, engine=engine,
-            **({"device": "cpu"} if engine == "torch" else {}))
+    base = dict(arch="llava15-7b", chips=4, chip=("v5e", "h100"),
+                global_batches=(8,), seq_lens=(512, 2048))
+    grid = SW.SweepGrid(**{**base, **DEFERRED[knob](SW)})
+    ref = RS.SweepEngine().sweep(RS.SweepGrid(**{**base,
+                                                 **DEFERRED[knob](RS)}))
+    if knob == "residual_model" and engine == "torch":
+        with pytest.raises(ValueError, match="engine='numpy'"):
+            SW.SweepEngine().sweep(grid, engine="torch", device="cpu")
+        engine = "numpy"
+    got = SW.SweepEngine().sweep(
+        grid, engine=engine,
+        **({"device": "cpu"} if engine == "torch" else {}))
+    assert len(got) == len(ref) > 0
+    assert got.to_csv() == ref.to_csv()
+    assert [r.peak_bytes for r in got] == [r.peak_bytes for r in ref]
+    if knob == "residual_model":
+        assert got.columns is None     # the cell path
+        assert any(r.prediction is None for r in got)
+    else:
+        assert_same_columns(got, ref, engine)
+
+
+PROFILED = {
+    "llava-train": dict(LLAVA, kind="train"),
+    "pipe-gpipe-offload": dict(PIPE, chip=("v5e", "h100", "v6e"),
+                               offload_optimizer=(False, True)),
+    "llava-prefill": dict(LLAVA, kind="prefill"),
+    "paged-decode": GRIDS["paged-decode"],
+    "mix-draft-decode": dict(GRIDS["paged-decode"], chip=("v5e", "h100"),
+                             mixes="mixes", draft_archs=("", "smollm-360m",
+                                                         "llama3.2-3b")),
+    "moe-epcp": GRIDS["moe-epcp"],
+}
+
+
+def profiled_grid(name, assembly, module, profile):
+    kw = dict(PROFILED[name], assembly=assembly, profile=profile)
+    if kw.get("mixes") == "mixes":
+        kw["mixes"] = (None, mix_of(module, "0.25:512x1,2048x3"),
+                       mix_of(module, "0.5"))
+    return module.SweepGrid(**kw)
+
+
+@pytest.mark.parametrize("assembly", ["legacy", "liveness"])
+@pytest.mark.parametrize("name", sorted(PROFILED))
+def test_profiled_sweep_equals_reference_numpy_engine(name, assembly):
+    """Under a calibration profile both port engines equal the reference's
+    numpy engine as integers: the torch engine's host folds (rint in
+    float64, the act_transient group folded whole, telescoped under
+    liveness) and its per-chip offset after the stage max."""
+    ref = RS.SweepEngine().sweep(
+        profiled_grid(name, assembly, RS, profile_of(RS)))
+    grid = profiled_grid(name, assembly, SW, profile_of(SW))
+    got = SW.SweepEngine().sweep(grid, engine="torch", device="cpu")
+    assert_same_columns(got, ref, "torch")
+    host = SW.SweepEngine().sweep(grid, engine="numpy")
+    assert_same_columns(host, ref, "numpy")
+    # the profile moved the answer: the offsets alone shift every peak
+    raw = SW.SweepEngine().sweep(profiled_grid(name, assembly, SW, None),
+                                 engine="numpy")
+    assert not np.array_equal(raw.columns.peak_bytes,
+                              got.columns.peak_bytes)
+
+
+def test_two_profiles_in_a_row_on_one_engine():
+    """One engine, the same grid under two profiles and none: every sweep
+    equals the reference's, because the profile hash keys the device
+    tables; a warm repeat hits the cache."""
+    engine = SW.SweepEngine()
+    profiles = ((profile_of(SW), profile_of(RS)),
+                (profile_of(SW, SECOND_COEFS, SECOND_CHIPS),
+                 profile_of(RS, SECOND_COEFS, SECOND_CHIPS)),
+                (None, None))
+    for assembly in ("legacy", "liveness"):
+        for prof, rprof in profiles + profiles[:1]:
+            got = engine.sweep(
+                profiled_grid("pipe-gpipe-offload", assembly, SW, prof),
+                engine="torch", device="cpu")
+            ref = RS.SweepEngine().sweep(
+                profiled_grid("pipe-gpipe-offload", assembly, RS, rprof))
+            assert_same_columns(got, ref, (assembly, prof))
+        assert engine.last_sweep_stats["table_cache_hits"] \
+            == engine.last_sweep_stats["groups"] == 3
+    assert len(engine._torch_table_cache) == 2 * 3 * 3
+
+
+@pytest.mark.parametrize("assembly", ["legacy", "liveness"])
+@pytest.mark.parametrize("name", ["llava-train", "paged-decode"])
+def test_compose_on_reference_profiled_tables(name, assembly, monkeypatch):
+    """The device compose on the REFERENCE's profile-folded tables (its
+    ``ctr`` table included) gives the reference's columns."""
+    ref_grid = profiled_grid(name, assembly, RS, profile_of(RS))
+    ref_engine = RS.SweepEngine()
+    ref = ref_engine.sweep(ref_grid)
+    rcols = RB.build_columns(ref_grid)
+
+    def reference_tables(engine, grid, cols, cfg, model, rows, rules,
+                         rep_ctx, arch, env, opt_res, remat_eval, mesh_ids,
+                         pp, jobs, drafts, device, stats):
+        rcfg, rmodel, rrows = ref_engine._arch_state(arch, ref_grid.policy)
+        rrep = RPL.make_context(
+            rcfg, dict(rcols.meshes[0]), kind=rcols.kind,
+            global_batch=rep_ctx.global_batch, seq_len=rep_ctx.seq_len,
+            backend=rcols.backend)
+        stacked = RBJ._group_tables(
+            ref_engine, ref_grid, rcols, rcfg, rmodel, rrows,
+            ref_arch_rules(rcfg, rcols.kind), rrep, arch,
+            RB._knob_env(rcfg, rcols, pp), ref_grid.profile, opt_res,
+            remat_eval, mesh_ids, pp, 1, RB._draft_states(ref_engine,
+                                                          rcols))
+        assert "ctr" in stacked
+        return BT.tables_to_device(stacked, device)
+
+    monkeypatch.setattr(BT, "_group_tables", reference_tables)
+    got = SW.SweepEngine().sweep(
+        profiled_grid(name, assembly, SW, profile_of(SW)), engine="torch",
+        device="cpu")
+    assert_same_columns(got, ref, "reference tables")
+
+
+def test_torch_engine_refuses_residual_grids():
+    """A residual grid on the torch engine is refused with a ValueError
+    naming the engine that takes it; nothing drops the residual."""
+    prof = profile_of(SW)
+    grid = SW.SweepGrid(arch="smollm-360m", chips=4, global_batches=(16,),
+                        seq_lens=(256,), profile=prof,
+                        residual_model=residual_of(SW, prof))
+    for call in (lambda: SW.SweepEngine().sweep(grid, engine="torch",
+                                                device="cpu"),
+                 lambda: BT.sweep_columnar_torch(SW.SweepEngine(), grid,
+                                                 device="cpu")):
+        with pytest.raises(ValueError, match="engine='numpy'"):
+            call()
+    with pytest.raises(ValueError, match="RequestMix"):
+        SW.SweepGrid(arch="smollm-360m", chips=4, kind="decode",
+                     mixes=(object(),)).serve_specs()
 
 
 @pytest.mark.parametrize("engine", ["torch", "numpy"])
