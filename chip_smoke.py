@@ -16,9 +16,12 @@ engine="torch")``, the same sweep over the five other-family archs
 profiles, the serving fleet's request mixes and speculative drafts,
 llava15-7b and mamba2-1.3b
 serving (prefill + greedy decode) at their published widths and depths
-through ``repro_torch.serve.generate``, and llava15-7b training steps at the
-paper's fig2b setting through ``repro_torch.train`` — and holds every
-hand-written kernel against its plain PyTorch version on the card.
+through ``repro_torch.serve.generate``, llava15-7b training steps at the
+paper's fig2b setting through ``repro_torch.train``, seamless-m4t-large-v2
+(the encoder-decoder) serving and training, and the measurement grid
+(``repro_torch.launch.measure``: one real step per cell, the predictor's
+error on the card) — and holds every hand-written kernel against its
+plain PyTorch version on the card.
 Phases (any failure exits non-zero):
 
 1. toolchain + card line, then the kernels' build (set-up time) and the
@@ -132,6 +135,31 @@ Phases (any failure exits non-zero):
    against the CPU; then one stage-2 step each of Adafactor and 8-bit
    Adam, their optimizer state's bytes gated to equal the byte model's
    ``opt_bytes_for`` per leaf;
+5c. ``serve_seamless_m4t_large_v2``: the speech-text encoder-decoder at
+   full width and depth (24 + 24 layers) with random bf16 weights, 4
+   requests of 2,048 frames and 2,048 prompt tokens, 32 greedy tokens:
+   the readings of phase 5, launches gated to the reference's program
+   (flash 24 encoder + 24 decoder self + 24 cross per prefill, none in
+   decode; RMSNorm 146 per prefill, 73 per decode step), the prefill's
+   kernel path against the plain path (2e-2 of scale), the reduced config
+   on the card against the CPU;
+6c. ``train_seamless_m4t_large_v2``: the same model, FULL_TRAIN, AdamW,
+   remat "block", 4 x 2,048, 3 steps: the readings and gates of phase 6
+   (the loss finite and moving, launches per step the reference's
+   program); at the trained weights the fp32 kernel path against the fp32
+   plain path is a reading, and the gate holds each fp32 path to the same
+   gradients in float64: the kernel path's distance from them (its worst
+   leaf) within ``FP32_GRAD_TOL`` or ``FP64_WITNESS_RATIO`` times the
+   plain path's;
+8. ``measure``: every cell of ``repro_torch.launch.measure.GRID`` (39
+   cells of 7 archs at full width and depth) through ``measure_grid``,
+   one real step each with the allocator read around it: a ``measure``
+   line per dry-run-schema record, each record's prediction equal to the
+   host's ``planner.check`` for its cell, the store written to
+   ``experiments/measured``, then the ``measure_summary`` line — the
+   predictor's MAPE per arch x kind, family, the multimodal training
+   cells and all cells, raw under the ``tpu`` and ``cpu`` term sets,
+   calibrated on the even cells and held out on the odd ones;
 7. timings: cold / warm wall time, cells/s and the phase split of each
    sweep, and per kernel — at the largest shape its path gave it — the
    median of CUDA-event-timed calls of its wrapper (``ms``), the kernel's
@@ -203,6 +231,8 @@ from repro_torch.kernels import rmsnorm as RN  # noqa: E402
 from repro_torch.kernels import segmented_cummax as SC  # noqa: E402
 from repro_torch.kernels import shard_factor as SF  # noqa: E402
 from repro_torch.kernels import ssd as SSD  # noqa: E402
+from repro_torch.calibrate.paths import measured_dir  # noqa: E402
+from repro_torch.launch import measure as ME  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import param as PM  # noqa: E402
 from repro_torch.serve import serve_step as SV  # noqa: E402
@@ -263,6 +293,22 @@ STAGE2_LAYERS = 8
 # and 7.8e-5 (stage 2, an LM wk) on an H100; the bf16 paths read ~2e-2
 # from each other, so 1e-3 catches a kernel that computes in bf16
 FP32_GRAD_TOL = 1e-3
+# where the two fp32 paths themselves part by more than that (seamless at
+# its trained weights: decoder cross-attention wq / wk), the same
+# gradients in float64 are the witness: the fp32 kernel path's distance
+# from them (its worst leaf, as above) may be at most FP32_GRAD_TOL or
+# FP64_WITNESS_RATIO times the fp32 plain path's, whichever is larger.
+# The paths' worst leaves, not leaf by leaf: at ~1e-3 of scale one leaf's
+# max |diff| under two fp32 summation orders scatters by 2x (PERF.md § 6)
+FP64_WITNESS_RATIO = 2.0
+
+# the enc-dec paths: seamless-m4t-large-v2 at full width and depth, 4
+# requests of 2,048 frames and 2,048 prompt tokens, 32 greedy new tokens;
+# training on 4 x 2,048 (frames and tokens), FULL_TRAIN, AdamW, remat
+# "block"
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_NEW = 4, 2048, 32
+ENCDEC_TRAIN_BATCH = 4
 
 RESULT_COLUMNS = ("peak_bytes", "budget_bytes", "fits", "offload_bytes",
                   "overlap_slack_bytes", "pool_bytes", "draft_bytes",
@@ -654,6 +700,11 @@ def check_segmented_cummax() -> dict:
 # causal)
 TRAIN_VIT_CASE = (TRAIN_BATCH, 577, 577, 16, 16, 64, 64, False)
 TRAIN_LM_CASE = (TRAIN_BATCH, 2048, 2048, 32, 32, 128, 128, True)
+# the enc-dec: cross-attention with Sq != Skv, and seamless's training /
+# prefill shapes (the cross-attention's is the encoder's: 2,048 frames)
+ENCDEC_XATTN_CASE = (2, 192, 320, 4, 4, 64, 64, False)
+ENCDEC_ENC_CASE = (4, 2048, 2048, 16, 16, 64, 64, False)
+ENCDEC_DEC_CASE = (4, 2048, 2048, 16, 16, 64, 64, True)
 FLASH_CASES = [
     (2, 256, 256, 4, 2, 64, 64, True),
     (1, 200, 200, 6, 3, 32, 32, True),
@@ -665,13 +716,19 @@ FLASH_CASES = [
     (4, 1088, 1088, 32, 32, 128, 128, True),   # LM prefill
     TRAIN_VIT_CASE,                            # vision tower, training
     TRAIN_LM_CASE,                             # LM, training
+    ENCDEC_XATTN_CASE,                         # enc-dec cross, Sq != Skv
+    ENCDEC_ENC_CASE,                           # seamless encoder (and
+                                               # cross), 4 x 2,048
+    ENCDEC_DEC_CASE,                           # seamless decoder self
 ]
 TRAIN_ROWS = (TRAIN_BATCH * 2048, 4096)        # the LM's RMSNorms, training
 RMSNORM_SHAPES = [(64, 128), (3, 50, 96), (2, 7, 33, 64), (5, 33),
                   (4 * 1088, 4096), (4, 1, 4096), TRAIN_ROWS,
                   # mamba2 serving: the prefill's gated norm over d_inner
                   # and block norm, the block norm in a decode step
-                  (4 * 2000, 4096), (4 * 2000, 2048), (4, 1, 2048)]
+                  (4 * 2000, 4096), (4 * 2000, 2048), (4, 1, 2048),
+                  # seamless: 4 x 2,048 rows and a decode step at D 1,024
+                  (4 * 2048, 1024), (4, 1, 1024)]
 TOLERANCE = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
@@ -800,8 +857,11 @@ def check_rmsnorm() -> dict:
 # attention shapes (the LM's causal 2,048 and the ViT's ragged 577) and
 # the reduced configs' head dim 16 (the reduced card-vs-CPU training run)
 FLASH_BWD_CASES = FLASH_CASES[:6] + [TRAIN_VIT_CASE, TRAIN_LM_CASE,
-                                     (2, 70, 70, 2, 2, 16, 16, True)]
-RMSNORM_BWD_SHAPES = RMSNORM_SHAPES[:4] + [TRAIN_ROWS, (40, 96)]
+                                     (2, 70, 70, 2, 2, 16, 16, True),
+                                     ENCDEC_XATTN_CASE, ENCDEC_ENC_CASE,
+                                     ENCDEC_DEC_CASE]
+RMSNORM_BWD_SHAPES = RMSNORM_SHAPES[:4] + [TRAIN_ROWS, (40, 96),
+                                           (4 * 2048, 1024)]
 BWD_TOLERANCE = {"flash": {torch.float32: 5e-4, torch.bfloat16: 2e-2},
                  "rmsnorm": {torch.float32: 1e-4, torch.bfloat16: 2e-2}}
 
@@ -2259,7 +2319,15 @@ def train_program(cfg) -> dict:
     vision tower: the ViT's 24 attention forwards; each LM block's
     attention forward and its two RMSNorms twice (the recompute reruns the
     block in the backward), its attention backward and RMSNorm backwards
-    once; the final norm once each way."""
+    once; the final norm once each way.  The enc-dec under FULL_TRAIN: each
+    encoder block's attention and two RMSNorms, each decoder block's self
+    and cross attention and three RMSNorms, forward twice and backward
+    once; the encoder's and the decoder's final norms once each way."""
+    if cfg.family == "encdec":
+        attn = cfg.encdec.n_enc_layers + 2 * cfg.n_layers
+        norms = 2 * cfg.encdec.n_enc_layers + 3 * cfg.n_layers
+        return {"flash_fwd": 2 * attn, "flash_dq": attn, "flash_dkv": attn,
+                "rmsnorm_fwd": 2 * norms + 2, "rmsnorm_bwd": norms + 2}
     n = cfg.n_layers
     return {"flash_fwd": cfg.vlm.vit_layers + 2 * n, "flash_dq": n,
             "flash_dkv": n, "rmsnorm_fwd": 2 * 2 * n + 1,
@@ -2350,12 +2418,22 @@ def reduced_train_card_vs_cpu(problems: list) -> dict:
             "launches": used}
 
 
-def train_phase(name: str, cfg, policy, cut: str, problems: list) -> dict:
-    """TRAIN_STEPS steps of ``policy`` at the fig2b batch through
-    ``init_train_state`` / ``make_train_step`` (the entry points a user
-    calls), each step's time, launches and allocator peak; the gates; one
-    step under the profiler; the kernel path against the plain path; the
+def train_phase(name: str, cfg, policy, cut: str, problems: list,
+                make_batch=None, n_batch: int = TRAIN_BATCH,
+                seq_len: int = None, fp64_witness: bool = False) -> dict:
+    """TRAIN_STEPS steps of ``policy`` through ``init_train_state`` /
+    ``make_train_step`` (the entry points a user calls) on ``n_batch``
+    samples of ``seq_len`` tokens (``make_batch(cfg, gen)``; by default
+    the VLM's fig2b batch), each step's time, launches and allocator peak;
+    the gates (the loss finite and moving); one step under the profiler;
+    the kernel path against the plain path (with ``fp64_witness`` both
+    fp32 paths against float64, :func:`float64_witness`, the gate); the
     byte model's prediction for the same config."""
+    if make_batch is None:
+        seq_len = TRAIN_TEXT + cfg.vlm.n_image_tokens
+
+        def make_batch(cfg, gen):
+            return train_batch(cfg, gen, TRAIN_BATCH, TRAIN_TEXT)
     model = build_model(cfg)
     gen = torch.Generator(device=DEV)
     gen.manual_seed(SEED)
@@ -2364,7 +2442,7 @@ def train_phase(name: str, cfg, policy, cut: str, problems: list) -> dict:
     at_start = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     state = init_train_state(model, policy, opt_cfg, gen, DEV)
-    batch = train_batch(cfg, gen, TRAIN_BATCH, TRAIN_TEXT)
+    batch = make_batch(cfg, gen)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     before = checksums(state.params)
@@ -2410,6 +2488,9 @@ def train_phase(name: str, cfg, policy, cut: str, problems: list) -> dict:
                       "launches": launches})
     if int(state.step) != TRAIN_STEPS:
         fail(f"{name}: step count {int(state.step)}")
+    if len({s["loss"] for s in steps}) < 2:
+        problems.append(f"{name}: the loss did not move: "
+                        f"{[s['loss'] for s in steps]}")
     # a trainable leaf moves in its fp32 master copy (the optimizer's
     # parameter); its bf16 copy may round back to the same value, as a
     # norm scale of 1.0 does under steps of ~lr; a frozen leaf is
@@ -2444,7 +2525,8 @@ def train_phase(name: str, cfg, policy, cut: str, problems: list) -> dict:
             "grads": grads_agree(k_grads, p_grads, None, "", [])}
     # the gate: the same in fp32 (the fp32 kernels; bf16 rounding out of
     # the way), on the same weights cast to fp32, every trainable leaf
-    # within FP32_GRAD_TOL of its scale
+    # within FP32_GRAD_TOL of its scale (with fp64_witness a reading, the
+    # gate the float64 witness's below)
     del state.opt, masters
     gc.collect()
     cfg32 = dataclasses.replace(cfg, dtype="float32")
@@ -2455,10 +2537,10 @@ def train_phase(name: str, cfg, policy, cut: str, problems: list) -> dict:
         fp_loss, fp_grads = loss_and_grads(model32, params32, batch)
     vs_plain["fp32"] = {
         "loss": {"kernels": f_loss, "plain": fp_loss},
-        "grads": grads_agree(f_grads, fp_grads, FP32_GRAD_TOL,
+        "grads": grads_agree(f_grads, fp_grads,
+                             None if fp64_witness else FP32_GRAD_TOL,
                              f"{name} fp32 kernel path vs plain path",
                              problems)}
-    del fp_grads
     for what, a, b in (("bf16", k_loss, p_loss), ("fp32", f_loss, fp_loss)):
         if abs(a - b) > 2e-2 * max(1.0, abs(b)):
             problems.append(f"{name}: {what} loss {a} through the kernels, "
@@ -2468,17 +2550,25 @@ def train_phase(name: str, cfg, policy, cut: str, problems: list) -> dict:
                        for path, grads in (("kernels", k_grads),
                                            ("plain", p_grads))}
     vs_plain["bf16"] = bf16
-    del f_grads, k_grads, p_grads, params32
+    del k_grads, p_grads
+    if fp64_witness:
+        vs_plain["fp64"] = float64_witness(name, model32, params32, batch,
+                                           {"kernels": f_grads,
+                                            "plain": fp_grads}, problems)
+    del f_grads, fp_grads, params32
 
     pred = PR.predict(model, policy, FA.PredictContext(
-        kind="train", global_batch=TRAIN_BATCH,
-        seq_len=TRAIN_TEXT + cfg.vlm.n_image_tokens, remat="block",
-        optimizer="adamw", backend="tpu"))
+        kind="train", global_batch=n_batch, seq_len=seq_len, remat="block",
+        optimizer="adamw", backend="tpu",
+        enc_seq=int(seq_len * cfg.encdec.enc_seq_ratio) if cfg.encdec
+        else 0))
     peak = max(s["peak_bytes"] for s in steps)
     out = {"arch": cfg.name, "cut": cut, "policy": policy.name,
-           "n_layers": cfg.n_layers, "batch": TRAIN_BATCH,
-           "tokens_per_sample": TRAIN_TEXT + cfg.vlm.n_image_tokens,
-           "image_tokens": cfg.vlm.n_image_tokens, "text_tokens": TRAIN_TEXT,
+           "n_layers": cfg.n_layers, "batch": n_batch,
+           "tokens_per_sample": seq_len,
+           **({"image_tokens": cfg.vlm.n_image_tokens,
+               "text_tokens": TRAIN_TEXT} if cfg.vlm else
+              {"encoder_frames": int(seq_len * cfg.encdec.enc_seq_ratio)}),
            "params": sum(t.numel() for t in state.params.parameters()),
            "trainable_params": sum(t.numel() for _, t in
                                    PM.trainable_params(state.params)),
@@ -2488,9 +2578,7 @@ def train_phase(name: str, cfg, policy, cut: str, problems: list) -> dict:
            "launches_per_step": steps[-1]["launches"],
            "launches_total": {k: sum(s["launches"][k] for s in steps)
                               for k in want},
-           "tokens_per_s": TRAIN_BATCH * (TRAIN_TEXT
-                                          + cfg.vlm.n_image_tokens)
-           / (med_ms / 1e3),
+           "tokens_per_s": n_batch * seq_len / (med_ms / 1e3),
            "measured_peak_bytes": [s["peak_bytes"] for s in steps],
            # allocator segments (cudaMalloc calls) each step made
            "segments_allocated": [s["segments_allocated"] for s in steps],
@@ -2511,6 +2599,98 @@ def train_phase(name: str, cfg, policy, cut: str, problems: list) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def _attention64(q, k, v, causal: bool = True, q_offset: int = 0):
+    """Attention as plain autograd ops in the inputs' type (float64 for the
+    witness): scores, softmax, weighted sum; GQA by grouping."""
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Sq, Hkv, H // Hkv, D) * D ** -0.5
+    s = torch.einsum("bshgd,bthd->bhgst", qg, k)
+    if causal:
+        q_pos = q_offset + torch.arange(Sq, device=q.device)
+        keep = torch.arange(Skv, device=q.device)[None, :] <= q_pos[:, None]
+        s = s.masked_fill(~keep, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhgst,bthd->bshgd", p, v).reshape(B, Sq, H, -1)
+
+
+def _rmsnorm64(x, scale, eps: float = 1e-5):
+    return x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps) * scale
+
+
+class Float64Plain:
+    """Within the context the model path runs in float64 where its weights
+    are float64: attention and RMSNorm as plain autograd ops, and a
+    ``.float()`` (the model's casts to fp32 around the loss and the rotary
+    embedding) keeps a float64 tensor as it is.  The rotary angles stay
+    fp32, as in both fp32 paths."""
+
+    def __enter__(self):
+        self._saved = (OPS.flash_attention, OPS.rmsnorm, torch.Tensor.float)
+        to_float = self._saved[2]
+
+        def float_keeping_64(t, *a, **kw):
+            return t if t.dtype == torch.float64 else to_float(t, *a, **kw)
+        OPS.flash_attention, OPS.rmsnorm = _attention64, _rmsnorm64
+        torch.Tensor.float = float_keeping_64
+        return self
+
+    def __exit__(self, *exc):
+        OPS.flash_attention, OPS.rmsnorm, torch.Tensor.float = self._saved
+
+
+def float64_witness(name: str, model32, params32, batch,
+                    fp32_grads: dict, problems: list) -> dict:
+    """The loss and every trainable leaf's gradient in float64 at the same
+    weights (``params32`` is cast in place) and batch, and each fp32
+    path's (``fp32_grads``: "kernels", "plain") max |diff| from them over
+    the leaf's max |grad| (and the same in norms, a reading).  The gate:
+    the kernel path's worst leaf at most FP32_GRAD_TOL or
+    FP64_WITNESS_RATIO times the plain path's worst leaf."""
+    params64 = params32.double()
+    zero_counts()
+    with Float64Plain():
+        w_loss, w_grads = loss_and_grads(model32, params64, batch)
+    if any(model_counts().values()):
+        problems.append(f"{name}: the float64 witness launched a kernel")
+    dist = {path: {} for path in fp32_grads}
+    norm = {path: {} for path in fp32_grads}
+    for leaf, w in w_grads.items():
+        scale = max(float(w.abs().max()), 1e-300)
+        for path, grads in fp32_grads.items():
+            d = grads[leaf].double() - w
+            dist[path][leaf] = float(d.abs().max()) / scale
+            norm[path][leaf] = float(d.norm()) / max(float(w.norm()), 1e-300)
+    del w_grads
+
+    def worst(path):
+        leaf = max(dist[path], key=dist[path].get)
+        return {"max_rel_err": dist[path][leaf], "worst_leaf": leaf,
+                "max_norm_rel_err": max(norm[path].values())}
+    ek, ep = worst("kernels"), worst("plain")
+    if ek["max_rel_err"] > max(FP32_GRAD_TOL,
+                               FP64_WITNESS_RATIO * ep["max_rel_err"]):
+        problems.append(f"{name}: fp32 kernel path {ek} from float64, the "
+                        f"plain path {ep} (at most max({FP32_GRAD_TOL}, "
+                        f"{FP64_WITNESS_RATIO} x the plain path's))")
+    apart = {leaf: {"kernels": d, "plain": dist["plain"][leaf]}
+             for leaf, d in dist["kernels"].items()
+             if max(d, dist["plain"][leaf]) > FP32_GRAD_TOL}
+    ratios = {what: sorted(r[leaf] / max(r_p[leaf], 1e-300)
+                           for leaf in r)
+              for what, r, r_p in (("max", dist["kernels"], dist["plain"]),
+                                   ("norm", norm["kernels"], norm["plain"]))}
+    return {"loss": w_loss, "kernels": ek, "plain": ep,
+            # each leaf's kernels / plain distance: min, median, max
+            "leaf_ratio_kernels_over_plain": {
+                what: [r[0], r[len(r) // 2], r[-1]]
+                for what, r in ratios.items()},
+            "leaves_over_fp32_tol": len(apart),
+            "over_fp32_tol": dict(sorted(
+                apart.items(), key=lambda kv: -kv[1]["kernels"])[:12]),
+            "ratio": FP64_WITNESS_RATIO, "floor": FP32_GRAD_TOL}
 
 
 def train_llava15_7b() -> list:
@@ -2626,6 +2806,216 @@ def train_optimizers() -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# phases 5c and 6c: the enc-dec seamless-m4t-large-v2
+# ---------------------------------------------------------------------------
+
+
+def encdec_batch(model, gen: torch.Generator, n_batch: int, n_tokens: int,
+                 kind: str = "prefill") -> dict:
+    """The stub speech frontend's frames and token ids (and labels for
+    ``kind="train"``), as the measurement grid makes a cell's inputs."""
+    return ME.make_batch(model, ME.MeasureCell(model.cfg.name, kind,
+                                               n_tokens, n_batch), gen)
+
+
+def serve_seamless_m4t_large_v2() -> dict:
+    """seamless-m4t-large-v2 at full width and depth (24 encoder + 24
+    decoder layers) with random bf16 weights from a seeded generator on
+    the card: 4 requests of 2,048 frames and 2,048 prompt tokens, 32
+    greedy tokens through ``generate``, then the same program phase by
+    phase; launches against the reference's program, the prefill through
+    the kernels against the plain versions, the reduced config on the card
+    against the CPU."""
+    t_phase = time.perf_counter()
+    cfg = get_config(ENCDEC_ARCH)
+    model = build_model(cfg)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED)
+    torch.cuda.synchronize()
+    at_start = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = model.init(gen, DEV)
+    batch = encdec_batch(model, gen, ENCDEC_BATCH, ENCDEC_PROMPT)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    B_, S = ENCDEC_BATCH, ENCDEC_PROMPT
+    n_frames = batch["frames"].shape[1]
+
+    tokens, generate_s = serve_generate(model, params, batch, ENCDEC_NEW)
+    main_launches = serve_counts()
+    if SF.launches or SC.launches or SSD.launches or FL.dq_launches or \
+            FL.dkv_launches or RN.bwd_launches:
+        fail(f"seamless serving launched another kernel: {model_counts()}")
+
+    def after_prefill(logits, cache):
+        hd, L = cfg.resolved_head_dim, cfg.n_layers
+        for key, n in (("k", S), ("v", S), ("cross_k", n_frames),
+                       ("cross_v", n_frames)):
+            leaf = cache["blocks"][key]
+            shape = (L, B_, n, cfg.n_kv_heads, hd)
+            if tuple(leaf.shape) != shape or leaf.dtype != torch.bfloat16:
+                fail(f"seamless prefill cache {key}: {leaf.dtype} "
+                     f"{tuple(leaf.shape)}, expected bf16 {shape}")
+        if not bool((cache["len"] == S).all()):
+            fail("seamless prefill cache len")
+        # the kernel path against the same prefill through the plain
+        # versions (the gate), each against the fp32 plain prefill (a
+        # reading)
+        with PlainKernels():
+            plain_logits, _ = SV.make_prefill_step(model)(params, batch)
+        checked = logits_agree(logits[:, -1], plain_logits[:, -1],
+                               "seamless prefill kernel path vs plain path",
+                               problems)
+        model32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+        params32 = copy.deepcopy(params).float()
+        batch32 = dict(batch, frames=batch["frames"].float())
+        with PlainKernels():
+            ref, _ = SV.make_prefill_step(model32)(params32, batch32)
+        checked["vs_fp32_plain"] = {
+            "kernels": _rel(logits[:, -1], ref[:, -1]),
+            "plain": _rel(plain_logits[:, -1], ref[:, -1])}
+        del model32, params32, batch32, ref, plain_logits
+        gc.collect()
+        torch.cuda.empty_cache()
+        return checked
+    problems = []
+    phases = serve_by_phase(model, params, batch, tokens, serve_counts,
+                            after_prefill)
+
+    # the reference's program: flash for each encoder block and for each
+    # decoder block's self and cross attention in the prefill, none in
+    # decode; RMSNorm 2 per encoder block + its final norm, 4 per decoder
+    # block (norm1 twice: _prefill_kv and the block) + the final norm in
+    # the prefill, 3 per decoder block + the final norm per decode step
+    Le, Ld, n_steps = cfg.encdec.n_enc_layers, cfg.n_layers, \
+        phases["n_steps"]
+    check_launches("seamless serving", phases, main_launches, {
+        "prefill": {"flash_fwd": Le + 2 * Ld,
+                    "rmsnorm_fwd": 2 * Le + 1 + 4 * Ld + 1},
+        "decode": {"flash_fwd": 0,
+                   "rmsnorm_fwd": n_steps * (3 * Ld + 1)}})
+
+    # the port's own predictor for the same request (planner.check, the
+    # XLA byte model, backend="tpu", one device)
+    preds = {}
+    for kind, seq in (("prefill", S), ("decode", S + ENCDEC_NEW)):
+        rep = PL.check(ENCDEC_ARCH, ShapeConfig("serve", seq, B_, kind), {},
+                       backend="tpu", chip="h100")
+        p = rep.prediction
+        preds[kind] = {"peak_bytes": p.peak_bytes,
+                       "param_bytes": p.param_bytes,
+                       "cache_bytes": p.cache_bytes,
+                       "act_transient_bytes": p.act_transient_bytes,
+                       "input_bytes": p.input_bytes, "fits_h100": rep.fits}
+    out = {
+        "arch": ENCDEC_ARCH, "requests": B_, "prompt_tokens": S,
+        "encoder_frames": n_frames, "new_tokens": ENCDEC_NEW,
+        "encoder_layers": Le, "decoder_layers": Ld,
+        "params": sum(t.numel() for t in params.parameters()),
+        "init_s": init_s, "resident_at_start_bytes": at_start,
+        **serve_readings(B_, ENCDEC_NEW, generate_s, main_launches, phases,
+                         preds),
+        "prefill_vs_plain": phases["checked"],
+    }
+    del params, batch, phases
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["reduced_card_vs_cpu"] = reduced_card_vs_cpu(
+        ENCDEC_ARCH, lambda cfg, gen: encdec_batch(build_model(cfg), gen, 2,
+                                                   8),
+        serve_counts)
+    out["elapsed_s"] = time.perf_counter() - t_phase
+    say("serve_seamless_m4t_large_v2 " + json.dumps(out))
+    if problems:
+        fail("; ".join(problems))
+    return out
+
+
+def train_seamless_m4t_large_v2() -> dict:
+    """seamless-m4t-large-v2 at full width and depth, FULL_TRAIN, AdamW,
+    remat "block", 4 x 2,048 (frames and tokens), TRAIN_STEPS steps: the
+    training phase's readings and gates (the loss finite and moving,
+    launches per step the reference's program, the fp32 paths' gradients
+    against float64 at the trained weights: :func:`float64_witness`); the
+    line prints before its gates can fail the run."""
+    t_phase = time.perf_counter()
+    cfg = get_config(ENCDEC_ARCH)
+    problems = []
+    out = train_phase(
+        "train_seamless_m4t_large_v2", cfg, FULL_TRAIN,
+        "none: full width and depth", problems,
+        make_batch=lambda cfg, gen: encdec_batch(
+            build_model(cfg), gen, ENCDEC_TRAIN_BATCH, ENCDEC_PROMPT,
+            "train"),
+        n_batch=ENCDEC_TRAIN_BATCH, seq_len=ENCDEC_PROMPT, fp64_witness=True)
+    out["elapsed_s"] = time.perf_counter() - t_phase
+    say("train_seamless_m4t_large_v2 " + json.dumps(out))
+    if problems:
+        fail("; ".join(problems))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the measurement grid (the predictor's error on the card)
+# ---------------------------------------------------------------------------
+
+
+def measure_phase() -> dict:
+    """Every cell of ``launch.measure.GRID`` through ``measure_grid`` (one
+    real step each on the card, the allocator read around it): a
+    ``measure`` line per record, each record's prediction held to the
+    host's ``planner.check`` for the same cell; the records' store written
+    to ``experiments/measured``; then the ``measure_summary`` line, the
+    MAPE per arch x kind, family, over the multimodal training cells and
+    over all cells — raw under the ``tpu`` and the ``cpu`` term sets,
+    calibrated on the even cells and held out on the odd ones, in sample
+    as a reading.  Returns the launches the grid made."""
+    t_phase = time.perf_counter()
+    mismatched = []
+
+    def on_record(rec):
+        say("measure " + json.dumps(rec))
+        cell = ME.MeasureCell(rec["arch"], rec["kind"], rec["seq_len"],
+                              rec["global_batch"], rec["policy"],
+                              rec["optimizer"], rec["remat"])
+        want = PL.check(cell.arch, ShapeConfig(cell.shape, cell.seq_len,
+                                               cell.global_batch, cell.kind),
+                        ME.MESH, policy=SW.POLICIES[cell.policy],
+                        optimizer=cell.optimizer, remat=cell.remat,
+                        backend=ME.BACKEND, chip=ME.CHIP).peak_bytes
+        if rec["predicted"]["peak_bytes"] != want:
+            mismatched.append((cell.arch, cell.shape,
+                               rec["predicted"]["peak_bytes"], want))
+
+    zero_counts()
+    records = ME.measure_grid(ME.GRID, DEV, on_record=on_record)
+    launches = dict(model_counts(), ssd_scan=SSD.launches)
+    if SF.launches or SC.launches:
+        fail("the measurement grid launched a sweep kernel")
+    if min(launches.values()) <= 0:
+        fail(f"the measurement grid launched a model kernel no time: "
+             f"{launches}")
+    if mismatched:
+        fail(f"records whose prediction is not planner.check's: "
+             f"{mismatched[:4]}")
+    store = ME.store_of(records)
+    path = store.save(measured_dir()
+                      / f"{ME.store_name(records[0]['device'])}.json")
+    measure_s = time.perf_counter() - t_phase
+    summary = ME.summary(store)
+    say("measure_summary " + json.dumps({
+        "cells": len(records), "archs": len({r["arch"] for r in records}),
+        "store": os.path.relpath(path, HERE), "launches": launches,
+        "measure_s": measure_s,
+        "worst_reserved_over_allocated": max(
+            r["allocator"]["reserved_over_allocated"] for r in records),
+        "alloc_retries": sum(r["allocator"]["alloc_retries"]
+                             for r in records),
+        **summary, "elapsed_s": time.perf_counter() - t_phase}))
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2816,13 +3206,16 @@ def _flash_timing(shape: tuple, causal: bool, gen) -> dict:
     return {
         "shape": {"B": b, "S": sq, "H": h, "D": d, "causal": causal,
                   "dtype": "bfloat16"},
-        "ms": event_ms(lambda: FL.flash_fwd(q, k, v, causal=causal)),
+        "ms": event_ms(lambda: FL.flash_fwd(q, k, v, causal=causal),
+                      flush=True),
         "device_ms": device_ms(lambda: FL.flash_fwd(q, k, v, causal=causal),
-                               "flash_fwd_kernel_mma"),
+                               "flash_fwd_kernel_mma", flush=True),
         "plain_ms": event_ms(
-            lambda: FL.flash_fwd_plain(q, k, v, causal=causal), launches=10),
+            lambda: FL.flash_fwd_plain(q, k, v, causal=causal), launches=10,
+            flush=True),
         "library_ms": event_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal)),
+            qt, kt, vt, is_causal=causal), flush=True),
+        "l2": "flushed before each timed launch",
         "bound_ms": bound_ms, "bound_by": bound_by,
         "flops": n_ops, "bytes": n_bytes}
 
@@ -2836,11 +3229,13 @@ def _rmsnorm_timing(shape: tuple, gen) -> dict:
     return {
         "shape": {"rows": x.numel() // shape[-1], "D": shape[-1],
                   "dtype": "bfloat16"},
-        "ms": event_ms(lambda: RN.rmsnorm_fwd(x, sc)),
+        "ms": event_ms(lambda: RN.rmsnorm_fwd(x, sc), flush=True),
         "device_ms": device_ms(lambda: RN.rmsnorm_fwd(x, sc),
-                               "rmsnorm_fwd_kernel"),
-        "plain_ms": event_ms(lambda: RN.rmsnorm_fwd_plain(x, sc)),
-        "library_ms": event_ms(lambda: F.rms_norm(x, shape[-1:], sc, 1e-5)),
+                               "rmsnorm_fwd_kernel", flush=True),
+        "plain_ms": event_ms(lambda: RN.rmsnorm_fwd_plain(x, sc), flush=True),
+        "library_ms": event_ms(lambda: F.rms_norm(x, shape[-1:], sc, 1e-5),
+                               flush=True),
+        "l2": "flushed before each timed launch",
         "bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes}
 
 
@@ -2855,13 +3250,13 @@ def _flash_bwd_timing(shape: tuple, causal: bool, gen) -> tuple:
     _, delta = FL.flash_bwd_dq(q, k, v, out, lse, do, causal=causal)
     plain_ms = event_ms(lambda: FL.flash_bwd_plain(q, k, v, out, lse, do,
                                                    causal=causal),
-                        launches=10)
+                        launches=10, flush=True)
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
     o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
     dot = do.transpose(1, 2)
     library_ms = event_ms(lambda: torch.autograd.grad(
-        o, (qt, kt, vt), dot, retain_graph=True))
+        o, (qt, kt, vt), dot, retain_graph=True), flush=True)
     scores = b * h * sq * sq * (0.5 if causal else 1.0)
     tensor = q.numel() * q.element_size()
     stat = 4 * b * h * sq
@@ -2883,7 +3278,9 @@ def _flash_bwd_timing(shape: tuple, causal: bool, gen) -> tuple:
         rows.append({
             "shape": {"B": b, "S": sq, "H": h, "D": d, "causal": causal,
                       "dtype": "bfloat16"},
-            "ms": event_ms(fn), "device_ms": device_ms(fn, kern),
+            "ms": event_ms(fn, flush=True),
+            "device_ms": device_ms(fn, kern, flush=True),
+            "l2": "flushed before each timed launch",
             "plain_ms": plain_ms, "plain_covers": "dq, dk and dv",
             "library_ms": library_ms,
             "library_covers": "dq, dk and dv (SDPA backward)",
@@ -2905,12 +3302,14 @@ def _rmsnorm_bwd_timing(shape: tuple, gen) -> dict:
     return {
         "shape": {"rows": x.numel() // shape[-1], "D": shape[-1],
                   "dtype": "bfloat16"},
-        "ms": event_ms(lambda: RN.rmsnorm_bwd(x, sc, dy)),
+        "ms": event_ms(lambda: RN.rmsnorm_bwd(x, sc, dy), flush=True),
         "device_ms": device_ms(lambda: RN.rmsnorm_bwd(x, sc, dy),
-                               "rmsnorm_bwd_kernel"),
-        "plain_ms": event_ms(lambda: RN.rmsnorm_bwd_plain(x, sc, dy)),
+                               "rmsnorm_bwd_kernel", flush=True),
+        "plain_ms": event_ms(lambda: RN.rmsnorm_bwd_plain(x, sc, dy),
+                             flush=True),
         "library_ms": event_ms(lambda: torch.autograd.grad(
-            y, (xr, sr), dy, retain_graph=True)),
+            y, (xr, sr), dy, retain_graph=True), flush=True),
+        "l2": "flushed before each timed launch",
         "bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes}
 
 
@@ -2940,11 +3339,19 @@ def time_model_kernels(checks: dict, launches: dict) -> list:
                                True, gen),
                  _flash_timing((SERVE_BATCH, n_patch + 1) + vit_heads,
                                False, gen)]
+    # the enc-dec's attention: the encoder's (and the cross-attention's),
+    # non-causal, and the decoder's causal self-attention, 4 x 2,048
+    ecfg = get_config(ENCDEC_ARCH)
+    e_shape = (ENCDEC_BATCH, ENCDEC_PROMPT, ecfg.n_heads,
+               ecfg.resolved_head_dim)
+    fwd_other += [_flash_timing(e_shape, False, gen),
+                  _flash_timing(e_shape, True, gen)]
     dq, dkv = _flash_bwd_timing(lm_shape, True, gen)
     rn_main = _rmsnorm_timing((TRAIN_BATCH * S_train, cfg.d_model), gen)
     rn_other = [_rmsnorm_timing((SERVE_BATCH * S_serve, cfg.d_model), gen),
                 _rmsnorm_timing((SERVE_BATCH, 1, cfg.d_model), gen),
-                _rmsnorm_timing((MAMBA_BATCH * MAMBA_PROMPT, 4096), gen)]
+                _rmsnorm_timing((MAMBA_BATCH * MAMBA_PROMPT, 4096), gen),
+                _rmsnorm_timing((ENCDEC_BATCH * ENCDEC_PROMPT, 1024), gen)]
     rn_bwd = _rmsnorm_bwd_timing((TRAIN_BATCH * S_train, cfg.d_model), gen)
     out = []
     # per kernel: its check, the outputs of that check that are its own,
@@ -3114,6 +3521,14 @@ def main(argv: list) -> int:
         print(f"chip_smoke: the tensor-core kernels spill registers or "
               f"ptxas reported nothing: {spills}", file=sys.stderr)
 
+    t_phase = [t_start]
+
+    def phase_done(name: str) -> None:
+        now = time.perf_counter()
+        say(f"elapsed {name}: {now - t_phase[0]:.1f} s")
+        t_phase[0] = now
+
+    phase_done("1 toolchain and build")
     # phase 2: kernels against their plain versions
     checks = {}
     for check in (check_shard_factor, check_segmented_cummax, check_flash,
@@ -3122,6 +3537,7 @@ def main(argv: list) -> int:
         c = check()
         checks[c["name"]] = c
     say("kernels_check " + json.dumps(list(checks.values())))
+    phase_done("2 kernels_check")
     if args.kernels_only:
         for k in time_model_kernels(checks, {n: None for n in model_counts()}) \
                 + [time_ssd(checks, {"ssd_scan": None})]:
@@ -3185,14 +3601,24 @@ def main(argv: list) -> int:
         "allocated_after_sweeps_bytes": torch.cuda.memory_allocated(),
         "left_by_sweeps_bytes": torch.cuda.memory_allocated()
         - before_sweeps}))
+    phase_done("3-4h sweeps, searches, calibration")
     serve = serve_llava15_7b()
     launches.update({k: 0 for k in model_counts()})
     launches.update(serve["launches"]["generate"])
+
+    phase_done("5 serve_llava15_7b")
 
     # phase 5b: serving mamba2-1.3b
     mamba = serve_mamba2_1_3b()
     launches["rmsnorm_fwd"] += mamba["launches"]["generate"]["rmsnorm_fwd"]
     launches["ssd_scan"] = mamba["launches"]["generate"]["ssd_scan"]
+    phase_done("5b serve_mamba2_1_3b")
+
+    # phase 5c: serving the enc-dec seamless-m4t-large-v2
+    encdec = serve_seamless_m4t_large_v2()
+    for k, n in encdec["launches"]["generate"].items():
+        launches[k] += n
+    phase_done("5c serve_seamless_m4t_large_v2")
 
     # phase 6: training, stage 1 at full size, stage 2 with 8 LM blocks,
     # then stage 2's Adafactor and 8-bit Adam steps
@@ -3200,12 +3626,24 @@ def main(argv: list) -> int:
         for k, n in phase["launches_total"].items():
             launches[k] += n
     train_optimizers()
+    phase_done("6 train_llava15_7b")
+
+    # phase 6c: training the enc-dec
+    for k, n in train_seamless_m4t_large_v2()["launches_total"].items():
+        launches[k] += n
+    phase_done("6c train_seamless_m4t_large_v2")
+
+    # phase 8: the measurement grid
+    for k, n in measure_phase().items():
+        launches[k] += n
+    phase_done("8 measure")
 
     # phase 7: kernel timings at the main paths' shapes
     kernels = time_kernels(log, checks, launches) + \
         time_model_kernels(checks, launches) + [time_ssd(checks, launches)]
     for k in kernels:
         say_kernel(with_ratios(k))
+    phase_done("7 timings")
     say(f"elapsed: {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(smi)

@@ -1,8 +1,8 @@
 """Measured peak-memory samples and their on-disk store.
 
 A :class:`Measurement` is one observed (configuration -> peak bytes) pair
-— from an XLA dry-run artifact (``launch/dryrun.py``), a real device run,
-or the deterministic synthetic generator (``repro_torch.calibrate.synthetic``).
+— from an XLA dry-run artifact (``launch/dryrun.py``), a real step on the
+card (``repro_torch.launch.measure``), or the deterministic synthetic generator (``repro_torch.calibrate.synthetic``).
 It carries exactly the fields :func:`repro_torch.core.planner.make_context`
 needs to rebuild the prediction context, so the residual decomposition
 can recompute every Eq.1 term for the same cell.
@@ -101,9 +101,19 @@ class Measurement:
     @classmethod
     def from_dryrun_record(cls, record: dict,
                            source: str = "") -> "Measurement":
-        """Ingest one launch/dryrun.py artifact.  The XLA compiled-memory
-        total is the ground truth whose overflow aborts a job; the
-        prediction block in the artifact is ignored (we recompute it).
+        """Ingest one dry-run-schema artifact: the reference's
+        ``launch/dryrun.py`` records or the card's
+        (``repro_torch.launch.measure``).  The allocator / XLA total is the
+        ground truth whose overflow aborts a job; the prediction block in
+        the artifact is ignored (we recompute it).
+
+        A record that carries its own cell (``seq_len``, ``global_batch``,
+        ``backend``, ``chip``, ``optimizer``, ``remat``, ``policy``,
+        ``grad_accum``: the card's do) is read from those fields; where a
+        field is absent the reference's rule holds — the shape from
+        ``SHAPES[record["shape"]]``, ``backend="cpu"`` (the dry run
+        compiles on the cpu oracle), the dataclass defaults — so every
+        dry-run artifact ingests to the reference's Measurement.
 
         The total goes through the same telemetry defect matrix the
         autopilot watch applies (``autopilot.watch.observed_bytes``): a
@@ -121,20 +131,34 @@ class Measurement:
             raise ValueError(
                 f"dryrun record {source or '<record>'} has unusable "
                 f"memory telemetry: {telemetry_defect(record)}")
-        shape = SHAPES[record["shape"]]
+        if "seq_len" in record and "global_batch" in record:
+            seq_len, global_batch = record["seq_len"], record["global_batch"]
+            kind = record["kind"]
+        else:
+            shape = SHAPES[record["shape"]]
+            seq_len, global_batch = shape.seq_len, shape.global_batch
+            kind = record.get("kind", shape.kind)
+        meta = {"shape": record["shape"],
+                "compile_seconds": record.get("compile_seconds")}
+        if "device" in record:
+            meta["device"] = record["device"]
         return cls(
-            arch=record["arch"], kind=record.get("kind", shape.kind),
-            seq_len=shape.seq_len, global_batch=shape.global_batch,
+            arch=record["arch"], kind=kind,
+            seq_len=int(seq_len), global_batch=int(global_batch),
             mesh_shape=dict(mesh),
             measured_bytes=measured,
-            backend="cpu",             # dryrun compiles on the cpu oracle
+            backend=str(record.get("backend", "cpu")),
+            chip=record.get("chip"),
+            optimizer=record.get("optimizer"),
+            remat=record.get("remat"),
+            grad_accum=int(record.get("grad_accum", 1)),
+            policy=str(record.get("policy", "full")),
             microbatches=int(record.get("microbatches", 1)),
             schedule=str(record.get("schedule", "1f1b")),
             offload_optimizer=bool(record.get("offload_optimizer",
                                               False)),
             source=source or "dryrun",
-            meta={"shape": record["shape"],
-                  "compile_seconds": record.get("compile_seconds")})
+            meta=meta)
 
 
 @dataclass

@@ -29,6 +29,12 @@ def dryrun_dir() -> Path:
     return experiments_dir() / "dryrun"
 
 
+def measured_dir() -> Path:
+    """Where ``python -m repro_torch.launch.measure`` writes the card's
+    records (one per cell, the dry-run schema) and their store."""
+    return experiments_dir() / "measured"
+
+
 def profiles_dir() -> Path:
     """Default home of fitted CalibrationProfile JSON files."""
     return experiments_dir() / "profiles"

@@ -9,18 +9,21 @@
 * ``loss(params, batch, remat)``   — scalar loss + metrics (training)
 * ``prefill(params, batch)``       — last-position logits + populated cache
 * ``decode_step(params, token, cache)`` — one-token serve step
-* ``init_cache(batch, max_len, device)`` — zeroed cache
+* ``init_cache(batch, max_len, device, enc_len=None)`` — zeroed cache
+  (``enc_len``, the enc-dec family's encoder length, defaults to
+  ``max_len`` as in the reference)
 * ``batch_spec(shape)``            — shape/dtype records for every input
 
 Every family's ``spec`` and ``batch_spec`` are here, so ``planner.check``
-and the capacity sweep take all twelve archs.  The dense-GQA decoder LMs
-and the VLMs built on them also have their training loss and serving
-path; the pure-SSM family (mamba2) its serving path (its ``loss`` raises
-``NotImplementedError`` until its training is ported).  For the MoE,
-hybrid and enc-dec families and for MLA configs every forward entry point
-(``init``, ``from_numpy``, ``loss``, ``prefill``, ``decode_step``,
-``init_cache``) raises ``NotImplementedError`` naming the ROADMAP item
-that ports it (A7b–e): a model whose spec builds never half-runs.
+and the capacity sweep take all twelve archs.  The dense-GQA decoder LMs,
+the VLMs built on them and the encoder-decoder (seamless-m4t-large-v2)
+also have their training loss and serving path; the pure-SSM family
+(mamba2) its serving path (its ``loss`` raises ``NotImplementedError``
+until its training is ported).  For the MoE and hybrid families and for
+MLA configs every forward entry point (``init``, ``from_numpy``,
+``loss``, ``prefill``, ``decode_step``, ``init_cache``) raises
+``NotImplementedError`` naming the ROADMAP item that ports it (A7b–d): a
+model whose spec builds never half-runs.
 """
 
 from __future__ import annotations
@@ -42,8 +45,7 @@ from repro_torch.models import vlm as V
 # ROADMAP item that ports it
 _UNPORTED_FORWARD = {"moe": "the MoE FFN (ROADMAP A7c)",
                      "hybrid": "the hybrid SSM + shared attention "
-                               "(ROADMAP A7d)",
-                     "encdec": "the encoder-decoder (ROADMAP A7e)"}
+                               "(ROADMAP A7d)"}
 
 
 @dataclass(frozen=True)
@@ -90,6 +92,8 @@ class Model:
                 f"yet; it comes with the SSM training slice")
         if self.cfg.family == "vlm":
             return V.vlm_loss(self.cfg, params, batch, remat=remat)
+        if self.cfg.family == "encdec":
+            return E.encdec_loss(self.cfg, params, batch, remat=remat)
         return T.lm_loss(self.cfg, params, batch["tokens"], batch["labels"],
                          remat=remat)
 
@@ -99,6 +103,8 @@ class Model:
             return S.ssm_prefill(self.cfg, params, batch)
         if self.cfg.family == "vlm":
             return V.vlm_prefill(self.cfg, params, batch)
+        if self.cfg.family == "encdec":
+            return E.encdec_prefill(self.cfg, params, batch)
         return T.lm_prefill(self.cfg, params, batch["tokens"])
 
     def decode_step(self, params, token, cache: dict):
@@ -107,12 +113,18 @@ class Model:
             return S.ssm_decode_step(self.cfg, params, token, cache)
         if self.cfg.family == "vlm":
             return V.vlm_decode_step(self.cfg, params, token, cache)
+        if self.cfg.family == "encdec":
+            return E.encdec_decode_step(self.cfg, params, token, cache)
         return T.lm_decode_step(self.cfg, params, token, cache)
 
-    def init_cache(self, batch: int, max_len: int, device="cuda") -> dict:
+    def init_cache(self, batch: int, max_len: int, device="cuda",
+                   enc_len=None) -> dict:
         self._forward_ported()
         if self.cfg.family == "ssm":
             return S.ssm_init_cache(self.cfg, batch, max_len, device)
+        if self.cfg.family == "encdec":
+            return E.encdec_init_cache(self.cfg, batch, max_len,
+                                       enc_len or max_len, device)
         return T.init_kv_cache(self.cfg, batch, max_len, device)
 
     def batch_spec(self, shape: ShapeConfig) -> dict:

@@ -28,7 +28,7 @@ from repro_torch.kernels import ref as TREF
 
 # the cases of tests/test_kernels.py: (B, Sq, Skv, H, Hkv, D, Dv, causal,
 # block) — ragged seq, decode-shaped q, MQA with Dq != Dv, off-by-two
-# padding, q continuation (offset)
+# padding, q continuation (offset); then the enc-dec's cross-attention
 FLASH_CASES = [
     (2, 256, 256, 4, 2, 64, 64, True, 128),
     (1, 200, 200, 6, 3, 32, 32, True, 128),
@@ -36,6 +36,9 @@ FLASH_CASES = [
     (1, 256, 256, 8, 1, 128, 64, True, 128),
     (1, 130, 130, 2, 2, 64, 64, True, 128),
     (2, 128, 256, 4, 2, 64, 64, True, 128),
+    # the enc-dec's cross-attention: non-causal, Sq (decoder) != Skv
+    # (encoder)
+    (2, 192, 320, 4, 4, 64, 64, False, 128),
 ]
 DTYPES = {"float32": (np.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}

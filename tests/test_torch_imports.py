@@ -50,6 +50,7 @@ for want in ("repro_torch.core.batch_torch", "repro_torch.core.sweep",
              "repro_torch.serve.serve_step",
              "repro_torch.kernels._build", "repro_torch.configs.llava15_7b",
              "repro_torch.launch.mesh", "repro_torch.serve.pool",
+             "repro_torch.launch.measure", "repro_torch.core.device_metrics",
              "repro_torch.train", "repro_torch.train.optimizer",
              "repro_torch.train.train_step", "repro_torch.serve.fleet",
              "repro_torch.autopilot.watch", "repro_torch.calibrate",

@@ -1,0 +1,262 @@
+"""The measurement artifact of the port (``repro_torch.launch.measure``,
+``repro_torch.core.device_metrics``) on the CPU, with no card.
+
+* every GRID cell's record predicts what the reference's
+  ``planner.check`` predicts for the same cell, and what the record's own
+  ingest (``Measurement.from_dryrun_record`` ->
+  ``calibrate.residual.predict_measurement``) predicts, as integers;
+* both packages' ``autopilot.watch.observed_bytes`` read a record's
+  ``total_bytes``, and rebuild it from the four counters without it;
+* a reference-style dry-run record (no own cell) ingests to the same
+  Measurement in both packages;
+* the allocator readings refuse a device that is not CUDA;
+* each kind's step closure runs on the CPU at the reduced configs;
+* the card's committed store predicts in the port what it predicts in the
+  reference, and gives the MAPE table of ``PERF.md``.
+"""
+
+import dataclasses
+import json
+import os
+
+import pytest
+import torch
+
+from repro.autopilot import watch as RW
+from repro.calibrate import measurements as RMS
+from repro.calibrate import residual as RRES
+from repro.configs import ShapeConfig as RShape
+from repro.core import planner as RPL
+from repro.core import spec as RS
+from repro_torch.autopilot import watch as TW
+from repro_torch.calibrate import measurements as TMS
+from repro_torch.calibrate import residual as TRES
+from repro_torch.calibrate.paths import measured_dir, repo_root
+from repro_torch.configs import get_config
+from repro_torch.core import device_metrics as DM
+from repro_torch.launch import measure as M
+from repro_torch.models import build_model
+
+POLICIES = {"full": RS.FULL_TRAIN, "llava_stage1": RS.LLAVA_STAGE1,
+            "llava_stage2": RS.LLAVA_STAGE2}
+DEVICE = {"name": "NVIDIA H100 80GB HBM3", "power_limit": "700.00 W"}
+STORE = os.path.join(repo_root(), "src", "repro_torch", "calibrate",
+                     "measured", "h100_80gb_hbm3_700w.json")
+
+
+def fake_memory(total: int, start: int = 3 << 30) -> DM.StepMemory:
+    """Allocator readings of a step that peaked ``total`` bytes above a
+    1 GiB baseline (for the host-only paths)."""
+    base = 1 << 30
+    end = start + (5 << 20)
+    argument, output = start - base, end - base
+    alias = min(start, end) - base
+    stats = DM.MemoryStats(argument_bytes=argument, output_bytes=output,
+                           temp_bytes=total - argument - output + alias,
+                           alias_bytes=alias)
+    return DM.StepMemory(stats=stats, baseline_bytes=base, start_bytes=start,
+                         end_bytes=end, peak_bytes=base + total,
+                         max_reserved_bytes=base + total + (64 << 20),
+                         alloc_retries=0)
+
+
+def test_grid_covers_the_cells_asked_for():
+    archs = {c.arch for c in M.GRID}
+    assert len(M.GRID) >= 35 and len(archs) >= 7
+    kinds = {(c.arch, c.kind, c.policy) for c in M.GRID}
+    for want in (("llava15-7b", "train", "llava_stage1"),
+                 ("llava15-7b", "train", "llava_stage2"),
+                 ("llava-next-mistral-7b", "train", "llava_stage1"),
+                 ("seamless-m4t-large-v2", "train", "full"),
+                 ("seamless-m4t-large-v2", "prefill", "full"),
+                 ("seamless-m4t-large-v2", "decode", "full")):
+        assert want in kinds, want
+    # one record file per cell
+    names = [(c.arch, c.shape) for c in M.GRID]
+    assert len(set(names)) == len(names)
+
+
+@pytest.mark.parametrize("cell", M.GRID, ids=lambda c: f"{c.arch}-{c.shape}")
+def test_record_predicts_what_the_reference_planner_predicts(cell):
+    rec = M.record_for(cell, fake_memory(20 << 30), DEVICE)
+    want = RPL.check(cell.arch, RShape(cell.shape, cell.seq_len,
+                                       cell.global_batch, cell.kind),
+                     {"data": 1, "model": 1}, policy=POLICIES[cell.policy],
+                     optimizer=cell.optimizer, remat=cell.remat,
+                     backend="tpu", chip="h100")
+    m = TMS.Measurement.from_dryrun_record(rec)
+    got = TRES.predict_measurement(m)
+    assert rec["predicted"]["peak_bytes"] == got.peak_bytes \
+        == want.peak_bytes
+    assert want.peak_bytes <= 60 << 30            # GRID's admission rule
+    assert (m.arch, m.kind, m.seq_len, m.global_batch, m.backend, m.chip,
+            m.optimizer, m.remat, m.policy, m.grad_accum) == (
+        cell.arch, cell.kind, cell.seq_len, cell.global_batch, "tpu",
+        "h100", cell.optimizer, cell.remat, cell.policy, 1)
+    assert m.measured_bytes == 20 << 30 and m.meta["device"] == DEVICE
+    # the reference's calibration predicts the ingested cell alike
+    ref = RMS.Measurement.from_dict(m.to_dict())
+    assert RRES.predict_measurement(ref).peak_bytes == want.peak_bytes
+
+
+def test_observed_bytes_reads_the_total_and_rebuilds_it():
+    rec = M.record_for(M.GRID[0], fake_memory(7 << 30), DEVICE)
+    for watch in (TW, RW):
+        assert watch.observed_bytes(rec) == 7 << 30
+        assert watch.observed_bytes(rec["memory"]) == 7 << 30
+        no_total = dict(rec, memory={k: v for k, v in rec["memory"].items()
+                                     if k != "total_bytes"})
+        assert watch.observed_bytes(no_total) == 7 << 30
+        no_counter = dict(no_total, memory={
+            k: v for k, v in no_total["memory"].items()
+            if k != "temp_bytes"})
+        assert watch.observed_bytes(no_counter) is None
+
+
+def test_a_dryrun_record_ingests_as_in_the_reference():
+    rec = {"arch": "llama3.2-3b", "shape": "train_4k", "mesh": "16x16",
+           "kind": "train", "compile_seconds": 12.5,
+           "memory": {"argument_bytes": 10, "output_bytes": 4,
+                      "temp_bytes": 100, "alias_bytes": 4}}
+    for r in (rec, dict(rec, mesh_shape={"data": 4, "model": 2})):
+        got = TMS.Measurement.from_dryrun_record(r, source="x.json")
+        want = RMS.Measurement.from_dryrun_record(r, source="x.json")
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        assert got.backend == "cpu" and got.seq_len == 4096
+
+
+def test_memory_stats_refuses_a_device_that_is_not_cuda():
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        DM.memory_stats(lambda: None, 0, "cpu")
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        DM.allocated_bytes(torch.device("cpu"))
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        M.run_cell(M.GRID[0], device="cpu")
+
+
+def test_memory_counters_sum_to_the_peak():
+    mem = fake_memory(9 << 30, start=5 << 30)
+    assert mem.stats.total_bytes == mem.peak_bytes - mem.baseline_bytes
+    assert mem.stats.temp_bytes >= 0
+
+
+def test_cli_exits_2_without_a_card(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert M.main([]) == 2
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_store_name_of_the_card():
+    assert M.store_name(DEVICE) == "h100_80gb_hbm3_700w"
+
+
+def test_measured_dir_is_under_experiments():
+    assert measured_dir() == repo_root() / "experiments" / "measured"
+
+
+CPU_CELLS = [("llava15-7b", "train", 24, "llava_stage1", "adamw"),
+             ("llava15-7b", "prefill", 24, "full", None),
+             ("llava15-7b", "decode", 12, "full", None),
+             ("seamless-m4t-large-v2", "train", 16, "full", "adamw"),
+             ("seamless-m4t-large-v2", "prefill", 16, "full", None),
+             ("seamless-m4t-large-v2", "decode", 12, "full", None),
+             ("mamba2-1.3b", "prefill", 40, "full", None),
+             ("mamba2-1.3b", "decode", 12, "full", None)]
+
+
+@pytest.mark.parametrize("arch,kind,seq,policy,opt", CPU_CELLS)
+def test_step_closures_run_on_the_cpu(arch, kind, seq, policy, opt):
+    cell = M.MeasureCell(arch, kind, seq, 2, policy, opt,
+                         "block" if kind == "train" else None)
+    model = build_model(get_config(arch).reduced())
+    gen = torch.Generator().manual_seed(0)
+    state = M.make_state(cell, model, gen, "cpu")
+    out = M.cell_step(cell, model, state, gen)()
+    M.check_outputs(cell, model, out)
+    if kind == "train":
+        assert len(out["loss"]) == M.TRAIN_STEPS
+        assert int(out["state"].step) == M.TRAIN_STEPS
+    else:
+        assert tuple(out["logits"].shape) == (2, 1, model.cfg.vocab)
+    if kind == "decode" and model.cfg.family != "ssm":
+        assert int(out["cache"]["len"][0]) == seq
+        assert out["cache"]["blocks"]["k"].shape[2] == seq
+
+
+def test_summary_of_a_store():
+    """The error table on records whose 'measured' bytes are their
+    predictions times a factor per arch: raw MAPE is that factor's
+    distance from 1, the tables' rows cover every arch x kind."""
+    factors = {"llava15-7b": 1.2, "mamba2-1.3b": 0.9}
+    cells = [c for c in M.GRID if c.arch in factors]
+    records = []
+    for c in cells:
+        peak = M.predict(c).peak_bytes
+        records.append(M.record_for(c, fake_memory(
+            int(peak * factors[c.arch])), DEVICE))
+    out = M.summary(M.store_of(records))
+    rows = {r["group"]: r for r in out["rows"]}
+    assert out["cells"] == len(cells)
+    assert rows["llava15-7b train"]["mape_raw_tpu"] == pytest.approx(
+        100 * 0.2 / 1.2, abs=1e-6)
+    assert rows["SSM"]["mape_raw_tpu"] == pytest.approx(100 * 0.1 / 0.9,
+                                                        abs=1e-6)
+    assert rows["all cells"]["cells"] == len(cells)
+    assert rows["all cells"]["held_out_cells"] == len(cells) // 2
+    assert rows["all multimodal training cells"]["cells"] == sum(
+        c.kind == "train" for c in cells)
+    assert rows["llava15-7b train"]["worst_measured_over_predicted"] \
+        == pytest.approx(1.2, abs=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the card's committed store
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def card_store():
+    with open(STORE) as f:
+        return json.load(f)
+
+
+def test_card_store_predicts_as_the_reference(card_store):
+    got = TMS.MeasurementStore.from_dict(card_store)
+    want = RMS.MeasurementStore.from_dict(card_store)
+    assert len(got) == len(want) >= 35
+    for g, w in zip(got, want):
+        assert g.backend == "tpu" and g.chip == "h100" \
+            and g.meta["device"]["name"]
+        assert TRES.predict_measurement(g).peak_bytes \
+            == RRES.predict_measurement(w).peak_bytes, g.key
+
+
+def perf_table() -> dict:
+    """The rows of PERF.md's card MAPE table: group -> (cells, raw tpu,
+    raw cpu, held-out calibrated or None)."""
+    text = open(os.path.join(repo_root(), "PERF.md")).read()
+    block = text.split("<!-- card-mape-table -->")[1]
+    rows = {}
+    for line in block.strip().splitlines()[2:]:
+        if not line.startswith("|"):
+            break
+        cols = [c.strip() for c in line.strip("|").split("|")]
+        num = (lambda s: None if s in ("—", "-", "") else float(s))
+        rows[cols[0].strip("*")] = (int(cols[1]), num(cols[2]),
+                                    num(cols[3]), num(cols[4]))
+    return rows
+
+
+def test_card_store_gives_perf_md_table(card_store):
+    out = M.summary(TMS.MeasurementStore.from_dict(card_store))
+    table = perf_table()
+    assert {r["group"] for r in out["rows"]} == set(table)
+    for r in out["rows"]:
+        n, raw, raw_cpu, held = table[r["group"]]
+        assert n == r["cells"], r["group"]
+        assert raw == pytest.approx(r["mape_raw_tpu"], abs=0.01)
+        assert raw_cpu == pytest.approx(r["mape_raw_cpu"], abs=0.01)
+        if r["mape_held_out"] is None:
+            assert held is None, r["group"]
+        else:
+            assert held == pytest.approx(r["mape_held_out"], abs=0.01)
