@@ -18,7 +18,9 @@ llava15-7b and mamba2-1.3b
 serving (prefill + greedy decode) at their published widths and depths
 through ``repro_torch.serve.generate``, llava15-7b training steps at the
 paper's fig2b setting through ``repro_torch.train``, seamless-m4t-large-v2
-(the encoder-decoder) serving and training, and the measurement grid
+(the encoder-decoder) serving and training, arctic-480b (the MoE) serving
+at its published width with its depth cut to 2 layers, mamba2-1.3b
+training at full size, and the measurement grid
 (``repro_torch.launch.measure``: one real step per cell, the predictor's
 error on the card) — and holds every hand-written kernel against its
 plain PyTorch version on the card.
@@ -151,7 +153,33 @@ Phases (any failure exits non-zero):
    gradients in float64: the kernel path's distance from them (its worst
    leaf) within ``FP32_GRAD_TOL`` or ``FP64_WITNESS_RATIO`` times the
    plain path's;
-8. ``measure``: every cell of ``repro_torch.launch.measure.GRID`` (39
+5d. ``serve_arctic_480b_2l``: the MoE arctic-480b at full published
+   width (d_model 7,168, 56 / 8 heads x 128, 128 experts x 4,864 top-2,
+   dense residual 4,864, vocab 32,000) with its depth cut to 2 of 35
+   layers (one layer is 27.2 GB in bf16; a third does not fit), random
+   bf16 weights made on the card one leaf at a time, under
+   ``mesh_context({"data": 1, "model": 1})`` (the expert-parallel
+   dispatch): 4 prompts of 1,024 tokens, 16 greedy tokens; the readings
+   of phase 5 (launches gated: flash 2 per prefill, none in decode,
+   RMSNorm 7 per prefill and 5 per decode step; peaks beside the byte
+   model of the depth-2 config), the prefill's kernel path against the
+   plain path (2e-2 of scale), the share of (token, expert) pairs the
+   capacity drops and of tokens whose top-2 set differs between the two
+   paths;
+6d. ``train_mamba2_1_3b``: mamba2-1.3b at full width and depth, FULL_TRAIN,
+   AdamW, remat "block", 4 x 2,048, 3 steps through the chunked SSD in
+   plain tensor ops (no SSD kernel: the reference trains through its lax
+   twin): the readings and gates of phase 6c (RMSNorm 193 forward and 97
+   backward launches per step, no flash, no SSD; the fp32 gradient gate
+   at the trained weights with the float64 witness), and the reduced
+   config's step on the card against the CPU;
+6e. ``train_arctic_reduced``: the reduced arctic, the same weights and
+   batch on the card and on the CPU under the 1 x 1 mesh, 3 Adafactor
+   steps (arctic's own optimizer): the loss of every step and the
+   gradients within ``MOE_TOL`` of scale (the reference's own bound for
+   MoE configs, whose routing may flip on a rounding), the share of
+   flipped routing choices a reading;
+8. ``measure``: every cell of ``repro_torch.launch.measure.GRID`` (44
    cells of 7 archs at full width and depth) through ``measure_grid``,
    one real step each with the allocator read around it: a ``measure``
    line per dry-run-schema record, each record's prediction equal to the
@@ -233,6 +261,8 @@ from repro_torch.kernels import shard_factor as SF  # noqa: E402
 from repro_torch.kernels import ssd as SSD  # noqa: E402
 from repro_torch.calibrate.paths import measured_dir  # noqa: E402
 from repro_torch.launch import measure as ME  # noqa: E402
+from repro_torch.mesh_ctx import mesh_context  # noqa: E402
+from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import param as PM  # noqa: E402
 from repro_torch.serve import serve_step as SV  # noqa: E402
@@ -309,6 +339,23 @@ FP64_WITNESS_RATIO = 2.0
 ENCDEC_ARCH = "seamless-m4t-large-v2"
 ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_NEW = 4, 2048, 32
 ENCDEC_TRAIN_BATCH = 4
+
+# the SSM training path: mamba2-1.3b at full width and depth, FULL_TRAIN,
+# AdamW, remat "block", 4 x 2,048 tokens, TRAIN_STEPS steps
+MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ = 4, 2048
+
+# the MoE serving path: arctic-480b at full published width with its
+# depth cut to 2 of 35 layers, 4 prompts of 1,024 tokens, 16 greedy new
+# tokens, under a 1 x 1 mesh (the expert-parallel dispatch)
+MOE_ARCH = "arctic-480b"
+MOE_LAYERS = 2
+MOE_BATCH, MOE_PROMPT, MOE_NEW = 4, 1024, 16
+MOE_MESH = {"data": 1, "model": 1}
+# an MoE config's logits and gradients, card against CPU: a rounding can
+# flip a routing choice and move them, so the reference's own MoE bound
+# (tests/test_models.py, decode against prefill) holds them; dense
+# configs keep 2e-2
+MOE_TOL = 8e-2
 
 RESULT_COLUMNS = ("peak_bytes", "budget_bytes", "fits", "offload_bytes",
                   "overlap_slack_bytes", "pool_bytes", "draft_bytes",
@@ -2316,20 +2363,30 @@ def train_batch(cfg, gen: torch.Generator, n_batch: int, n_text: int):
 
 def train_program(cfg) -> dict:
     """The reference's launches per step under remat "block" with a frozen
-    vision tower: the ViT's 24 attention forwards; each LM block's
+    vision tower (a decoder LM: no tower): the ViT's 24 attention
+    forwards; each LM block's
     attention forward and its two RMSNorms twice (the recompute reruns the
     block in the backward), its attention backward and RMSNorm backwards
     once; the final norm once each way.  The enc-dec under FULL_TRAIN: each
     encoder block's attention and two RMSNorms, each decoder block's self
     and cross attention and three RMSNorms, forward twice and backward
-    once; the encoder's and the decoder's final norms once each way."""
+    once; the encoder's and the decoder's final norms once each way.
+    mamba2 under FULL_TRAIN: each block's two RMSNorms (block norm, gated
+    norm) forward twice and backward once, the final norm once each way;
+    no attention, and no SSD kernel (training runs the chunked SSD in
+    plain tensor ops)."""
+    if cfg.family == "ssm":
+        n = cfg.n_layers
+        return {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+                "rmsnorm_fwd": 2 * 2 * n + 1, "rmsnorm_bwd": 2 * n + 1}
     if cfg.family == "encdec":
         attn = cfg.encdec.n_enc_layers + 2 * cfg.n_layers
         norms = 2 * cfg.encdec.n_enc_layers + 3 * cfg.n_layers
         return {"flash_fwd": 2 * attn, "flash_dq": attn, "flash_dkv": attn,
                 "rmsnorm_fwd": 2 * norms + 2, "rmsnorm_bwd": norms + 2}
     n = cfg.n_layers
-    return {"flash_fwd": cfg.vlm.vit_layers + 2 * n, "flash_dq": n,
+    vit = cfg.vlm.vit_layers if cfg.vlm else 0
+    return {"flash_fwd": vit + 2 * n, "flash_dq": n,
             "flash_dkv": n, "rmsnorm_fwd": 2 * 2 * n + 1,
             "rmsnorm_bwd": 2 * n + 1}
 
@@ -2377,45 +2434,109 @@ def grads_agree(got: dict, want: dict, tol, what: str,
             "max_norm_rel_err": worst_norm, "tolerance": tol}
 
 
-def reduced_train_card_vs_cpu(problems: list) -> dict:
-    """The reduced llava15-7b, same weights and batch, one LLaVA stage-2
-    step on the card (kernels) and on the CPU (plain versions): loss,
-    gradients and updated params within 2e-2 of each tensor's scale."""
-    cfg = get_config(TRAIN_ARCH).reduced()
+class RouteLog:
+    """Within the context every MoE routing (``models.moe._route``) is
+    recorded: each call's top-k expert indices (T, k), on the host."""
+
+    def __enter__(self):
+        self.top_i = []
+        self._saved = MOE._route
+
+        def route(logits, top_k):
+            out = self._saved(logits, top_k)
+            self.top_i.append(out[1].cpu())
+            return out
+        MOE._route = route
+        return self
+
+    def __exit__(self, *exc):
+        MOE._route = self._saved
+
+    def dropped(self, n_experts: int, top_k: int, cf: float) -> dict:
+        """The (token, expert) pairs past their expert's capacity, over
+        every routing recorded (each one dispatch of ``_ep_local``)."""
+        pairs = drops = 0
+        for top_i in self.top_i:
+            C = MOE._capacity(top_i.shape[0], top_k, n_experts, cf)
+            drops += int((MOE._slots(top_i.reshape(-1), n_experts)
+                          >= C).sum())
+            pairs += top_i.numel()
+        return {"pairs": pairs, "dropped": drops,
+                "share": drops / max(pairs, 1)}
+
+
+def flipped(a: RouteLog, b: RouteLog) -> dict:
+    """Tokens whose top-k expert set differs between two runs of the same
+    program (their routings in the same order)."""
+    if len(a.top_i) != len(b.top_i):
+        fail(f"the runs routed {len(a.top_i)} and {len(b.top_i)} times")
+    tokens = differ = 0
+    for x, y in zip(a.top_i, b.top_i):
+        differ += int((x.sort(-1).values != y.sort(-1).values)
+                      .any(-1).sum())
+        tokens += x.shape[0]
+    return {"tokens": tokens, "differ": differ,
+            "share": differ / max(tokens, 1)}
+
+
+def reduced_train_card_vs_cpu(problems: list, arch: str = TRAIN_ARCH,
+                              policy=LLAVA_STAGE2, make_batch=None,
+                              optimizer: str = "adamw", steps: int = 1,
+                              tol: float = 2e-2) -> dict:
+    """The reduced ``arch``, same weights and batch (``make_batch(cfg,
+    gen)``, default the VLM's 2 x 8), ``steps`` steps of ``policy`` on the
+    card (kernels) and on the CPU (plain versions): the loss and the
+    gradients before the first step, every step's loss and the params
+    after the last within ``tol`` of each tensor's scale; the share of
+    routing choices that differ (an MoE config), a reading."""
+    cfg = get_config(arch).reduced()
     model = build_model(cfg)
     gen = torch.Generator()
     gen.manual_seed(SEED)
     params = {"cpu": model.init(gen, "cpu")}
-    batches = {"cpu": train_batch(cfg, gen, 2, 8)}
+    batches = {"cpu": (make_batch or (lambda c, g: train_batch(c, g, 2, 8)))(
+        cfg, gen)}
     params["card"] = copy.deepcopy(params["cpu"]).to(DEV)
     batches["card"] = {k: v.to(DEV) for k, v in batches["cpu"].items()}
-    opt_cfg = OptimizerConfig(name="adamw")
-    step = make_train_step(model, LLAVA_STAGE2, opt_cfg, remat="block")
+    opt_cfg = OptimizerConfig(name=optimizer)
+    step = make_train_step(model, policy, opt_cfg, remat="block")
     before = model_counts()
-    res = {}
+    res, routes = {}, {}
     for side in ("cpu", "card"):
-        st = train_state(params[side], LLAVA_STAGE2, opt_cfg)
-        loss, grads = loss_and_grads(model, st.params, batches[side])
-        st, metrics = step(st, batches[side])
+        st = train_state(params[side], policy, opt_cfg)
+        with RouteLog() as routes[side]:
+            loss, grads = loss_and_grads(model, st.params, batches[side])
+        losses = []
+        for _ in range(steps):
+            st, metrics = step(st, batches[side])
+            losses.append(float(metrics["loss"]))
         res[side] = (loss, grads, dict(st.params.named_parameters()),
-                     float(metrics["loss"]))
+                     losses)
     used = {k: model_counts()[k] - before[k] for k in before}
-    if min(used.values()) <= 0:
+    if min(v for k, v in used.items()
+           if train_program(cfg)[k] > 0) <= 0:
         problems.append(f"reduced card training launched a kernel no time: "
                         f"{used}")
     (l_cpu, g_cpu, p_cpu, m_cpu) = res["cpu"]
     (l_card, g_card, p_card, m_card) = res["card"]
-    for a, b, what in ((l_card, l_cpu, "loss"), (m_card, m_cpu, "step loss")):
-        if abs(a - b) > 2e-2 * max(1.0, abs(b)):
+    for a, b, what in [(l_card, l_cpu, "loss")] + [
+            (x, y, f"step {i} loss") for i, (x, y) in
+            enumerate(zip(m_card, m_cpu))]:
+        if abs(a - b) > tol * max(1.0, abs(b)):
             problems.append(f"reduced train card/cpu: {what} {a} vs {b}")
-    return {"loss": {"card": l_card, "cpu": l_cpu},
-            "grads": grads_agree(g_card, g_cpu, 2e-2,
-                                 "reduced train card/cpu grads", problems),
-            "params": grads_agree({k: v.detach() for k, v in p_card.items()},
-                                  {k: v.detach() for k, v in p_cpu.items()},
-                                  2e-2, "reduced train card/cpu params",
-                                  problems),
-            "launches": used}
+    out = {"arch": cfg.name, "optimizer": optimizer, "steps": steps,
+           "loss": {"card": l_card, "cpu": l_cpu},
+           "step_losses": {"card": m_card, "cpu": m_cpu},
+           "grads": grads_agree(g_card, g_cpu, tol,
+                                "reduced train card/cpu grads", problems),
+           "params": grads_agree({k: v.detach() for k, v in p_card.items()},
+                                 {k: v.detach() for k, v in p_cpu.items()},
+                                 tol, "reduced train card/cpu params",
+                                 problems),
+           "launches": used}
+    if cfg.moe:
+        out["routing_flips"] = flipped(routes["card"], routes["cpu"])
+    return out
 
 
 def train_phase(name: str, cfg, policy, cut: str, problems: list,
@@ -2568,7 +2689,8 @@ def train_phase(name: str, cfg, policy, cut: str, problems: list,
            "tokens_per_sample": seq_len,
            **({"image_tokens": cfg.vlm.n_image_tokens,
                "text_tokens": TRAIN_TEXT} if cfg.vlm else
-              {"encoder_frames": int(seq_len * cfg.encdec.enc_seq_ratio)}),
+              {"encoder_frames": int(seq_len * cfg.encdec.enc_seq_ratio)}
+              if cfg.encdec else {}),
            "params": sum(t.numel() for t in state.params.parameters()),
            "trainable_params": sum(t.numel() for _, t in
                                    PM.trainable_params(state.params)),
@@ -2813,10 +2935,11 @@ def train_optimizers() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def encdec_batch(model, gen: torch.Generator, n_batch: int, n_tokens: int,
-                 kind: str = "prefill") -> dict:
-    """The stub speech frontend's frames and token ids (and labels for
-    ``kind="train"``), as the measurement grid makes a cell's inputs."""
+def model_batch(model, gen: torch.Generator, n_batch: int, n_tokens: int,
+                kind: str = "prefill") -> dict:
+    """Random inputs of ``model.batch_spec`` (token ids; the enc-dec's
+    stub speech frontend frames too; labels for ``kind="train"``), as the
+    measurement grid makes a cell's inputs."""
     return ME.make_batch(model, ME.MeasureCell(model.cfg.name, kind,
                                                n_tokens, n_batch), gen)
 
@@ -2838,7 +2961,7 @@ def serve_seamless_m4t_large_v2() -> dict:
     at_start = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     params = model.init(gen, DEV)
-    batch = encdec_batch(model, gen, ENCDEC_BATCH, ENCDEC_PROMPT)
+    batch = model_batch(model, gen, ENCDEC_BATCH, ENCDEC_PROMPT)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     B_, S = ENCDEC_BATCH, ENCDEC_PROMPT
@@ -2924,7 +3047,7 @@ def serve_seamless_m4t_large_v2() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     out["reduced_card_vs_cpu"] = reduced_card_vs_cpu(
-        ENCDEC_ARCH, lambda cfg, gen: encdec_batch(build_model(cfg), gen, 2,
+        ENCDEC_ARCH, lambda cfg, gen: model_batch(build_model(cfg), gen, 2,
                                                    8),
         serve_counts)
     out["elapsed_s"] = time.perf_counter() - t_phase
@@ -2947,12 +3070,192 @@ def train_seamless_m4t_large_v2() -> dict:
     out = train_phase(
         "train_seamless_m4t_large_v2", cfg, FULL_TRAIN,
         "none: full width and depth", problems,
-        make_batch=lambda cfg, gen: encdec_batch(
+        make_batch=lambda cfg, gen: model_batch(
             build_model(cfg), gen, ENCDEC_TRAIN_BATCH, ENCDEC_PROMPT,
             "train"),
         n_batch=ENCDEC_TRAIN_BATCH, seq_len=ENCDEC_PROMPT, fp64_witness=True)
     out["elapsed_s"] = time.perf_counter() - t_phase
     say("train_seamless_m4t_large_v2 " + json.dumps(out))
+    if problems:
+        fail("; ".join(problems))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6d: training mamba2-1.3b
+# ---------------------------------------------------------------------------
+
+
+def train_mamba2_1_3b() -> dict:
+    """mamba2-1.3b at full width and depth (48 layers), FULL_TRAIN, AdamW,
+    remat "block", 4 x 2,048 tokens, TRAIN_STEPS steps through the chunked
+    SSD in plain tensor ops: the training phase's readings and gates (the
+    loss finite and moving, launches per step the reference's program:
+    RMSNorm only; the fp32 paths' gradients against float64 at the trained
+    weights), then the reduced config's step on the card against the CPU;
+    the line prints before its gates can fail the run."""
+    t_phase = time.perf_counter()
+    cfg = get_config(MAMBA_ARCH)
+    problems = []
+    out = train_phase(
+        "train_mamba2_1_3b", cfg, FULL_TRAIN, "none: full width and depth",
+        problems, make_batch=lambda cfg, gen: model_batch(
+            build_model(cfg), gen, MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ,
+            "train"),
+        n_batch=MAMBA_TRAIN_BATCH, seq_len=MAMBA_TRAIN_SEQ,
+        fp64_witness=True)
+    out["reduced_card_vs_cpu"] = reduced_train_card_vs_cpu(
+        problems, MAMBA_ARCH, FULL_TRAIN,
+        lambda cfg, gen: model_batch(build_model(cfg), gen, 2, 40, "train"))
+    out["elapsed_s"] = time.perf_counter() - t_phase
+    say("train_mamba2_1_3b " + json.dumps(out))
+    if problems:
+        fail("; ".join(problems))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 5d and 6e: the MoE arctic-480b
+# ---------------------------------------------------------------------------
+
+
+def serve_arctic_480b_2l() -> dict:
+    """arctic-480b at full published width with its depth cut to 2 of 35
+    layers, random bf16 weights made on the card one leaf at a time from a
+    seeded generator, under ``mesh_context(MOE_MESH)``: 4 prompts of 1,024
+    tokens, 16 greedy tokens through ``generate``, then the same program
+    phase by phase; launches against the reference's program, the prefill
+    through the kernels against the plain versions (2e-2 of scale), the
+    share of (token, expert) pairs the capacity drops and of tokens whose
+    top-2 set differs between the two paths, peaks beside the byte model's
+    prediction for the depth-2 config."""
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    model = build_model(cfg)
+    meta = MOE.moe_spec("ffn", cfg.d_model, cfg.moe, cfg.dtype).meta
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    at_start = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = model.init(gen, DEV)
+    batch = model_batch(model, gen, MOE_BATCH, MOE_PROMPT)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    B_, S = MOE_BATCH, MOE_PROMPT
+    problems = []
+    with mesh_context(MOE_MESH):
+        with RouteLog() as gen_routes:
+            tokens, generate_s = serve_generate(model, params, batch,
+                                                MOE_NEW)
+        main_launches = serve_counts()
+        if SF.launches or SC.launches or SSD.launches or FL.dq_launches or \
+                FL.dkv_launches or RN.bwd_launches:
+            fail(f"arctic serving launched another kernel: "
+                 f"{model_counts()}")
+
+        def after_prefill(logits, cache):
+            hd = cfg.resolved_head_dim
+            shape = (MOE_LAYERS, B_, S, cfg.n_kv_heads, hd)
+            for key in ("k", "v"):
+                leaf = cache["blocks"][key]
+                if tuple(leaf.shape) != shape or \
+                        leaf.dtype != torch.bfloat16:
+                    fail(f"arctic prefill cache {key}: {leaf.dtype} "
+                         f"{tuple(leaf.shape)}, expected bf16 {shape}")
+            if not bool((cache["len"] == S).all()):
+                fail("arctic prefill cache len")
+            # the kernel path against the same prefill through the plain
+            # versions (the gate), and the routing each path chose
+            with RouteLog() as kernel_routes:
+                SV.make_prefill_step(model)(params, batch)
+            with PlainKernels(), RouteLog() as plain_routes:
+                plain_logits, _ = SV.make_prefill_step(model)(params, batch)
+            checked = logits_agree(logits[:, -1], plain_logits[:, -1],
+                                   "arctic prefill kernel path vs plain "
+                                   "path", problems)
+            checked["routing_flips"] = flipped(kernel_routes, plain_routes)
+            checked["prefill_dropped"] = kernel_routes.dropped(
+                meta["n_experts"], meta["top_k"], meta["capacity_factor"])
+            del plain_logits
+            gc.collect()
+            torch.cuda.empty_cache()
+            return checked
+        phases = serve_by_phase(model, params, batch, tokens, serve_counts,
+                                after_prefill)
+
+    # the reference's program: one flash call per block in the prefill and
+    # none in decode; RMSNorm 3 per block (norm1 twice: _prefill_kv and the
+    # block) + final in the prefill, 2 per block + final per decode step
+    n_steps = phases["n_steps"]
+    check_launches("arctic serving", phases, main_launches, {
+        "prefill": {"flash_fwd": MOE_LAYERS,
+                    "rmsnorm_fwd": 3 * MOE_LAYERS + 1},
+        "decode": {"flash_fwd": 0,
+                   "rmsnorm_fwd": n_steps * (2 * MOE_LAYERS + 1)}})
+
+    # the port's own predictor for the same request on the depth-2 config
+    # (the XLA byte model, backend="tpu", the 1 x 1 mesh)
+    preds = {}
+    for kind, seq in (("prefill", S), ("decode", S + MOE_NEW)):
+        p = PR.predict(model, FULL_TRAIN, PL.make_context(
+            cfg, MOE_MESH, kind=kind, global_batch=B_, seq_len=seq,
+            backend="tpu"), chip="h100")
+        preds[kind] = {"peak_bytes": p.peak_bytes,
+                       "param_bytes": p.param_bytes,
+                       "cache_bytes": p.cache_bytes,
+                       "act_transient_bytes": p.act_transient_bytes,
+                       "input_bytes": p.input_bytes}
+    out = {
+        "arch": MOE_ARCH, "cut": f"depth {MOE_LAYERS} of "
+        f"{get_config(MOE_ARCH).n_layers} layers (full width)",
+        "mesh": MOE_MESH, "requests": B_, "prompt_tokens": S,
+        "new_tokens": MOE_NEW, "n_layers": MOE_LAYERS,
+        "experts": meta["n_experts"], "top_k": meta["top_k"],
+        "capacity_factor": meta["capacity_factor"],
+        "params": sum(t.numel() for t in params.parameters()),
+        "param_bytes": sum(t.numel() * t.element_size()
+                           for t in params.parameters()),
+        "init_s": init_s, "init_peak_bytes": init_peak,
+        "resident_at_start_bytes": at_start,
+        **serve_readings(B_, MOE_NEW, generate_s, main_launches, phases,
+                         preds),
+        "prefill_tokens_per_s": B_ * S / phases["prefill_s"],
+        "dropped": {"generate": gen_routes.dropped(
+            meta["n_experts"], meta["top_k"], meta["capacity_factor"])},
+        "prefill_vs_plain": phases["checked"],
+    }
+    del params, batch, phases
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["elapsed_s"] = time.perf_counter() - t_phase
+    say("serve_arctic_480b_2l " + json.dumps(out))
+    if problems:
+        fail("; ".join(problems))
+    return out
+
+
+def train_arctic_reduced() -> dict:
+    """The reduced arctic (2 layers, d_model 64, 4 experts top-2, dense
+    residual), the same weights and batch on the card (kernels) and on
+    the CPU (plain versions) under ``mesh_context(MOE_MESH)``, 3 Adafactor
+    steps: loss and gradients card against CPU within ``MOE_TOL`` of
+    scale; the routing flips a reading."""
+    t_phase = time.perf_counter()
+    problems = []
+    with mesh_context(MOE_MESH):
+        out = reduced_train_card_vs_cpu(
+            problems, MOE_ARCH, FULL_TRAIN,
+            lambda cfg, gen: model_batch(build_model(cfg), gen, 2, 32,
+                                         "train"),
+            optimizer="adafactor", steps=TRAIN_STEPS, tol=MOE_TOL)
+    out["elapsed_s"] = time.perf_counter() - t_phase
+    say("train_arctic_reduced " + json.dumps(out))
     if problems:
         fail("; ".join(problems))
     return out
@@ -3078,28 +3381,33 @@ def device_ms(fn, kernel_name: str, launches: int = 20,
     wrapper's host work that the event timing includes; with ``flush`` an
     L2 flush (a kernel of its own) before each call.  None when the
     profiler reports no device time for it (then only the event time is
-    known, and the report says "not measured")."""
+    known, and the report says "not measured").  A trace that lacks the
+    kernel is taken once more (one such miss was seen after a trace of
+    ~86,000 kernels earlier in the run)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(launches):
-                if flush:
-                    flush_l2()
-                fn()
-            torch.cuda.synchronize()
-    except RuntimeError as e:       # no device tracing on this machine
-        print(f"chip_smoke: profiler unavailable ({e})", file=sys.stderr)
-        return None
-    for ev in prof.key_averages():
-        if kernel_name in ev.key:
-            total_us = getattr(ev, "device_time_total", None)
-            if total_us is None:
-                total_us = getattr(ev, "cuda_time_total", 0)
-            if total_us and ev.count:
-                return total_us / ev.count / 1e3
+    for _ in range(2):
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(launches):
+                    if flush:
+                        flush_l2()
+                    fn()
+                torch.cuda.synchronize()
+        except RuntimeError as e:       # no device tracing on this machine
+            print(f"chip_smoke: profiler unavailable ({e})", file=sys.stderr)
+            return None
+        for ev in prof.key_averages():
+            if kernel_name in ev.key:
+                total_us = getattr(ev, "device_time_total", None)
+                if total_us is None:
+                    total_us = getattr(ev, "cuda_time_total", 0)
+                if total_us and ev.count:
+                    return total_us / ev.count / 1e3
+        print(f"chip_smoke: the profiler's trace has no {kernel_name}",
+              file=sys.stderr)
     return None
 
 
@@ -3620,6 +3928,11 @@ def main(argv: list) -> int:
         launches[k] += n
     phase_done("5c serve_seamless_m4t_large_v2")
 
+    # phase 5d: serving the MoE arctic-480b at full width, depth 2
+    for k, n in serve_arctic_480b_2l()["launches"]["generate"].items():
+        launches[k] += n
+    phase_done("5d serve_arctic_480b_2l")
+
     # phase 6: training, stage 1 at full size, stage 2 with 8 LM blocks,
     # then stage 2's Adafactor and 8-bit Adam steps
     for phase in train_llava15_7b():
@@ -3632,6 +3945,16 @@ def main(argv: list) -> int:
     for k, n in train_seamless_m4t_large_v2()["launches_total"].items():
         launches[k] += n
     phase_done("6c train_seamless_m4t_large_v2")
+
+    # phase 6d: training mamba2-1.3b at full size
+    for k, n in train_mamba2_1_3b()["launches_total"].items():
+        launches[k] += n
+    phase_done("6d train_mamba2_1_3b")
+
+    # phase 6e: the reduced arctic trained on the card and on the CPU (its
+    # launches are a check's, not the main path's)
+    train_arctic_reduced()
+    phase_done("6e train_arctic_reduced")
 
     # phase 8: the measurement grid
     for k, n in measure_phase().items():

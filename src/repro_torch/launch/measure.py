@@ -103,6 +103,10 @@ GRID: list[MeasureCell] = (
     + _serve("mamba2-1.3b", "prefill", 2000, (4,))
     + _serve("mamba2-1.3b", "prefill", 4096, (4,))
     + _serve("mamba2-1.3b", "decode", 4096, (4, 32))
+    # the SSM's training (the chunked SSD in plain tensor ops), <= 32.7 GiB
+    + _train("mamba2-1.3b", 2048, (1, 4, 8), "full", "adamw")
+    + _train("mamba2-1.3b", 4096, (4,), "full", "adamw")
+    + _train("mamba2-1.3b", 2048, (2,), "full", "adamw", "none")
     + _train("llama3.2-3b", 2048, (1, 2), "full", "adamw")
     + _train("smollm-360m", 2048, (8, 32), "full", "adamw")
     + _train("llama3.1-8b", 2048, (2,), "full", "adafactor"))
@@ -303,12 +307,15 @@ def run_cell(cell: MeasureCell, reuse: Optional[CellRun] = None,
              device="cuda") -> CellRun:
     """One cell on the card: its state made (or ``reuse``'s, a run of a
     cell of the same arch and train state), its inputs, its step under
-    ``device_metrics.memory_stats``.  ``baseline`` is read before the
-    state is made; on reuse, the allocator must read exactly what it read
-    once the state was made (``resident``), so the baseline still holds.
-    Raises off the card."""
+    ``device_metrics.memory_stats``, all under ``mesh_context(MESH)`` as
+    the reference's dry run lowers a cell under its mesh (only an MoE
+    forward reads it: it takes the expert-parallel path).  ``baseline``
+    is read before the state is made; on reuse, the allocator must read
+    exactly what it read once the state was made (``resident``), so the
+    baseline still holds.  Raises off the card."""
     from repro_torch.configs import get_config
     from repro_torch.core import device_metrics as DM
+    from repro_torch.mesh_ctx import mesh_context
     from repro_torch.models import build_model
     dev = torch.device(device)
     if dev.type != "cuda" or not torch.cuda.is_available():
@@ -338,8 +345,9 @@ def run_cell(cell: MeasureCell, reuse: Optional[CellRun] = None,
         baseline = DM.allocated_bytes(dev)
         state = make_state(cell, model, generator, dev)
         resident = DM.allocated_bytes(dev)
-    run = cell_step(cell, model, state, generator)
-    memory, out = DM.memory_stats(run, baseline, dev)
+    with mesh_context(MESH):
+        run = cell_step(cell, model, state, generator)
+        memory, out = DM.memory_stats(run, baseline, dev)
     check_outputs(cell, model, out)
     outputs = {"loss": out["loss"]} if cell.kind == "train" else {
         "logits_shape": list(out["logits"].shape)}

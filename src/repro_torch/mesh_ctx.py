@@ -8,9 +8,13 @@ smollm's 15 heads on a 16-way model axis).
 This is the arithmetic half of the resolution logic: the memory predictor
 turns the per-dim axis assignment into shard factors.  ``extra`` axes
 implement FSDP/ZeRO: they are greedily assigned to the first divisible,
-still-free dimension (params for FSDP, optimizer states for ZeRO).  The
-live-mesh half (device meshes, sharding constraints) arrives with the
-runnable model zoo.
+still-free dimension (params for FSDP, optimizer states for ZeRO).
+
+``mesh_context`` is the size half of the reference's: it activates a mesh
+*shape* (axis name -> size, no devices) and a rule table for model code.
+Model code reads it where the reference reads whether a mesh is live (the
+MoE FFN picks its expert-parallel path by it).  Device meshes and sharding
+constraints come with the runtime shell (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -69,6 +73,7 @@ DEFAULT_RULES: dict[str, tuple[str, ...]] = {
 
 class _Ctx(threading.local):
     def __init__(self):
+        self.mesh_shape: Optional[dict[str, int]] = None
         self.rules: dict[str, tuple[str, ...]] = dict(DEFAULT_RULES)
 
 
@@ -76,14 +81,28 @@ _CTX = _Ctx()
 
 
 @contextlib.contextmanager
-def rules_context(rules: Optional[dict] = None):
-    """Activate a logical rule table (overrides on top of the defaults)."""
-    old_rules = _CTX.rules
+def mesh_context(mesh_shape: Optional[dict], rules: Optional[dict] = None):
+    """Activate a mesh shape (``{"data": 1, "model": 1}``; None: no mesh)
+    and a logical rule table (overrides on top of the defaults)."""
+    old_shape, old_rules = _CTX.mesh_shape, _CTX.rules
+    _CTX.mesh_shape = dict(mesh_shape) if mesh_shape is not None else None
     _CTX.rules = {**DEFAULT_RULES, **(rules or {})}
     try:
         yield
     finally:
-        _CTX.rules = old_rules
+        _CTX.mesh_shape, _CTX.rules = old_shape, old_rules
+
+
+def current_mesh_shape() -> Optional[dict]:
+    """The active mesh shape, or None outside any ``mesh_context``."""
+    return None if _CTX.mesh_shape is None else dict(_CTX.mesh_shape)
+
+
+def mesh_axis_sizes(mesh_shape: Optional[dict] = None) -> dict[str, int]:
+    """Axis name -> size of ``mesh_shape`` (default: the active one; {}
+    when there is none)."""
+    shape = mesh_shape if mesh_shape is not None else _CTX.mesh_shape
+    return dict(shape) if shape else {}
 
 
 def current_rules() -> dict:

@@ -50,6 +50,11 @@ from torch import nn
 from repro_torch.core.spec import ModuleSpec, ParamSpec, TrainPolicy
 
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# a leaf of at least this many elements is scaled in place at init; a
+# smaller one keeps the out-of-place program, whose allocator footprint
+# the card's measured cells were taken with (the caching allocator's free
+# blocks after init move later peaks by up to a few MB)
+IN_PLACE_ELEMENTS = 1 << 30
 
 
 class _Named:
@@ -145,6 +150,11 @@ def _init_leaf(p: ParamSpec, generator: torch.Generator,
         scale = p.init_scale * 0.02
     x = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=device)
+    if x.numel() >= IN_PLACE_ELEMENTS:
+        # the same values, scaled in place: the transient is one fp32 draw
+        # and its cast, not two fp32 tensors (an arctic-480b expert stack
+        # is 17.9 GB in fp32, and the second copy would not fit the card)
+        return x.mul_(scale).to(dtype)
     return (x * scale).to(dtype)
 
 

@@ -16,14 +16,15 @@
 
 Every family's ``spec`` and ``batch_spec`` are here, so ``planner.check``
 and the capacity sweep take all twelve archs.  The dense-GQA decoder LMs,
-the VLMs built on them and the encoder-decoder (seamless-m4t-large-v2)
-also have their training loss and serving path; the pure-SSM family
-(mamba2) its serving path (its ``loss`` raises ``NotImplementedError``
-until its training is ported).  For the MoE and hybrid families and for
-MLA configs every forward entry point (``init``, ``from_numpy``,
+the MoE family on GQA attention (arctic-480b), the VLMs built on them, the
+encoder-decoder (seamless-m4t-large-v2) and the pure-SSM family (mamba2)
+have their training loss and serving path.  For the hybrid family and
+for MLA configs every forward entry point (``init``, ``from_numpy``,
 ``loss``, ``prefill``, ``decode_step``, ``init_cache``) raises
-``NotImplementedError`` naming the ROADMAP item that ports it (A7b–d): a
-model whose spec builds never half-runs.
+``NotImplementedError`` naming the ROADMAP item that ports it (A7b, A7d):
+a model whose spec builds never half-runs.  An MoE model picks its
+expert-parallel path under ``mesh_ctx.mesh_context`` and its dense path
+without one, as the reference does.
 """
 
 from __future__ import annotations
@@ -43,8 +44,7 @@ from repro_torch.models import vlm as V
 
 # families (and MLA attention) whose forward is not ported yet -> the
 # ROADMAP item that ports it
-_UNPORTED_FORWARD = {"moe": "the MoE FFN (ROADMAP A7c)",
-                     "hybrid": "the hybrid SSM + shared attention "
+_UNPORTED_FORWARD = {"hybrid": "the hybrid SSM + shared attention "
                                "(ROADMAP A7d)"}
 
 
@@ -86,10 +86,7 @@ class Model:
     def loss(self, params, batch: dict, remat=None):
         self._forward_ported()
         if self.cfg.family == "ssm":
-            raise NotImplementedError(
-                f"{self.cfg.name}: the SSM family's training (ssm_loss, "
-                f"ssm_backbone, mamba2_forward, ssd_chunked) is not ported "
-                f"yet; it comes with the SSM training slice")
+            return S.ssm_loss(self.cfg, params, batch, remat=remat)
         if self.cfg.family == "vlm":
             return V.vlm_loss(self.cfg, params, batch, remat=remat)
         if self.cfg.family == "encdec":

@@ -1,13 +1,15 @@
 """Pure-SSM language model (mamba2-1.3b): embed -> L x [norm + Mamba-2] ->
 norm -> tied logits.  Decode is O(1) per token via the recurrent state.
 
-Spec functions and the serving path: ``ssm_prefill`` runs the chunked SSD
-(the SSD kernel) over the prompt and keeps each layer's final recurrent
-state and conv tail as the cache; ``ssm_decode_step`` is one recurrent
-step per layer.  The cache is stacked as the reference's is —
-``{"blocks": {"ssm": (L, B, H, P, N) fp32, "conv": (L, B, K-1, conv_ch)
-bf16}, "len": (B,) int32}`` — and updated per layer in place.  Training
-(``ssm_backbone`` / ``ssm_loss``) is not ported yet.
+Spec functions, training and the serving path.  ``ssm_loss`` runs
+``ssm_backbone`` (each block ``mamba2_forward``, the differentiable
+chunked SSD in plain tensor ops, under the reference's remat policy) and
+the chunked cross-entropy.  ``ssm_prefill`` runs the chunked SSD (the SSD
+kernel) over the prompt and keeps each layer's final recurrent state and
+conv tail as the cache; ``ssm_decode_step`` is one recurrent step per
+layer.  The cache is stacked as the reference's is — ``{"blocks": {"ssm":
+(L, B, H, P, N) fp32, "conv": (L, B, K-1, conv_ch) bf16}, "len": (B,)
+int32}`` — and updated per layer in place.
 """
 
 from __future__ import annotations
@@ -18,8 +20,9 @@ from repro_torch.configs import ArchConfig
 from repro_torch.core.spec import ModuleSpec
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.models.mamba import (mamba2_decode, mamba2_init_state,
-                                      mamba2_prefill, mamba2_spec)
+from repro_torch.models.mamba import (mamba2_decode, mamba2_forward,
+                                      mamba2_init_state, mamba2_prefill,
+                                      mamba2_spec)
 
 
 def ssm_model_spec(cfg: ArchConfig, name: str = "language_model") -> ModuleSpec:
@@ -41,6 +44,31 @@ def ssm_model_spec(cfg: ArchConfig, name: str = "language_model") -> ModuleSpec:
 
 def _meta(cfg: ArchConfig) -> dict:
     return mamba2_spec("mixer", cfg.d_model, cfg.ssm, cfg.dtype).meta
+
+
+def ssm_backbone(cfg: ArchConfig, p, x: torch.Tensor,
+                 remat=None) -> torch.Tensor:
+    """x: (B, S, D) embeddings -> final-normed hidden (B, S, D); each block
+    (norm + Mamba-2, residual) under the ``remat`` policy (default
+    ``cfg.remat``)."""
+    meta = _meta(cfg)
+
+    def body(bp, x):
+        h = L.rmsnorm(bp.norm, x, cfg.norm_eps)
+        return x + mamba2_forward(bp.mixer, h, meta, cfg.norm_eps)
+
+    block = T._remat(body, remat if remat is not None else cfg.remat)
+    for bp in p.blocks:
+        x = block(bp, x)
+    return L.rmsnorm(p.head.final_norm, x, cfg.norm_eps)
+
+
+def ssm_loss(cfg: ArchConfig, params, batch: dict, remat=None):
+    """batch: {'tokens', 'labels': (B, S)} -> (loss, {"xent", "n_tok"})."""
+    p = params.language_model
+    hidden = ssm_backbone(cfg, p, T.embed_tokens(cfg, p, batch["tokens"]),
+                          remat)
+    return T.xent_loss(cfg, p, hidden, batch["labels"])
 
 
 def ssm_init_cache(cfg: ArchConfig, batch: int, max_len: int = 0,

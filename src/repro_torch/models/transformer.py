@@ -1,18 +1,22 @@
 """Decoder-only LM family: llama / qwen / mistral (GQA), minicpm /
 deepseek (MLA), dense or MoE FFN.
 
-Spec functions of every member; for the dense-GQA members also the
-training forward (``lm_backbone`` under a remat
-policy, ``chunked_xent``, ``lm_loss``) and the serving path.  Blocks are
+Spec functions of every member; for the GQA members, dense or MoE, also
+the training forward (``lm_backbone`` under a remat policy,
+``chunked_xent``, ``lm_loss``) and the serving path.  Blocks are
 depth-stacked (``scanned``) modules in the spec; their parameters are one
 :class:`~repro_torch.models.param.ModuleParams` per block, walked by a
 Python loop where the reference scans, each block under its own
-checkpoint.  The loss is the chunked cross-entropy the byte model
+checkpoint.  An MoE config's leading ``n_dense_layers`` blocks are the
+``dense_blocks`` stack; each MoE block adds the dense residual FFN where
+the config has one (arctic), and its load-balance loss is summed into
+``lm_backbone``'s ``aux`` (a dense model makes no aux tensor: its aux is
+the float 0.0).  The loss is the chunked cross-entropy the byte model
 describes, which never materializes the full (B, S, V) logits
-(``LOSS_CHUNK`` rows at a time, each chunk recomputed in the backward).
-The forward of MLA attention and MoE FFN blocks is not ported yet (ROADMAP
-A7b, A7c): the forward and serving functions raise
-``NotImplementedError`` for configs that need them.
+(``LOSS_CHUNK`` rows at a time, each chunk recomputed in the backward),
+plus ``0.01 * aux / n_layers`` for an MoE config.  The forward of MLA
+attention is not ported yet (ROADMAP A7b): the forward and serving
+functions raise ``NotImplementedError`` for configs that need it.
 
 The serving functions keep the reference's program so that the memory and
 the launches measured are those of the program the predictor models:
@@ -23,6 +27,7 @@ bf16 whatever the model's type.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -31,10 +36,12 @@ from torch.utils import checkpoint as _ckpt
 from repro_torch.configs import ArchConfig
 from repro_torch.core.spec import LayerSpec, ModuleSpec
 from repro_torch.kernels import ops
+from repro_torch.mesh_ctx import (current_mesh_shape, current_rules,
+                                  mesh_context)
 from repro_torch.models import layers as L
 from repro_torch.models.attention import (gqa_decode, gqa_forward, gqa_spec,
                                           mla_spec)
-from repro_torch.models.moe import moe_spec
+from repro_torch.models.moe import moe_forward, moe_spec
 
 LOSS_CHUNK = 512
 
@@ -91,11 +98,36 @@ def lm_spec(cfg: ArchConfig, name: str = "language_model") -> ModuleSpec:
 # ---------------------------------------------------------------------------
 
 
-def _dense_only(cfg: ArchConfig) -> None:
-    if cfg.mla or cfg.moe:
+def _no_mla(cfg: ArchConfig) -> None:
+    if cfg.mla:
         raise NotImplementedError(
-            f"{cfg.name}: the forward of MLA attention / MoE FFN blocks is "
-            f"not ported yet (ROADMAP A7b, A7c)")
+            f"{cfg.name}: the forward of MLA attention is not ported yet "
+            f"(ROADMAP A7b)")
+
+
+def _stacks(cfg: ArchConfig, p) -> list:
+    """(cache key, block stack, MoE blocks?) in the order they run: the
+    leading dense blocks of an MoE config, then the main stack."""
+    out = []
+    if cfg.moe and cfg.moe.n_dense_layers:
+        out.append(("dense_blocks", p.dense_blocks, False))
+    out.append(("blocks", p.blocks, bool(cfg.moe)))
+    return out
+
+
+def _moe_meta(cfg: ArchConfig) -> dict:
+    return moe_spec("ffn", cfg.d_model, cfg.moe, cfg.dtype).meta
+
+
+def _ffn_apply(cfg: ArchConfig, moe_block: bool, bp, h: torch.Tensor):
+    """The block's FFN -> (y, aux): the MoE FFN (+ the dense residual FFN)
+    with its load-balance loss, or the dense MLP with aux 0.0."""
+    if not moe_block:
+        return L.mlp(bp.ffn, h), 0.0
+    y, aux = moe_forward(bp.ffn, h, _moe_meta(cfg))
+    if cfg.moe.dense_residual:
+        y = y + L.mlp(bp.dense_ffn, h)
+    return y, aux
 
 
 def _attn_apply(cfg: ArchConfig, ap, h: torch.Tensor,
@@ -106,12 +138,14 @@ def _attn_apply(cfg: ArchConfig, ap, h: torch.Tensor,
                        positions=positions)
 
 
-def _block_apply(cfg: ArchConfig, bp, x: torch.Tensor,
-                 positions=None) -> torch.Tensor:
+def _block_apply(cfg: ArchConfig, moe_block: bool, bp, x: torch.Tensor,
+                 positions=None):
+    """One block -> (x, aux)."""
     h = L.rmsnorm(bp.norm1, x, cfg.norm_eps)
     x = x + _attn_apply(cfg, bp.attn, h, positions)
     h = L.rmsnorm(bp.norm2, x, cfg.norm_eps)
-    return x + L.mlp(bp.ffn, h)
+    y, aux = _ffn_apply(cfg, moe_block, bp, h)
+    return x + y, aux
 
 
 # what the "dots" policy saves: the outputs of the matrix products (the
@@ -135,34 +169,54 @@ def _remat(fn, policy: str):
     activation, "block" only ``fn``'s inputs (the block's carry) and
     reruns ``fn`` in the backward, "dots" the matmul outputs too.
 
+    The recompute runs in the backward, which may run outside the
+    ``mesh_ctx.mesh_context`` the forward ran under: it reruns ``fn``
+    under the mesh context the forward saw, so an MoE block takes the same
+    path both times.
+
     The reference also pins the scan carry with an XLA optimization
     barrier (``_pin``) so XLA cannot hoist a convert of the saved stack out
     of the loop; eager PyTorch has no such rewrite, so nothing stands in
     for it here."""
     if policy == "none":
         return fn
-    if policy == "block":
-        return functools.partial(_ckpt.checkpoint, fn, use_reentrant=False)
-    if policy == "dots":
-        return functools.partial(
-            _ckpt.checkpoint, fn, use_reentrant=False,
-            context_fn=functools.partial(
-                _ckpt.create_selective_checkpoint_contexts, _save_dots))
-    raise ValueError(f"remat policy {policy!r}: expected none, block or "
-                     f"dots")
+    if policy not in ("block", "dots"):
+        raise ValueError(f"remat policy {policy!r}: expected none, block "
+                         f"or dots")
+
+    def contexts():
+        fwd, rec = (_ckpt.create_selective_checkpoint_contexts(_save_dots)
+                    if policy == "dots" else
+                    (contextlib.nullcontext(), contextlib.nullcontext()))
+        return fwd, _entered(rec, mesh_context(current_mesh_shape(),
+                                               current_rules()))
+    return functools.partial(_ckpt.checkpoint, fn, use_reentrant=False,
+                             context_fn=contexts)
+
+
+@contextlib.contextmanager
+def _entered(*managers):
+    with contextlib.ExitStack() as stack:
+        for m in managers:
+            stack.enter_context(m)
+        yield
 
 
 def lm_backbone(cfg: ArchConfig, p, embeds: torch.Tensor,
-                positions=None, remat=None) -> torch.Tensor:
-    """embeds: (B, S, D) -> final-normed hidden (B, S, D); each block under
-    the ``remat`` policy (default ``cfg.remat``)."""
-    _dense_only(cfg)
-    block = _remat(functools.partial(_block_apply, cfg),
-                   remat if remat is not None else cfg.remat)
-    x = embeds
-    for bp in p.blocks:
-        x = block(bp, x, positions)
-    return L.rmsnorm(p.head.final_norm, x, cfg.norm_eps)
+                positions=None, remat=None):
+    """embeds: (B, S, D) -> (final-normed hidden (B, S, D), the MoE blocks'
+    summed aux loss: an fp32 scalar, 0.0 for a dense model); each block
+    under the ``remat`` policy (default ``cfg.remat``)."""
+    _no_mla(cfg)
+    policy = remat if remat is not None else cfg.remat
+    x, aux = embeds, 0.0
+    for _, stack, moe_block in _stacks(cfg, p):
+        block = _remat(functools.partial(_block_apply, cfg, moe_block),
+                       policy)
+        for bp in stack:
+            x, a = block(bp, x, positions)
+            aux = aux + a
+    return L.rmsnorm(p.head.final_norm, x, cfg.norm_eps), aux
 
 
 def embed_tokens(cfg: ArchConfig, p, tokens: torch.Tensor) -> torch.Tensor:
@@ -219,11 +273,17 @@ def xent_loss(cfg: ArchConfig, p, hidden: torch.Tensor,
 
 def lm_loss(cfg: ArchConfig, params, tokens: torch.Tensor,
             labels: torch.Tensor, remat=None):
-    """tokens, labels: (B, S) -> (loss, {"xent", "n_tok"})."""
+    """tokens, labels: (B, S) -> (loss, {"xent", "n_tok"}, and "aux" for
+    an MoE config, whose loss adds ``0.01 * aux / n_layers``)."""
     p = params.language_model if "language_model" in params \
         else next(iter(params.children()))
-    hidden = lm_backbone(cfg, p, embed_tokens(cfg, p, tokens), remat=remat)
-    return xent_loss(cfg, p, hidden, labels)
+    hidden, aux = lm_backbone(cfg, p, embed_tokens(cfg, p, tokens),
+                              remat=remat)
+    loss, metrics = xent_loss(cfg, p, hidden, labels)
+    if cfg.moe:
+        loss = loss + 0.01 * aux / max(cfg.n_layers, 1)
+        metrics = dict(metrics, aux=aux.detach())
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------
@@ -234,15 +294,21 @@ def lm_loss(cfg: ArchConfig, params, tokens: torch.Tensor,
 def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int,
                   device) -> dict:
     """Stacked (L-leading) cache: {'blocks': {'k', 'v': (L, B, max_len,
-    Hkv, D) bf16}, 'len': (B,) int32}, zeroed, on ``device``."""
-    _dense_only(cfg)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
-             cfg.resolved_head_dim)
-    return {"blocks": {"k": torch.zeros(shape, dtype=torch.bfloat16,
-                                        device=device),
-                       "v": torch.zeros(shape, dtype=torch.bfloat16,
-                                        device=device)},
-            "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    Hkv, D) bf16}, 'len': (B,) int32}, zeroed, on ``device``; an MoE
+    config's leading dense blocks have their own 'dense_blocks' stack."""
+    _no_mla(cfg)
+    n_dense = cfg.moe.n_dense_layers if cfg.moe else 0
+
+    def one(n):
+        shape = (n, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+        return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+                "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+
+    cache = {"blocks": one(cfg.n_layers - n_dense),
+             "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    if n_dense:
+        cache["dense_blocks"] = one(n_dense)
+    return cache
 
 
 def _prefill_kv(cfg: ArchConfig, ap, h: torch.Tensor) -> dict:
@@ -262,15 +328,15 @@ def prefill_embeds(cfg: ArchConfig, lm, x: torch.Tensor):
     """Prefill of the LM blocks over ready embeddings x (B, S, D): the
     last position's logits (B, 1, V) fp32 and the populated cache (sized
     to S).  Each block's K/V is written straight into the stacked cache."""
-    _dense_only(cfg)
     B, S, _ = x.shape
     cache = init_kv_cache(cfg, B, S, x.device)
-    for i, bp in enumerate(lm.blocks):
-        h = L.rmsnorm(bp.norm1, x, cfg.norm_eps)
-        kv = _prefill_kv(cfg, bp.attn, h)
-        cache["blocks"]["k"][i] = kv["k"]
-        cache["blocks"]["v"][i] = kv["v"]
-        x = _block_apply(cfg, bp, x)
+    for key, stack, moe_block in _stacks(cfg, lm):
+        for i, bp in enumerate(stack):
+            h = L.rmsnorm(bp.norm1, x, cfg.norm_eps)
+            kv = _prefill_kv(cfg, bp.attn, h)
+            cache[key]["k"][i] = kv["k"]
+            cache[key]["v"][i] = kv["v"]
+            x, _ = _block_apply(cfg, moe_block, bp, x)
     cache["len"].fill_(S)
     x = L.rmsnorm(lm.head.final_norm, x[:, -1:], cfg.norm_eps)
     return lm_logits(cfg, lm, x), cache
@@ -283,7 +349,8 @@ def lm_prefill(cfg: ArchConfig, params, tokens: torch.Tensor):
     return prefill_embeds(cfg, lm, embed_tokens(cfg, lm, tokens))
 
 
-def _decode_block(cfg: ArchConfig, bp, x: torch.Tensor, layer_cache: dict):
+def _decode_block(cfg: ArchConfig, moe_block: bool, bp, x: torch.Tensor,
+                  layer_cache: dict):
     h = L.rmsnorm(bp.norm1, x, cfg.norm_eps)
     a, new_cache = gqa_decode(bp.attn, h, layer_cache, n_heads=cfg.n_heads,
                               n_kv_heads=cfg.n_kv_heads,
@@ -292,22 +359,26 @@ def _decode_block(cfg: ArchConfig, bp, x: torch.Tensor, layer_cache: dict):
                               norm_eps=cfg.norm_eps)
     x = x + a
     h = L.rmsnorm(bp.norm2, x, cfg.norm_eps)
-    return x + L.mlp(bp.ffn, h)
+    return x + _ffn_apply(cfg, moe_block, bp, h)[0]
 
 
 def decode_lm(cfg: ArchConfig, lm, token: torch.Tensor, cache: dict):
     """token: (B, 1) -> (logits (B, 1, V) fp32, cache).  The cache tensors
     are updated in place; the returned dict carries ``len + 1``."""
-    _dense_only(cfg)
+    _no_mla(cfg)
     x = embed_tokens(cfg, lm, token)
     length = cache["len"]
-    k_all, v_all = cache["blocks"]["k"], cache["blocks"]["v"]
-    for i, bp in enumerate(lm.blocks):
-        x = _decode_block(cfg, bp, x, {"k": k_all[i], "v": v_all[i],
-                                       "len": length})
+    stacks = {}
+    for key, stack, moe_block in _stacks(cfg, lm):
+        k_all, v_all = cache[key]["k"], cache[key]["v"]
+        for i, bp in enumerate(stack):
+            x = _decode_block(cfg, moe_block, bp, x,
+                              {"k": k_all[i], "v": v_all[i], "len": length})
+        stacks[key] = {"k": k_all, "v": v_all}
     x = L.rmsnorm(lm.head.final_norm, x, cfg.norm_eps)
-    return lm_logits(cfg, lm, x), {"blocks": {"k": k_all, "v": v_all},
-                                   "len": length + 1}
+    # len + 1 made last, as before the MoE stacks: made first, its block
+    # would sit under the decode step's peak
+    return lm_logits(cfg, lm, x), {**stacks, "len": length + 1}
 
 
 def lm_decode_step(cfg: ArchConfig, params, token: torch.Tensor,

@@ -76,7 +76,7 @@ def vlm_loss(cfg: ArchConfig, params, batch: dict, remat=None):
     B, S_total, _ = embeds.shape
     n_img = S_total - batch["tokens"].shape[1]
     lm = params.vlm.language_model
-    hidden = T.lm_backbone(cfg, lm, embeds, remat=remat)
+    hidden, _ = T.lm_backbone(cfg, lm, embeds, remat=remat)
     labels = torch.cat([torch.full((B, n_img), -100, dtype=torch.int32,
                                    device=embeds.device),
                         batch["labels"].to(torch.int32)], dim=1)

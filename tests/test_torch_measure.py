@@ -10,7 +10,8 @@
 * a reference-style dry-run record (no own cell) ingests to the same
   Measurement in both packages;
 * the allocator readings refuse a device that is not CUDA;
-* each kind's step closure runs on the CPU at the reduced configs;
+* each kind's step closure runs on the CPU at the reduced configs, under
+  the 1 x 1 mesh context ``run_cell`` gives it (the MoE's dispatch path);
 * the card's committed store predicts in the port what it predicts in the
   reference, and gives the MAPE table of ``PERF.md``.
 """
@@ -35,6 +36,7 @@ from repro_torch.calibrate.paths import measured_dir, repo_root
 from repro_torch.configs import get_config
 from repro_torch.core import device_metrics as DM
 from repro_torch.launch import measure as M
+from repro_torch.mesh_ctx import mesh_context
 from repro_torch.models import build_model
 
 POLICIES = {"full": RS.FULL_TRAIN, "llava_stage1": RS.LLAVA_STAGE1,
@@ -69,7 +71,8 @@ def test_grid_covers_the_cells_asked_for():
                  ("llava-next-mistral-7b", "train", "llava_stage1"),
                  ("seamless-m4t-large-v2", "train", "full"),
                  ("seamless-m4t-large-v2", "prefill", "full"),
-                 ("seamless-m4t-large-v2", "decode", "full")):
+                 ("seamless-m4t-large-v2", "decode", "full"),
+                 ("mamba2-1.3b", "train", "full")):
         assert want in kinds, want
     # one record file per cell
     names = [(c.arch, c.shape) for c in M.GRID]
@@ -160,8 +163,12 @@ CPU_CELLS = [("llava15-7b", "train", 24, "llava_stage1", "adamw"),
              ("seamless-m4t-large-v2", "train", 16, "full", "adamw"),
              ("seamless-m4t-large-v2", "prefill", 16, "full", None),
              ("seamless-m4t-large-v2", "decode", 12, "full", None),
+             ("mamba2-1.3b", "train", 40, "full", "adamw"),
              ("mamba2-1.3b", "prefill", 40, "full", None),
-             ("mamba2-1.3b", "decode", 12, "full", None)]
+             ("mamba2-1.3b", "decode", 12, "full", None),
+             ("arctic-480b", "train", 16, "full", "adafactor"),
+             ("arctic-480b", "prefill", 16, "full", None),
+             ("arctic-480b", "decode", 12, "full", None)]
 
 
 @pytest.mark.parametrize("arch,kind,seq,policy,opt", CPU_CELLS)
@@ -171,7 +178,8 @@ def test_step_closures_run_on_the_cpu(arch, kind, seq, policy, opt):
     model = build_model(get_config(arch).reduced())
     gen = torch.Generator().manual_seed(0)
     state = M.make_state(cell, model, gen, "cpu")
-    out = M.cell_step(cell, model, state, gen)()
+    with mesh_context(M.MESH):               # as run_cell runs a cell
+        out = M.cell_step(cell, model, state, gen)()
     M.check_outputs(cell, model, out)
     if kind == "train":
         assert len(out["loss"]) == M.TRAIN_STEPS
@@ -204,7 +212,8 @@ def test_summary_of_a_store():
     assert rows["all cells"]["cells"] == len(cells)
     assert rows["all cells"]["held_out_cells"] == len(cells) // 2
     assert rows["all multimodal training cells"]["cells"] == sum(
-        c.kind == "train" for c in cells)
+        c.kind == "train" and get_config(c.arch).family in ("vlm", "encdec")
+        for c in cells)
     assert rows["llava15-7b train"]["worst_measured_over_predicted"] \
         == pytest.approx(1.2, abs=1e-6)
 
@@ -260,3 +269,24 @@ def test_card_store_gives_perf_md_table(card_store):
             assert held is None, r["group"]
         else:
             assert held == pytest.approx(r["mape_held_out"], abs=0.01)
+
+
+def test_card_store_has_the_ssm_training_rows(card_store):
+    """The SSM's training cells were measured on the card (the committed
+    store holds every GRID cell) and the summary recomputes their row
+    and the SSM family's from the store on the CPU."""
+    store = TMS.MeasurementStore.from_dict(card_store)
+    grid = {(c.arch, c.shape) for c in M.GRID}
+    held = {(m.arch, m.meta["shape"]) for m in store}
+    assert held == grid
+    ssm_train = [m for m in store
+                 if m.arch == "mamba2-1.3b" and m.kind == "train"]
+    assert len(ssm_train) == 5
+    assert {m.remat for m in ssm_train} == {"block", "none"}
+    rows = {r["group"]: r for r in M.summary(store)["rows"]}
+    assert rows["mamba2-1.3b train"]["cells"] == 5
+    assert rows["SSM"]["cells"] == 9
+    table = perf_table()
+    for group in ("mamba2-1.3b train", "SSM"):
+        assert table[group][1] == pytest.approx(
+            rows[group]["mape_raw_tpu"], abs=0.01)

@@ -3,8 +3,8 @@ equal field for field for all twelve archs under every TrainPolicy
 preset, ``from_reference`` carries a reference tree across unchanged (an
 MLA layer's config object included, so the carried tree predicts the same
 bytes), and the families whose forward is not ported raise from every
-forward entry point (mamba2, which serves, raises for its unported
-training)."""
+forward entry point (mamba2 and arctic-480b, ported since, run from every
+entry point instead)."""
 
 import dataclasses
 
@@ -21,8 +21,7 @@ from repro_torch.models import build_model
 
 SUPPORTED = tuple(registered_archs())
 # the archs whose spec is ported but whose forward is not (ROADMAP A7)
-UNSUPPORTED = ("arctic-480b", "deepseek-v2-lite-16b", "minicpm3-4b",
-               "zamba2-2.7b")
+UNSUPPORTED = ("deepseek-v2-lite-16b", "minicpm3-4b", "zamba2-2.7b")
 MLA_ARCHS = ("deepseek-v2-lite-16b", "minicpm3-4b")
 POLICIES = ("FULL_TRAIN", "LLAVA_STAGE1", "LLAVA_STAGE2")
 
@@ -114,17 +113,28 @@ def test_carried_mla_tree_predicts_like_the_ports_own(arch):
         assert got.peak_bytes > 0
 
 
-@pytest.mark.parametrize("arch", UNSUPPORTED + ("mamba2-1.3b",))
+@pytest.mark.parametrize("arch", ("arctic-480b",) + UNSUPPORTED
+                         + ("mamba2-1.3b",))
 def test_unsupported_families_raise(arch):
     """A spec that builds never hands back a model that half-runs: every
     forward entry point of the unported families raises, naming the
-    ROADMAP item that ports it."""
+    ROADMAP item that ports it.  arctic-480b (the MoE slice) and mamba2
+    (the SSM training slice) are ported: each entry point of their
+    reduced configs runs on the CPU."""
     import torch
-    model = build_model(get_config(arch))
-    if arch == "mamba2-1.3b":    # serves; its training is not ported yet
-        with pytest.raises(NotImplementedError, match="not ported"):
-            model.loss(None, {})
+    if arch in ("arctic-480b", "mamba2-1.3b"):
+        model = build_model(get_config(arch).reduced())
+        params = model.init(torch.Generator().manual_seed(0), "cpu")
+        toks = torch.zeros((2, 8), dtype=torch.int32)
+        loss, _ = model.loss(params, {"tokens": toks, "labels": toks})
+        logits, cache = model.prefill(params, {"tokens": toks})
+        assert cache["len"].tolist() == [8, 8]
+        logits, _ = model.decode_step(params, toks[:, :1],
+                                      model.init_cache(2, 4, "cpu"))
+        assert bool(torch.isfinite(loss)) and tuple(logits.shape) == \
+            (2, 1, model.cfg.vocab)
         return
+    model = build_model(get_config(arch))
     calls = (lambda: model.init(torch.Generator().manual_seed(0), "cpu"),
              lambda: model.from_numpy({}, "cpu"),
              lambda: model.loss(None, {}),
