@@ -20,7 +20,8 @@ through ``repro_torch.serve.generate``, llava15-7b training steps at the
 paper's fig2b setting through ``repro_torch.train``, seamless-m4t-large-v2
 (the encoder-decoder) serving and training, arctic-480b (the MoE) serving
 at its published width with its depth cut to 2 layers, mamba2-1.3b
-training at full size, and the measurement grid
+training at full size, the MLA family at full size (deepseek-v2-lite-16b
+serving, minicpm3-4b serving and training), and the measurement grid
 (``repro_torch.launch.measure``: one real step per cell, the predictor's
 error on the card) — and holds every hand-written kernel against its
 plain PyTorch version on the card.
@@ -38,6 +39,11 @@ Phases (any failure exits non-zero):
    ``rmsnorm_fwd`` on the reference's kernel-test cases and at the
    serving and the training paths' shapes, in fp32 (tolerance 2e-5; the
    plain version's matmuls in full fp32, ``allow_tf32`` off) and bf16 (tolerance 2e-2), on ``out`` and ``lse``;
+   the flash kernels also at the MLA and hybrid head-dim pairs (192, 128),
+   (96, 64) and (80, 80) (causal and not, ragged S, a q-offset
+   continuation, H = Hkv and GQA) and at deepseek-v2-lite-16b's and
+   minicpm3-4b's 4 x 2,048 shapes, the RMSNorm at their widths (256, 512,
+   768, 2,560), and the reduced MLA pair (24, 16) refused;
    ``flash_bwd`` (the dq and the dk/dv kernels) on the same cases, the
    training path's shapes and the reduced configs' head dim 16, fp32
    within 5e-4 and bf16 within 2e-2 of each
@@ -173,14 +179,37 @@ Phases (any failure exits non-zero):
    backward launches per step, no flash, no SSD; the fp32 gradient gate
    at the trained weights with the float64 witness), and the reduced
    config's step on the card against the CPU;
+5e. ``serve_deepseek_v2_lite_16b``: nothing cut (27 layers: one dense
+   FFN block of 10,944, then 26 MoE blocks of 64 experts x 1,408 top-6
+   and 2 shared experts; d_model 2,048, 16 heads, MLA kv rank 512, head
+   dims (192, 128), vocab 102,400; 15.71 B params in bf16 made on the card
+   from a seeded generator) under ``mesh_context({"data": 1, "model":
+   1})``: 4 prompts of 2,048 tokens, 32 greedy tokens; the readings of
+   5d (launches gated to the reference's MLA program: flash 27 per
+   prefill, RMSNorm 5 per block + 1, per decode step 3 per block + 1;
+   the cache's latent / rope-key leaves per stack; peaks beside the byte
+   model; capacity drops and top-6 flips; the prefill's kernel path
+   against the plain path, 2e-2 of scale);
+5f. ``serve_minicpm3_4b``: nothing cut (62 layers, d_model 2,560, 40
+   heads, q rank 768, kv rank 256, head dims (96, 64), vocab 73,448, tied
+   embeddings), the same request and readings (RMSNorm 6 per block + 1
+   per prefill, 4 per block + 1 per decode step);
 6e. ``train_arctic_reduced``: the reduced arctic, the same weights and
    batch on the card and on the CPU under the 1 x 1 mesh, 3 Adafactor
    steps (arctic's own optimizer): the loss of every step and the
    gradients within ``MOE_TOL`` of scale (the reference's own bound for
    MoE configs, whose routing may flip on a rounding), the share of
    flipped routing choices a reading;
-8. ``measure``: every cell of ``repro_torch.launch.measure.GRID`` (44
-   cells of 7 archs at full width and depth) through ``measure_grid``,
+6f. ``train_minicpm3_4b``: nothing cut, 4 x 2,048, FULL_TRAIN,
+   Adafactor, remat "block", 3 steps: the readings and gates of phase 6c
+   (flash forward, dq and dk/dv at (96, 64) through all 62 layers, RMSNorm
+   both ways at 768 / 256 / 2,560; launches per step the reference's
+   program), the fp32 and float64 comparisons on the first sample (one
+   4.07 B-param model's float64 weights and gradients take 65 GB);
+   (phases 5e, 5f and 6f run after phase 8, so that every earlier phase
+   and grid cell meets the caching allocator as before them);
+8. ``measure``: every cell of ``repro_torch.launch.measure.GRID`` (50
+   cells of 9 archs at full width and depth) through ``measure_grid``,
    one real step each with the allocator read around it: a ``measure``
    line per dry-run-schema record, each record's prediction equal to the
    host's ``planner.check`` for its cell, the store written to
@@ -197,6 +226,9 @@ Phases (any failure exits non-zero):
    the SSD scan), with ``share_of_bound`` (bound / kernel alone) and
    ``vs_library`` (kernel alone / library call); the sweep kernels with
    the L2 flushed before each timed launch (their operands fit in it),
+   the flash rows also at the MLA and hybrid pairs (operations counted
+   at D for the q / k products and at Dv for P v and dv; the SDPA
+   backend that ran named),
    ``shard_factor`` at the packed shape of the sweeps' largest table
    build.
 
@@ -356,6 +388,17 @@ MOE_MESH = {"data": 1, "model": 1}
 # (tests/test_models.py, decode against prefill) holds them; dense
 # configs keep 2e-2
 MOE_TOL = 8e-2
+
+# the MLA paths, nothing cut: deepseek-v2-lite-16b (MLA + 64 experts top-6,
+# 2 shared, a leading dense block) and minicpm3-4b (dense MLA, q rank 768)
+# serve 4 prompts of 2,048 tokens and 32 greedy tokens, deepseek under the
+# 1 x 1 mesh (the expert-parallel dispatch); minicpm3-4b trains on 4 x
+# 2,048 tokens, FULL_TRAIN, Adafactor (AdamW's state does not fit one
+# card), remat "block", with its fp32 / float64 comparisons on the first
+# MLA_CHECK_BATCH sample (float64 weights and gradients of 4.07 B params
+# take 65 GB)
+MLA_BATCH, MLA_PROMPT, MLA_NEW = 4, 2048, 32
+MLA_TRAIN_BATCH, MLA_CHECK_BATCH = 4, 1
 
 RESULT_COLUMNS = ("peak_bytes", "budget_bytes", "fits", "offload_bytes",
                   "overlap_slack_bytes", "pool_bytes", "draft_bytes",
@@ -752,6 +795,24 @@ TRAIN_LM_CASE = (TRAIN_BATCH, 2048, 2048, 32, 32, 128, 128, True)
 ENCDEC_XATTN_CASE = (2, 192, 320, 4, 4, 64, 64, False)
 ENCDEC_ENC_CASE = (4, 2048, 2048, 16, 16, 64, 64, False)
 ENCDEC_DEC_CASE = (4, 2048, 2048, 16, 16, 64, 64, True)
+# the MLA and hybrid head-dim pairs: deepseek-v2-lite-16b's (192, 128) and
+# minicpm3-4b's (96, 64), both with H = Hkv, and zamba2-2.7b's (80, 80)
+# with GQA; each causal and not, at a ragged S, and as a q-offset
+# continuation against a ragged kv length; then the main paths' shapes:
+# deepseek's prefill and minicpm3's prefill and training, 4 x 2,048
+MLA_PAIR_CASES = [
+    (2, 200, 200, 4, 4, 192, 128, True),
+    (1, 130, 130, 3, 3, 192, 128, False),
+    (1, 65, 577, 2, 2, 192, 128, True),
+    (2, 200, 200, 4, 4, 96, 64, True),
+    (1, 130, 130, 3, 3, 96, 64, False),
+    (1, 65, 577, 2, 2, 96, 64, True),
+    (2, 200, 200, 8, 2, 80, 80, True),
+    (1, 130, 130, 4, 4, 80, 80, False),
+    (1, 65, 577, 4, 1, 80, 80, True),
+]
+DEEPSEEK_PREFILL_CASE = (4, 2048, 2048, 16, 16, 192, 128, True)
+MINICPM3_CASE = (4, 2048, 2048, 40, 40, 96, 64, True)
 FLASH_CASES = [
     (2, 256, 256, 4, 2, 64, 64, True),
     (1, 200, 200, 6, 3, 32, 32, True),
@@ -767,6 +828,9 @@ FLASH_CASES = [
     ENCDEC_ENC_CASE,                           # seamless encoder (and
                                                # cross), 4 x 2,048
     ENCDEC_DEC_CASE,                           # seamless decoder self
+    *MLA_PAIR_CASES,
+    DEEPSEEK_PREFILL_CASE,                     # deepseek-v2-lite-16b
+    MINICPM3_CASE,                             # minicpm3-4b
 ]
 TRAIN_ROWS = (TRAIN_BATCH * 2048, 4096)        # the LM's RMSNorms, training
 RMSNORM_SHAPES = [(64, 128), (3, 50, 96), (2, 7, 33, 64), (5, 33),
@@ -775,7 +839,12 @@ RMSNORM_SHAPES = [(64, 128), (3, 50, 96), (2, 7, 33, 64), (5, 33),
                   # and block norm, the block norm in a decode step
                   (4 * 2000, 4096), (4 * 2000, 2048), (4, 1, 2048),
                   # seamless: 4 x 2,048 rows and a decode step at D 1,024
-                  (4 * 2048, 1024), (4, 1, 1024)]
+                  (4 * 2048, 1024), (4, 1, 1024),
+                  # the MLA archs' kv_norm (deepseek 512, minicpm3 256),
+                  # minicpm3's q_norm (768) and block norm (2,560), 4 x
+                  # 2,048 rows, and a decode step's kv_norm
+                  (4 * 2048, 512), (4 * 2048, 256), (4 * 2048, 768),
+                  (4 * 2048, 2560), (4, 1, 512)]
 TOLERANCE = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
@@ -854,7 +923,11 @@ def check_flash() -> dict:
                                 q.transpose(1, 2)),
            lambda: FL.flash_fwd(q.half(), q.half(), q.half()),
            # contiguous bf16 at a 2-byte offset: off cp.async's 16 bytes
-           lambda: FL.flash_fwd(*[unaligned_bf16(q.shape)] * 3)]
+           lambda: FL.flash_fwd(*[unaligned_bf16(q.shape)] * 3),
+           # the reduced MLA pair (24, 16): no kernel instance (C13)
+           lambda: FL.flash_fwd(q[..., :24].contiguous(),
+                                q[..., :24].contiguous(),
+                                q[..., :16].contiguous())]
     for call in bad:
         if not _refuses(call):
             fail("flash_fwd accepted an input the kernel does not take")
@@ -906,9 +979,13 @@ def check_rmsnorm() -> dict:
 FLASH_BWD_CASES = FLASH_CASES[:6] + [TRAIN_VIT_CASE, TRAIN_LM_CASE,
                                      (2, 70, 70, 2, 2, 16, 16, True),
                                      ENCDEC_XATTN_CASE, ENCDEC_ENC_CASE,
-                                     ENCDEC_DEC_CASE]
+                                     ENCDEC_DEC_CASE, *MLA_PAIR_CASES,
+                                     MINICPM3_CASE]
 RMSNORM_BWD_SHAPES = RMSNORM_SHAPES[:4] + [TRAIN_ROWS, (40, 96),
-                                           (4 * 2048, 1024)]
+                                           (4 * 2048, 1024),
+                                           # minicpm3-4b's training norms
+                                           (4 * 2048, 768), (4 * 2048, 256),
+                                           (4 * 2048, 2560)]
 BWD_TOLERANCE = {"flash": {torch.float32: 5e-4, torch.bfloat16: 2e-2},
                  "rmsnorm": {torch.float32: 1e-4, torch.bfloat16: 2e-2}}
 
@@ -2226,28 +2303,29 @@ def mamba_prefill_paths(cfg, params, batch) -> dict:
     return out
 
 
-def check_mamba_paths(paths: dict, problems: list) -> None:
-    """The gates on ``mamba_prefill_paths``: in fp32 the kernel path
-    equals the plain path within MAMBA_FP32_TOL of the logits' and the
-    states' scale, with the same greedy tokens where the margin is clear.
-    In bf16 the two paths differ by the rounding spread of 48 random layers
-    (PERF.md § 6), so the bf16 kernel path is held to no more than
-    MAMBA_BF16_RATIO times the bf16 plain path's distance from the fp32
-    plain path, on logits and states; a miss goes to ``problems`` (the
-    caller fails after its line prints)."""
+def check_deep_paths(what: str, paths: dict, problems: list) -> None:
+    """The gates on ``mamba_prefill_paths`` / ``mla_prefill_paths``: in
+    fp32 the kernel path equals the plain path within MAMBA_FP32_TOL of
+    the logits' and the states' (or caches') scale, with the same greedy
+    tokens where the margin is clear.  In bf16 the two paths differ by the
+    rounding spread of many random layers (PERF.md § 6), so the bf16
+    kernel path is held to no more than MAMBA_BF16_RATIO times the bf16
+    plain path's distance from the fp32 plain path, on each compared
+    tensor; a miss goes to ``problems`` (the caller fails after its line
+    prints)."""
     f = paths["fp32_kernels_vs_fp32_plain"]
     if max(f.values()) > MAMBA_FP32_TOL:
-        fail(f"mamba2 fp32 prefill, kernel path vs plain path: {f} of "
+        fail(f"{what} fp32 prefill, kernel path vs plain path: {f} of "
              f"scale (tolerance {MAMBA_FP32_TOL})")
     t = paths["fp32_tokens"]
     if t["same_where_clear"] != t["clear"]:
-        fail(f"mamba2 fp32 prefill: greedy tokens differ where clear: {t}")
+        fail(f"{what} fp32 prefill: greedy tokens differ where clear: {t}")
     got = paths["bf16_kernels_vs_fp32_plain"]
     plain = paths["bf16_plain_vs_fp32_plain"]
     for key in got:
         if got[key] > MAMBA_BF16_RATIO * plain[key]:
             problems.append(
-                f"mamba2 bf16 prefill {key}: the kernel path is {got[key]} "
+                f"{what} bf16 prefill {key}: the kernel path is {got[key]} "
                 f"of scale from the fp32 plain path, more than "
                 f"{MAMBA_BF16_RATIO}x the bf16 plain path's {plain[key]}")
 
@@ -2296,7 +2374,7 @@ def serve_mamba2_1_3b() -> dict:
         # the kernel path against the same prefill through the plain
         # versions, in bf16 and in fp32
         paths = mamba_prefill_paths(cfg, params, batch)
-        check_mamba_paths(paths, problems)
+        check_deep_paths("mamba2", paths, problems)
         return paths
     problems = []
     phases = serve_by_phase(model, params, batch, tokens, mamba_counts,
@@ -2374,7 +2452,8 @@ def train_program(cfg) -> dict:
     mamba2 under FULL_TRAIN: each block's two RMSNorms (block norm, gated
     norm) forward twice and backward once, the final norm once each way;
     no attention, and no SSD kernel (training runs the chunked SSD in
-    plain tensor ops)."""
+    plain tensor ops).  An MLA block also runs its attention's kv_norm
+    (and q_norm with a q rank) forward twice and backward once."""
     if cfg.family == "ssm":
         n = cfg.n_layers
         return {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
@@ -2386,9 +2465,10 @@ def train_program(cfg) -> dict:
                 "rmsnorm_fwd": 2 * norms + 2, "rmsnorm_bwd": norms + 2}
     n = cfg.n_layers
     vit = cfg.vlm.vit_layers if cfg.vlm else 0
+    norms = 2 + (1 + bool(cfg.mla.q_lora_rank) if cfg.mla else 0)
     return {"flash_fwd": vit + 2 * n, "flash_dq": n,
-            "flash_dkv": n, "rmsnorm_fwd": 2 * 2 * n + 1,
-            "rmsnorm_bwd": 2 * n + 1}
+            "flash_dkv": n, "rmsnorm_fwd": 2 * norms * n + 1,
+            "rmsnorm_bwd": norms * n + 1}
 
 
 def checksums_of(tensors: dict) -> dict:
@@ -2416,12 +2496,16 @@ def loss_and_grads(model, params, batch) -> tuple:
 
 def grads_agree(got: dict, want: dict, tol, what: str,
                 problems: list) -> dict:
-    """Per tensor max |got - want| / max |want|; every tensor must stay
-    within ``tol`` of its scale (``tol`` None: a reading, no gate)."""
+    """Per tensor max |got - want| / max |want|, on want's device (on the
+    card, one tensor at a time, where both were kept on the host); every
+    tensor must stay within ``tol`` of its scale (``tol`` None: a
+    reading, no gate)."""
     worst, worst_leaf, worst_norm = 0.0, None, 0.0
     for name, w in want.items():
-        w = w.float()
-        d = got[name].float().to(w.device) - w
+        dev = DEV if w.device.type == got[name].device.type == "cpu" \
+            else w.device
+        w = w.to(dev).float()
+        d = got[name].float().to(dev) - w
         rel = float(d.abs().max()) / max(float(w.abs().max()), 1e-30)
         worst_norm = max(worst_norm, float(d.norm()) /
                          max(float(w.norm()), 1e-30))
@@ -2463,6 +2547,33 @@ class RouteLog:
             pairs += top_i.numel()
         return {"pairs": pairs, "dropped": drops,
                 "share": drops / max(pairs, 1)}
+
+
+class RouteReplay:
+    """Within the context every MoE routing takes the top-k experts that
+    ``log`` (a RouteLog) recorded, in its order: each path computes its own
+    router probabilities and renormalized weights over those experts, so
+    two paths compared under one replay differ in their numerics, not in
+    their routing."""
+
+    def __init__(self, log: RouteLog):
+        self.top_i = list(log.top_i)
+
+    def __enter__(self):
+        self._saved = MOE._route
+        calls = iter(self.top_i)
+
+        def route(logits, top_k):
+            probs = torch.softmax(logits.float(), dim=-1)
+            top_i = next(calls).to(probs.device)
+            top_p = probs.gather(-1, top_i)
+            top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+            return top_p, top_i, probs
+        MOE._route = route
+        return self
+
+    def __exit__(self, *exc):
+        MOE._route = self._saved
 
 
 def flipped(a: RouteLog, b: RouteLog) -> dict:
@@ -2541,15 +2652,18 @@ def reduced_train_card_vs_cpu(problems: list, arch: str = TRAIN_ARCH,
 
 def train_phase(name: str, cfg, policy, cut: str, problems: list,
                 make_batch=None, n_batch: int = TRAIN_BATCH,
-                seq_len: int = None, fp64_witness: bool = False) -> dict:
-    """TRAIN_STEPS steps of ``policy`` through ``init_train_state`` /
-    ``make_train_step`` (the entry points a user calls) on ``n_batch``
-    samples of ``seq_len`` tokens (``make_batch(cfg, gen)``; by default
-    the VLM's fig2b batch), each step's time, launches and allocator peak;
-    the gates (the loss finite and moving); one step under the profiler;
-    the kernel path against the plain path (with ``fp64_witness`` both
-    fp32 paths against float64, :func:`float64_witness`, the gate); the
-    byte model's prediction for the same config."""
+                seq_len: int = None, fp64_witness: bool = False,
+                optimizer: str = "adamw", check_batch: int = None) -> dict:
+    """TRAIN_STEPS steps of ``policy`` under ``optimizer`` through
+    ``init_train_state`` / ``make_train_step`` (the entry points a user
+    calls) on ``n_batch`` samples of ``seq_len`` tokens
+    (``make_batch(cfg, gen)``; by default the VLM's fig2b batch), each
+    step's time, launches and allocator peak; the gates (the loss finite
+    and moving); one step under the profiler; the kernel path against the
+    plain path (with ``fp64_witness`` both fp32 paths against float64,
+    :func:`float64_witness`, the gate), on the first ``check_batch``
+    samples (default all) with every gradient set but the one being made
+    kept on the host; the byte model's prediction for the same config."""
     if make_batch is None:
         seq_len = TRAIN_TEXT + cfg.vlm.n_image_tokens
 
@@ -2558,7 +2672,7 @@ def train_phase(name: str, cfg, policy, cut: str, problems: list,
     model = build_model(cfg)
     gen = torch.Generator(device=DEV)
     gen.manual_seed(SEED)
-    opt_cfg = OptimizerConfig(name="adamw")
+    opt_cfg = OptimizerConfig(name=optimizer)
     torch.cuda.synchronize()
     at_start = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
@@ -2567,11 +2681,14 @@ def train_phase(name: str, cfg, policy, cut: str, problems: list,
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     before = checksums(state.params)
-    # each trainable tensor's slice of its leaf's (stacked) fp32 master
-    masters = {n: state.opt[leaf.name]["master"][i] if leaf.stacked
-               else state.opt[leaf.name]["master"]
-               for leaf in PM.trainable_leaves(state.params)
-               for i, (n, _) in enumerate(leaf.params)}
+    # each trainable tensor's slice of its leaf's (stacked) fp32 master;
+    # an optimizer without one (Adafactor) updates the tensor itself
+    has_master = all("master" in state.opt[leaf.name]
+                     for leaf in PM.trainable_leaves(state.params))
+    masters = {n: (state.opt[leaf.name]["master"][i] if leaf.stacked
+                   else state.opt[leaf.name]["master"]) if has_master
+               else t for leaf in PM.trainable_leaves(state.params)
+               for i, (n, t) in enumerate(leaf.params)}
     masters_before = checksums_of(masters)
     trainable = set(masters)
     step = make_train_step(model, policy, opt_cfg, remat="block")
@@ -2614,12 +2731,14 @@ def train_phase(name: str, cfg, policy, cut: str, problems: list,
                         f"{[s['loss'] for s in steps]}")
     # a trainable leaf moves in its fp32 master copy (the optimizer's
     # parameter); its bf16 copy may round back to the same value, as a
-    # norm scale of 1.0 does under steps of ~lr; a frozen leaf is
-    # bit-equal in the model
+    # norm scale of 1.0 does under steps of ~lr; without a master copy a
+    # matrix must move in bf16 and a 1-D leaf (a norm scale) may not (a
+    # reading); a frozen leaf is bit-equal in the model
     after = checksums(state.params)
     masters_after = checksums_of(masters)
     still = sorted(n for n in trainable
-                   if masters_after[n] == masters_before[n])
+                   if masters_after[n] == masters_before[n]
+                   and (has_master or masters[n].dim() > 1))
     moved = sorted(n for n in before if n not in trainable
                    and after[n] != before[n])
     if still or moved or not trainable:
@@ -2631,15 +2750,23 @@ def train_phase(name: str, cfg, policy, cut: str, problems: list,
     med_ms = statistics.median(s["ms"] for s in steps)
     on_device = device_breakdown(lambda: step(state, batch), med_ms, top=8)
 
-    # the kernel path against the plain path, same weights and batch
+    # the kernel path against the plain path, same weights and batch (its
+    # first check_batch samples; each gradient set but the one being made
+    # then waits on the host)
     vs_plain = {}
+    if check_batch:
+        cbatch = {k: v[:check_batch] for k, v in batch.items()}
+        keep = lambda grads: {n: g.cpu() for n, g in grads.items()}
+    else:
+        cbatch, keep = batch, (lambda grads: grads)
     zero_counts()
-    k_loss, k_grads = loss_and_grads(model, state.params, batch)
+    k_loss, k_grads = loss_and_grads(model, state.params, cbatch)
     if model_counts() != want:
         problems.append(f"{name}: loss and grads launched {model_counts()}")
+    k_grads = keep(k_grads)
     zero_counts()
     with PlainKernels():
-        p_loss, p_grads = loss_and_grads(model, state.params, batch)
+        p_loss, p_grads = loss_and_grads(model, state.params, cbatch)
     if any(model_counts().values()):
         problems.append(f"{name}: the plain path launched a kernel")
     bf16 = {"loss": {"kernels": k_loss, "plain": p_loss},
@@ -2653,9 +2780,11 @@ def train_phase(name: str, cfg, policy, cut: str, problems: list,
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     model32 = build_model(cfg32)
     params32 = state.params.float()
-    f_loss, f_grads = loss_and_grads(model32, params32, batch)
+    p_grads = keep(p_grads)
+    f_loss, f_grads = loss_and_grads(model32, params32, cbatch)
+    f_grads = keep(f_grads)
     with PlainKernels():
-        fp_loss, fp_grads = loss_and_grads(model32, params32, batch)
+        fp_loss, fp_grads = loss_and_grads(model32, params32, cbatch)
     vs_plain["fp32"] = {
         "loss": {"kernels": f_loss, "plain": fp_loss},
         "grads": grads_agree(f_grads, fp_grads,
@@ -2671,16 +2800,18 @@ def train_phase(name: str, cfg, policy, cut: str, problems: list,
                        for path, grads in (("kernels", k_grads),
                                            ("plain", p_grads))}
     vs_plain["bf16"] = bf16
+    vs_plain["batch"] = next(iter(cbatch.values())).shape[0]
     del k_grads, p_grads
     if fp64_witness:
-        vs_plain["fp64"] = float64_witness(name, model32, params32, batch,
+        fp_grads = keep(fp_grads)
+        vs_plain["fp64"] = float64_witness(name, model32, params32, cbatch,
                                            {"kernels": f_grads,
                                             "plain": fp_grads}, problems)
     del f_grads, fp_grads, params32
 
     pred = PR.predict(model, policy, FA.PredictContext(
         kind="train", global_batch=n_batch, seq_len=seq_len, remat="block",
-        optimizer="adamw", backend="tpu",
+        optimizer=optimizer, backend="tpu",
         enc_seq=int(seq_len * cfg.encdec.enc_seq_ratio) if cfg.encdec
         else 0))
     peak = max(s["peak_bytes"] for s in steps)
@@ -2694,7 +2825,7 @@ def train_phase(name: str, cfg, policy, cut: str, problems: list,
            "params": sum(t.numel() for t in state.params.parameters()),
            "trainable_params": sum(t.numel() for _, t in
                                    PM.trainable_params(state.params)),
-           "optimizer": "adamw", "remat": "block", "init_s": init_s,
+           "optimizer": optimizer, "remat": "block", "init_s": init_s,
            "ms_per_step": [s["ms"] for s in steps],
            "loss_per_step": [s["loss"] for s in steps],
            "launches_per_step": steps[-1]["launches"],
@@ -2717,7 +2848,7 @@ def train_phase(name: str, cfg, policy, cut: str, problems: list,
                       "trainable_moved_in_bf16": bf16_moved,
                       "frozen_bit_equal": len(before) - len(trainable)},
            "vs_plain": vs_plain, "on_device": on_device}
-    del state, batch, model, step
+    del state, batch, cbatch, model, step
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -2782,7 +2913,7 @@ def float64_witness(name: str, model32, params32, batch,
     for leaf, w in w_grads.items():
         scale = max(float(w.abs().max()), 1e-300)
         for path, grads in fp32_grads.items():
-            d = grads[leaf].double() - w
+            d = grads[leaf].to(w.device).double() - w
             dist[path][leaf] = float(d.abs().max()) / scale
             norm[path][leaf] = float(d.norm()) / max(float(w.norm()), 1e-300)
     del w_grads
@@ -3262,6 +3393,235 @@ def train_arctic_reduced() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 5e, 5f and 6f: the MLA family
+# ---------------------------------------------------------------------------
+
+
+def mla_program(cfg, n_steps: int) -> dict:
+    """The reference's launches: flash once per block in the prefill and
+    none in decode; RMSNorm per block in the prefill norm1 twice (its
+    ``_prefill_kv`` and the block), norm2, kv_norm twice (``_prefill_kv``
+    and the attention) and q_norm once (``_prefill_kv`` makes no q), the
+    final norm once; per decode step norm1, norm2, kv_norm, q_norm and the
+    final norm."""
+    n, q = cfg.n_layers, int(bool(cfg.mla.q_lora_rank))
+    return {"prefill": {"flash_fwd": n, "rmsnorm_fwd": (5 + q) * n + 1},
+            "decode": {"flash_fwd": 0,
+                       "rmsnorm_fwd": n_steps * ((3 + q) * n + 1)}}
+
+
+def mla_prefill_paths(cfg, model, params, batch) -> dict:
+    """The full-size prefill through the kernels and through the plain
+    versions on the same weights and tokens, in bf16 and in fp32 (the
+    weights cast IN PLACE: deepseek's fp32 copy beside its bf16 weights
+    would not fit the card; call it last), every path under the bf16
+    kernel path's routing (``RouteReplay``); as each path's last-position
+    logits, every pair's distance over their scale (:func:`_rel`; the
+    cache's latents are bf16 on every path, so they are no fp32
+    comparison).  Readings beside: the bf16
+    pair by the serving tests' 2e-2 of scale (``logits_agree``), and the
+    routing flips and capacity drops of the plain path left to route
+    itself (an MoE config)."""
+    runs = {}
+
+    def run(tag, mdl):
+        logits, cache = SV.make_prefill_step(mdl)(params, batch)
+        runs[tag] = logits[:, -1].float()
+        del logits, cache
+
+    out = {}
+    with RouteLog() as routes:
+        run("bf16_kernels", model)
+    with PlainKernels(), RouteReplay(routes):
+        run("bf16_plain", model)
+    if cfg.moe:
+        meta = MOE.moe_spec("ffn", cfg.d_model, cfg.moe, cfg.dtype).meta
+        with PlainKernels(), RouteLog() as free:
+            SV.make_prefill_step(model)(params, batch)
+        out["free_plain_routing_flips"] = flipped(routes, free)
+        out["prefill_dropped"] = routes.dropped(
+            meta["n_experts"], meta["top_k"], meta["capacity_factor"])
+    out["bf16_kernels_vs_bf16_plain_2e-2"] = logits_agree(
+        runs["bf16_kernels"], runs["bf16_plain"], "", [])
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    params.float()                      # in place
+    gc.collect()
+    torch.cuda.empty_cache()
+    with RouteReplay(routes):
+        run("fp32_kernels", model32)
+    with PlainKernels(), RouteReplay(routes):
+        run("fp32_plain", model32)
+    for a, b in (("fp32_kernels", "fp32_plain"),
+                 ("bf16_kernels", "bf16_plain"),
+                 ("bf16_kernels", "fp32_plain"),
+                 ("bf16_plain", "fp32_plain")):
+        out[f"{a}_vs_{b}"] = {"logits": _rel(runs[a], runs[b])}
+    # greedy tokens, fp32: equal wherever the plain path's top-2 margin
+    # exceeds twice the fp32 tolerance of the logits' scale
+    want = runs["fp32_plain"]
+    scale = max(1.0, float(want.abs().max()))
+    top2 = want.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * MAMBA_FP32_TOL * scale
+    same = runs["fp32_kernels"].argmax(-1) == want.argmax(-1)
+    out["fp32_tokens"] = {"clear": int(clear.sum()),
+                          "same_where_clear": int(same[clear].sum()),
+                          "same": int(same.sum()), "of": int(same.numel())}
+    out["logits_scale"] = float(runs["bf16_plain"].abs().max())
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_mla(arch: str, mesh) -> dict:
+    """``arch`` at full published width and depth, random bf16 weights made
+    on the card from a seeded generator, under ``mesh_context(mesh)``:
+    MLA_BATCH prompts of MLA_PROMPT tokens, MLA_NEW greedy tokens through
+    ``generate``, then the same program phase by phase; the cache's
+    latent / rope-key leaves, launches against the reference's program,
+    the prefill through the kernels against the plain versions (2e-2 of
+    scale, a reading), an MoE config's capacity drops and routing flips,
+    peaks beside the byte model's prediction; then the prefill's four
+    paths (:func:`mla_prefill_paths`, the weights cast to fp32 in place)
+    and their gates (:func:`check_deep_paths`): 27 / 62 random bf16
+    layers grow the two bf16 paths' distance past 2e-2 of scale, and
+    deepseek's routing flips between them (PERF.md § 6)."""
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    meta = MOE.moe_spec("ffn", cfg.d_model, cfg.moe, cfg.dtype).meta \
+        if cfg.moe else None
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    at_start = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = model.init(gen, DEV)
+    batch = model_batch(model, gen, MLA_BATCH, MLA_PROMPT)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    B_, S = MLA_BATCH, MLA_PROMPT
+    problems = []
+    with mesh_context(mesh):
+        with RouteLog() as gen_routes:
+            tokens, generate_s = serve_generate(model, params, batch,
+                                                MLA_NEW)
+        main_launches = serve_counts()
+        if SF.launches or SC.launches or SSD.launches or FL.dq_launches or \
+                FL.dkv_launches or RN.bwd_launches:
+            fail(f"{arch} serving launched another kernel: {model_counts()}")
+
+        def after_prefill(logits, cache):
+            m = cfg.mla
+            n_dense = cfg.moe.n_dense_layers if cfg.moe else 0
+            stacks = {"blocks": cfg.n_layers - n_dense}
+            if n_dense:
+                stacks["dense_blocks"] = n_dense
+            if set(cache) != set(stacks) | {"len"}:
+                fail(f"{arch} prefill cache stacks {sorted(cache)}")
+            for key, n in stacks.items():
+                for leaf, w in (("latent", m.kv_lora_rank),
+                                ("k_rope", m.qk_rope_head_dim)):
+                    t = cache[key][leaf]
+                    if tuple(t.shape) != (n, B_, S, w) or \
+                            t.dtype != torch.bfloat16 or set(cache[key]) \
+                            != {"latent", "k_rope"}:
+                        fail(f"{arch} prefill cache {key}.{leaf}: {t.dtype} "
+                             f"{tuple(t.shape)}, expected bf16 "
+                             f"{(n, B_, S, w)}")
+            if not bool((cache["len"] == S).all()):
+                fail(f"{arch} prefill cache len")
+            return {}
+        phases = serve_by_phase(model, params, batch, tokens, serve_counts,
+                                after_prefill)
+        del phases["checked"]
+    check_launches(f"{arch} serving", phases, main_launches,
+                   mla_program(cfg, phases["n_steps"]))
+
+    # the port's own predictor for the same request (the XLA byte model,
+    # backend="tpu", the 1 x 1 mesh)
+    preds = {}
+    for kind, seq in (("prefill", S), ("decode", S + MLA_NEW)):
+        p = PR.predict(model, FULL_TRAIN, PL.make_context(
+            cfg, MOE_MESH, kind=kind, global_batch=B_, seq_len=seq,
+            backend="tpu"), chip="h100")
+        preds[kind] = {"peak_bytes": p.peak_bytes,
+                       "param_bytes": p.param_bytes,
+                       "cache_bytes": p.cache_bytes,
+                       "act_transient_bytes": p.act_transient_bytes,
+                       "input_bytes": p.input_bytes}
+    m = cfg.mla
+    out = {
+        "arch": arch, "cut": "none: full width and depth", "mesh": mesh,
+        "requests": B_, "prompt_tokens": S, "new_tokens": MLA_NEW,
+        "n_layers": cfg.n_layers,
+        "head_dims": [m.qk_nope_head_dim + m.qk_rope_head_dim,
+                      m.v_head_dim],
+        "kv_lora_rank": m.kv_lora_rank, "q_lora_rank": m.q_lora_rank,
+        "params": sum(t.numel() for t in params.parameters()),
+        "param_bytes": sum(t.numel() * t.element_size()
+                           for t in params.parameters()),
+        "init_s": init_s, "init_peak_bytes": init_peak,
+        "resident_at_start_bytes": at_start,
+        **serve_readings(B_, MLA_NEW, generate_s, main_launches, phases,
+                         preds),
+        "prefill_tokens_per_s": B_ * S / phases["prefill_s"],
+    }
+    if meta:
+        out.update(experts=meta["n_experts"], top_k=meta["top_k"],
+                   capacity_factor=meta["capacity_factor"],
+                   dropped={"generate": gen_routes.dropped(
+                       meta["n_experts"], meta["top_k"],
+                       meta["capacity_factor"])})
+    del phases
+    gc.collect()
+    torch.cuda.empty_cache()
+    with mesh_context(mesh):
+        out["prefill_vs_plain"] = mla_prefill_paths(cfg, model, params,
+                                                    batch)
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["elapsed_s"] = time.perf_counter() - t_phase
+    say(f"serve_{arch.replace('-', '_').replace('.', '_')} "
+        + json.dumps(out))
+    check_deep_paths(arch, out["prefill_vs_plain"], problems)
+    if problems:
+        fail("; ".join(problems))
+    return out
+
+
+def train_minicpm3_4b() -> dict:
+    """minicpm3-4b at full width and depth (62 layers), FULL_TRAIN,
+    Adafactor, remat "block", MLA_TRAIN_BATCH x MLA_PROMPT tokens,
+    TRAIN_STEPS steps: the training phase's readings and gates (the loss
+    finite and moving, launches per step the reference's program: flash
+    forward, dq and dk / dv at (96, 64), RMSNorm at 768 / 256 / 2,560; the
+    fp32 paths' gradients against float64 at the trained weights, on
+    MLA_CHECK_BATCH sample); the line prints before its gates can fail
+    the run."""
+    t_phase = time.perf_counter()
+    cfg = get_config("minicpm3-4b")
+    problems = []
+    out = train_phase(
+        "train_minicpm3_4b", cfg, FULL_TRAIN, "none: full width and depth",
+        problems, make_batch=lambda cfg, gen: model_batch(
+            build_model(cfg), gen, MLA_TRAIN_BATCH, MLA_PROMPT, "train"),
+        n_batch=MLA_TRAIN_BATCH, seq_len=MLA_PROMPT, fp64_witness=True,
+        optimizer="adafactor", check_batch=MLA_CHECK_BATCH)
+    out["elapsed_s"] = time.perf_counter() - t_phase
+    say("train_minicpm3_4b " + json.dumps(out))
+    if problems:
+        fail("; ".join(problems))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 8: the measurement grid (the predictor's error on the card)
 # ---------------------------------------------------------------------------
 
@@ -3503,17 +3863,53 @@ def _bound(n_bytes: float, n_ops: float, ops_per_s: float) -> tuple:
         "bytes" if t_bytes >= t_ops else "operations"
 
 
+def sdpa_backend(fn) -> str:
+    """Which of PyTorch's attention backends ``fn`` (one SDPA call, or its
+    backward) ran: the name of the ``aten::_scaled_dot_product_*`` op the
+    profiler saw ("math" where none ran)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = {ev.key for ev in prof.key_averages()}
+    for kind in ("flash", "efficient", "cudnn"):
+        if any(f"_scaled_dot_product_{kind}_attention" in n for n in names):
+            return kind
+    return "math"
+
+
+def _attention_inputs(shape: tuple, gen, n: int = 3) -> tuple:
+    """bf16 q, k, v (and ``n`` > 3: dout) of a ``(B, S, H, D[, Dv])``
+    timing shape; v and dout at Dv (default D)."""
+    b, sq, h, d = shape[:4]
+    dv = shape[4] if len(shape) > 4 else d
+    return tuple(torch.randn(b, sq, h, w, generator=gen, device=DEV)
+                 .to(torch.bfloat16) for w in (d, d, dv, dv)[:n])
+
+
+def _shape_row(shape: tuple, causal: bool) -> dict:
+    b, sq, h, d = shape[:4]
+    return {"B": b, "S": sq, "H": h, "D": d,
+            "Dv": shape[4] if len(shape) > 4 else d, "causal": causal,
+            "dtype": "bfloat16"}
+
+
 def _flash_timing(shape: tuple, causal: bool, gen) -> dict:
-    b, sq, h, d = shape
-    q, k, v = (torch.randn(b, sq, h, d, generator=gen, device=DEV)
-               .to(torch.bfloat16) for _ in range(3))
+    """The forward at ``(B, S, H, D[, Dv])``: q . k products at D and P . v
+    at Dv, 2 x scores x (D + Dv) operations; q, k read at D, v read and
+    out written at Dv, the fp32 lse written."""
+    b, sq, h, d = shape[:4]
+    q, k, v = _attention_inputs(shape, gen)
+    dv = v.shape[-1]
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    n_ops = 4 * b * h * sq * sq * d * (0.5 if causal else 1.0)
-    n_bytes = 4 * q.numel() * q.element_size() + 4 * b * h * sq
+    scores = b * h * sq * sq * (0.5 if causal else 1.0)
+    n_ops = 2 * scores * (d + dv)
+    n_bytes = 2 * (q.numel() + v.numel()) * q.element_size() + 4 * b * h * sq
     bound_ms, bound_by = _bound(n_bytes, n_ops, BF16_OPS_PER_S)
+    library = lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                     is_causal=causal)
     return {
-        "shape": {"B": b, "S": sq, "H": h, "D": d, "causal": causal,
-                  "dtype": "bfloat16"},
+        "shape": _shape_row(shape, causal),
         "ms": event_ms(lambda: FL.flash_fwd(q, k, v, causal=causal),
                       flush=True),
         "device_ms": device_ms(lambda: FL.flash_fwd(q, k, v, causal=causal),
@@ -3521,8 +3917,8 @@ def _flash_timing(shape: tuple, causal: bool, gen) -> dict:
         "plain_ms": event_ms(
             lambda: FL.flash_fwd_plain(q, k, v, causal=causal), launches=10,
             flush=True),
-        "library_ms": event_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal), flush=True),
+        "library_ms": event_ms(library, flush=True),
+        "library_backend": sdpa_backend(library),
         "l2": "flushed before each timed launch",
         "bound_ms": bound_ms, "bound_by": bound_by,
         "flops": n_ops, "bytes": n_bytes}
@@ -3550,10 +3946,13 @@ def _rmsnorm_timing(shape: tuple, gen) -> dict:
 def _flash_bwd_timing(shape: tuple, causal: bool, gen) -> tuple:
     """The dq and the dk / dv pass at one shape, each with its own bound;
     the plain version and the library call compute all three gradients,
-    so those two times stand in both rows."""
-    b, sq, h, d = shape
-    q, k, v, do = (torch.randn(b, sq, h, d, generator=gen, device=DEV)
-                   .to(torch.bfloat16) for _ in range(4))
+    so those two times stand in both rows.  Products at D (s = q k^T, dq,
+    dk) and at Dv (dp = dout v^T, dv): the dq pass does 2 x scores x (2D
+    + Dv) operations, the dk / dv pass 2 x scores x (2D + 2Dv); each
+    tensor is counted at its own width."""
+    b, sq, h, d = shape[:4]
+    q, k, v, do = _attention_inputs(shape, gen, 4)
+    dv = v.shape[-1]
     out, lse = FL.flash_fwd(q, k, v, causal=causal)
     _, delta = FL.flash_bwd_dq(q, k, v, out, lse, do, causal=causal)
     plain_ms = event_ms(lambda: FL.flash_bwd_plain(q, k, v, out, lse, do,
@@ -3563,35 +3962,38 @@ def _flash_bwd_timing(shape: tuple, causal: bool, gen) -> tuple:
                   for t in (q, k, v))
     o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
     dot = do.transpose(1, 2)
-    library_ms = event_ms(lambda: torch.autograd.grad(
-        o, (qt, kt, vt), dot, retain_graph=True), flush=True)
+    library = lambda: torch.autograd.grad(o, (qt, kt, vt), dot,
+                                          retain_graph=True)
+    library_ms = event_ms(library, flush=True)
+    backend = sdpa_backend(library)
     scores = b * h * sq * sq * (0.5 if causal else 1.0)
-    tensor = q.numel() * q.element_size()
+    t_d = q.numel() * q.element_size()          # a tensor at D
+    t_dv = v.numel() * v.element_size()         # a tensor at Dv
     stat = 4 * b * h * sq
     rows = []
-    for name, n_mm, n_bytes, fn, kern in (
+    for name, width, n_bytes, fn, kern in (
             # dq pass: s, dp and dq; reads q k v out dout lse, writes dq
             # and delta
-            ("flash_dq", 3, 6 * tensor + 2 * stat,
+            ("flash_dq", 2 * d + dv, 3 * t_d + 3 * t_dv + 2 * stat,
              lambda: FL.flash_bwd_dq(q, k, v, out, lse, do, causal=causal),
              "flash_bwd_dq_kernel_mma"),
             # dk / dv pass: s, dp, dv and dk; reads q k v dout lse delta,
             # writes dk dv
-            ("flash_dkv", 4, 6 * tensor + 2 * stat,
+            ("flash_dkv", 2 * d + 2 * dv, 3 * t_d + 3 * t_dv + 2 * stat,
              lambda: FL.flash_bwd_dkv(q, k, v, lse, do, delta,
                                       causal=causal),
              "flash_bwd_dkv_kernel_mma")):
-        n_ops = 2 * n_mm * scores * d
+        n_ops = 2 * scores * width
         bound_ms, bound_by = _bound(n_bytes, n_ops, BF16_OPS_PER_S)
         rows.append({
-            "shape": {"B": b, "S": sq, "H": h, "D": d, "causal": causal,
-                      "dtype": "bfloat16"},
+            "shape": _shape_row(shape, causal),
             "ms": event_ms(fn, flush=True),
             "device_ms": device_ms(fn, kern, flush=True),
             "l2": "flushed before each timed launch",
             "plain_ms": plain_ms, "plain_covers": "dq, dk and dv",
             "library_ms": library_ms,
             "library_covers": "dq, dk and dv (SDPA backward)",
+            "library_backend": backend,
             "bound_ms": bound_ms, "bound_by": bound_by, "flops": n_ops,
             "bytes": n_bytes})
     return rows[0], rows[1]
@@ -3654,7 +4056,14 @@ def time_model_kernels(checks: dict, launches: dict) -> list:
                ecfg.resolved_head_dim)
     fwd_other += [_flash_timing(e_shape, False, gen),
                   _flash_timing(e_shape, True, gen)]
+    # the MLA and hybrid pairs: deepseek-v2-lite-16b's prefill, minicpm3-4b's
+    # prefill and training, zamba2-2.7b's shared attention
+    for shape in ((4, 2048, 16, 192, 128), (4, 2048, 40, 96, 64),
+                  (4, 2048, 32, 80)):
+        fwd_other.append(_flash_timing(shape, True, gen))
     dq, dkv = _flash_bwd_timing(lm_shape, True, gen)
+    bwd_other = [_flash_bwd_timing(shape, True, gen)
+                 for shape in ((4, 2048, 40, 96, 64), (4, 2048, 32, 80))]
     rn_main = _rmsnorm_timing((TRAIN_BATCH * S_train, cfg.d_model), gen)
     rn_other = [_rmsnorm_timing((SERVE_BATCH * S_serve, cfg.d_model), gen),
                 _rmsnorm_timing((SERVE_BATCH, 1, cfg.d_model), gen),
@@ -3670,10 +4079,10 @@ def time_model_kernels(checks: dict, launches: dict) -> list:
              ("out", "lse"), TRAIN_LM_CASE, fwd_main, fwd_other),
             ("flash_dq", "flash_attention_bwd.cu",
              "src/repro/kernels/flash_attention.py:165", "flash_bwd",
-             ("dq",), TRAIN_LM_CASE, dq, []),
+             ("dq",), TRAIN_LM_CASE, dq, [r[0] for r in bwd_other]),
             ("flash_dkv", "flash_attention_bwd.cu",
              "src/repro/kernels/flash_attention.py:212", "flash_bwd",
-             ("dk", "dv"), TRAIN_LM_CASE, dkv, []),
+             ("dk", "dv"), TRAIN_LM_CASE, dkv, [r[1] for r in bwd_other]),
             ("rmsnorm_fwd", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:20",
              "rmsnorm_fwd", ("float32", "bfloat16"), TRAIN_ROWS, rn_main,
              rn_other),
@@ -3698,6 +4107,11 @@ def time_model_kernels(checks: dict, launches: dict) -> list:
                 "ptxas": mma_resources().get(f"{kern}<{d},{d}>"),
                 "smem_bytes_per_block": FL.mma_smem_bytes(which, d, d)}
         entry["other_shapes"] = others
+        if name in MMA_KERNELS:
+            for o in others:        # each shape's own instance
+                sh = o["shape"]
+                o["ptxas"] = mma_resources().get(
+                    f"{MMA_KERNELS[name][0]}<{sh['D']},{sh['Dv']}>")
         for k in [entry] + others:
             if not (k["ms"] > 0 and k["plain_ms"] > 0 and k["bound_ms"] > 0
                     and k["library_ms"] > 0):
@@ -3820,7 +4234,9 @@ def main(argv: list) -> int:
     say(f"card: {smi}")
     _build.load()
     say(f"build: {len(_build.sources())} CUDA sources in "
-        f"{_build.build_seconds:.1f} s (set-up) -> {_build.build_dir()}")
+        f"{_build.build_seconds:.1f} s (set-up; "
+        f"{'cold nvcc, in parallel' if _build.build_seconds else 'cached'})"
+        f" -> {_build.build_dir()}")
     resources = mma_resources()
     say("ptxas " + json.dumps(resources))
     spills = [k for k, r in resources.items()
@@ -3960,6 +4376,22 @@ def main(argv: list) -> int:
     for k, n in measure_phase().items():
         launches[k] += n
     phase_done("8 measure")
+
+    # phases 5e, 5f and 6f: the MLA family at full size, after the grid,
+    # so that every earlier phase and cell meets the caching allocator as
+    # it found it before these phases existed (its free blocks move
+    # allocator peaks by a few MB)
+    for k, n in serve_mla("deepseek-v2-lite-16b", MOE_MESH)[
+            "launches"]["generate"].items():
+        launches[k] += n
+    phase_done("5e serve_deepseek_v2_lite_16b")
+    for k, n in serve_mla("minicpm3-4b", None)[
+            "launches"]["generate"].items():
+        launches[k] += n
+    phase_done("5f serve_minicpm3_4b")
+    for k, n in train_minicpm3_4b()["launches_total"].items():
+        launches[k] += n
+    phase_done("6f train_minicpm3_4b")
 
     # phase 7: kernel timings at the main paths' shapes
     kernels = time_kernels(log, checks, launches) + \

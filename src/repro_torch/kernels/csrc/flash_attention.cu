@@ -21,8 +21,9 @@
 // after the last KV tile that touches their diagonal, skipping the tiles
 // above it as the TPU kernel's pl.when does.
 //
-// What bounds it on an H100: operations, 4*B*H*Sq*Skv*D (halved when
-// causal) against (q + k + v + out) bytes plus the fp32 lse.  Two kernels:
+// What bounds it on an H100: operations, 2*B*H*Sq*Skv*(D + Dv) (halved
+// when causal) against (q + k + v + out) bytes plus the fp32 lse.  Two
+// kernels:
 //
 // * flash_fwd_kernel_mma, bf16 inputs, on the tensor cores (FlashAttention-2
 //   on Hopper's mma.sync).  One block of 8 warps per (batch, head, 128-row
@@ -63,8 +64,18 @@
 //   with shuffles.  (It also takes bf16, converting every tile; the entry
 //   point sends bf16 to the tensor-core kernel.)
 //
-// Head dims are template parameters (16 for the reduced test configs, 32,
-// 64, 128 and the MLA-like 128 -> 64).
+// Head dims are template parameters: 16 for the reduced test configs, 32,
+// 64, 128, 128 -> 64, and the MLA pairs 192 -> 128 (deepseek-v2-lite-16b:
+// qk_nope 128 + qk_rope 64, v 128) and 96 -> 64 (minicpm3-4b: 64 + 32, v
+// 64), and 80 (zamba2-2.7b's shared attention).  80 and 96 are not
+// multiples of 32: every loop over a head dim strides by 16 B cp.async
+// chunks (D / 8 of them), 16-column ldmatrix pairs (D / 16) or the FMA
+// kernels' 16 columns a thread (D / 16), so a multiple of 16 is all a pair
+// needs; the padded row strides (D + 8 bf16: 176, 208 and 400 bytes) keep
+// ldmatrix's 8 rows in 8 different 16-byte bank groups.  At D = 192 the
+// tensor-core kernel computes each 64-row kv tile in two 32-row halves
+// (kv_halves): q's fragments take 48 registers a thread there, and a whole
+// tile's scores and P parts another 64.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -255,6 +266,11 @@ constexpr int MMA_BQ = 128;         // q rows per block, 16 per warp
 constexpr int MMA_BK = 64;          // kv rows per tile
 constexpr int MMA_THREADS = 256;    // 8 warps
 
+// sub-tiles a kv tile is computed in: 2 at D > 128, where q's fragments
+// (D / 4 registers a thread) leave too few registers for a whole tile's
+// scores and P fragments; 1 (the whole tile) below
+__host__ __device__ constexpr int kv_halves(int D) { return D > 128 ? 2 : 1; }
+
 template <int D, int DV>
 struct MmaSmem {                    // bf16 elements; rows padded by 8
     static constexpr int QS = D + 8;
@@ -276,7 +292,12 @@ flash_fwd_kernel_mma(const __nv_bfloat16* __restrict__ q,
                      float* __restrict__ lse, int Sq, int Skv, int H,
                      int Hkv, int q_offset, int causal, float scale) {
     using S = MmaSmem<D, DV>;
-    constexpr int NT = MMA_BK / 8;       // score n-tiles per kv tile
+    // at D > 128 the kv tile is computed in two 32-row halves, so that
+    // the scores and P's fragments (16 + 16 registers, not 32 + 32) fit
+    // beside the longer q fragments (qf: D / 4 registers)
+    constexpr int KH = kv_halves(D);
+    constexpr int SUB = MMA_BK / KH;     // kv rows per sub-tile
+    constexpr int NT = SUB / 8;          // score n-tiles per sub-tile
     constexpr int NO = DV / 8;           // output n-tiles
     extern __shared__ __align__(16) unsigned char smem_raw[];
     __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -338,9 +359,8 @@ flash_fwd_kernel_mma(const __nv_bfloat16* __restrict__ q,
     float l0 = 0.f, l1 = 0.f;            // this lane's part of the row sums
 
     for (int j = 0; j < n_tiles; ++j) {
-        const int k0 = j * MMA_BK;
         if (j + 1 < n_tiles) {
-            load_kv(k0 + MMA_BK, (j + 1) & 1);
+            load_kv((j + 1) * MMA_BK, (j + 1) & 1);
             tc::cp_async_commit();
             tc::cp_async_wait<1>();
         } else {
@@ -353,10 +373,13 @@ flash_fwd_kernel_mma(const __nv_bfloat16* __restrict__ q,
                 tc::ldsm_x4(qf[dc], sQ + ((16 * warp + tc::a_row(lane)) *
                                           S::QS + dc * 16 + tc::a_col(lane)) * 2);
         }
-        // tiles wholly above this warp's diagonal add nothing
+        #pragma unroll 1
+        for (int kh = 0; kh < KH; ++kh) {
+        const int k0 = j * MMA_BK + kh * SUB;
+        // sub-tiles wholly above this warp's diagonal add nothing
         if (!causal || k0 <= q_offset + wrow + 15) {
-            const uint32_t kt = sK + (j & 1) * MMA_BK * S::KS * 2;
-            const uint32_t vt = sV + (j & 1) * MMA_BK * S::VS * 2;
+            const uint32_t kt = sK + ((j & 1) * MMA_BK + kh * SUB) * S::KS * 2;
+            const uint32_t vt = sV + ((j & 1) * MMA_BK + kh * SUB) * S::VS * 2;
             float s[NT][4];
             #pragma unroll
             for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
@@ -371,9 +394,9 @@ flash_fwd_kernel_mma(const __nv_bfloat16* __restrict__ q,
                     tc::mma_bf16(s[2 * np + 1], qf[dc], kr[2], kr[3]);
                 }
             }
-            // masks only where the tile crosses the diagonal or Skv
-            if (k0 + MMA_BK > Skv ||
-                (causal && k0 + MMA_BK - 1 > q_offset + wrow)) {
+            // masks only where the sub-tile crosses the diagonal or Skv
+            if (k0 + SUB > Skv ||
+                (causal && k0 + SUB - 1 > q_offset + wrow)) {
                 #pragma unroll
                 for (int n = 0; n < NT; ++n)
                     #pragma unroll
@@ -422,7 +445,7 @@ flash_fwd_kernel_mma(const __nv_bfloat16* __restrict__ q,
                 o[n][3] *= a1;
             }
             #pragma unroll
-            for (int kc = 0; kc < MMA_BK / 16; ++kc) {
+            for (int kc = 0; kc < SUB / 16; ++kc) {
                 #pragma unroll
                 for (int np = 0; np < NO / 2; ++np) {
                     uint32_t vr[4];
@@ -435,6 +458,7 @@ flash_fwd_kernel_mma(const __nv_bfloat16* __restrict__ q,
                     tc::mma_bf16(o[2 * np + 1], pl[kc], vr[2], vr[3]);
                 }
             }
+        }
         }
         __syncthreads();                 // tile j's buffers free again
     }
@@ -519,6 +543,9 @@ int dispatch(int D, int Dv, const void* q, const void* k, const void* v,
     FLASH_CASE(64, 64)
     FLASH_CASE(128, 128)
     FLASH_CASE(128, 64)
+    FLASH_CASE(192, 128)
+    FLASH_CASE(96, 64)
+    FLASH_CASE(80, 80)
 #undef FLASH_CASE
     return -1;
 }

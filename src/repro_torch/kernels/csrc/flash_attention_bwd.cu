@@ -32,9 +32,17 @@
 // kernels apply the same test per warp.
 //
 // What bounds them on an H100: operations.  The dq pass does three
-// products per score tile (s, dp, dq) and the dkv pass four (s, dp, dv,
-// dk), 2.5x the forward's operations in all (FA2's count), against
-// q + k + v + out + dout + dq + dk + dv bytes plus lse and delta.
+// products per score tile (s and dq at D, dp at Dv) and the dkv pass four
+// (s and dk at D, dp and dv at Dv), 2.5x the forward's operations in all
+// at D = Dv (FA2's count), against q + k + v + out + dout + dq + dk + dv
+// bytes plus lse and delta.
+//
+// Head dims as in flash_attention.cu, (192, 128), (96, 64) and (80, 80)
+// included.  At D > 128 the tensor-core dq pass computes each 64-row kv
+// tile in two 32-row halves (kv_halves), and at D + DV > 256 the dk / dv
+// pass sweeps its q tiles twice (dkv_split): (192, 128) then takes 245
+// (dq) and 241 (dk / dv) registers a thread, no spills (ptxas -v, nvcc
+// 12.9), with the shared memory of one sweep.
 //
 // For bf16 inputs both passes run on the tensor cores (m16n8k16 bf16
 // mma.sync, fp32 accumulation), in blocks of 8 warps (256 threads), with
@@ -414,6 +422,11 @@ constexpr int MMA_BKV = 128;        // kv rows per block, 16 per warp
 constexpr int MMA_BQ = 64;          // q rows per tile, two halves of 32
 constexpr int MMA_THREADS = 256;    // 8 warps
 
+// sub-tiles the dq pass computes a kv tile in: 2 at D > 128, where dQ's
+// accumulators (D / 2 registers a thread) leave too few registers for a
+// whole tile's scores, dP and dS fragments; 1 (the whole tile) below
+__host__ __device__ constexpr int kv_halves(int D) { return D > 128 ? 2 : 1; }
+
 template <int D, int DV>
 struct DkvMmaSmem {                 // byte offsets; bf16 rows padded by 8
     static constexpr int KS = D + 8;          // k and q rows
@@ -427,20 +440,33 @@ struct DkvMmaSmem {                 // byte offsets; bf16 rows padded by 8
     static constexpr size_t BYTES = DELTA_OFF + 2 * MMA_BQ * 4;
 };
 
+// dk / dv pass, split at (D + DV) > 256: each warp's fp32 dK and dV
+// accumulators take (D + DV) / 2 registers a thread (128 at head dim 128,
+// beside 253 in all); at (192, 128) they would take 160, past the 255 a
+// thread may hold.  A split block walks its (head, q tile) pairs twice:
+// first for dV alone (S^T, P^T, dV; 64 accumulator registers), then for
+// dK alone (S^T, P^T, dP^T, dS^T, dK; 96).  The second sweep recomputes
+// S^T, 3D + 2DV products per score tile where one sweep does 2D + 2DV
+// (1.3x at (192, 128)), and each value is computed from the same operands
+// in the same order as in one sweep, so the roundings are those of the
+// unsplit kernel.  (Fewer warps per block would not help: a warp's 16 kv
+// rows hold the same accumulators whatever the block's size.)
 template <int D, int DV>
-__global__ void __launch_bounds__(MMA_THREADS, 1)
-flash_bwd_dkv_kernel_mma(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         __nv_bfloat16* __restrict__ dk,
-                         __nv_bfloat16* __restrict__ dv, int Sq, int Skv,
-                         int H, int Hkv, int q_offset, int causal,
-                         float scale) {
+__host__ __device__ constexpr bool dkv_split() { return D + DV > 256; }
+
+// One sweep of a dk / dv block over its (head of the group, q tile)
+// pairs, accumulating dK (DO_DK) and / or dV (DO_DV) and storing them.
+// K and V are in flight in shared memory (committed with the first q
+// tile's copies); the caller syncs the block between two sweeps.
+template <int D, int DV, bool DO_DK, bool DO_DV>
+__device__ __forceinline__ void dkv_sweep(
+        const __nv_bfloat16* __restrict__ q,
+        const __nv_bfloat16* __restrict__ dout,
+        const float* __restrict__ lse, const float* __restrict__ delta,
+        __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+        unsigned char* smem_raw, int Sq, int Skv, int H, int Hkv,
+        int q_offset, int causal, float scale) {
     using S = DkvMmaSmem<D, DV>;
-    extern __shared__ __align__(16) unsigned char smem_raw[];
     const uint32_t base = tc::smem_addr(smem_raw);
     const uint32_t sK = base + S::K_OFF, sV = base + S::V_OFF;
     const uint32_t sQ = base + S::Q_OFF, sO = base + S::DO_OFF;
@@ -460,19 +486,6 @@ flash_bwd_dkv_kernel_mma(const __nv_bfloat16* __restrict__ q,
     const long long v_row = (long long)Hkv * DV;
     const long long kb = (long long)b * Skv * k_row + (long long)hk * D;
     const long long vb = (long long)b * Skv * v_row + (long long)hk * DV;
-
-    for (int i = tid; i < MMA_BKV * (D / 8); i += MMA_THREADS) {
-        const int r = i / (D / 8), c = (i % (D / 8)) * 8, s = k0 + r;
-        const bool in = s < Skv;
-        tc::cp_async16(sK + (r * S::KS + c) * 2,
-                       k + kb + (in ? s : 0) * k_row + c, in);
-    }
-    for (int i = tid; i < MMA_BKV * (DV / 8); i += MMA_THREADS) {
-        const int r = i / (DV / 8), c = (i % (DV / 8)) * 8, s = k0 + r;
-        const bool in = s < Skv;
-        tc::cp_async16(sV + (r * S::VS + c) * 2,
-                       v + vb + (in ? s : 0) * v_row + c, in);
-    }
 
     // q tiles whose last row lies before this KV tile are fully masked
     int q_first = 0;
@@ -510,13 +523,15 @@ flash_bwd_dkv_kernel_mma(const __nv_bfloat16* __restrict__ q,
         }
     };
     if (n_it > 0) load_q(0, 0);
-    tc::cp_async_commit();               // with K and V
+    tc::cp_async_commit();               // with K and V in the first sweep
 
-    float dka[D / 8][4], dva[DV / 8][4];
+    constexpr int NKA = DO_DK ? D / 8 : 1;       // accumulator n-tiles
+    constexpr int NVA = DO_DV ? DV / 8 : 1;
+    float dka[NKA][4], dva[NVA][4];
     #pragma unroll
-    for (int n = 0; n < D / 8; ++n) dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
+    for (int n = 0; n < NKA; ++n) dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
     #pragma unroll
-    for (int n = 0; n < DV / 8; ++n) dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
+    for (int n = 0; n < NVA; ++n) dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
     const int wrow = k0 + 16 * warp;     // this warp's first kv row
     const int kp0 = wrow + g, kp1 = kp0 + 8;
     const float c = scale * tc::LOG2E;
@@ -566,7 +581,6 @@ flash_bwd_dkv_kernel_mma(const __nv_bfloat16* __restrict__ q,
             // P^T = exp(scale S^T - lse) in fp32; masked on edge halves
             const bool edge = q0 + qs + 32 > Sq || wrow + 16 > Skv ||
                               (causal && wrow + 15 > qpos);
-            uint32_t pa[2][4];
             #pragma unroll
             for (int n = 0; n < 4; ++n) {
                 const int qc = qs + n * 8 + 2 * t;
@@ -584,61 +598,70 @@ flash_bwd_dkv_kernel_mma(const __nv_bfloat16* __restrict__ q,
                     }
                     st[n][e] = p;
                 }
-                pa[n / 2][(n & 1) * 2] = tc::pack_bf16(st[n][0], st[n][1]);
-                pa[n / 2][(n & 1) * 2 + 1] = tc::pack_bf16(st[n][2], st[n][3]);
             }
-            // dV += P^T dO
-            #pragma unroll
-            for (int kc = 0; kc < 2; ++kc) {
+            if constexpr (DO_DV) {
+                // dV += P^T dO, P^T rounded to bf16 in registers
+                uint32_t pa[2][4];
                 #pragma unroll
-                for (int np = 0; np < DV / 16; ++np) {
-                    uint32_t orr[4];
-                    tc::ldsm_x4_trans(orr, ot + ((qs + kc * 16 + tc::a_row(lane)) *
-                                                 S::VS + np * 16 +
-                                                 tc::a_col(lane)) * 2);
-                    tc::mma_bf16(dva[2 * np], pa[kc], orr[0], orr[1]);
-                    tc::mma_bf16(dva[2 * np + 1], pa[kc], orr[2], orr[3]);
+                for (int n = 0; n < 4; ++n) {
+                    pa[n / 2][(n & 1) * 2] = tc::pack_bf16(st[n][0], st[n][1]);
+                    pa[n / 2][(n & 1) * 2 + 1] =
+                        tc::pack_bf16(st[n][2], st[n][3]);
+                }
+                #pragma unroll
+                for (int kc = 0; kc < 2; ++kc) {
+                    #pragma unroll
+                    for (int np = 0; np < DV / 16; ++np) {
+                        uint32_t orr[4];
+                        tc::ldsm_x4_trans(orr, ot + ((qs + kc * 16 + tc::a_row(lane)) *
+                                                     S::VS + np * 16 +
+                                                     tc::a_col(lane)) * 2);
+                        tc::mma_bf16(dva[2 * np], pa[kc], orr[0], orr[1]);
+                        tc::mma_bf16(dva[2 * np + 1], pa[kc], orr[2], orr[3]);
+                    }
                 }
             }
-            // dP^T = V dO^T
-            float dp[4][4];
-            #pragma unroll
-            for (int n = 0; n < 4; ++n) dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
-            #pragma unroll
-            for (int dc = 0; dc < DV / 16; ++dc) {
-                uint32_t va[4];
-                tc::ldsm_x4(va, vA + dc * 32);
+            if constexpr (DO_DK) {
+                // dP^T = V dO^T
+                float dp[4][4];
                 #pragma unroll
-                for (int np = 0; np < 2; ++np) {
-                    uint32_t orr[4];
-                    tc::ldsm_x4(orr, ot + ((qs + np * 16 + tc::bn_row(lane)) *
-                                           S::VS + dc * 16 + tc::bn_col(lane)) * 2);
-                    tc::mma_bf16(dp[2 * np], va, orr[0], orr[1]);
-                    tc::mma_bf16(dp[2 * np + 1], va, orr[2], orr[3]);
+                for (int n = 0; n < 4; ++n) dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+                #pragma unroll
+                for (int dc = 0; dc < DV / 16; ++dc) {
+                    uint32_t va[4];
+                    tc::ldsm_x4(va, vA + dc * 32);
+                    #pragma unroll
+                    for (int np = 0; np < 2; ++np) {
+                        uint32_t orr[4];
+                        tc::ldsm_x4(orr, ot + ((qs + np * 16 + tc::bn_row(lane)) *
+                                               S::VS + dc * 16 + tc::bn_col(lane)) * 2);
+                        tc::mma_bf16(dp[2 * np], va, orr[0], orr[1]);
+                        tc::mma_bf16(dp[2 * np + 1], va, orr[2], orr[3]);
+                    }
                 }
-            }
-            // dS^T = P^T (dP^T - delta), rounded to bf16
-            uint32_t da[2][4];
-            #pragma unroll
-            for (int n = 0; n < 4; ++n) {
-                const float2 dl = *reinterpret_cast<const float2*>(
-                    dt + qs + n * 8 + 2 * t);
-                da[n / 2][(n & 1) * 2] = tc::pack_bf16(
-                    st[n][0] * (dp[n][0] - dl.x), st[n][1] * (dp[n][1] - dl.y));
-                da[n / 2][(n & 1) * 2 + 1] = tc::pack_bf16(
-                    st[n][2] * (dp[n][2] - dl.x), st[n][3] * (dp[n][3] - dl.y));
-            }
-            // dK += dS^T Q
-            #pragma unroll
-            for (int kc = 0; kc < 2; ++kc) {
+                // dS^T = P^T (dP^T - delta), rounded to bf16
+                uint32_t da[2][4];
                 #pragma unroll
-                for (int np = 0; np < D / 16; ++np) {
-                    uint32_t qr[4];
-                    tc::ldsm_x4_trans(qr, qt + ((qs + kc * 16 + tc::a_row(lane)) *
-                                                S::KS + np * 16 +
-                                                tc::a_col(lane)) * 2);
-                    tc::mma_bf16(dka[2 * np], da[kc], qr[0], qr[1]);
-                    tc::mma_bf16(dka[2 * np + 1], da[kc], qr[2], qr[3]);
+                for (int n = 0; n < 4; ++n) {
+                    const float2 dl = *reinterpret_cast<const float2*>(
+                        dt + qs + n * 8 + 2 * t);
+                    da[n / 2][(n & 1) * 2] = tc::pack_bf16(
+                        st[n][0] * (dp[n][0] - dl.x), st[n][1] * (dp[n][1] - dl.y));
+                    da[n / 2][(n & 1) * 2 + 1] = tc::pack_bf16(
+                        st[n][2] * (dp[n][2] - dl.x), st[n][3] * (dp[n][3] - dl.y));
+                }
+                // dK += dS^T Q
+                #pragma unroll
+                for (int kc = 0; kc < 2; ++kc) {
+                    #pragma unroll
+                    for (int np = 0; np < D / 16; ++np) {
+                        uint32_t qr[4];
+                        tc::ldsm_x4_trans(qr, qt + ((qs + kc * 16 + tc::a_row(lane)) *
+                                                    S::KS + np * 16 +
+                                                    tc::a_col(lane)) * 2);
+                        tc::mma_bf16(dka[2 * np], da[kc], qr[0], qr[1]);
+                        tc::mma_bf16(dka[2 * np + 1], da[kc], qr[2], qr[3]);
+                    }
                 }
             }
         }
@@ -650,16 +673,72 @@ flash_bwd_dkv_kernel_mma(const __nv_bfloat16* __restrict__ q,
     for (int half = 0; half < 2; ++half) {
         const int s = kp0 + 8 * half;
         if (s >= Skv) continue;
-        __nv_bfloat16* kr = dk + kb + (long long)s * k_row;
-        __nv_bfloat16* vr = dv + vb + (long long)s * v_row;
-        #pragma unroll
-        for (int n = 0; n < D / 8; ++n)
-            *reinterpret_cast<uint32_t*>(kr + n * 8 + 2 * t) = tc::pack_bf16(
-                dka[n][2 * half] * scale, dka[n][2 * half + 1] * scale);
-        #pragma unroll
-        for (int n = 0; n < DV / 8; ++n)
-            *reinterpret_cast<uint32_t*>(vr + n * 8 + 2 * t) = tc::pack_bf16(
-                dva[n][2 * half], dva[n][2 * half + 1]);
+        if constexpr (DO_DK) {
+            __nv_bfloat16* kr = dk + kb + (long long)s * k_row;
+            #pragma unroll
+            for (int n = 0; n < D / 8; ++n)
+                *reinterpret_cast<uint32_t*>(kr + n * 8 + 2 * t) = tc::pack_bf16(
+                    dka[n][2 * half] * scale, dka[n][2 * half + 1] * scale);
+        }
+        if constexpr (DO_DV) {
+            __nv_bfloat16* vr = dv + vb + (long long)s * v_row;
+            #pragma unroll
+            for (int n = 0; n < DV / 8; ++n)
+                *reinterpret_cast<uint32_t*>(vr + n * 8 + 2 * t) = tc::pack_bf16(
+                    dva[n][2 * half], dva[n][2 * half + 1]);
+        }
+    }
+}
+
+template <int D, int DV>
+__global__ void __launch_bounds__(MMA_THREADS, 1)
+flash_bwd_dkv_kernel_mma(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const __nv_bfloat16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, int Sq, int Skv,
+                         int H, int Hkv, int q_offset, int causal,
+                         float scale) {
+    using S = DkvMmaSmem<D, DV>;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const uint32_t base = tc::smem_addr(smem_raw);
+    const uint32_t sK = base + S::K_OFF, sV = base + S::V_OFF;
+    const int tid = threadIdx.x;
+    const int hk = blockIdx.x, b = blockIdx.y;
+    const int k0 = blockIdx.z * MMA_BKV;
+    const long long k_row = (long long)Hkv * D;
+    const long long v_row = (long long)Hkv * DV;
+    const long long kb = (long long)b * Skv * k_row + (long long)hk * D;
+    const long long vb = (long long)b * Skv * v_row + (long long)hk * DV;
+
+    // K and V stay resident for the block's sweeps
+    for (int i = tid; i < MMA_BKV * (D / 8); i += MMA_THREADS) {
+        const int r = i / (D / 8), c = (i % (D / 8)) * 8, s = k0 + r;
+        const bool in = s < Skv;
+        tc::cp_async16(sK + (r * S::KS + c) * 2,
+                       k + kb + (in ? s : 0) * k_row + c, in);
+    }
+    for (int i = tid; i < MMA_BKV * (DV / 8); i += MMA_THREADS) {
+        const int r = i / (DV / 8), c = (i % (DV / 8)) * 8, s = k0 + r;
+        const bool in = s < Skv;
+        tc::cp_async16(sV + (r * S::VS + c) * 2,
+                       v + vb + (in ? s : 0) * v_row + c, in);
+    }
+    if constexpr (dkv_split<D, DV>()) {
+        dkv_sweep<D, DV, false, true>(q, dout, lse, delta, dk, dv, smem_raw,
+                                      Sq, Skv, H, Hkv, q_offset, causal,
+                                      scale);
+        __syncthreads();
+        dkv_sweep<D, DV, true, false>(q, dout, lse, delta, dk, dv, smem_raw,
+                                      Sq, Skv, H, Hkv, q_offset, causal,
+                                      scale);
+    } else {
+        dkv_sweep<D, DV, true, true>(q, dout, lse, delta, dk, dv, smem_raw,
+                                     Sq, Skv, H, Hkv, q_offset, causal,
+                                     scale);
     }
 }
 
@@ -694,7 +773,12 @@ flash_bwd_dq_kernel_mma(const __nv_bfloat16* __restrict__ q,
                         int H, int Hkv, int q_offset, int causal,
                         float scale) {
     using S = DqMmaSmem<D, DV>;
-    constexpr int NT = DQ_BKV / 8;       // score n-tiles per kv tile
+    // at D > 128 the kv tile is computed in two 32-row halves: the scores,
+    // dP and dS fragments (16 + 16 + 8 registers, not 32 + 32 + 16) make
+    // room for dQ's D / 2 accumulator registers
+    constexpr int KH = kv_halves(D);
+    constexpr int SUB = DQ_BKV / KH;     // kv rows per sub-tile
+    constexpr int NT = SUB / 8;          // score n-tiles per sub-tile
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const uint32_t base = tc::smem_addr(smem_raw);
     const uint32_t sQ = base + S::Q_OFF, sO = base + S::DO_OFF;
@@ -769,9 +853,8 @@ flash_bwd_dq_kernel_mma(const __nv_bfloat16* __restrict__ q,
                               tc::a_col(lane)) * 2;
 
     for (int j = 0; j < n_tiles; ++j) {
-        const int k0 = j * DQ_BKV;
         if (j + 1 < n_tiles) {
-            load_kv(k0 + DQ_BKV, (j + 1) & 1);
+            load_kv((j + 1) * DQ_BKV, (j + 1) & 1);
             tc::cp_async_commit();
             tc::cp_async_wait<1>();
         } else {
@@ -807,11 +890,14 @@ flash_bwd_dq_kernel_mma(const __nv_bfloat16* __restrict__ q,
             if (t == 0 && r0 < Sq) delta[stat + r0] = dl0;
             if (t == 0 && r1 < Sq) delta[stat + r1] = dl1;
         }
-        // tiles wholly above this warp's diagonal add nothing
+        #pragma unroll 1
+        for (int kh = 0; kh < KH; ++kh) {
+        const int k0 = j * DQ_BKV + kh * SUB;
+        // sub-tiles wholly above this warp's diagonal add nothing
         if (!causal || k0 <= q_offset + wrow + 15) {
-            const uint32_t kt = sK + (j & 1) * DQ_BKV * S::KS * 2;
-            const uint32_t vt = sV + (j & 1) * DQ_BKV * S::VS * 2;
-            // S = Q K^T (16 q rows x 64 kv rows)
+            const uint32_t kt = sK + ((j & 1) * DQ_BKV + kh * SUB) * S::KS * 2;
+            const uint32_t vt = sV + ((j & 1) * DQ_BKV + kh * SUB) * S::VS * 2;
+            // S = Q K^T (16 q rows x SUB kv rows)
             float s[NT][4];
             #pragma unroll
             for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
@@ -848,8 +934,8 @@ flash_bwd_dq_kernel_mma(const __nv_bfloat16* __restrict__ q,
             // P = exp(scale S - lse) in fp32, masked only where the tile
             // crosses the diagonal or Skv; dS = P (dP - delta) in fp32,
             // rounded to bf16 once into the A fragments of dS K
-            const bool edge = k0 + DQ_BKV > Skv ||
-                              (causal && k0 + DQ_BKV - 1 > q_offset + wrow);
+            const bool edge = k0 + SUB > Skv ||
+                              (causal && k0 + SUB - 1 > q_offset + wrow);
             uint32_t da[NT / 2][4];
             #pragma unroll
             for (int n = 0; n < NT; ++n) {
@@ -879,6 +965,7 @@ flash_bwd_dq_kernel_mma(const __nv_bfloat16* __restrict__ q,
                     tc::mma_bf16(acc[2 * np + 1], da[kc], kr[2], kr[3]);
                 }
             }
+        }
         }
         __syncthreads();                 // tile j's buffers free again
     }
@@ -999,6 +1086,9 @@ int dispatch(bool dq_pass, int D, int Dv, const Args& a, cudaStream_t st) {
     FLASH_BWD_CASE(64, 64)
     FLASH_BWD_CASE(128, 128)
     FLASH_BWD_CASE(128, 64)
+    FLASH_BWD_CASE(192, 128)
+    FLASH_BWD_CASE(96, 64)
+    FLASH_BWD_CASE(80, 80)
 #undef FLASH_BWD_CASE
     return -1;
 }

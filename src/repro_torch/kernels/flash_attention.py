@@ -30,11 +30,12 @@ v ``(B, Skv, Hkv, Dv)`` -> out ``(B, Sq, H, Dv)`` in q's type and lse
 GQA maps q head ``h`` to kv head ``h // (H // Hkv)``; ``causal`` masks
 ``k_pos > q_offset + q_row``.
 
-Bound on an H100: operations over the bf16 tensor-core peak —
-``4*B*H*Sq*Skv*D`` forward (half of it when causal) and 2.5x that for the
-backward (FA2's count: the dq pass recomputes s and does dp and dq, the
-dkv pass s, dp, dv and dk) — against the bytes of the tensors read and
-written once.  The bf16 kernels run on the tensor cores (bf16 products,
+Bound on an H100: operations over the bf16 tensor-core peak — with
+``scores = B*H*Sq*Skv`` (half of it when causal), ``2*scores*(D + Dv)``
+forward (q k^T at D, P v at Dv), ``2*scores*(2D + Dv)`` for the dq pass
+(s, dq at D; dp at Dv) and ``2*scores*(2D + 2Dv)`` for the dk / dv pass
+(s, dk at D; dp, dv at Dv), FA2's count — against the bytes of the
+tensors read and written once, each at its own width.  The bf16 kernels run on the tensor cores (bf16 products,
 fp32 sums; before the second product the forward carries the
 probabilities as two bf16 parts, the dq pass rounds dS to bf16 once, the
 dk / dv pass P and dS, as FlashAttention-2 does); the fp32 kernels
@@ -60,13 +61,20 @@ import torch
 
 NEG_INF = -1e30
 
-# (D, Dv) pairs the kernel is compiled for (csrc/flash_attention.cu)
-HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (128, 64))
+# (D, Dv) pairs the kernels are compiled for (csrc/flash_attention.cu,
+# csrc/flash_attention_bwd.cu): the reduced configs' 16, GQA's 32 / 64 /
+# 128, 128 -> 64, the MLA pairs of deepseek-v2-lite-16b (qk_nope 128 +
+# qk_rope 64 -> v 128) and minicpm3-4b (64 + 32 -> 64), and zamba2-2.7b's
+# shared attention (80)
+HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (128, 64),
+             (192, 128), (96, 64), (80, 80))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # the bf16 tensor-core kernels' tiles (csrc/flash_attention.cu,
 # csrc/flash_attention_bwd.cu): forward and dq 128 q rows x 64 kv rows per
-# step, dk / dv 128 kv rows x 64 q rows per step; 8 warps each
+# step (at D > 128 in two 32-row halves, which changes no shared memory),
+# dk / dv 128 kv rows x 64 q rows per step (at D + Dv > 256 in two sweeps,
+# dV then dK, over the same tiles); 8 warps each
 FWD_TILE = (128, 64)
 DQ_TILE = (128, 64)
 DKV_TILE = (128, 64)

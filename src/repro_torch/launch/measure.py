@@ -109,7 +109,16 @@ GRID: list[MeasureCell] = (
     + _train("mamba2-1.3b", 2048, (2,), "full", "adamw", "none")
     + _train("llama3.2-3b", 2048, (1, 2), "full", "adamw")
     + _train("smollm-360m", 2048, (8, 32), "full", "adamw")
-    + _train("llama3.1-8b", 2048, (2,), "full", "adafactor"))
+    + _train("llama3.1-8b", 2048, (2,), "full", "adafactor")
+    # the MLA archs: deepseek-v2-lite-16b (MLA + 64 experts top-6) serves
+    # (its training, 89.38 GiB at 1 x 2,048 under Adafactor, does not fit
+    # one card); minicpm3-4b serves and trains under Adafactor (AdamW is
+    # 70.79 GiB at 1 x 2,048)
+    + _serve("deepseek-v2-lite-16b", "prefill", 2048, (4,))
+    + _serve("deepseek-v2-lite-16b", "decode", 4096, (16,))
+    + _serve("minicpm3-4b", "prefill", 2048, (4,))
+    + _serve("minicpm3-4b", "decode", 4096, (16,))
+    + _train("minicpm3-4b", 2048, (4, 8), "full", "adafactor"))
 
 
 def context_for(cell: MeasureCell):

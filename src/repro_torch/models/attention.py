@@ -7,10 +7,15 @@
   (``kernels.ops.flash_attention``), where the reference calls its
   pure-``lax`` twin of the Pallas kernel;
 * ``gqa_decode`` / ``decode_attention`` — one token against the KV cache,
-  plain PyTorch as in the reference (no kernel there either).
-
-The MLA forward (``mla_forward`` / ``mla_decode``) is not ported yet: it
-comes with the runnable MLA family (ROADMAP A7b) and raises until then.
+  plain PyTorch as in the reference (no kernel there either);
+* ``mla_forward`` / ``mla_decode`` — multi-head latent attention: q (through
+  the low-rank ``wq_a`` / ``q_norm`` / ``wq_b`` where the config has a q
+  rank), the normed kv latent and the un-roped rope key (``_mla_q``,
+  ``_mla_kv``), the latent expanded to full-head k and v
+  (``_mla_expand_kv``), and the flash kernel at the head dims (qk_nope +
+  qk_rope, v); the decode step caches only the latent and the raw rope key
+  and, as the reference does, ropes and re-expands the whole cache on every
+  step before plain ``decode_attention``.
 """
 
 from __future__ import annotations
@@ -208,10 +213,94 @@ def decode_attention(q, k_cache, v_cache, kv_len):
     return ctx.reshape(B, 1, H, v_cache.shape[-1]).to(q.dtype)
 
 
-def mla_forward(*args, **kwargs):
-    raise NotImplementedError(
-        "MLA attention's forward (mla_forward, mla_decode) is not ported "
-        "yet: it comes with the runnable MLA family (ROADMAP A7b)")
+def _mla_q(p, x: torch.Tensor, mla, n_heads: int,
+           norm_eps: float) -> torch.Tensor:
+    """q (B, S, H, qk_nope + qk_rope), through the q rank where the layer
+    has one (``wq_a``, ``q_norm``, ``wq_b``)."""
+    B, S, _ = x.shape
+    qk_head = mla.qk_nope_head_dim + mla.qk_rope_head_dim
+    if "wq_a" in p:
+        qa = ops.rmsnorm(x @ p.wq_a, p.q_norm, norm_eps)
+        return (qa @ p.wq_b).reshape(B, S, n_heads, qk_head)
+    return (x @ p.wq).reshape(B, S, n_heads, qk_head)
 
 
-mla_decode = mla_forward
+def _mla_kv(p, x: torch.Tensor, mla, norm_eps: float) -> tuple:
+    """(normed latent (B, S, kv_lora), raw rope key (B, S, qk_rope)): both
+    come out of one product with ``wkv_a``; the rope key is a view of it."""
+    latent, k_rope = (x @ p.wkv_a).split(
+        [mla.kv_lora_rank, mla.qk_rope_head_dim], dim=-1)
+    return ops.rmsnorm(latent, p.kv_norm, norm_eps), k_rope
+
+
+def _mla_qkv(p, x: torch.Tensor, mla, n_heads: int, norm_eps: float):
+    """The reference's ``_mla_qkv``: (q, latent, k_rope)."""
+    return (_mla_q(p, x, mla, n_heads, norm_eps),
+            *_mla_kv(p, x, mla, norm_eps))
+
+
+def _mla_expand_kv(p, latent: torch.Tensor, k_rope: torch.Tensor,
+                   positions: torch.Tensor, mla, n_heads: int) -> tuple:
+    """The latent (B, S, kv_lora) and raw rope key (B, S, qk_rope) ->
+    k (B, S, H, qk_nope + qk_rope), a real tensor (the rope key roped at
+    ``positions`` with theta 10,000 and broadcast over the heads), and v
+    (B, S, H, v_head), a view of the expanded latent.  A latent in
+    another type than ``wkv_b`` (the bf16 cache of an fp32 model) is
+    cast to it, as the reference's type promotion does."""
+    B, S, _ = latent.shape
+    w = p.wkv_b
+    kv = (latent.to(w.dtype) @ w).reshape(
+        B, S, n_heads, mla.qk_nope_head_dim + mla.v_head_dim)
+    k_nope, v = kv.split([mla.qk_nope_head_dim, mla.v_head_dim], dim=-1)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, 10000.0)
+    k_rope = k_rope.to(k_nope.dtype).expand(B, S, n_heads,
+                                            mla.qk_rope_head_dim)
+    return torch.cat([k_nope, k_rope], dim=-1), v
+
+
+def _rope_q(q: torch.Tensor, positions: torch.Tensor, mla) -> torch.Tensor:
+    q_nope, q_rope = q.split([mla.qk_nope_head_dim, mla.qk_rope_head_dim],
+                             dim=-1)
+    return torch.cat([q_nope, apply_rope(q_rope, positions, 10000.0)],
+                     dim=-1)
+
+
+def mla_forward(p, x: torch.Tensor, *, n_heads: int, mla,
+                norm_eps: float = 1e-5, causal: bool = True,
+                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence MLA through the flash kernel at head dims (qk_nope +
+    qk_rope, v_head); the softmax scale is (qk_nope + qk_rope) ** -0.5."""
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device).expand(B, S)
+    q, latent, k_rope = _mla_qkv(p, x, mla, n_heads, norm_eps)
+    q = _rope_q(q, positions, mla)
+    k, v = _mla_expand_kv(p, latent, k_rope, positions, mla, n_heads)
+    ctx = ops.flash_attention(q, k, v, causal)
+    return ctx.reshape(B, S, n_heads * mla.v_head_dim) @ p.wo
+
+
+def mla_decode(p, x: torch.Tensor, cache: dict, *, n_heads: int, mla,
+               norm_eps: float = 1e-5) -> tuple:
+    """One-token MLA decode: cache {'latent': (B, S_max, kv_lora),
+    'k_rope': (B, S_max, qk_rope), 'len': (B,)} -> (out, new_cache).
+
+    The new latent and raw rope key land at position ``cache["len"][0]``,
+    IN PLACE (as :func:`gqa_decode`); then, as the reference does, every
+    one of the S_max positions is roped and expanded to full-head k and v
+    before plain :func:`decode_attention`."""
+    B = x.shape[0]
+    pos = cache["len"][:, None]
+    q, latent, k_rope = _mla_qkv(p, x, mla, n_heads, norm_eps)
+    q = _rope_q(q, pos, mla)
+    at = cache["len"][:1].long()
+    lat_c = cache["latent"].index_copy_(
+        1, at, latent.to(cache["latent"].dtype))
+    kr_c = cache["k_rope"].index_copy_(1, at,
+                                       k_rope.to(cache["k_rope"].dtype))
+    Smax = lat_c.shape[1]
+    positions = torch.arange(Smax, device=x.device).expand(B, Smax)
+    k, v = _mla_expand_kv(p, lat_c, kr_c, positions, mla, n_heads)
+    ctx = decode_attention(q, k, v, cache["len"] + 1)
+    out = ctx.reshape(B, 1, n_heads * mla.v_head_dim) @ p.wo
+    return out, {"latent": lat_c, "k_rope": kr_c, "len": cache["len"] + 1}

@@ -15,14 +15,14 @@
 * ``batch_spec(shape)``            — shape/dtype records for every input
 
 Every family's ``spec`` and ``batch_spec`` are here, so ``planner.check``
-and the capacity sweep take all twelve archs.  The dense-GQA decoder LMs,
-the MoE family on GQA attention (arctic-480b), the VLMs built on them, the
-encoder-decoder (seamless-m4t-large-v2) and the pure-SSM family (mamba2)
-have their training loss and serving path.  For the hybrid family and
-for MLA configs every forward entry point (``init``, ``from_numpy``,
+and the capacity sweep take all twelve archs.  The decoder LMs on GQA or
+MLA attention, dense or MoE (arctic-480b, deepseek-v2-lite-16b), the VLMs
+built on them, the encoder-decoder (seamless-m4t-large-v2) and the
+pure-SSM family (mamba2) have their training loss and serving path.  For
+the hybrid family every forward entry point (``init``, ``from_numpy``,
 ``loss``, ``prefill``, ``decode_step``, ``init_cache``) raises
-``NotImplementedError`` naming the ROADMAP item that ports it (A7b, A7d):
-a model whose spec builds never half-runs.  An MoE model picks its
+``NotImplementedError`` naming the ROADMAP item that ports it (A7d): a
+model whose spec builds never half-runs.  An MoE model picks its
 expert-parallel path under ``mesh_ctx.mesh_context`` and its dense path
 without one, as the reference does.
 """
@@ -42,8 +42,8 @@ from repro_torch.models import ssm_lm as S
 from repro_torch.models import transformer as T
 from repro_torch.models import vlm as V
 
-# families (and MLA attention) whose forward is not ported yet -> the
-# ROADMAP item that ports it
+# families whose forward is not ported yet -> the ROADMAP item that ports
+# it
 _UNPORTED_FORWARD = {"hybrid": "the hybrid SSM + shared attention "
                                "(ROADMAP A7d)"}
 
@@ -64,15 +64,12 @@ class Model:
     def _forward_ported(self) -> None:
         """Raise for a model whose spec builds but whose forward is not
         ported yet — before any parameter is made or any input read."""
-        missing = [_UNPORTED_FORWARD[self.cfg.family]] \
-            if self.cfg.family in _UNPORTED_FORWARD else []
-        if self.cfg.mla:
-            missing.append("MLA attention (ROADMAP A7b)")
-        if missing:
+        if self.cfg.family in _UNPORTED_FORWARD:
             raise NotImplementedError(
-                f"{self.cfg.name}: the forward of {' and '.join(missing)} "
-                f"is not ported yet; its spec is, so planner.check and the "
-                f"capacity sweep take this arch")
+                f"{self.cfg.name}: the forward of "
+                f"{_UNPORTED_FORWARD[self.cfg.family]} is not ported yet; its "
+                f"spec is, so planner.check and the capacity sweep take this "
+                f"arch")
 
     def init(self, generator: torch.Generator,
              device="cuda") -> PM.ModuleParams:

@@ -1,8 +1,8 @@
 """Decoder-only LM family: llama / qwen / mistral (GQA), minicpm /
 deepseek (MLA), dense or MoE FFN.
 
-Spec functions of every member; for the GQA members, dense or MoE, also
-the training forward (``lm_backbone`` under a remat policy,
+Spec functions of every member, and for every member, GQA or MLA, dense
+or MoE, the training forward (``lm_backbone`` under a remat policy,
 ``chunked_xent``, ``lm_loss``) and the serving path.  Blocks are
 depth-stacked (``scanned``) modules in the spec; their parameters are one
 :class:`~repro_torch.models.param.ModuleParams` per block, walked by a
@@ -14,15 +14,17 @@ the config has one (arctic), and its load-balance loss is summed into
 the float 0.0).  The loss is the chunked cross-entropy the byte model
 describes, which never materializes the full (B, S, V) logits
 (``LOSS_CHUNK`` rows at a time, each chunk recomputed in the backward),
-plus ``0.01 * aux / n_layers`` for an MoE config.  The forward of MLA
-attention is not ported yet (ROADMAP A7b): the forward and serving
-functions raise ``NotImplementedError`` for configs that need it.
+plus ``0.01 * aux / n_layers`` for an MoE config.
 
 The serving functions keep the reference's program so that the memory and
 the launches measured are those of the program the predictor models:
 ``lm_prefill`` recomputes each block's K/V through ``_prefill_kv`` from its
 own ``norm1`` (so ``norm1`` runs twice per block), and the KV cache is
-bf16 whatever the model's type.
+bf16 whatever the model's type.  An MLA config caches the normed latent
+and the raw rope key (``latent``, ``k_rope``) in place of k and v; its
+``_prefill_kv`` recomputes them with ``wkv_a`` and ``kv_norm`` and makes
+no q (the reference's ``_prefill_kv`` discards the q of its
+``_mla_qkv``, which its jitted program never computes).
 """
 
 from __future__ import annotations
@@ -39,7 +41,8 @@ from repro_torch.kernels import ops
 from repro_torch.mesh_ctx import (current_mesh_shape, current_rules,
                                   mesh_context)
 from repro_torch.models import layers as L
-from repro_torch.models.attention import (gqa_decode, gqa_forward, gqa_spec,
+from repro_torch.models.attention import (_mla_kv, gqa_decode, gqa_forward,
+                                          gqa_spec, mla_decode, mla_forward,
                                           mla_spec)
 from repro_torch.models.moe import moe_forward, moe_spec
 
@@ -98,13 +101,6 @@ def lm_spec(cfg: ArchConfig, name: str = "language_model") -> ModuleSpec:
 # ---------------------------------------------------------------------------
 
 
-def _no_mla(cfg: ArchConfig) -> None:
-    if cfg.mla:
-        raise NotImplementedError(
-            f"{cfg.name}: the forward of MLA attention is not ported yet "
-            f"(ROADMAP A7b)")
-
-
 def _stacks(cfg: ArchConfig, p) -> list:
     """(cache key, block stack, MoE blocks?) in the order they run: the
     leading dense blocks of an MoE config, then the main stack."""
@@ -132,6 +128,9 @@ def _ffn_apply(cfg: ArchConfig, moe_block: bool, bp, h: torch.Tensor):
 
 def _attn_apply(cfg: ArchConfig, ap, h: torch.Tensor,
                 positions) -> torch.Tensor:
+    if cfg.mla:
+        return mla_forward(ap, h, n_heads=cfg.n_heads, mla=cfg.mla,
+                           norm_eps=cfg.norm_eps, positions=positions)
     return gqa_forward(ap, h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
                        head_dim=cfg.resolved_head_dim, theta=cfg.rope_theta,
                        qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps,
@@ -207,7 +206,6 @@ def lm_backbone(cfg: ArchConfig, p, embeds: torch.Tensor,
     """embeds: (B, S, D) -> (final-normed hidden (B, S, D), the MoE blocks'
     summed aux loss: an fp32 scalar, 0.0 for a dense model); each block
     under the ``remat`` policy (default ``cfg.remat``)."""
-    _no_mla(cfg)
     policy = remat if remat is not None else cfg.remat
     x, aux = embeds, 0.0
     for _, stack, moe_block in _stacks(cfg, p):
@@ -294,12 +292,19 @@ def lm_loss(cfg: ArchConfig, params, tokens: torch.Tensor,
 def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int,
                   device) -> dict:
     """Stacked (L-leading) cache: {'blocks': {'k', 'v': (L, B, max_len,
-    Hkv, D) bf16}, 'len': (B,) int32}, zeroed, on ``device``; an MoE
-    config's leading dense blocks have their own 'dense_blocks' stack."""
-    _no_mla(cfg)
+    Hkv, D) bf16}, 'len': (B,) int32}, zeroed, on ``device``; an MLA
+    config's stack holds {'latent': (L, B, max_len, kv_lora), 'k_rope':
+    (L, B, max_len, qk_rope)} bf16 instead; an MoE config's leading dense
+    blocks have their own 'dense_blocks' stack."""
     n_dense = cfg.moe.n_dense_layers if cfg.moe else 0
 
     def one(n):
+        if cfg.mla:
+            shapes = {"latent": cfg.mla.kv_lora_rank,
+                      "k_rope": cfg.mla.qk_rope_head_dim}
+            return {name: torch.zeros((n, batch, max_len, w),
+                                      dtype=torch.bfloat16, device=device)
+                    for name, w in shapes.items()}
         shape = (n, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
         return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
                 "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
@@ -312,7 +317,12 @@ def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int,
 
 
 def _prefill_kv(cfg: ArchConfig, ap, h: torch.Tensor) -> dict:
-    """Recompute the cacheable K/V for a full sequence."""
+    """Recompute the cacheable K/V (an MLA config: latent and raw rope
+    key) for a full sequence."""
+    if cfg.mla:
+        latent, k_rope = _mla_kv(ap, h, cfg.mla, cfg.norm_eps)
+        return {"latent": latent.to(torch.bfloat16),
+                "k_rope": k_rope.to(torch.bfloat16)}
     B, S, _ = h.shape
     hd = cfg.resolved_head_dim
     positions = torch.arange(S, device=h.device).expand(B, S)
@@ -327,15 +337,16 @@ def _prefill_kv(cfg: ArchConfig, ap, h: torch.Tensor) -> dict:
 def prefill_embeds(cfg: ArchConfig, lm, x: torch.Tensor):
     """Prefill of the LM blocks over ready embeddings x (B, S, D): the
     last position's logits (B, 1, V) fp32 and the populated cache (sized
-    to S).  Each block's K/V is written straight into the stacked cache."""
+    to S).  Each block's K/V (or latent) is written straight into the
+    stacked cache."""
     B, S, _ = x.shape
     cache = init_kv_cache(cfg, B, S, x.device)
     for key, stack, moe_block in _stacks(cfg, lm):
         for i, bp in enumerate(stack):
             h = L.rmsnorm(bp.norm1, x, cfg.norm_eps)
             kv = _prefill_kv(cfg, bp.attn, h)
-            cache[key]["k"][i] = kv["k"]
-            cache[key]["v"][i] = kv["v"]
+            for name, t in kv.items():
+                cache[key][name][i] = t
             x, _ = _block_apply(cfg, moe_block, bp, x)
     cache["len"].fill_(S)
     x = L.rmsnorm(lm.head.final_norm, x[:, -1:], cfg.norm_eps)
@@ -352,11 +363,15 @@ def lm_prefill(cfg: ArchConfig, params, tokens: torch.Tensor):
 def _decode_block(cfg: ArchConfig, moe_block: bool, bp, x: torch.Tensor,
                   layer_cache: dict):
     h = L.rmsnorm(bp.norm1, x, cfg.norm_eps)
-    a, new_cache = gqa_decode(bp.attn, h, layer_cache, n_heads=cfg.n_heads,
-                              n_kv_heads=cfg.n_kv_heads,
-                              head_dim=cfg.resolved_head_dim,
-                              theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
-                              norm_eps=cfg.norm_eps)
+    if cfg.mla:
+        a, _ = mla_decode(bp.attn, h, layer_cache, n_heads=cfg.n_heads,
+                          mla=cfg.mla, norm_eps=cfg.norm_eps)
+    else:
+        a, _ = gqa_decode(bp.attn, h, layer_cache, n_heads=cfg.n_heads,
+                          n_kv_heads=cfg.n_kv_heads,
+                          head_dim=cfg.resolved_head_dim,
+                          theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
+                          norm_eps=cfg.norm_eps)
     x = x + a
     h = L.rmsnorm(bp.norm2, x, cfg.norm_eps)
     return x + _ffn_apply(cfg, moe_block, bp, h)[0]
@@ -365,16 +380,16 @@ def _decode_block(cfg: ArchConfig, moe_block: bool, bp, x: torch.Tensor,
 def decode_lm(cfg: ArchConfig, lm, token: torch.Tensor, cache: dict):
     """token: (B, 1) -> (logits (B, 1, V) fp32, cache).  The cache tensors
     are updated in place; the returned dict carries ``len + 1``."""
-    _no_mla(cfg)
     x = embed_tokens(cfg, lm, token)
     length = cache["len"]
     stacks = {}
     for key, stack, moe_block in _stacks(cfg, lm):
-        k_all, v_all = cache[key]["k"], cache[key]["v"]
+        leaves = dict(cache[key])
         for i, bp in enumerate(stack):
             x = _decode_block(cfg, moe_block, bp, x,
-                              {"k": k_all[i], "v": v_all[i], "len": length})
-        stacks[key] = {"k": k_all, "v": v_all}
+                              {**{n: t[i] for n, t in leaves.items()},
+                               "len": length})
+        stacks[key] = leaves
     x = L.rmsnorm(lm.head.final_norm, x, cfg.norm_eps)
     # len + 1 made last, as before the MoE stacks: made first, its block
     # would sit under the decode step's peak

@@ -39,6 +39,12 @@ FLASH_CASES = [
     # the enc-dec's cross-attention: non-causal, Sq (decoder) != Skv
     # (encoder)
     (2, 192, 320, 4, 4, 64, 64, False, 128),
+    # the MLA pairs (H = Hkv): deepseek-v2-lite-16b's (192, 128) causal
+    # at a ragged S, minicpm3-4b's (96, 64) as a causal continuation;
+    # zamba2-2.7b's (80, 80) non-causal with GQA
+    (1, 130, 130, 2, 2, 192, 128, True, 128),
+    (1, 64, 192, 3, 3, 96, 64, True, 128),
+    (2, 100, 100, 4, 2, 80, 80, False, 128),
 ]
 DTYPES = {"float32": (np.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -237,3 +243,21 @@ def test_bf16_kernel_refuses_tensors_off_the_16_byte_grid():
     assert TFA.mma_smem_bytes("fwd", 128, 128) == 104448
     assert TFA.mma_smem_bytes("dkv", 128, 128) == 140288
     assert TFA.mma_smem_bytes("dq", 128, 128) == 139264
+
+
+# the new instances' dynamic shared memory per block (rows padded by 8
+# bf16; the forward's q + two K and two V tiles, the dq pass's q and dO +
+# two K and two V tiles, the dk / dv pass's K, V, two q and two dO tiles
+# and the lse / delta rows), each under the H100's 232,448-byte opt-in
+MMA_SMEM = {(192, 128): {"fwd": 137216, "dq": 172032, "dkv": 173056},
+            (96, 64): {"fwd": 71680, "dq": 90112, "dkv": 91136},
+            (80, 80): {"fwd": 67584, "dq": 90112, "dkv": 91136}}
+
+
+@pytest.mark.parametrize("pair", list(MMA_SMEM),
+                         ids=[f"{d}x{dv}" for d, dv in MMA_SMEM])
+def test_new_instances_fit_the_shared_memory_opt_in(pair):
+    assert pair in TFA.HEAD_DIMS
+    for kernel, want in MMA_SMEM[pair].items():
+        got = TFA.mma_smem_bytes(kernel, *pair)
+        assert got == want and got <= 232448, (kernel, got)

@@ -49,6 +49,12 @@ FLASH_CASES = [
     # the enc-dec's cross-attention: non-causal, Sq (decoder) != Skv
     # (encoder)
     (2, 192, 320, 4, 4, 64, 64, False, 128),
+    # the MLA pairs (H = Hkv): deepseek-v2-lite-16b's (192, 128) causal
+    # at a ragged S, minicpm3-4b's (96, 64) as a causal continuation;
+    # zamba2-2.7b's (80, 80) non-causal with GQA
+    (1, 130, 130, 2, 2, 192, 128, True, 128),
+    (1, 64, 192, 3, 3, 96, 64, True, 128),
+    (2, 100, 100, 4, 2, 80, 80, False, 128),
 ]
 DTYPES = {"float32": (np.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}

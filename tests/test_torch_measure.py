@@ -72,7 +72,12 @@ def test_grid_covers_the_cells_asked_for():
                  ("seamless-m4t-large-v2", "train", "full"),
                  ("seamless-m4t-large-v2", "prefill", "full"),
                  ("seamless-m4t-large-v2", "decode", "full"),
-                 ("mamba2-1.3b", "train", "full")):
+                 ("mamba2-1.3b", "train", "full"),
+                 ("deepseek-v2-lite-16b", "prefill", "full"),
+                 ("deepseek-v2-lite-16b", "decode", "full"),
+                 ("minicpm3-4b", "train", "full"),
+                 ("minicpm3-4b", "prefill", "full"),
+                 ("minicpm3-4b", "decode", "full")):
         assert want in kinds, want
     # one record file per cell
     names = [(c.arch, c.shape) for c in M.GRID]
@@ -168,7 +173,12 @@ CPU_CELLS = [("llava15-7b", "train", 24, "llava_stage1", "adamw"),
              ("mamba2-1.3b", "decode", 12, "full", None),
              ("arctic-480b", "train", 16, "full", "adafactor"),
              ("arctic-480b", "prefill", 16, "full", None),
-             ("arctic-480b", "decode", 12, "full", None)]
+             ("arctic-480b", "decode", 12, "full", None),
+             ("deepseek-v2-lite-16b", "prefill", 16, "full", None),
+             ("deepseek-v2-lite-16b", "decode", 12, "full", None),
+             ("minicpm3-4b", "train", 16, "full", "adafactor"),
+             ("minicpm3-4b", "prefill", 16, "full", None),
+             ("minicpm3-4b", "decode", 12, "full", None)]
 
 
 @pytest.mark.parametrize("arch,kind,seq,policy,opt", CPU_CELLS)
@@ -188,7 +198,8 @@ def test_step_closures_run_on_the_cpu(arch, kind, seq, policy, opt):
         assert tuple(out["logits"].shape) == (2, 1, model.cfg.vocab)
     if kind == "decode" and model.cfg.family != "ssm":
         assert int(out["cache"]["len"][0]) == seq
-        assert out["cache"]["blocks"]["k"].shape[2] == seq
+        leaf = "latent" if model.cfg.mla else "k"
+        assert out["cache"]["blocks"][leaf].shape[2] == seq
 
 
 def test_summary_of_a_store():
@@ -288,5 +299,29 @@ def test_card_store_has_the_ssm_training_rows(card_store):
     assert rows["SSM"]["cells"] == 9
     table = perf_table()
     for group in ("mamba2-1.3b train", "SSM"):
+        assert table[group][1] == pytest.approx(
+            rows[group]["mape_raw_tpu"], abs=0.01)
+
+
+def test_card_store_has_the_mla_rows(card_store):
+    """The MLA archs' six cells were measured on the card:
+    deepseek-v2-lite-16b prefill and decode, minicpm3-4b prefill, decode
+    and Adafactor training at 4 and 8 x 2,048; their rows recompute from
+    the store as PERF.md's table gives them."""
+    store = TMS.MeasurementStore.from_dict(card_store)
+    mla = sorted((m.arch, m.meta["shape"]) for m in store
+                 if m.arch in ("deepseek-v2-lite-16b", "minicpm3-4b"))
+    assert mla == sorted((c.arch, c.shape) for c in M.GRID
+                         if c.arch in ("deepseek-v2-lite-16b",
+                                       "minicpm3-4b"))
+    assert len(mla) == 6
+    assert {m.optimizer for m in store if m.arch == "minicpm3-4b"
+            and m.kind == "train"} == {"adafactor"}
+    rows = {r["group"]: r for r in M.summary(store)["rows"]}
+    table = perf_table()
+    for group in ("deepseek-v2-lite-16b prefill",
+                  "deepseek-v2-lite-16b decode", "minicpm3-4b prefill",
+                  "minicpm3-4b decode", "minicpm3-4b train"):
+        assert table[group][0] == rows[group]["cells"]
         assert table[group][1] == pytest.approx(
             rows[group]["mape_raw_tpu"], abs=0.01)

@@ -379,8 +379,8 @@ def test_generate_runs_on_cuda_by_default(pair, monkeypatch):
     assert tuple(out.shape) == (B, 3) and out.device.type == "cpu"
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "mamba2-1.3b",
-                                  "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "minicpm3-4b",
+                                  "mamba2-1.3b", "zamba2-2.7b"])
 def test_unported_families_raise(arch):
     if arch == "mamba2-1.3b":    # serves (test_torch_mamba.py) and, from
         # the SSM training slice, trains: its loss runs on the CPU
@@ -389,6 +389,21 @@ def test_unported_families_raise(arch):
         toks = torch.zeros((1, 8), dtype=torch.int32)
         loss, _ = model.loss(params, {"tokens": toks, "labels": toks})
         assert bool(torch.isfinite(loss))
+        return
+    if arch in ("deepseek-v2-lite-16b", "minicpm3-4b"):   # the MLA slice
+        # (test_torch_mla.py): every entry point of the reduced config
+        # runs on the CPU, and generate serves
+        model = build_model(get_config(arch).reduced())
+        params = model.init(torch.Generator().manual_seed(0), "cpu")
+        toks = torch.zeros((1, 8), dtype=torch.int32)
+        loss, _ = model.loss(params, {"tokens": toks, "labels": toks})
+        logits, cache = model.prefill(params, {"tokens": toks})
+        logits, _ = model.decode_step(params, toks[:, :1],
+                                      model.init_cache(1, 4, "cpu"))
+        assert bool(torch.isfinite(loss)) and set(cache["blocks"]) == {
+            "latent", "k_rope"}
+        out = TS.generate(model, params, {"tokens": toks}, 2, device="cpu")
+        assert tuple(out.shape) == (1, 2)
         return
     # the spec builds (planner.check and the sweep take it); its serving
     # entry points raise before any parameter is made
