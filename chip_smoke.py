@@ -21,7 +21,11 @@ paper's fig2b setting through ``repro_torch.train``, seamless-m4t-large-v2
 (the encoder-decoder) serving and training, arctic-480b (the MoE) serving
 at its published width with its depth cut to 2 layers, mamba2-1.3b
 training at full size, the MLA family at full size (deepseek-v2-lite-16b
-serving, minicpm3-4b serving and training), and the measurement grid
+serving, minicpm3-4b serving and training), the hybrid zamba2-2.7b
+serving and training at full size, the memory autopilot
+(``repro_torch.autopilot``: its drift scenarios, its reshard search on the
+card, and real training steps under ``runtime.ResilientTrainer`` restored
+from a ``checkpoint.Checkpointer`` checkpoint), and the measurement grid
 (``repro_torch.launch.measure``: one real step per cell, the predictor's
 error on the card) — and holds every hand-written kernel against its
 plain PyTorch version on the card.
@@ -41,9 +45,10 @@ Phases (any failure exits non-zero):
    plain version's matmuls in full fp32, ``allow_tf32`` off) and bf16 (tolerance 2e-2), on ``out`` and ``lse``;
    the flash kernels also at the MLA and hybrid head-dim pairs (192, 128),
    (96, 64) and (80, 80) (causal and not, ragged S, a q-offset
-   continuation, H = Hkv and GQA) and at deepseek-v2-lite-16b's and
-   minicpm3-4b's 4 x 2,048 shapes, the RMSNorm at their widths (256, 512,
-   768, 2,560), and the reduced MLA pair (24, 16) refused;
+   continuation, H = Hkv and GQA) and at deepseek-v2-lite-16b's,
+   minicpm3-4b's and zamba2-2.7b's 4 x 2,048 shapes, the RMSNorm at their
+   widths (256, 512, 768, 2,560, and zamba2's gated 5,120), and the
+   reduced MLA pair (24, 16) refused;
    ``flash_bwd`` (the dq and the dk/dv kernels) on the same cases, the
    training path's shapes and the reduced configs' head dim 16, fp32
    within 5e-4 and bf16 within 2e-2 of each
@@ -53,7 +58,8 @@ Phases (any failure exits non-zero):
    16-byte grid for the tensor-core kernels); ``ssd_scan`` (fp32: the FMA
    kernel; bf16: the tensor-core kernel) on the reference's three SSD
    cases, a prompt shorter than the chunk, the mamba2 prefill's full-width
-   shape (4, 2,000, 64, 64, 128, 256) and its batch-1 twin, and a state
+   shape (4, 2,000, 64, 64, 128, 256) and its batch-1 twin, zamba2-2.7b's
+   prefill shape (4, 2,048, 80, 64, 64, 256), and a state
    width the bf16 kernel pads (N 20, P 128): y and the final state within
    1e-4 in fp32, bf16 y within 2e-2 and the state within 1e-4 of their
    scales, bit-equal on a second launch and on strided views, bf16
@@ -208,8 +214,38 @@ Phases (any failure exits non-zero):
    4.07 B-param model's float64 weights and gradients take 65 GB);
    (phases 5e, 5f and 6f run after phase 8, so that every earlier phase
    and grid cell meets the caching allocator as before them);
-8. ``measure``: every cell of ``repro_torch.launch.measure.GRID`` (50
-   cells of 9 archs at full width and depth) through ``measure_grid``,
+5g. ``serve_zamba2_2_7b``: nothing cut (54 Mamba-2 blocks, 2 shared
+   attention blocks invoked 9 times, d_model 2,560, 32 heads x 80, d_state
+   64, vocab 32,000; 2.45 B params) with random bf16 weights from a
+   seeded generator: 4 prompts of 2,048 tokens, 32 greedy tokens; the
+   readings of 5b (launches gated: flash 9, SSD 54, RMSNorm 136 per
+   prefill; RMSNorm 127 per decode step; the cache's SSM and K/V leaves;
+   peaks beside the byte model), mamba2's gates on the prefill's four
+   paths (fp32 kernel vs plain 1e-3 of the logits' and states' scale, the
+   bf16 kernel path <= 1.5x the bf16 plain path's distance from fp32), the
+   bf16 pair at 2e-2 a reading, the reduced config card against CPU;
+6g. ``train_zamba2_2_7b``: nothing cut, 4 x 2,048, FULL_TRAIN, AdamW,
+   remat "block", 3 steps: the readings and gates of phase 6c (flash
+   forward, dq and dk/dv 9 each at (80, 80); RMSNorm 235 forward — the
+   mamba blocks' rerun by the remat, the shared invocations' once — and
+   127 backward), the fp32 and float64 comparisons on the first sample,
+   the reduced config's step card against CPU (loss and gradients gated;
+   the params after AdamW's first step a reading: it moves an element by
+   about lr x the sign of its gradient, which a rounding flips where the
+   gradient is near zero);
+4i. ``autopilot`` (after 6g): the three drift scenarios, guarded and
+   unguarded, at v5e and h100 through the port's defaults, every
+   ``ScenarioResult`` field equal to the reference's; the harness cell's
+   plan at a drift ratio of 50, its reshard (``plan_min_chips``) on the
+   card and on the host, equal to each other and to the reference's
+   mesh, both waits printed (C14); ``ResilientTrainer`` over 6
+   smollm-360m steps (8 x 2,048, AdamW) with a checkpoint every 2 steps
+   and a failure injected at step 5, admission-controlled by an
+   ``Autopilot`` on the grid's cell fed the allocator's peak: the
+   replayed losses and the final parameters bit-equal to an
+   uninterrupted run's, the restored tensors on the card, the watch SAFE;
+8. ``measure``: every cell of ``repro_torch.launch.measure.GRID`` (56
+   cells of 10 archs at full width and depth) through ``measure_grid``,
    one real step each with the allocator read around it: a ``measure``
    line per dry-run-schema record, each record's prediction equal to the
    host's ``planner.check`` for its cell, the store written to
@@ -228,7 +264,9 @@ Phases (any failure exits non-zero):
    the L2 flushed before each timed launch (their operands fit in it),
    the flash rows also at the MLA and hybrid pairs (operations counted
    at D for the q / k products and at Dv for P v and dv; the SDPA
-   backend that ran named),
+   backend that ran named; the backward at (192, 128) at deepseek's
+   prefill shape), the RMSNorm both ways and the SSD also at
+   zamba2-2.7b's shapes,
    ``shard_factor`` at the packed shape of the sweeps' largest table
    build.
 
@@ -255,6 +293,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -270,6 +309,8 @@ if not torch.cuda.is_available():
 
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch import autopilot as AP  # noqa: E402
+from repro_torch.autopilot import harness as AP_HARNESS  # noqa: E402
 from repro_torch.calibrate import fit as CF  # noqa: E402
 from repro_torch.calibrate import learned as CL  # noqa: E402
 from repro_torch.calibrate import report as CR  # noqa: E402
@@ -292,11 +333,13 @@ from repro_torch.kernels import segmented_cummax as SC  # noqa: E402
 from repro_torch.kernels import shard_factor as SF  # noqa: E402
 from repro_torch.kernels import ssd as SSD  # noqa: E402
 from repro_torch.calibrate.paths import measured_dir  # noqa: E402
+from repro_torch.checkpoint import Checkpointer  # noqa: E402
 from repro_torch.launch import measure as ME  # noqa: E402
 from repro_torch.mesh_ctx import mesh_context  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import param as PM  # noqa: E402
+from repro_torch.runtime import FaultConfig, ResilientTrainer  # noqa: E402
 from repro_torch.serve import serve_step as SV  # noqa: E402
 from repro_torch.serve.fleet import parse_mix  # noqa: E402
 from repro_torch.serve.pool import ServeSpec  # noqa: E402
@@ -399,6 +442,43 @@ MOE_TOL = 8e-2
 # take 65 GB)
 MLA_BATCH, MLA_PROMPT, MLA_NEW = 4, 2048, 32
 MLA_TRAIN_BATCH, MLA_CHECK_BATCH = 4, 1
+
+# the hybrid paths, nothing cut: zamba2-2.7b (54 Mamba-2 blocks, 2 shared
+# attention blocks invoked 9 times, head dim 80) serves 4 prompts of 2,048
+# tokens and 32 greedy tokens, and trains on 4 x 2,048 tokens,
+# FULL_TRAIN, AdamW, remat "block", with its fp32 / float64 comparisons on
+# the first HYBRID_CHECK_BATCH sample (float64 weights and gradients of
+# 2.45 B params take 39 GB)
+HYBRID_ARCH = "zamba2-2.7b"
+HYBRID_BATCH, HYBRID_PROMPT, HYBRID_NEW = 4, 2048, 32
+HYBRID_TRAIN_BATCH, HYBRID_CHECK_BATCH = 4, 1
+
+# phase 4i, the memory autopilot: the reference's outcome of each drift
+# scenario, guarded and unguarded (its CLI, ``repro.autopilot``; the same
+# at v5e and h100, the budget being normalized to the harness cell):
+# (completed, aborted, steps done, steps, OOM steps, mitigations,
+# restarts); then the budget, the base cell's prediction and a guarded
+# run's final prediction, bytes
+AUTOPILOT_WANT = {
+    ("slow-leak", True): (True, False, 20, 20, (), ("grad_accum",), 0),
+    ("slow-leak", False): (False, True, 14, 20, (14,) * 4, (), 4),
+    ("spike", True): (True, False, 14, 14, (), ("grad_accum",), 0),
+    ("spike", False): (False, True, 6, 14, (6,) * 4, (), 4),
+    ("underestimate", True): (True, False, 10, 10, (), ("grad_accum",), 0),
+    ("underestimate", False): (False, True, 0, 10, (0,) * 4, (), 4)}
+AUTOPILOT_BYTES = (186838173760, 149470539008, 76231038080)
+# the reference's plan for the harness cell at a drift ratio of 50 (no
+# knob move is safe, so ``_reshard`` runs ``plan_min_chips``): the
+# reshard candidate's mesh, remat, accumulation, schedule, microbatches,
+# predicted bytes, cost and note
+AUTOPILOT_RESHARD = ((("data", 1), ("model", 4), ("pipe", 2)), "block", 1,
+                     "1f1b", 8, 5685696256, 2.0,
+                     "4 -> 8 chips (data=1xmodel=4xpipe=2)")
+# the real-step replay: smollm-360m, 8 x 2,048, AdamW, remat "block", 6
+# steps, a checkpoint every 2 (keep 2), a failure injected at step 5
+REPLAY_ARCH = "smollm-360m"
+REPLAY_BATCH, REPLAY_SEQ, REPLAY_STEPS = 8, 2048, 6
+REPLAY_EVERY, REPLAY_FAIL_AT = 2, 5
 
 RESULT_COLUMNS = ("peak_bytes", "budget_bytes", "fits", "offload_bytes",
                   "overlap_slack_bytes", "pool_bytes", "draft_bytes",
@@ -813,6 +893,9 @@ MLA_PAIR_CASES = [
 ]
 DEEPSEEK_PREFILL_CASE = (4, 2048, 2048, 16, 16, 192, 128, True)
 MINICPM3_CASE = (4, 2048, 2048, 40, 40, 96, 64, True)
+# zamba2-2.7b's shared attention, prefill and training: 4 x 2,048, 32
+# heads x 80, causal
+ZAMBA2_CASE = (4, 2048, 2048, 32, 32, 80, 80, True)
 FLASH_CASES = [
     (2, 256, 256, 4, 2, 64, 64, True),
     (1, 200, 200, 6, 3, 32, 32, True),
@@ -831,6 +914,7 @@ FLASH_CASES = [
     *MLA_PAIR_CASES,
     DEEPSEEK_PREFILL_CASE,                     # deepseek-v2-lite-16b
     MINICPM3_CASE,                             # minicpm3-4b
+    ZAMBA2_CASE,                               # zamba2-2.7b
 ]
 TRAIN_ROWS = (TRAIN_BATCH * 2048, 4096)        # the LM's RMSNorms, training
 RMSNORM_SHAPES = [(64, 128), (3, 50, 96), (2, 7, 33, 64), (5, 33),
@@ -844,7 +928,11 @@ RMSNORM_SHAPES = [(64, 128), (3, 50, 96), (2, 7, 33, 64), (5, 33),
                   # minicpm3's q_norm (768) and block norm (2,560), 4 x
                   # 2,048 rows, and a decode step's kv_norm
                   (4 * 2048, 512), (4 * 2048, 256), (4 * 2048, 768),
-                  (4 * 2048, 2560), (4, 1, 512)]
+                  (4 * 2048, 2560), (4, 1, 512),
+                  # zamba2-2.7b: the gated norm over d_inner 5,120 at 4 x
+                  # 2,048 rows and in a decode step (its block and shared
+                  # norms are minicpm3's 2,560)
+                  (4 * 2048, 5120), (4, 1, 5120)]
 TOLERANCE = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
@@ -980,12 +1068,14 @@ FLASH_BWD_CASES = FLASH_CASES[:6] + [TRAIN_VIT_CASE, TRAIN_LM_CASE,
                                      (2, 70, 70, 2, 2, 16, 16, True),
                                      ENCDEC_XATTN_CASE, ENCDEC_ENC_CASE,
                                      ENCDEC_DEC_CASE, *MLA_PAIR_CASES,
-                                     MINICPM3_CASE]
+                                     MINICPM3_CASE, ZAMBA2_CASE]
 RMSNORM_BWD_SHAPES = RMSNORM_SHAPES[:4] + [TRAIN_ROWS, (40, 96),
                                            (4 * 2048, 1024),
                                            # minicpm3-4b's training norms
                                            (4 * 2048, 768), (4 * 2048, 256),
-                                           (4 * 2048, 2560)]
+                                           (4 * 2048, 2560),
+                                           # zamba2-2.7b's gated norm
+                                           (4 * 2048, 5120)]
 BWD_TOLERANCE = {"flash": {torch.float32: 5e-4, torch.bfloat16: 2e-2},
                  "rmsnorm": {torch.float32: 1e-4, torch.bfloat16: 2e-2}}
 
@@ -1140,12 +1230,15 @@ def check_rmsnorm_bwd() -> dict:
 # (4 x 2,000 tokens, 64 heads x 64, d_state 128, chunk 256: a ragged
 # 208-token last chunk); (b, S, H, P, N, chunk)
 SERVE_SSD_CASE = (4, 2000, 64, 64, 128, 256)
+# zamba2-2.7b's prefill: 4 x 2,048 tokens, 80 heads x 64, d_state 64
+ZAMBA2_SSD_CASE = (4, 2048, 80, 64, 64, 256)
 # the reference's three cases, S < chunk, the serving shape, its batch-1
 # twin (64 blocks: under half the card), and a state width that is not a
 # multiple of 16 (the bf16 kernel pads it; 8-byte copies) at head dim 128
 SSD_CASES = [(2, 128, 4, 16, 32, 32), (1, 96, 2, 32, 16, 32),
              (1, 64, 1, 64, 64, 64), (2, 40, 3, 16, 16, 64), SERVE_SSD_CASE,
-             (1,) + SERVE_SSD_CASE[1:], (2, 75, 3, 128, 20, 32)]
+             (1,) + SERVE_SSD_CASE[1:], (2, 75, 3, 128, 20, 32),
+             ZAMBA2_SSD_CASE]
 SSD_TOLERANCE = 1e-4          # fp32 y and state; bf16 state, of its scale
 SSD_BF16_Y_TOLERANCE = 2e-2   # bf16 y, of its scale (one rounding of y)
 
@@ -1153,10 +1246,12 @@ SSD_BF16_Y_TOLERANCE = 2e-2   # bf16 y, of its scale (one rounding of y)
 def ssd_inputs(case, gen, dtype):
     """x, dt (post-softplus), A (< 0), B, C on the card.  The reference's
     test distribution (dt ~ softplus(N(0, 1))) on its own cases; at the
-    serving width (any batch) dt ~ softplus(N(0, 1) - 3), ~0.05, so the
-    state carries across chunks as a served model's does."""
+    serving widths (mamba2's at any batch, zamba2's) dt ~ softplus(N(0, 1)
+    - 3), ~0.05, so the state carries across chunks as a served model's
+    does."""
     b, S, H, P, N, _ = case
-    shift = 3.0 if case[1:] == SERVE_SSD_CASE[1:] else 0.0
+    shift = 3.0 if case[1:] in (SERVE_SSD_CASE[1:], ZAMBA2_SSD_CASE[1:]) \
+        else 0.0
     x = torch.randn(b, S, H, P, generator=gen, device=DEV) * 0.5
     dt = F.softplus(torch.randn(b, S, H, generator=gen, device=DEV) - shift)
     A = -torch.exp(torch.randn(H, generator=gen, device=DEV) * 0.3)
@@ -2256,7 +2351,9 @@ def mamba_prefill_paths(cfg, params, batch) -> dict:
     versions on the same weights and tokens — in bf16 (the served
     program) and in fp32 (the weights cast) — as each path's
     last-position logits and final ssm states, and every pair's distance
-    over the compared tensor's scale."""
+    over the compared tensor's scale (mamba2's and the hybrid's); the bf16
+    pair by the serving tests' 2e-2 of scale (``logits_agree``) a
+    reading."""
     runs = {}
 
     def run(tag, model, p):
@@ -2299,6 +2396,8 @@ def mamba_prefill_paths(cfg, params, batch) -> dict:
     out["bf16_same_greedy_tokens"] = int(
         (runs["bf16_kernels"][0].argmax(-1)
          == runs["bf16_plain"][0].argmax(-1)).sum())
+    out["bf16_kernels_vs_bf16_plain_2e-2"] = logits_agree(
+        runs["bf16_kernels"][0], runs["bf16_plain"][0], "", [])
     out["logits_scale"] = float(runs["bf16_plain"][0].abs().max())
     return out
 
@@ -2453,7 +2552,16 @@ def train_program(cfg) -> dict:
     norm) forward twice and backward once, the final norm once each way;
     no attention, and no SSD kernel (training runs the chunked SSD in
     plain tensor ops).  An MLA block also runs its attention's kv_norm
-    (and q_norm with a q rank) forward twice and backward once."""
+    (and q_norm with a q rank) forward twice and backward once.  The
+    hybrid: each mamba block's two RMSNorms forward twice (the recompute)
+    and backward once; each shared-attention invocation, outside the
+    remat, its attention and two RMSNorms forward once and backward once;
+    the final norm once each way."""
+    if cfg.family == "hybrid":
+        n, inv = cfg.n_layers, cfg.n_layers // cfg.hybrid.attn_every
+        return {"flash_fwd": inv, "flash_dq": inv, "flash_dkv": inv,
+                "rmsnorm_fwd": 2 * 2 * n + 2 * inv + 1,
+                "rmsnorm_bwd": 2 * n + 2 * inv + 1}
     if cfg.family == "ssm":
         n = cfg.n_layers
         return {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
@@ -2593,13 +2701,15 @@ def flipped(a: RouteLog, b: RouteLog) -> dict:
 def reduced_train_card_vs_cpu(problems: list, arch: str = TRAIN_ARCH,
                               policy=LLAVA_STAGE2, make_batch=None,
                               optimizer: str = "adamw", steps: int = 1,
-                              tol: float = 2e-2) -> dict:
+                              tol: float = 2e-2,
+                              params_gate: bool = True) -> dict:
     """The reduced ``arch``, same weights and batch (``make_batch(cfg,
     gen)``, default the VLM's 2 x 8), ``steps`` steps of ``policy`` on the
     card (kernels) and on the CPU (plain versions): the loss and the
     gradients before the first step, every step's loss and the params
-    after the last within ``tol`` of each tensor's scale; the share of
-    routing choices that differ (an MoE config), a reading."""
+    after the last within ``tol`` of each tensor's scale (with
+    ``params_gate`` False the params are a reading); the share of routing
+    choices that differ (an MoE config), a reading."""
     cfg = get_config(arch).reduced()
     model = build_model(cfg)
     gen = torch.Generator()
@@ -2642,7 +2752,8 @@ def reduced_train_card_vs_cpu(problems: list, arch: str = TRAIN_ARCH,
                                 "reduced train card/cpu grads", problems),
            "params": grads_agree({k: v.detach() for k, v in p_card.items()},
                                  {k: v.detach() for k, v in p_cpu.items()},
-                                 tol, "reduced train card/cpu params",
+                                 tol if params_gate else None,
+                                 "reduced train card/cpu params",
                                  problems),
            "launches": used}
     if cfg.moe:
@@ -2694,7 +2805,8 @@ def train_phase(name: str, cfg, policy, cut: str, problems: list,
     step = make_train_step(model, policy, opt_cfg, remat="block")
     want = train_program(cfg)
 
-    steps = []
+    steps, split = [], {}
+    t_split = time.perf_counter()
     for i in range(TRAIN_STEPS):
         gc.collect()
         torch.cuda.synchronize()
@@ -2748,7 +2860,10 @@ def train_phase(name: str, cfg, policy, cut: str, problems: list,
 
     # where the device time goes: one more step under the profiler
     med_ms = statistics.median(s["ms"] for s in steps)
+    split["steps"] = time.perf_counter() - t_split
     on_device = device_breakdown(lambda: step(state, batch), med_ms, top=8)
+    split["profiled_step"] = time.perf_counter() - t_split - sum(
+        split.values())
 
     # the kernel path against the plain path, same weights and batch (its
     # first check_batch samples; each gradient set but the one being made
@@ -2802,11 +2917,15 @@ def train_phase(name: str, cfg, policy, cut: str, problems: list,
     vs_plain["bf16"] = bf16
     vs_plain["batch"] = next(iter(cbatch.values())).shape[0]
     del k_grads, p_grads
+    split["bf16_and_fp32_checks"] = time.perf_counter() - t_split - sum(
+        split.values())
     if fp64_witness:
         fp_grads = keep(fp_grads)
         vs_plain["fp64"] = float64_witness(name, model32, params32, cbatch,
                                            {"kernels": f_grads,
                                             "plain": fp_grads}, problems)
+        split["fp64_witness"] = time.perf_counter() - t_split - sum(
+            split.values())
     del f_grads, fp_grads, params32
 
     pred = PR.predict(model, policy, FA.PredictContext(
@@ -2847,7 +2966,9 @@ def train_phase(name: str, cfg, policy, cut: str, problems: list,
            "leaves": {"trainable_moved": len(trainable),
                       "trainable_moved_in_bf16": bf16_moved,
                       "frozen_bit_equal": len(before) - len(trainable)},
-           "vs_plain": vs_plain, "on_device": on_device}
+           "vs_plain": vs_plain, "on_device": on_device,
+           # seconds of the phase's parts (host clock)
+           "split_s": split}
     del state, batch, cbatch, model, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -3622,6 +3743,405 @@ def train_minicpm3_4b() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 5g and 6g: the hybrid zamba2-2.7b
+# ---------------------------------------------------------------------------
+
+
+def hybrid_counts() -> dict:
+    return {"flash_fwd": FL.launches, "ssd_scan": SSD.launches,
+            "rmsnorm_fwd": RN.launches}
+
+
+def hybrid_program(cfg, n_steps: int) -> dict:
+    """The reference's launches: per prefill one flash forward per shared
+    invocation, one SSD per mamba block, RMSNorm twice per mamba block
+    (block norm, gated norm), three times per invocation (norm1 again for
+    the cached K/V, norm2) and the final norm; per decode step no flash
+    and no SSD, RMSNorm twice per block and per invocation and the final
+    norm."""
+    n, inv = cfg.n_layers, cfg.n_layers // cfg.hybrid.attn_every
+    return {"prefill": {"flash_fwd": inv, "ssd_scan": n,
+                        "rmsnorm_fwd": 2 * n + 3 * inv + 1},
+            "decode": {"flash_fwd": 0, "ssd_scan": 0,
+                       "rmsnorm_fwd": n_steps * (2 * n + 2 * inv + 1)}}
+
+
+def serve_zamba2_2_7b() -> dict:
+    """zamba2-2.7b at full width and depth (54 mamba blocks, 9 shared
+    invocations) with random bf16 weights from a seeded generator on the
+    card: HYBRID_BATCH requests x HYBRID_PROMPT prompt tokens, HYBRID_NEW
+    greedy tokens through ``generate``, then the same program phase by
+    phase; the cache's SSM and K/V leaves, launches against the
+    reference's program, peaks beside the byte model; the prefill's four
+    paths (:func:`mamba_prefill_paths`) and mamba2's gates on them
+    (:func:`check_deep_paths`: fp32 kernel vs plain path, logits and
+    states, 1e-3 of scale; the bf16 kernel path no further from fp32 than
+    1.5x the bf16 plain path), the bf16 pair at 2e-2 a reading; the
+    reduced config on the card against the CPU."""
+    t_phase = time.perf_counter()
+    cfg = get_config(HYBRID_ARCH)
+    model = build_model(cfg)
+    meta = model.spec.children[2].layers[1].meta
+    n_inv = cfg.n_layers // cfg.hybrid.attn_every
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    at_start = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = model.init(gen, DEV)
+    batch = model_batch(model, gen, HYBRID_BATCH, HYBRID_PROMPT)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    B_, S = HYBRID_BATCH, HYBRID_PROMPT
+    problems = []
+
+    tokens, generate_s = serve_generate(model, params, batch, HYBRID_NEW)
+    main_launches = hybrid_counts()
+    if SF.launches or SC.launches or FL.dq_launches or FL.dkv_launches \
+            or RN.bwd_launches:
+        fail(f"zamba2 serving launched another kernel: {model_counts()}")
+
+    def after_prefill(logits, cache):
+        H, P, N = meta["n_heads"], meta["head_dim"], meta["d_state"]
+        kv = (n_inv, B_, S, cfg.n_kv_heads, cfg.resolved_head_dim)
+        want = {("blocks", "ssm"): ((cfg.n_layers, B_, H, P, N),
+                                    torch.float32),
+                ("blocks", "conv"): ((cfg.n_layers, B_, meta["d_conv"] - 1,
+                                      meta["conv_ch"]), torch.bfloat16),
+                ("attn", "k"): (kv, torch.bfloat16),
+                ("attn", "v"): (kv, torch.bfloat16)}
+        if set(cache) != {"blocks", "attn", "len"}:
+            fail(f"zamba2 prefill cache {sorted(cache)}")
+        for (group, key), (shape, dtype) in want.items():
+            leaf = cache[group][key]
+            if tuple(leaf.shape) != shape or leaf.dtype != dtype or \
+                    not bool(torch.isfinite(leaf.float()).all()):
+                fail(f"zamba2 prefill cache {group}.{key}: {leaf.dtype} "
+                     f"{tuple(leaf.shape)}, expected {dtype} {shape}")
+        if not bool((cache["len"] == S).all()):
+            fail("zamba2 prefill cache len")
+        paths = mamba_prefill_paths(cfg, params, batch)
+        check_deep_paths("zamba2", paths, problems)
+        return paths
+    phases = serve_by_phase(model, params, batch, tokens, hybrid_counts,
+                            after_prefill)
+    check_launches("zamba2 serving", phases, main_launches,
+                   hybrid_program(cfg, phases["n_steps"]))
+
+    # the port's own predictor for the same request (planner.check, the
+    # XLA byte model, backend="tpu", one device)
+    preds = {}
+    for kind, seq in (("prefill", S), ("decode", S + HYBRID_NEW)):
+        rep = PL.check(HYBRID_ARCH, ShapeConfig("serve", seq, B_, kind), {},
+                       backend="tpu", chip="h100")
+        p = rep.prediction
+        preds[kind] = {"peak_bytes": p.peak_bytes,
+                       "param_bytes": p.param_bytes,
+                       "cache_bytes": p.cache_bytes,
+                       "act_transient_bytes": p.act_transient_bytes,
+                       "input_bytes": p.input_bytes,
+                       "fits_h100": rep.fits}
+    out = {
+        "arch": HYBRID_ARCH, "cut": "none: full width and depth",
+        "requests": B_, "prompt_tokens": S, "new_tokens": HYBRID_NEW,
+        "n_layers": cfg.n_layers, "shared_invocations": n_inv,
+        "shared_blocks": cfg.hybrid.shared_attn_blocks,
+        "params": sum(t.numel() for t in params.parameters()),
+        "param_bytes": sum(t.numel() * t.element_size()
+                           for t in params.parameters()),
+        "init_s": init_s, "resident_at_start_bytes": at_start,
+        **serve_readings(B_, HYBRID_NEW, generate_s, main_launches, phases,
+                         preds),
+        "prefill_tokens_per_s": B_ * S / phases["prefill_s"],
+        "prefill_vs_plain": phases["checked"],
+    }
+    del params, batch, phases
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["reduced_card_vs_cpu"] = reduced_card_vs_cpu(
+        HYBRID_ARCH, lambda cfg, gen: {"tokens": torch.randint(
+            0, cfg.vocab, (2, 40), generator=gen, dtype=torch.int32)},
+        hybrid_counts)
+    out["elapsed_s"] = time.perf_counter() - t_phase
+    say("serve_zamba2_2_7b " + json.dumps(out))
+    if problems:
+        fail("; ".join(problems))
+    return out
+
+
+def train_zamba2_2_7b() -> dict:
+    """zamba2-2.7b at full width and depth, FULL_TRAIN, AdamW, remat
+    "block", HYBRID_TRAIN_BATCH x HYBRID_PROMPT tokens, TRAIN_STEPS steps:
+    the training phase's readings and gates (the loss finite and moving,
+    every trainable leaf moved, launches per step the reference's
+    program: flash forward, dq and dk / dv once per shared invocation at
+    (80, 80), RMSNorm both ways at 2,560 / 5,120; the fp32 paths'
+    gradients against float64 at the trained weights, on
+    HYBRID_CHECK_BATCH sample), then the reduced config's step on the card
+    against the CPU; the line prints before its gates can fail the run."""
+    t_phase = time.perf_counter()
+    cfg = get_config(HYBRID_ARCH)
+    problems = []
+    out = train_phase(
+        "train_zamba2_2_7b", cfg, FULL_TRAIN, "none: full width and depth",
+        problems, make_batch=lambda cfg, gen: model_batch(
+            build_model(cfg), gen, HYBRID_TRAIN_BATCH, HYBRID_PROMPT,
+            "train"),
+        n_batch=HYBRID_TRAIN_BATCH, seq_len=HYBRID_PROMPT, fp64_witness=True,
+        optimizer="adamw", check_batch=HYBRID_CHECK_BATCH)
+    # the params after AdamW's first step are a reading: the step moves
+    # each element by about lr x sign(grad), so an element of a
+    # zero-initialized leaf whose gradient is a rounding from zero lands
+    # 2 lr apart on the two devices — 2.0 of the leaf's scale (conv_b,
+    # PERF.md § 6) while the gradients agree within tol
+    out["reduced_card_vs_cpu"] = reduced_train_card_vs_cpu(
+        problems, HYBRID_ARCH, FULL_TRAIN,
+        lambda cfg, gen: model_batch(build_model(cfg), gen, 2, 40, "train"),
+        params_gate=False)
+    out["elapsed_s"] = time.perf_counter() - t_phase
+    say("train_zamba2_2_7b " + json.dumps(out))
+    if problems:
+        fail("; ".join(problems))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4i: the memory autopilot
+# ---------------------------------------------------------------------------
+
+
+def autopilot_scenarios(problems: list) -> dict:
+    """Every drift scenario, guarded and unguarded, at v5e and h100,
+    through the port's defaults (the guard's reshard search on the card;
+    the scenarios never reach it): each ``ScenarioResult`` field against
+    the reference's (AUTOPILOT_WANT, AUTOPILOT_BYTES)."""
+    engine = SW.SweepEngine()
+    budget, base, final = AUTOPILOT_BYTES
+    rows, t0 = [], time.perf_counter()
+    zero_counts()
+    for chip in ("v5e", "h100"):
+        for r in AP.run_all(engine=engine, chip=chip):
+            got = (r.completed, r.aborted, r.steps_done, r.n_steps,
+                   tuple(r.oom_steps), tuple(r.mitigations), r.restarts,
+                   r.budget_bytes, r.base_predicted_bytes,
+                   r.final_predicted_bytes)
+            want = AUTOPILOT_WANT[(r.scenario, r.guarded)] + (
+                budget, base, final if r.guarded else base)
+            if got != want:
+                problems.append(f"autopilot {r.scenario} guarded="
+                                f"{r.guarded} at {chip}: {got}, the "
+                                f"reference's {want}")
+            rows.append({"chip": chip, "line": str(r)})
+    return {"results": rows, "equal_to_reference": not problems,
+            "s": time.perf_counter() - t0,
+            "launches": {"shard_factor": SF.launches,
+                         "segmented_cummax": SC.launches}}
+
+
+def autopilot_reshard(problems: list) -> dict:
+    """The harness cell's plan at a drift ratio of 50 (no knob move is
+    safe, so ``_reshard`` runs ``planner.plan_min_chips``), by the port's
+    default planner (the pruned search's slices on the card) and by the
+    host's (``compute_engine="numpy"``), each on a cold engine: the
+    candidates equal, the reshard candidate the reference's; both waits
+    printed (ROADMAP C14); the search launched ``shard_factor``."""
+    cold = SW.SweepEngine()
+    base = cold.evaluate(AP.base_cell(), policy=FULL_TRAIN).peak_bytes
+    hr = (base / AP_HARNESS.BASE_FRAC) / PL.chip_hbm("v5e")
+    plans = {}
+    for where, kw in (("card", {}), ("host", {"compute_engine": "numpy"})):
+        planner = AP.MitigationPlanner(engine=SW.SweepEngine(),
+                                       policy=FULL_TRAIN, headroom=hr, **kw)
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan = planner.plan(AP.base_cell(), ewma_ratio=50.0)
+        torch.cuda.synchronize()
+        plans[where] = (plan, (time.perf_counter() - t0) * 1e3,
+                        {"shard_factor": SF.launches,
+                         "segmented_cummax": SC.launches})
+
+    def rows(plan):
+        return [(c.action, c.cell, c.predicted_bytes, c.projected_bytes,
+                 c.throughput_cost, c.note, c.safe) for c in plan.candidates]
+    card, host = plans["card"][0], plans["host"][0]
+    if rows(card) != rows(host):
+        problems.append("autopilot reshard: the card's plan is not the "
+                        "host's")
+    rs = [c for c in card.candidates if c.action == "reshard"]
+    got = None if not rs else (rs[0].cell.mesh, rs[0].cell.remat,
+                               rs[0].cell.grad_accum, rs[0].cell.schedule,
+                               rs[0].cell.microbatches,
+                               rs[0].predicted_bytes, rs[0].throughput_cost,
+                               rs[0].note)
+    if got != AUTOPILOT_RESHARD:
+        problems.append(f"autopilot reshard {got}, the reference's "
+                        f"{AUTOPILOT_RESHARD}")
+    if plans["card"][2]["shard_factor"] <= 0 or any(plans["host"][2]
+                                                    .values()):
+        problems.append(f"autopilot reshard launches: card "
+                        f"{plans['card'][2]}, host {plans['host'][2]}")
+    return {"candidates": [f"{c}" for c in card.candidates],
+            "reshard": {"mesh": dict(got[0]) if got else None,
+                        "equal_to_reference": got == AUTOPILOT_RESHARD},
+            "card_ms": plans["card"][1], "host_ms": plans["host"][1],
+            "launches": plans["card"][2]}
+
+
+def autopilot_replay(problems: list) -> dict:
+    """``ResilientTrainer`` over REPLAY_STEPS real smollm-360m steps on the
+    card (8 x 2,048, AdamW, remat "block"), a checkpoint every
+    REPLAY_EVERY steps (keep 2, a temporary directory removed at the end),
+    a failure injected at step REPLAY_FAIL_AT: the trainer restores the
+    step-4 checkpoint (parameters, AdamW state and step) and replays step
+    4.  Each step is admission-controlled by an ``Autopilot`` on the
+    grid's cell at ``chip="h100"`` fed the allocator's peak of the step
+    before.  Gates: the replayed losses and the final parameters bit-equal
+    to an uninterrupted run's, the restored tensors on the card, the
+    watch SAFE on every step it could read, no mitigation; launches the
+    reference's program once per step run."""
+    cfg = get_config(REPLAY_ARCH)
+    model = build_model(cfg)
+    opt = OptimizerConfig(name="adamw")
+    step = make_train_step(model, FULL_TRAIN, opt, remat="block")
+
+    def batch(i):
+        g = torch.Generator(device=DEV)
+        g.manual_seed(SEED + 100 + i)
+        return model_batch(model, g, REPLAY_BATCH, REPLAY_SEQ, "train")
+
+    def fresh():
+        g = torch.Generator(device=DEV)
+        g.manual_seed(SEED)
+        return init_train_state(model, FULL_TRAIN, opt, g, DEV)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    state, straight = fresh(), []
+    for i in range(REPLAY_STEPS):
+        state, metrics = step(state, batch(i))
+        straight.append(float(metrics["loss"]))
+    want = {n: p.detach().cpu() for n, p in state.params.named_parameters()}
+    del state, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cell = SW.SweepCell(arch=REPLAY_ARCH, chip="h100",
+                        mesh=tuple(sorted(ME.MESH.items())),
+                        optimizer="adamw", remat="block", grad_accum=1,
+                        global_batch=REPLAY_BATCH, seq_len=REPLAY_SEQ,
+                        kind="train", backend=ME.BACKEND)
+    pilot = AP.Autopilot(cell=cell, policy=FULL_TRAIN)
+    read = []
+
+    def memory_source(i):
+        """The allocator's peak since the last read (None before the
+        first step: nothing ran yet)."""
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() if read else None
+        read.append(peak)
+        torch.cuda.reset_peak_memory_stats()
+        return peak
+
+    failed = []
+
+    def inject(i):
+        if i == REPLAY_FAIL_AT and not failed:
+            failed.append(i)
+            return True
+        return False
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        trainer = ResilientTrainer(
+            train_step=step, pipeline=None,
+            checkpointer=Checkpointer(d, keep=2),
+            fault_cfg=FaultConfig(ckpt_every=REPLAY_EVERY), make_batch=batch,
+            failure_injector=inject, autopilot=pilot,
+            memory_source=memory_source)
+        start = fresh()
+        zero_counts()
+        t0 = time.perf_counter()
+        state, history = trainer.run(start, 0, REPLAY_STEPS)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = model_counts()
+        kept = sorted(os.listdir(d))
+        ckpt_bytes = sum(os.path.getsize(os.path.join(d, kept[-1], f))
+                         for f in os.listdir(os.path.join(d, kept[-1])))
+    steps = [h["step"] for h in history]
+    losses = [h["loss"] for h in history]
+    replay = list(range(REPLAY_FAIL_AT)) + list(
+        range(REPLAY_FAIL_AT - 1, REPLAY_STEPS))
+    if steps != replay or losses != [straight[i] for i in replay]:
+        problems.append(f"autopilot replay: steps {steps} losses {losses}, "
+                        f"uninterrupted {straight}")
+    differ = [n for n, p in state.params.named_parameters()
+              if not torch.equal(p.detach().cpu(), want[n])]
+    if differ:
+        problems.append(f"autopilot replay: {len(differ)} parameters differ "
+                        f"from the uninterrupted run's: {differ[:4]}")
+    off_card = [n for n, t in ([(n, p) for n, p in
+                                state.params.named_parameters()]
+                               + [(f"{k}.{n}", t) for k, d_ in
+                                  state.opt.items() for n, t in d_.items()]
+                               + [("step", state.step)])
+                if t.device.type != "cuda"]
+    if off_card:
+        problems.append(f"autopilot replay: restored tensors off the card: "
+                        f"{off_card[:4]}")
+    states = [smp.state.value for smp in pilot.watch.samples]
+    if states[0] != "unavailable" or set(states[1:]) != {"safe"} or \
+            pilot.applied or pilot.events:
+        problems.append(f"autopilot replay watch {states}, applied "
+                        f"{pilot.applied}, events {pilot.events}")
+    program = {k: v * len(history) for k, v in train_program(cfg).items()}
+    if launches != program:
+        problems.append(f"autopilot replay launched {launches}, the "
+                        f"reference's program {program}")
+    if trainer.restarts != 1 or kept != ["step_4", "step_6"]:
+        problems.append(f"autopilot replay: restarts {trainer.restarts}, "
+                        f"checkpoints kept {kept}")
+    samples = pilot.watch.samples
+    out = {"arch": REPLAY_ARCH, "batch": REPLAY_BATCH, "seq": REPLAY_SEQ,
+           "steps": steps, "losses": losses, "uninterrupted": straight,
+           "restarts": trainer.restarts, "checkpoints_kept": kept,
+           "checkpoint_bytes": ckpt_bytes, "run_s": run_s,
+           "params_bit_equal": not differ,
+           "watch": {"states": states,
+                     "observed_bytes": [smp.observed_bytes
+                                        for smp in samples],
+                     "predicted_bytes": pilot.predicted_bytes,
+                     "budget_bytes": pilot.budget_bytes,
+                     "ewma_ratio": pilot.watch.ewma_ratio},
+           "launches": launches}
+    del state, start, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def autopilot_phase() -> dict:
+    """Phase 4i: the scenarios, the reshard on the card, the real-step
+    replay; one ``autopilot`` line, then the gates."""
+    t_phase = time.perf_counter()
+    problems = []
+    out = {"scenarios": autopilot_scenarios(problems),
+           "reshard": autopilot_reshard(problems),
+           "replay": autopilot_replay(problems)}
+    out["elapsed_s"] = time.perf_counter() - t_phase
+    say("autopilot " + json.dumps(out))
+    if problems:
+        fail("; ".join(problems))
+    return {k: out["reshard"]["launches"].get(k, 0)
+            + out["scenarios"]["launches"].get(k, 0)
+            + out["replay"]["launches"].get(k, 0)
+            for k in set(out["reshard"]["launches"])
+            | set(out["replay"]["launches"])}
+
+
+# ---------------------------------------------------------------------------
 # phase 8: the measurement grid (the predictor's error on the card)
 # ---------------------------------------------------------------------------
 
@@ -3734,6 +4254,9 @@ def host_ms(fn, calls: int = 30, warmup: int = 5) -> float:
     return statistics.median(times)
 
 
+PROFILE_TRIES = 4
+
+
 def device_ms(fn, kernel_name: str, launches: int = 20,
               flush: bool = False):
     """Mean device time of the named CUDA kernel over ``launches`` calls of
@@ -3742,12 +4265,13 @@ def device_ms(fn, kernel_name: str, launches: int = 20,
     L2 flush (a kernel of its own) before each call.  None when the
     profiler reports no device time for it (then only the event time is
     known, and the report says "not measured").  A trace that lacks the
-    kernel is taken once more (one such miss was seen after a trace of
-    ~86,000 kernels earlier in the run)."""
+    kernel is taken again, up to PROFILE_TRIES traces: the profiler misses
+    a kernel now and then (about half the first traces of phase 7 in one
+    run, one entry in two traces running; PERF.md § 6)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):
+    for _ in range(PROFILE_TRIES):
         try:
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
@@ -4062,14 +4586,24 @@ def time_model_kernels(checks: dict, launches: dict) -> list:
                   (4, 2048, 32, 80)):
         fwd_other.append(_flash_timing(shape, True, gen))
     dq, dkv = _flash_bwd_timing(lm_shape, True, gen)
+    # the pairs' backward: minicpm3-4b's and zamba2-2.7b's training, and
+    # deepseek-v2-lite-16b's (192, 128) at its prefill shape (no path
+    # trains deepseek: its training does not fit one card)
     bwd_other = [_flash_bwd_timing(shape, True, gen)
-                 for shape in ((4, 2048, 40, 96, 64), (4, 2048, 32, 80))]
+                 for shape in ((4, 2048, 40, 96, 64), (4, 2048, 32, 80),
+                               (4, 2048, 16, 192, 128))]
     rn_main = _rmsnorm_timing((TRAIN_BATCH * S_train, cfg.d_model), gen)
     rn_other = [_rmsnorm_timing((SERVE_BATCH * S_serve, cfg.d_model), gen),
                 _rmsnorm_timing((SERVE_BATCH, 1, cfg.d_model), gen),
                 _rmsnorm_timing((MAMBA_BATCH * MAMBA_PROMPT, 4096), gen),
-                _rmsnorm_timing((ENCDEC_BATCH * ENCDEC_PROMPT, 1024), gen)]
+                _rmsnorm_timing((ENCDEC_BATCH * ENCDEC_PROMPT, 1024), gen),
+                # zamba2-2.7b: block and shared norms, and the gated norm
+                # over d_inner, 4 x 2,048 rows
+                _rmsnorm_timing((HYBRID_BATCH * HYBRID_PROMPT, 2560), gen),
+                _rmsnorm_timing((HYBRID_BATCH * HYBRID_PROMPT, 5120), gen)]
     rn_bwd = _rmsnorm_bwd_timing((TRAIN_BATCH * S_train, cfg.d_model), gen)
+    rn_bwd_other = [_rmsnorm_bwd_timing((HYBRID_TRAIN_BATCH * HYBRID_PROMPT,
+                                         d), gen) for d in (2560, 5120)]
     out = []
     # per kernel: its check, the outputs of that check that are its own,
     # and the checked shape it is timed at
@@ -4087,7 +4621,8 @@ def time_model_kernels(checks: dict, launches: dict) -> list:
              "rmsnorm_fwd", ("float32", "bfloat16"), TRAIN_ROWS, rn_main,
              rn_other),
             ("rmsnorm_bwd", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:28",
-             "rmsnorm_bwd", ("dx", "dscale"), TRAIN_ROWS, rn_bwd, [])):
+             "rmsnorm_bwd", ("dx", "dscale"), TRAIN_ROWS, rn_bwd,
+             rn_bwd_other)):
         c = checks[check]
 
         def own(errs):
@@ -4152,7 +4687,8 @@ def time_ssd(checks: dict, launches: dict) -> dict:
     """The SSD kernel at the serving path's prefill shape, bf16 (the
     tensor-core kernel): the wrapper call (CUDA events, median of 30), the
     kernel alone (profiler, by its own name), the plain version; no single
-    PyTorch call computes the SSD scan."""
+    PyTorch call computes the SSD scan.  zamba2-2.7b's prefill shape under
+    ``other_shapes``."""
     cfg = get_config(MAMBA_ARCH)
     case = (MAMBA_BATCH, MAMBA_PROMPT, cfg.ssm.n_heads(cfg.d_model),
             cfg.ssm.head_dim, cfg.ssm.d_state, cfg.ssm.chunk)
@@ -4190,9 +4726,27 @@ def time_ssd(checks: dict, launches: dict) -> dict:
                          "threads": 32 * SSD.MMA_WARPS,
                          "ptxas": mma_resources().get(
                              f"{SSD_MMA_KERNEL}<{P}>")}}
-    if not (entry["ms"] > 0 and entry["plain_ms"] > 0
-            and entry["bound_ms"] > 0):
-        fail("ssd_scan: a timing came back non-positive")
+    # zamba2-2.7b's prefill shape
+    zargs = ssd_inputs(ZAMBA2_SSD_CASE, gen, torch.bfloat16)
+    b, S, H, P, N, chunk = ZAMBA2_SSD_CASE
+    n_ops, n_bytes = ssd_work(ZAMBA2_SSD_CASE)
+    bound_ms, bound_by = _bound(n_bytes, n_ops, BF16_OPS_PER_S)
+    entry["other_shapes"] = [{
+        "shape": {"b": b, "S": S, "H": H, "P": P, "N": N, "chunk": chunk,
+                  "dtype": "bfloat16"},
+        "max_abs_err_at_shape": c["max_abs_err_by_case"][
+            case_key(ZAMBA2_SSD_CASE)],
+        "ms": event_ms(lambda: SSD.ssd_scan(*zargs, chunk=chunk)),
+        "device_ms": device_ms(lambda: SSD.ssd_scan(*zargs, chunk=chunk),
+                               SSD_MMA_KERNEL),
+        "plain_ms": event_ms(lambda: SSD.ssd_scan_plain(*zargs, chunk=chunk),
+                             launches=10),
+        "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+        "flops": n_ops, "bytes": n_bytes, "grid_blocks": b * H,
+        "smem_bytes_per_block": SSD.mma_smem_bytes(P, N, chunk)}]
+    for e in [entry] + entry["other_shapes"]:
+        if not (e["ms"] > 0 and e["plain_ms"] > 0 and e["bound_ms"] > 0):
+            fail("ssd_scan: a timing came back non-positive")
     return entry
 
 
@@ -4393,12 +4947,33 @@ def main(argv: list) -> int:
         launches[k] += n
     phase_done("6f train_minicpm3_4b")
 
-    # phase 7: kernel timings at the main paths' shapes
+    # phase 7: kernel timings at the main paths' shapes, before phases
+    # 5g-4i: the profiler traces nothing more in a process once it has
+    # traced ~98,000 kernels of 6g's step on top of the earlier phases'
+    # traces (every kernel-alone time read "not measured" after them,
+    # PERF.md § 6); each kernel's launches are filled in below
     kernels = time_kernels(log, checks, launches) + \
         time_model_kernels(checks, launches) + [time_ssd(checks, launches)]
-    for k in kernels:
-        say_kernel(with_ratios(k))
     phase_done("7 timings")
+
+    # phases 5g and 6g: the hybrid zamba2-2.7b at full size; 4i: the
+    # memory autopilot (its scenarios, its reshard search on the card and
+    # a real-step run restored from its checkpoint); after every earlier
+    # phase, as 5e-6f are
+    for k, n in serve_zamba2_2_7b()["launches"]["generate"].items():
+        launches[k] += n
+    phase_done("5g serve_zamba2_2_7b")
+    for k, n in train_zamba2_2_7b()["launches_total"].items():
+        launches[k] += n
+    phase_done("6g train_zamba2_2_7b")
+    for k, n in autopilot_phase().items():
+        launches[k] += n
+    phase_done("4i autopilot")
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+        if k["launches"] <= 0:
+            fail(f"{k['name']}: the main path launched it no time")
+        say_kernel(with_ratios(k))
     say(f"elapsed: {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(smi)

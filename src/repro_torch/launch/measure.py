@@ -118,7 +118,17 @@ GRID: list[MeasureCell] = (
     + _serve("deepseek-v2-lite-16b", "decode", 4096, (16,))
     + _serve("minicpm3-4b", "prefill", 2048, (4,))
     + _serve("minicpm3-4b", "decode", 4096, (16,))
-    + _train("minicpm3-4b", 2048, (4, 8), "full", "adafactor"))
+    + _train("minicpm3-4b", 2048, (4, 8), "full", "adafactor")
+    # the hybrid zamba2-2.7b: serving, its long-context decode (the arch's
+    # 524,288 positions at batch 1, 54.90 GiB predicted), and training
+    # under AdamW (8 x 2,048 is 65.71 GiB: Adafactor there; remat "none"
+    # passes the rule at 2 x 2,048 but the eager SSD read 1.720x the byte
+    # model under it, ~100 GiB)
+    + _serve("zamba2-2.7b", "prefill", 2048, (4,))
+    + _serve("zamba2-2.7b", "decode", 4096, (16,))
+    + _serve("zamba2-2.7b", "decode", 524288, (1,))
+    + _train("zamba2-2.7b", 2048, (1, 4), "full", "adamw")
+    + _train("zamba2-2.7b", 2048, (8,), "full", "adafactor"))
 
 
 def context_for(cell: MeasureCell):
@@ -408,7 +418,7 @@ def store_name(device: dict) -> str:
 
 
 FAMILY_NAMES = {"vlm": "VLM", "encdec": "enc-dec", "ssm": "SSM",
-                "dense": "dense"}
+                "dense": "dense", "moe": "MoE", "hybrid": "hybrid"}
 
 
 def summary(store, engine=None) -> dict:

@@ -15,14 +15,11 @@
 * ``batch_spec(shape)``            — shape/dtype records for every input
 
 Every family's ``spec`` and ``batch_spec`` are here, so ``planner.check``
-and the capacity sweep take all twelve archs.  The decoder LMs on GQA or
-MLA attention, dense or MoE (arctic-480b, deepseek-v2-lite-16b), the VLMs
-built on them, the encoder-decoder (seamless-m4t-large-v2) and the
-pure-SSM family (mamba2) have their training loss and serving path.  For
-the hybrid family every forward entry point (``init``, ``from_numpy``,
-``loss``, ``prefill``, ``decode_step``, ``init_cache``) raises
-``NotImplementedError`` naming the ROADMAP item that ports it (A7d): a
-model whose spec builds never half-runs.  An MoE model picks its
+and the capacity sweep take all twelve archs, and every family has its
+training loss and serving path: the decoder LMs on GQA or MLA attention,
+dense or MoE (arctic-480b, deepseek-v2-lite-16b), the VLMs built on them,
+the encoder-decoder (seamless-m4t-large-v2), the pure-SSM family (mamba2)
+and the hybrid SSM + shared attention (zamba2).  An MoE model picks its
 expert-parallel path under ``mesh_ctx.mesh_context`` and its dense path
 without one, as the reference does.
 """
@@ -42,12 +39,6 @@ from repro_torch.models import ssm_lm as S
 from repro_torch.models import transformer as T
 from repro_torch.models import vlm as V
 
-# families whose forward is not ported yet -> the ROADMAP item that ports
-# it
-_UNPORTED_FORWARD = {"hybrid": "the hybrid SSM + shared attention "
-                               "(ROADMAP A7d)"}
-
-
 @dataclass(frozen=True)
 class ShapeDtype:
     """Shape/dtype record of one model input (no array behind it)."""
@@ -61,29 +52,18 @@ class Model:
     cfg: ArchConfig
     spec: ModuleSpec
 
-    def _forward_ported(self) -> None:
-        """Raise for a model whose spec builds but whose forward is not
-        ported yet — before any parameter is made or any input read."""
-        if self.cfg.family in _UNPORTED_FORWARD:
-            raise NotImplementedError(
-                f"{self.cfg.name}: the forward of "
-                f"{_UNPORTED_FORWARD[self.cfg.family]} is not ported yet; its "
-                f"spec is, so planner.check and the capacity sweep take this "
-                f"arch")
-
     def init(self, generator: torch.Generator,
              device="cuda") -> PM.ModuleParams:
-        self._forward_ported()
         return PM.init_params(self.spec, generator, device)
 
     def from_numpy(self, tree: dict, device="cuda") -> PM.ModuleParams:
-        self._forward_ported()
         return PM.params_from_numpy(tree, device, self.spec)
 
     def loss(self, params, batch: dict, remat=None):
-        self._forward_ported()
         if self.cfg.family == "ssm":
             return S.ssm_loss(self.cfg, params, batch, remat=remat)
+        if self.cfg.family == "hybrid":
+            return H.hybrid_loss(self.cfg, params, batch, remat=remat)
         if self.cfg.family == "vlm":
             return V.vlm_loss(self.cfg, params, batch, remat=remat)
         if self.cfg.family == "encdec":
@@ -92,9 +72,10 @@ class Model:
                          remat=remat)
 
     def prefill(self, params, batch: dict):
-        self._forward_ported()
         if self.cfg.family == "ssm":
             return S.ssm_prefill(self.cfg, params, batch)
+        if self.cfg.family == "hybrid":
+            return H.hybrid_prefill(self.cfg, params, batch)
         if self.cfg.family == "vlm":
             return V.vlm_prefill(self.cfg, params, batch)
         if self.cfg.family == "encdec":
@@ -102,9 +83,10 @@ class Model:
         return T.lm_prefill(self.cfg, params, batch["tokens"])
 
     def decode_step(self, params, token, cache: dict):
-        self._forward_ported()
         if self.cfg.family == "ssm":
             return S.ssm_decode_step(self.cfg, params, token, cache)
+        if self.cfg.family == "hybrid":
+            return H.hybrid_decode_step(self.cfg, params, token, cache)
         if self.cfg.family == "vlm":
             return V.vlm_decode_step(self.cfg, params, token, cache)
         if self.cfg.family == "encdec":
@@ -113,9 +95,10 @@ class Model:
 
     def init_cache(self, batch: int, max_len: int, device="cuda",
                    enc_len=None) -> dict:
-        self._forward_ported()
         if self.cfg.family == "ssm":
             return S.ssm_init_cache(self.cfg, batch, max_len, device)
+        if self.cfg.family == "hybrid":
+            return H.hybrid_init_cache(self.cfg, batch, max_len, device)
         if self.cfg.family == "encdec":
             return E.encdec_init_cache(self.cfg, batch, max_len,
                                        enc_len or max_len, device)

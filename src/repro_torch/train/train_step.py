@@ -105,8 +105,11 @@ def make_train_step(model: Model, policy: TrainPolicy,
 
     def grads_of(params, leaves, batch):
         loss, metrics = model.loss(params, batch, remat=remat)
-        return loss.detach(), metrics, list(torch.autograd.grad(loss,
-                                                                leaves))
+        # a leaf the loss never reads (the blocks a hybrid config whose
+        # depth attn_every does not divide leaves out, C16) gets a zero
+        # gradient, as the reference's
+        return loss.detach(), metrics, list(torch.autograd.grad(
+            loss, leaves, materialize_grads=True))
 
     def train_step(state: TrainState, batch: dict):
         params = PM.set_trainable(state.params, policy)

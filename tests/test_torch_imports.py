@@ -60,7 +60,12 @@ for want in ("repro_torch.core.batch_torch", "repro_torch.core.sweep",
              "repro_torch.calibrate.paths", "repro_torch.calibrate.profile",
              "repro_torch.calibrate.report",
              "repro_torch.calibrate.residual",
-             "repro_torch.calibrate.synthetic"):
+             "repro_torch.calibrate.synthetic",
+             "repro_torch.autopilot", "repro_torch.autopilot.__main__",
+             "repro_torch.autopilot.guard", "repro_torch.autopilot.harness",
+             "repro_torch.autopilot.mitigation",
+             "repro_torch.checkpoint", "repro_torch.checkpoint.checkpointing",
+             "repro_torch.runtime", "repro_torch.runtime.fault_tolerance"):
     assert want in names, want
 # the calibrate package's lazy exports name the port's own modules
 import repro_torch.calibrate as C

@@ -77,8 +77,14 @@ def test_grid_covers_the_cells_asked_for():
                  ("deepseek-v2-lite-16b", "decode", "full"),
                  ("minicpm3-4b", "train", "full"),
                  ("minicpm3-4b", "prefill", "full"),
-                 ("minicpm3-4b", "decode", "full")):
+                 ("minicpm3-4b", "decode", "full"),
+                 ("zamba2-2.7b", "train", "full"),
+                 ("zamba2-2.7b", "prefill", "full"),
+                 ("zamba2-2.7b", "decode", "full")):
         assert want in kinds, want
+    # every family the grid measures has its row in the summary
+    assert {get_config(c.arch).family for c in M.GRID} <= set(
+        M.FAMILY_NAMES)
     # one record file per cell
     names = [(c.arch, c.shape) for c in M.GRID]
     assert len(set(names)) == len(names)
@@ -325,3 +331,24 @@ def test_card_store_has_the_mla_rows(card_store):
         assert table[group][0] == rows[group]["cells"]
         assert table[group][1] == pytest.approx(
             rows[group]["mape_raw_tpu"], abs=0.01)
+
+
+def test_card_store_has_the_hybrid_rows(card_store):
+    """zamba2-2.7b's six cells were measured on the card: prefill 4 x
+    2,048, decode 16 x 4,096 and 1 x 524,288, AdamW training at 1 and 4 x
+    2,048 and Adafactor at 8 x 2,048; their rows and the MoE and hybrid
+    family rows recompute from the store as PERF.md's table gives them."""
+    store = TMS.MeasurementStore.from_dict(card_store)
+    hybrid = sorted((m.arch, m.meta["shape"]) for m in store
+                    if m.arch == "zamba2-2.7b")
+    assert hybrid == sorted((c.arch, c.shape) for c in M.GRID
+                            if c.arch == "zamba2-2.7b")
+    assert len(hybrid) == 6
+    rows = {r["group"]: r for r in M.summary(store)["rows"]}
+    table = perf_table()
+    for group in ("zamba2-2.7b prefill", "zamba2-2.7b decode",
+                  "zamba2-2.7b train", "hybrid", "MoE"):
+        assert table[group][0] == rows[group]["cells"], group
+        assert table[group][1] == pytest.approx(
+            rows[group]["mape_raw_tpu"], abs=0.01)
+    assert rows["hybrid"]["cells"] == 6 and rows["MoE"]["cells"] == 2

@@ -390,28 +390,18 @@ def test_unported_families_raise(arch):
         loss, _ = model.loss(params, {"tokens": toks, "labels": toks})
         assert bool(torch.isfinite(loss))
         return
-    if arch in ("deepseek-v2-lite-16b", "minicpm3-4b"):   # the MLA slice
-        # (test_torch_mla.py): every entry point of the reduced config
-        # runs on the CPU, and generate serves
-        model = build_model(get_config(arch).reduced())
-        params = model.init(torch.Generator().manual_seed(0), "cpu")
-        toks = torch.zeros((1, 8), dtype=torch.int32)
-        loss, _ = model.loss(params, {"tokens": toks, "labels": toks})
-        logits, cache = model.prefill(params, {"tokens": toks})
-        logits, _ = model.decode_step(params, toks[:, :1],
-                                      model.init_cache(1, 4, "cpu"))
-        assert bool(torch.isfinite(loss)) and set(cache["blocks"]) == {
-            "latent", "k_rope"}
-        out = TS.generate(model, params, {"tokens": toks}, 2, device="cpu")
-        assert tuple(out.shape) == (1, 2)
-        return
-    # the spec builds (planner.check and the sweep take it); its serving
-    # entry points raise before any parameter is made
+    # the MLA slice (test_torch_mla.py) and the hybrid slice
+    # (test_torch_hybrid.py): every entry point of the reduced config runs
+    # on the CPU, and generate serves
     model = build_model(get_config(arch).reduced())
-    assert model.spec.param_count > 0
-    for call in (lambda: model.init(torch.Generator().manual_seed(0), "cpu"),
-                 lambda: model.prefill(None, {}),
-                 lambda: model.decode_step(None, None, {}),
-                 lambda: model.init_cache(1, 8, "cpu")):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            call()
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    toks = torch.zeros((1, 8), dtype=torch.int32)
+    loss, _ = model.loss(params, {"tokens": toks, "labels": toks})
+    logits, cache = model.prefill(params, {"tokens": toks})
+    logits, _ = model.decode_step(params, toks[:, :1],
+                                  model.init_cache(1, 4, "cpu"))
+    assert bool(torch.isfinite(loss)) and bool(torch.isfinite(logits).all())
+    assert set(cache["blocks"]) == ({"ssm", "conv"} if arch == "zamba2-2.7b"
+                                    else {"latent", "k_rope"})
+    out = TS.generate(model, params, {"tokens": toks}, 2, device="cpu")
+    assert tuple(out.shape) == (1, 2)

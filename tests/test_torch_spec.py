@@ -2,9 +2,8 @@
 equal field for field for all twelve archs under every TrainPolicy
 preset, ``from_reference`` carries a reference tree across unchanged (an
 MLA layer's config object included, so the carried tree predicts the same
-bytes), and the families whose forward is not ported raise from every
-forward entry point (mamba2 and arctic-480b, ported since, run from every
-entry point instead)."""
+bytes), and the archs whose spec was ported before their forward run every
+forward entry point now (once they raised from each)."""
 
 import dataclasses
 
@@ -21,7 +20,7 @@ from repro_torch.models import build_model
 
 SUPPORTED = tuple(registered_archs())
 # the archs whose spec was ported before their forward (ROADMAP A7): the
-# MLA archs' forward came with A7b, the hybrid's waits on A7d
+# MLA archs' forward came with A7b, the hybrid's with A7d
 UNSUPPORTED = ("deepseek-v2-lite-16b", "minicpm3-4b", "zamba2-2.7b")
 MLA_ARCHS = ("deepseek-v2-lite-16b", "minicpm3-4b")
 POLICIES = ("FULL_TRAIN", "LLAVA_STAGE1", "LLAVA_STAGE2")
@@ -117,34 +116,23 @@ def test_carried_mla_tree_predicts_like_the_ports_own(arch):
 @pytest.mark.parametrize("arch", ("arctic-480b",) + UNSUPPORTED
                          + ("mamba2-1.3b",))
 def test_unsupported_families_raise(arch):
-    """A spec that builds never hands back a model that half-runs: every
-    forward entry point of the unported families raises, naming the
-    ROADMAP item that ports it.  arctic-480b (the MoE slice), mamba2 (the
-    SSM training slice) and the MLA archs deepseek-v2-lite-16b and
-    minicpm3-4b (the MLA slice) are ported: each entry point of their
-    reduced configs runs on the CPU."""
+    """Once the check that a spec ported before its forward raised from
+    every forward entry point.  No family refuses now: arctic-480b (the
+    MoE slice), mamba2 (the SSM training slice), the MLA archs (the MLA
+    slice) and zamba2-2.7b (the hybrid slice, tests/test_torch_hybrid.py)
+    each run every entry point of their reduced configs on the CPU."""
     import torch
-    if arch in ("arctic-480b", "mamba2-1.3b", "deepseek-v2-lite-16b",
-                "minicpm3-4b"):
-        model = build_model(get_config(arch).reduced())
-        params = model.init(torch.Generator().manual_seed(0), "cpu")
-        toks = torch.zeros((2, 8), dtype=torch.int32)
-        loss, _ = model.loss(params, {"tokens": toks, "labels": toks})
-        logits, cache = model.prefill(params, {"tokens": toks})
-        assert cache["len"].tolist() == [8, 8]
-        logits, _ = model.decode_step(params, toks[:, :1],
-                                      model.init_cache(2, 4, "cpu"))
-        assert bool(torch.isfinite(loss)) and tuple(logits.shape) == \
-            (2, 1, model.cfg.vocab)
-        return
-    model = build_model(get_config(arch))
-    calls = (lambda: model.init(torch.Generator().manual_seed(0), "cpu"),
-             lambda: model.from_numpy({}, "cpu"),
-             lambda: model.loss(None, {}),
-             lambda: model.prefill(None, {}),
-             lambda: model.decode_step(None, None, {}),
-             lambda: model.init_cache(1, 8, "cpu"))
-    for call in calls:
-        with pytest.raises(NotImplementedError,
-                           match=r"A7[b-d].*not ported yet"):
-            call()
+    model = build_model(get_config(arch).reduced())
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    toks = torch.zeros((2, 8), dtype=torch.int32)
+    loss, _ = model.loss(params, {"tokens": toks, "labels": toks})
+    logits, cache = model.prefill(params, {"tokens": toks})
+    assert cache["len"].tolist() == [8, 8]
+    logits, _ = model.decode_step(params, toks[:, :1],
+                                  model.init_cache(2, 4, "cpu"))
+    assert bool(torch.isfinite(loss)) and tuple(logits.shape) == \
+        (2, 1, model.cfg.vocab)
+    # the full config's entry points are routed, none refuses: its cache
+    # builds (on the meta device: no memory is taken)
+    full = build_model(get_config(arch))
+    assert full.init_cache(1, 8, "meta")["len"].shape == (1,)
