@@ -25,10 +25,13 @@ serving, minicpm3-4b serving and training), the hybrid zamba2-2.7b
 serving and training at full size, the memory autopilot
 (``repro_torch.autopilot``: its drift scenarios, its reshard search on the
 card, and real training steps under ``runtime.ResilientTrainer`` restored
-from a ``checkpoint.Checkpointer`` checkpoint), and the measurement grid
+from a ``checkpoint.Checkpointer`` checkpoint), the measurement grid
 (``repro_torch.launch.measure``: one real step per cell, the predictor's
-error on the card) — and holds every hand-written kernel against its
-plain PyTorch version on the card.
+error on the card), and the training launcher
+(``repro_torch.launch.train``: its report and OoM guard, smollm-360m
+trained at published width through it, the sharding helpers and ZeRO
+step on a 1 x 1 ``DeviceMesh``) — and holds every hand-written kernel
+against its plain PyTorch version on the card.
 Phases (any failure exits non-zero):
 
 1. toolchain + card line, then the kernels' build (set-up time) and the
@@ -184,7 +187,9 @@ Phases (any failure exits non-zero):
    twin): the readings and gates of phase 6c (RMSNorm 193 forward and 97
    backward launches per step, no flash, no SSD; the fp32 gradient gate
    at the trained weights with the float64 witness), and the reduced
-   config's step on the card against the CPU;
+   config's step on the card against the CPU; no step under the profiler
+   (it took 76.6 s of the phase, for no gate; PERF.md § 5 keeps its
+   readings);
 5e. ``serve_deepseek_v2_lite_16b``: nothing cut (27 layers: one dense
    FFN block of 10,944, then 26 MoE blocks of 64 experts x 1,408 top-6
    and 2 shared experts; d_model 2,048, 16 heads, MLA kv rank 512, head
@@ -232,7 +237,7 @@ Phases (any failure exits non-zero):
    the reduced config's step card against CPU (loss and gradients gated;
    the params after AdamW's first step a reading: it moves an element by
    about lr x the sign of its gradient, which a rounding flips where the
-   gradient is near zero);
+   gradient is near zero); no step under the profiler, as 6d;
 4i. ``autopilot`` (after 6g): the three drift scenarios, guarded and
    unguarded, at v5e and h100 through the port's defaults, every
    ``ScenarioResult`` field equal to the reference's; the harness cell's
@@ -244,6 +249,26 @@ Phases (any failure exits non-zero):
    ``Autopilot`` on the grid's cell fed the allocator's peak: the
    replayed losses and the final parameters bit-equal to an
    uninterrupted run's, the restored tensors on the card, the watch SAFE;
+9. ``launch_train_smollm_360m`` (last): the training launcher
+   (``repro_torch.launch.train.main``) as a user runs it — (a)
+   ``--check-only`` for llava15-7b on the default (16, 16) mesh: the
+   report's verdict, remat, accumulation and peak; (b) arctic-480b on a
+   1 x 1 mesh refused by the OoM guard's ``SystemExit`` with nothing
+   allocated on the card; (c) smollm-360m at published width and depth on
+   train_4k (256 x 4,096 tokens a step, AdamW with its fp32 master, 3
+   steps) with the smallest power-of-two accumulation the byte model puts
+   under 60 GiB on one h100: losses finite and falling, seconds a step,
+   tokens/s, flash and RMSNorm launches equal to the reference's program
+   per microbatch x the accumulation x 3, the allocator peak beside the
+   byte model's, every batch's SHA-256 equal to the host pipeline's, the
+   final checkpoint, the card's busy share over a 1-microbatch step under
+   the profiler; (d) an NCCL world of one (a ``FileStore`` in a temporary
+   directory) and a 1 x 1 ``DeviceMesh``: smollm-360m's parameters and
+   AdamW state placed with ``param_shardings`` / ``opt_shardings``, one
+   step at 2 x 2,048 with ``zero_shardings`` bit-equal to the step with no
+   mesh (parameters, optimizer state, loss), then a checkpoint restored
+   with ``shardings`` onto the mesh, every leaf a ``DTensor`` on its
+   placements and bit-equal; the group destroyed at the end;
 8. ``measure``: every cell of ``repro_torch.launch.measure.GRID`` (56
    cells of 10 archs at full width and depth) through ``measure_grid``,
    one real step each with the allocator read around it: a ``measure``
@@ -324,7 +349,8 @@ from repro_torch.core import search as SR  # noqa: E402
 from repro_torch.core import sweep as SW  # noqa: E402
 from repro_torch.core.spec import (FULL_TRAIN, LLAVA_STAGE1,  # noqa: E402
                                    LLAVA_STAGE2)
-from repro_torch.configs import ShapeConfig, get_config  # noqa: E402
+from repro_torch.configs import (SHAPES, ShapeConfig,  # noqa: E402
+                                 get_config)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as FL  # noqa: E402
 from repro_torch.kernels import ops as OPS  # noqa: E402
@@ -2764,13 +2790,15 @@ def reduced_train_card_vs_cpu(problems: list, arch: str = TRAIN_ARCH,
 def train_phase(name: str, cfg, policy, cut: str, problems: list,
                 make_batch=None, n_batch: int = TRAIN_BATCH,
                 seq_len: int = None, fp64_witness: bool = False,
-                optimizer: str = "adamw", check_batch: int = None) -> dict:
+                optimizer: str = "adamw", check_batch: int = None,
+                profile: bool = True) -> dict:
     """TRAIN_STEPS steps of ``policy`` under ``optimizer`` through
     ``init_train_state`` / ``make_train_step`` (the entry points a user
     calls) on ``n_batch`` samples of ``seq_len`` tokens
     (``make_batch(cfg, gen)``; by default the VLM's fig2b batch), each
     step's time, launches and allocator peak; the gates (the loss finite
-    and moving); one step under the profiler; the kernel path against the
+    and moving); with ``profile`` one step under the profiler; the kernel
+    path against the
     plain path (with ``fp64_witness`` both fp32 paths against float64,
     :func:`float64_witness`, the gate), on the first ``check_batch``
     samples (default all) with every gradient set but the one being made
@@ -2861,9 +2889,12 @@ def train_phase(name: str, cfg, policy, cut: str, problems: list,
     # where the device time goes: one more step under the profiler
     med_ms = statistics.median(s["ms"] for s in steps)
     split["steps"] = time.perf_counter() - t_split
-    on_device = device_breakdown(lambda: step(state, batch), med_ms, top=8)
-    split["profiled_step"] = time.perf_counter() - t_split - sum(
-        split.values())
+    on_device = None
+    if profile:
+        on_device = device_breakdown(lambda: step(state, batch), med_ms,
+                                     top=8)
+        split["profiled_step"] = time.perf_counter() - t_split - sum(
+            split.values())
 
     # the kernel path against the plain path, same weights and batch (its
     # first check_batch samples; each gradient set but the one being made
@@ -3355,7 +3386,7 @@ def train_mamba2_1_3b() -> dict:
             build_model(cfg), gen, MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ,
             "train"),
         n_batch=MAMBA_TRAIN_BATCH, seq_len=MAMBA_TRAIN_SEQ,
-        fp64_witness=True)
+        fp64_witness=True, profile=False)
     out["reduced_card_vs_cpu"] = reduced_train_card_vs_cpu(
         problems, MAMBA_ARCH, FULL_TRAIN,
         lambda cfg, gen: model_batch(build_model(cfg), gen, 2, 40, "train"))
@@ -3890,7 +3921,7 @@ def train_zamba2_2_7b() -> dict:
             build_model(cfg), gen, HYBRID_TRAIN_BATCH, HYBRID_PROMPT,
             "train"),
         n_batch=HYBRID_TRAIN_BATCH, seq_len=HYBRID_PROMPT, fp64_witness=True,
-        optimizer="adamw", check_batch=HYBRID_CHECK_BATCH)
+        optimizer="adamw", check_batch=HYBRID_CHECK_BATCH, profile=False)
     # the params after AdamW's first step are a reading: the step moves
     # each element by about lr x sign(grad), so an element of a
     # zero-initialized leaf whose gradient is a rounding from zero lands
@@ -4139,6 +4170,302 @@ def autopilot_phase() -> dict:
             + out["replay"]["launches"].get(k, 0)
             for k in set(out["reshard"]["launches"])
             | set(out["replay"]["launches"])}
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the training launcher (python -m repro_torch.launch.train)
+# ---------------------------------------------------------------------------
+
+# (c): smollm-360m at published width and depth on the train_4k shape
+# (256 x 4,096 tokens a step), AdamW with its fp32 master, 3 steps, with
+# the smallest power-of-two accumulation whose step the byte model
+# predicts under LAUNCH_BUDGET_GIB at a 1 x 1 mesh on an h100; (d): the
+# sharding helpers on a 1 x 1 DeviceMesh of an NCCL world of one, one step
+# at LAUNCH_MESH_BATCH x LAUNCH_MESH_SEQ
+LAUNCH_ARCH, LAUNCH_SHAPE, LAUNCH_STEPS = "smollm-360m", "train_4k", 3
+LAUNCH_BUDGET_GIB = 60
+LAUNCH_MESH_BATCH, LAUNCH_MESH_SEQ = 2, 2048
+
+
+def launch_accum(cfg, shape) -> tuple:
+    """(G, the byte model's peak bytes at G): the smallest power of two
+    whose step (microbatches of global_batch / G) the byte model predicts
+    under LAUNCH_BUDGET_GIB on one h100 (1 x 1 mesh, ``tpu`` terms, remat
+    block, AdamW)."""
+    model = build_model(cfg)
+    G = 1
+    while True:
+        ctx = PL.make_context(cfg, {"data": 1, "model": 1}, kind="train",
+                              global_batch=shape.global_batch,
+                              seq_len=shape.seq_len, backend="tpu",
+                              grad_accum=G, remat="block", optimizer="adamw")
+        peak = PR.predict(model, FULL_TRAIN, ctx, chip="h100").peak_bytes
+        if peak < LAUNCH_BUDGET_GIB * 2 ** 30 or G >= shape.global_batch:
+            return G, peak
+        G *= 2
+
+
+def sha256_batch(batch: dict) -> str:
+    """One digest over a batch's leaves (sorted by name) as host bytes."""
+    import hashlib
+    h = hashlib.sha256()
+    for k in sorted(batch):
+        v = batch[k]
+        v = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
+        h.update(k.encode())
+        h.update(np.ascontiguousarray(v).tobytes())
+    return h.hexdigest()
+
+
+def launch_check_only(problems: list) -> dict:
+    """(a): the planner's report for llava15-7b on the default (16, 16)
+    mesh, as ``--check-only`` prints it."""
+    from repro_torch.launch import train as LT
+    zero_counts()
+    rep = LT.main(["--arch", "llava15-7b", "--shape", "train_4k",
+                   "--check-only"]).report
+    if any(model_counts().values()) or rep is None:
+        problems.append("launch --check-only launched a kernel")
+    return {"fits": rep.fits, "remat": rep.remat,
+            "grad_accum": rep.grad_accum, "peak_bytes": rep.peak_bytes,
+            "budget_bytes": rep.budget_bytes, "report": str(rep)}
+
+
+def launch_guard(problems: list) -> dict:
+    """(b): arctic-480b on a 1 x 1 mesh must end in the guard's
+    ``SystemExit`` with nothing allocated on the card."""
+    from repro_torch.launch import train as LT
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    message = None
+    try:
+        LT.main(["--arch", "arctic-480b", "--shape", "train_4k", "--data",
+                 "1", "--model", "1"])
+    except SystemExit as e:
+        message = str(e)
+    moved = torch.cuda.memory_allocated() - before
+    if message is None or not message.startswith("OoM guard"):
+        problems.append(f"launch guard: arctic-480b was not refused "
+                        f"({message!r})")
+    if moved:
+        problems.append(f"launch guard: {moved} B allocated by a refused "
+                        f"launch")
+    return {"refused": message, "allocated_bytes": moved}
+
+
+def launch_smollm(problems: list) -> tuple:
+    """(c): ``main`` trains smollm-360m at published width: per step the
+    loss, seconds and tokens/s, launches against the reference's program
+    per microbatch x G, the allocator peak beside the byte model's, the
+    batches' digests against the host pipeline's, and a 1-microbatch step
+    under the profiler (the card's busy share)."""
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.launch import train as LT
+    cfg = get_config(LAUNCH_ARCH)
+    shape = SHAPES[LAUNCH_SHAPE]
+    G, predicted = launch_accum(cfg, shape)
+    want = {k: v * G * LAUNCH_STEPS for k, v in train_program(cfg).items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_launch_") as d:
+        zero_counts()
+        t0 = time.perf_counter()
+        run = LT.main(["--arch", LAUNCH_ARCH, "--shape", LAUNCH_SHAPE,
+                       "--grad-accum", str(G), "--steps", str(LAUNCH_STEPS),
+                       "--ckpt-dir", d])
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        launches = model_counts()
+        peak = torch.cuda.max_memory_allocated()
+        kept = sorted(os.listdir(d))
+    losses = [h["loss"] for h in run.history]
+    if len(losses) != LAUNCH_STEPS or not all(np.isfinite(losses)) \
+            or not losses[-1] < losses[0]:
+        problems.append(f"launch: losses {losses} not finite and falling")
+    if launches != want:
+        problems.append(f"launch: launched {launches}, the reference's "
+                        f"program x {G} x {LAUNCH_STEPS} steps {want}")
+    host = SyntheticPipeline(cfg, shape)
+    digests = [(sha256_batch(run.trainer.make_batch(s)),
+                sha256_batch(host.global_batch(s)))
+               for s in range(LAUNCH_STEPS)]
+    if any(a != b for a, b in digests):
+        problems.append("launch: a batch on the card differs from the "
+                        "host pipeline's")
+    if kept != [f"step_{LAUNCH_STEPS}"]:
+        problems.append(f"launch: checkpoints {kept}")
+    # the card's busy share over one step of one microbatch (the step's
+    # G microbatches run the same program G times, its update once)
+    micro = {k: v[:shape.global_batch // G]
+             for k, v in run.trainer.make_batch(0).items()}
+    one = make_train_step(build_model(cfg), FULL_TRAIN, OptimizerConfig())
+    t0 = time.perf_counter()
+    one(run.state, micro)
+    torch.cuda.synchronize()
+    one_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    one(run.state, micro)
+    torch.cuda.synchronize()
+    one_ms = min(one_ms, (time.perf_counter() - t0) * 1e3)
+    on_device = device_breakdown(lambda: one(run.state, micro), one_ms,
+                                 top=8)
+    med = statistics.median(run.step_s[1:] or run.step_s)
+    out = {"arch": cfg.name, "cut": "none: full width and depth",
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+           "vocab": cfg.vocab, "global_batch": shape.global_batch,
+           "seq_len": shape.seq_len, "grad_accum": G,
+           "microbatch": shape.global_batch // G, "optimizer": "adamw",
+           "master_fp32": True, "remat": "block",
+           "loss_per_step": losses, "s_per_step": run.step_s,
+           "tokens_per_s": shape.global_batch * shape.seq_len / med,
+           "main_s": main_s,
+           "launches": launches,
+           "launches_per_step": {k: v // LAUNCH_STEPS
+                                 for k, v in launches.items()},
+           "launches_per_microbatch_want": train_program(cfg),
+           "measured_peak_bytes": peak, "predicted_peak_bytes": predicted,
+           "measured_over_predicted": peak / predicted,
+           "batch_sha256": [a for a, _ in digests],
+           "checkpoints": kept,
+           "one_microbatch_step": {"ms": one_ms, "on_device": on_device}}
+    state = run.state
+    del run, one, micro
+    return out, launches, state
+
+
+def launch_on_device_mesh(problems: list) -> dict:
+    """(d): an NCCL world of one over a FileStore, a 1 x 1 DeviceMesh;
+    smollm-360m's parameters and AdamW state placed with
+    ``param_shardings`` / ``opt_shardings``, one step at
+    LAUNCH_MESH_BATCH x LAUNCH_MESH_SEQ with ``zero_shardings`` bit-equal
+    to the same step with no mesh; a checkpoint of the placed state
+    restored with ``shardings`` onto the mesh, every leaf bit-equal."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.launch import mesh as M
+    cfg = get_config(LAUNCH_ARCH)
+    model = build_model(cfg)
+    opt_cfg = OptimizerConfig()
+    shape = ShapeConfig("launch_mesh", LAUNCH_MESH_SEQ, LAUNCH_MESH_BATCH,
+                        "train")
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as d:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(d, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            mesh = M.make_smoke_mesh(1, 1)
+
+            def state_of(seed):
+                gen = torch.Generator(device=DEV)
+                gen.manual_seed(seed)
+                return init_train_state(model, FULL_TRAIN, opt_cfg, gen,
+                                        DEV)
+
+            plain, placed = state_of(SEED), state_of(SEED)
+            batch = {k: torch.from_numpy(v).to(DEV) for k, v in
+                     SyntheticPipeline(cfg, shape).global_batch(0).items()}
+            with mesh_context(mesh, M.arch_rules(cfg)):
+                psh = M.param_shardings(model, mesh)
+                mask = PM.trainable_mask(model.spec, FULL_TRAIN)
+                t_specs, _ = PM.partition_params(model.param_specs(), mask)
+                t_axes, _ = PM.partition_params(model.param_axes(), mask)
+                osh = M.opt_shardings(model, mesh, t_specs, opt_cfg, t_axes)
+                zsh = M.zero_grad_shardings(mesh, t_specs, t_axes)
+                bsh = M.batch_shardings(mesh, model.batch_spec(shape))
+                M.place_train_state(placed, psh, osh)
+                mbatch = {k: bsh[k].place(v) for k, v in batch.items()}
+                zero_counts()
+                placed, m_mesh = make_train_step(
+                    model, FULL_TRAIN, opt_cfg, zero_shardings=zsh)(
+                    placed, mbatch)
+                torch.cuda.synchronize()
+                mesh_launches = model_counts()
+            plain, m_plain = make_train_step(model, FULL_TRAIN, opt_cfg)(
+                plain, batch)
+            whole = lambda t: t.full_tensor() if isinstance(t, DTensor) \
+                else t
+            params = dict(placed.params.named_parameters())
+            diff = [n for n, t in plain.params.named_parameters()
+                    if not isinstance(params[n], DTensor)
+                    or not torch.equal(whole(params[n]), t)]
+            diff += [f"{leaf}/{k}" for leaf, st in plain.opt.items()
+                     for k, t in st.items()
+                     if not isinstance(placed.opt[leaf][k], DTensor)
+                     or not torch.equal(whole(placed.opt[leaf][k]), t)]
+            loss_equal = float(m_mesh["loss"]) == float(m_plain["loss"])
+            if diff or not loss_equal:
+                problems.append(f"launch mesh: the ZeRO step differs from "
+                                f"the plain step: loss {loss_equal}, "
+                                f"leaves {diff[:4]} ({len(diff)})")
+            out["step"] = {
+                "loss": [float(m_mesh["loss"]), float(m_plain["loss"])],
+                "grad_norm": [float(m_mesh["grad_norm"]),
+                              float(m_plain["grad_norm"])],
+                "leaves_bit_equal": len(params) + sum(
+                    len(st) for st in plain.opt.values()) - len(diff),
+                "leaves_differing": len(diff), "launches": mesh_launches,
+                "placements": sorted({str(t.placements) for t in
+                                      placed.params.parameters()})}
+            del plain
+            # the checkpoint of the placed state, restored onto the mesh
+            ck = Checkpointer(os.path.join(d, "ckpt"), keep=1)
+            t0 = time.perf_counter()
+            ck.save_async(1, placed)
+            ck.wait()
+            like = M.place_train_state(state_of(SEED + 1), psh, osh)
+            step, got = ck.restore_latest(
+                like, M.train_state_shardings(like, psh, osh))
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            want = dict(placed.params.named_parameters())
+            bad = [n for n, t in got.params.named_parameters()
+                   if not isinstance(t, DTensor)
+                   or t.placements != want[n].placements
+                   or not torch.equal(t.full_tensor(),
+                                      want[n].full_tensor())]
+            bad += [f"{leaf}/{k}" for leaf, st in got.opt.items()
+                    for k, t in st.items()
+                    if not isinstance(t, DTensor)
+                    or t.placements != placed.opt[leaf][k].placements
+                    or not torch.equal(t.full_tensor(),
+                                       placed.opt[leaf][k].full_tensor())]
+            if step != 1 or int(got.step) != 1 or bad:
+                problems.append(f"launch mesh: the restore differs at "
+                                f"{bad[:4]} ({len(bad)}), step {step}")
+            out["restore"] = {"step": step, "leaves_bit_equal": len(want)
+                              + sum(len(st) for st in got.opt.values())
+                              - len(bad), "leaves_differing": len(bad),
+                              "save_and_restore_s": restore_s}
+            del placed, got, like
+        finally:
+            dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def launch_phase() -> dict:
+    """Phase 9: (a)-(d); one ``launch_train_smollm_360m`` line, then the
+    gates.  Returns the launches of (c), the launcher's main path."""
+    t_phase = time.perf_counter()
+    problems = []
+    out = {"check_only": launch_check_only(problems),
+           "guard": launch_guard(problems)}
+    out["train"], launches, state = launch_smollm(problems)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["device_mesh"] = launch_on_device_mesh(problems)
+    out["elapsed_s"] = time.perf_counter() - t_phase
+    say("launch_train_smollm_360m " + json.dumps(out))
+    if problems:
+        fail("; ".join(problems))
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -4969,6 +5296,13 @@ def main(argv: list) -> int:
     for k, n in autopilot_phase().items():
         launches[k] += n
     phase_done("4i autopilot")
+    # phase 9: the training launcher — its report, its guard, smollm-360m
+    # trained at published width through it, and the sharding helpers on a
+    # 1 x 1 DeviceMesh; last, so that every earlier phase meets the caching
+    # allocator as before it
+    for k, n in launch_phase().items():
+        launches[k] += n
+    phase_done("9 launch_train_smollm_360m")
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["launches"] <= 0:

@@ -20,8 +20,18 @@ A restore builds the structure of ``like``: each leaf lands on the device
 of ``like``'s leaf (the host where that is not a tensor), with the stored
 dtype, and a shape that differs from ``like``'s raises.  A module is
 restored in place, as ``load_state_dict`` does: its tensors are what an
-optimizer and a train step hold.  Re-sharding onto another mesh (the
-reference's ``shardings``) comes with the sharding helpers (ROADMAP A8).
+optimizer and a train step hold.
+
+``shardings`` (the reference's argument) re-shards a restore onto the
+current mesh: a tree of ``mesh_ctx.Sharding``s of ``like``'s structure,
+where a module of ``like`` has the reference's nested layout of its
+parameters (``launch.mesh.param_shardings``).  A leaf with a sharding
+comes back as a ``DTensor`` on it (a module's parameter is replaced by
+one), each rank keeping its own elements of the whole leaf it read.  A
+``DTensor`` leaf is saved whole (gathered on every rank; rank 0 writes),
+and one restored without a sharding takes its own placements (a module's
+parameter in place).  Either way the files are the one-device files, so
+both packages read them.
 """
 
 from __future__ import annotations
@@ -75,12 +85,32 @@ def _flatten(tree, path: str = "") -> list:
     return out
 
 
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _distributed() -> bool:
+    import torch.distributed as dist
+    return dist.is_available() and dist.is_initialized() \
+        and dist.get_world_size() > 1
+
+
+def _writes() -> bool:
+    """Whether this process writes checkpoints (rank 0 of a world)."""
+    import torch.distributed as dist
+    return not _distributed() or dist.get_rank() == 0
+
+
 def _to_host(leaf):
     """A leaf as (raw bytes uint8, dtype name, shape) on the host, copied
-    (a later in-place update of the leaf cannot reach it); None stays."""
+    (a later in-place update of the leaf cannot reach it); None stays.  A
+    ``DTensor`` is gathered whole (every rank must take part)."""
     if leaf is None:
         return None
     if isinstance(leaf, torch.Tensor):
+        if _is_dtensor(leaf):
+            leaf = leaf.full_tensor()
         t = leaf.detach().to("cpu", copy=True).contiguous()
         name = str(t.dtype).removeprefix("torch.")
         if name not in TORCH_DTYPES:
@@ -115,9 +145,9 @@ def _write(directory: str, step: int, flat: list,
 
 
 def save_checkpoint(directory: str, step: int, tree: Any,
-                    extra: Optional[dict] = None) -> str:
-    return _write(directory, step,
-                  [(p, _to_host(leaf)) for p, leaf in _flatten(tree)], extra)
+                    extra: Optional[dict] = None) -> Optional[str]:
+    flat = [(p, _to_host(leaf)) for p, leaf in _flatten(tree)]
+    return _write(directory, step, flat, extra) if _writes() else None
 
 
 def latest_step(directory: str) -> Optional[int]:
@@ -136,14 +166,20 @@ def _read(d: str, m: dict) -> torch.Tensor:
         .reshape(m["shape"])
 
 
-def load_checkpoint(directory: str, step: int, like: Any) -> Any:
-    """Restore into the structure of ``like`` (see the module's note)."""
+def load_checkpoint(directory: str, step: int, like: Any,
+                    shardings: Any = None) -> Any:
+    """Restore into the structure of ``like``, each leaf with a sharding in
+    ``shardings`` onto the current mesh (see the module's note)."""
+    from repro_torch.mesh_ctx import place
+    from repro_torch.models.param import sharding_of
     d = os.path.join(directory, f"step_{step}")
     with open(os.path.join(d, "meta.json")) as f:
         meta = json.load(f)
     by_path = {m["path"]: m for m in meta["leaves"]}
 
-    def leaf(path: str, like_leaf):
+    def read(path: str, like_leaf, device=None):
+        """The whole stored leaf, on ``like_leaf``'s device (or
+        ``device``); None where the checkpoint holds none."""
         m = by_path.get(path)
         if m is None or m.get("none"):
             return None
@@ -154,29 +190,56 @@ def load_checkpoint(directory: str, step: int, like: Any) -> Any:
                              f"{tuple(t.shape)} vs {tuple(np.shape(like_leaf))}")
         if isinstance(like_leaf, torch.Tensor):
             return t.to(like_leaf.device)
+        return t if device is None else t.to(device)
+
+    def leaf(path: str, like_leaf, sh=None):
+        t = read(path, like_leaf, sh.mesh.device_type if sh else None)
+        if t is None:
+            return None
+        if sh is not None:
+            return sh.place(t)
+        if _is_dtensor(like_leaf):
+            return place(t, like_leaf.device_mesh, like_leaf.placements)
         return t
 
-    def in_place(module: nn.Module, path: str) -> nn.Module:
-        for p, t in _flatten(module, path):
-            if t is None:
-                continue
-            new = leaf(p, t)
+    def in_place(module: nn.Module, path: str, shs) -> nn.Module:
+        for name, t in module.named_parameters():
+            p = "/".join([path] + [f"[{k!r}]" for k in name.split(".")])
+            new = read(p, t)
             if new is None:
                 raise ValueError(f"checkpoint has no leaf at {p}")
             if new.dtype != t.dtype:
                 raise ValueError(f"dtype mismatch at {p}: {new.dtype} vs "
                                  f"{t.dtype}")
             with torch.no_grad():
-                t.copy_(new)
+                if shs is not None:
+                    owner, attr = module, name
+                    if "." in name:
+                        mod_name, attr = name.rsplit(".", 1)
+                        owner = module.get_submodule(mod_name)
+                    owner._parameters[attr] = nn.Parameter(
+                        sharding_of(shs, name).place(new),
+                        requires_grad=t.requires_grad)
+                elif _is_dtensor(t):
+                    t.to_local().copy_(place(new, t.device_mesh,
+                                             t.placements).to_local())
+                else:
+                    t.copy_(new)
+        for p, t in _flatten(module, path):
+            if t is not None and not isinstance(t, nn.Parameter):
+                with torch.no_grad():            # buffers
+                    t.copy_(leaf(p, t))
         return module
 
-    def build(node, path: str):
+    def build(node, path: str, sh):
         if isinstance(node, nn.Module):
-            return in_place(node, path)
+            return in_place(node, path, sh)
         kids = _children(node)
         if kids is None:
-            return leaf(path, node)
-        out = {key: build(child, f"{path}/{key}" if path else key)
+            return leaf(path, node, sh)
+        sh_kids = dict(_children(sh)) if sh is not None else {}
+        out = {key: build(child, f"{path}/{key}" if path else key,
+                          sh_kids.get(key))
                for key, child in kids}
         if isinstance(node, dict):
             return {k: out[f"[{k!r}]"] for k in node}
@@ -184,7 +247,7 @@ def load_checkpoint(directory: str, step: int, like: Any) -> Any:
             return type(node)(out[f"[{i}]"] for i in range(len(node)))
         return dataclasses.replace(node, **{k[1:]: v for k, v in out.items()})
 
-    return build(like, "")
+    return build(like, "", shardings)
 
 
 @dataclass
@@ -202,6 +265,9 @@ class Checkpointer:
         self.wait()
         flat = [(p, _to_host(leaf)) for p, leaf in _flatten(tree)]
 
+        if not _writes():
+            return
+
         def work():
             try:
                 _write(self.directory, step, flat, extra)
@@ -213,9 +279,14 @@ class Checkpointer:
         self._thread.start()
 
     def wait(self) -> None:
+        """Wait for the write in flight (in a world of processes, for rank
+        0's: every rank calls it at the same point)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if _distributed():
+            import torch.distributed as dist
+            dist.barrier()
         if self._error:
             raise self._error.pop()
 
@@ -226,9 +297,9 @@ class Checkpointer:
             shutil.rmtree(os.path.join(self.directory, f"step_{s}"),
                           ignore_errors=True)
 
-    def restore_latest(self, like: Any):
+    def restore_latest(self, like: Any, shardings: Any = None):
         self.wait()
         step = latest_step(self.directory)
         if step is None:
             return None, None
-        return step, load_checkpoint(self.directory, step, like)
+        return step, load_checkpoint(self.directory, step, like, shardings)

@@ -18,10 +18,20 @@ The attention forward saves ``q, k, v, out, lse`` for its backward; the
 RMSNorm forward saves ``x, scale``.
 
 ``ssd_scan`` stands where the reference's SSM prefill calls the SSD's
-pure-``lax`` twin (``repro.models.mamba.ssd_chunked``); like the
-reference's ``ops.ssd_scan`` it is forward only — no Function, and a
-request for a gradient raises (the SSM family's training, which takes
-``ssd_chunked``, is not ported yet).
+pure-``lax`` twin; like the reference's ``ops.ssd_scan`` it is forward
+only — no Function, and a request for a gradient raises, naming the path
+to use under autograd: ``models/mamba.ssd_chunked``, the chunked SSD in
+plain tensor ops, which the SSM family's training runs.
+
+A ``DTensor`` argument (a tensor placed on a ``DeviceMesh``) reaches the
+kernels as its local shard, and the result is the ``DTensor`` of the
+kernel's local result on the same placements.  That is only the whole
+function where no dim the kernel reduces over is split: each entry point
+names the dims it may take sharded (attention: batch and heads; RMSNorm:
+every dim of ``x`` but the last, its scale whole; SSD: batch), every
+``DTensor`` argument must share one mesh and placements, and anything else
+is refused with a ``ValueError`` — never gathered, localised or sent to
+the plain version quietly.
 """
 
 from __future__ import annotations
@@ -65,14 +75,74 @@ class _RMSNorm(torch.autograd.Function):
         return dx, dscale if ctx.needs_input_grad[1] else None, None
 
 
+def _placed(op: str, args: dict, free: dict):
+    """``None`` when no argument is a ``DTensor``; else the (mesh,
+    placements) the result takes.  Each argument named in ``free`` may be
+    split on the dims listed there (none the kernel reduces over) and all
+    of them share one mesh and placements; the others (a norm's scale, the
+    SSD's A) are plain or replicated."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    placed = {n: t for n, t in args.items() if isinstance(t, DTensor)}
+    if not placed:
+        return None
+    for name, t in placed.items():
+        for m, pl in enumerate(t.placements):
+            if isinstance(pl, Replicate):
+                continue
+            if type(pl) is not Shard or \
+                    pl.dim % t.dim() not in free.get(name, ()):
+                raise ValueError(
+                    f"{op}: {name} is placed {t.placements}; the kernel "
+                    f"reduces over that dim (it takes {name} split only on "
+                    f"dims {sorted(free.get(name, ()))})")
+            if t.shape[pl.dim] % t.device_mesh.size(m):
+                # uneven shards would pair a rank's q heads with another
+                # rank's kv heads
+                raise ValueError(f"{op}: {name} is split unevenly "
+                                 f"({tuple(t.shape)}, {t.placements})")
+    first = next((args[n] for n in free if n in placed),
+                 next(iter(placed.values())))
+    layout = (first.device_mesh, tuple(first.placements))
+    split = any(not isinstance(pl, Replicate) for pl in layout[1])
+    for name, t in args.items():
+        same = isinstance(t, DTensor) and t.device_mesh == layout[0] \
+            and tuple(t.placements) == layout[1]
+        if name in free and split and not same:
+            raise ValueError(f"{op}: {name} is not placed as "
+                             f"{next(n for n in free if n in placed)} "
+                             f"({layout[1]})")
+        if isinstance(t, DTensor) and t.device_mesh != layout[0]:
+            raise ValueError(f"{op}: DTensor arguments on different meshes")
+    return layout
+
+
+def _local(t):
+    from torch.distributed.tensor import DTensor
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _wrap(t, layout):
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(t, layout[0], layout[1], run_check=False)
+
+
 def flash_attention(q, k, v, causal: bool = True, q_offset: int = 0):
     """q: (B,Sq,H,D); k/v: (B,Skv,Hkv,D/Dv) -> (B,Sq,H,Dv)."""
+    layout = _placed("flash_attention", {"q": q, "k": k, "v": v},
+                     {"q": (0, 2), "k": (0, 2), "v": (0, 2)})
+    if layout is not None:
+        return _wrap(flash_attention(_local(q), _local(k), _local(v),
+                                     causal, q_offset), layout)
     return _FlashAttention.apply(q.contiguous(), k.contiguous(),
                                  v.contiguous(), causal, q_offset)
 
 
 def rmsnorm(x, scale, eps: float = 1e-5):
     """RMSNorm over the last dim of x (any leading shape)."""
+    layout = _placed("rmsnorm", {"x": x, "scale": scale},
+                     {"x": tuple(range(x.dim() - 1))})
+    if layout is not None:
+        return _wrap(rmsnorm(_local(x), _local(scale), eps), layout)
     return _RMSNorm.apply(x.contiguous(), scale.contiguous(), eps)
 
 
@@ -84,6 +154,12 @@ def ssd_scan(x, dt, A, B, C, chunk: int = 256):
             isinstance(t, torch.Tensor) and t.requires_grad
             for t in (x, dt, A, B, C)):
         raise NotImplementedError(
-            "ssd_scan is forward only: the SSM family's training path "
-            "(ssd_chunked) is not ported yet")
+            "ssd_scan is forward only, as the reference's: under autograd "
+            "use models/mamba.ssd_chunked, the chunked SSD in plain tensor "
+            "ops that the SSM family's training runs")
+    layout = _placed("ssd_scan", {"x": x, "dt": dt, "A": A, "B": B, "C": C},
+                     {"x": (0,), "dt": (0,), "B": (0,), "C": (0,)})
+    if layout is not None:
+        y, state = _ssd.ssd_scan(*map(_local, (x, dt, A, B, C)), chunk)
+        return _wrap(y, layout), _wrap(state, layout)
     return _ssd.ssd_scan(x, dt, A, B, C, chunk)

@@ -1,1 +1,3 @@
-"""Launch layer: mesh enumeration and the sharding rule policy."""
+"""Launch layer: mesh enumeration, the sharding rule policy and the
+shardings on device meshes (``mesh``), the measurement artifact
+(``measure``) and the training launcher (``train``)."""

@@ -36,6 +36,17 @@ the trainable ones:
 * :func:`params_from_numpy` takes the reference's parameter tree as numpy
   arrays (stacked leaves included) and returns the port's tree with every
   value bit-equal.
+
+The sharding helpers speak the reference's layout: :func:`param_specs`
+(shape and dtype per leaf, no allocation) and :func:`param_axes` (logical
+axes per leaf) are the reference's nested dicts, a scanned module's
+leaves stacked on a leading ``layers`` axis, and :func:`trainable_mask` /
+:func:`partition_params` split such a tree by a policy.  A tree of
+:class:`~repro_torch.mesh_ctx.Sharding`s in that layout reaches the
+port's per-layer tensors through :func:`sharding_of` (one layer of a
+stacked leaf takes the stack's sharding without its ``layers`` dim), and
+:func:`place_params` puts every parameter onto its sharding as a
+``DTensor``.
 """
 
 from __future__ import annotations
@@ -47,7 +58,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.core.spec import ModuleSpec, ParamSpec, TrainPolicy
+from repro_torch.core.spec import (AXIS_LAYERS, ModuleSpec, ParamSpec,
+                                   TrainPolicy)
 
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # a leaf of at least this many elements is scaled in place at init; a
@@ -279,3 +291,122 @@ def group_leaves(params: ModuleParams, named: list) -> list:
 def trainable_leaves(params: ModuleParams) -> list:
     """The trainable tensors grouped by the reference's leaf."""
     return group_leaves(params, trainable_params(params))
+
+
+# ---------------------------------------------------------------------------
+# the reference's nested-dict layout: specs, axes, masks, shardings
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class TensorSpec:
+    """Shape and dtype of one leaf (no tensor behind it)."""
+
+    shape: tuple
+    dtype: torch.dtype
+
+
+def _spec_tree(spec: ModuleSpec, leaf) -> dict:
+    """The reference's nested dict over ``spec``: ``leaf(param_spec,
+    stack, path)`` per parameter, ``stack`` the leading layers count (0
+    outside a scanned module)."""
+
+    def module(mod: ModuleSpec, stack: int, path: str) -> dict:
+        out: dict = {}
+        if _stacked(mod):
+            stack = max(stack, 1) * mod.repeat
+        for ls in mod.layers:
+            out[ls.name] = {name: leaf(p, stack, path)
+                            for name, p in ls.params.items()}
+        for child in mod.children:
+            out[child.name] = module(child, stack, f"{path}/{child.name}")
+        return out
+
+    return {spec.name: module(spec, 0, spec.name)}
+
+
+def param_specs(spec: ModuleSpec) -> dict:
+    """:class:`TensorSpec` per leaf, as the reference's ``param_specs``."""
+    return _spec_tree(spec, lambda p, stack, path: TensorSpec(
+        ((stack,) if stack else ()) + tuple(p.shape), TORCH_DTYPES[p.dtype]))
+
+
+def param_axes(spec: ModuleSpec) -> dict:
+    """Logical-axis tuple per leaf (``layers`` first on a stacked leaf)."""
+    return _spec_tree(spec, lambda p, stack, path: (
+        (AXIS_LAYERS,) if stack else ()) + (
+        tuple(p.axes) if p.axes else (None,) * len(p.shape)))
+
+
+def trainable_mask(spec: ModuleSpec, policy: TrainPolicy) -> dict:
+    """Whether each leaf trains under ``policy`` (the reference's mask)."""
+    return _spec_tree(spec, lambda p, stack, path: policy.is_trainable(path))
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts (a leaf: anything else),
+    with the matching nodes of ``rest`` (which may stop at ``tree``'s
+    leaves, as a state dict per leaf does)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def partition_params(tree: dict, mask: dict) -> tuple:
+    """(trainable, frozen) of a tree in the reference's layout, the leaves
+    of the other part ``None``."""
+    return (tree_map(lambda x, m: x if m else None, tree, mask),
+            tree_map(lambda x, m: None if m else x, tree, mask))
+
+
+def leaf_keys(name: str) -> tuple:
+    """The reference's keys of a port parameter name and whether it is one
+    layer of a stacked leaf: ``lm.blocks.3.attn.wq`` ->
+    ``(("lm", "blocks", "attn", "wq"), True)``."""
+    parts = name.split(".")
+    keys = tuple(k for k in parts if not k.isdigit())
+    return keys, len(keys) != len(parts)
+
+
+def sharding_of(shardings: dict, name: str):
+    """The :class:`~repro_torch.mesh_ctx.Sharding` of a port tensor (a
+    parameter name, or a :class:`Leaf` name) in a tree of the reference's
+    layout; a layer of a stacked leaf gets its per-layer sharding."""
+    keys, layer = leaf_keys(name)
+    node = shardings
+    for k in keys:
+        node = node[k]
+    return node.unstacked() if layer and node is not None else node
+
+
+def map_params(params: ModuleParams, fn) -> ModuleParams:
+    """A new tree of ``params``' structure holding ``fn(tensor)`` for each
+    parameter, ``requires_grad`` kept."""
+
+    def rebuild(m: nn.Module) -> nn.Module:
+        if isinstance(m, LayerParams):
+            out = LayerParams({})
+            for name, t in m._parameters.items():
+                out._parameters[name] = nn.Parameter(
+                    fn(t.detach()), requires_grad=t.requires_grad)
+            return out
+        if isinstance(m, StackParams):
+            return StackParams([rebuild(c) for c in m])
+        return ModuleParams({n: rebuild(c) for n, c in m._modules.items()})
+
+    return rebuild(params)
+
+
+def place_params(params: ModuleParams, shardings: dict) -> ModuleParams:
+    """Put every parameter onto its sharding (a tree in the reference's
+    layout, from ``launch.mesh.param_shardings``) as a ``DTensor``, in
+    place; ``requires_grad`` is kept.  Returns ``params``."""
+    for mod_name, mod in params.named_modules():
+        if not isinstance(mod, LayerParams):
+            continue
+        for name, t in list(mod._parameters.items()):
+            sh = sharding_of(shardings, f"{mod_name}.{name}")
+            mod._parameters[name] = nn.Parameter(
+                sh.place(t.detach()), requires_grad=t.requires_grad)
+    return params

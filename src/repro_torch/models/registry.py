@@ -6,6 +6,8 @@
 * ``init(generator, device)``      — parameter tree on ``device``
 * ``from_numpy(tree, device)``     — the reference's parameters, carried
   across bit for bit
+* ``param_specs()`` / ``param_axes()`` — shape / dtype and logical axes
+  per leaf, in the reference's nested layout (the sharding helpers')
 * ``loss(params, batch, remat)``   — scalar loss + metrics (training)
 * ``prefill(params, batch)``       — last-position logits + populated cache
 * ``decode_step(params, token, cache)`` — one-token serve step
@@ -58,6 +60,12 @@ class Model:
 
     def from_numpy(self, tree: dict, device="cuda") -> PM.ModuleParams:
         return PM.params_from_numpy(tree, device, self.spec)
+
+    def param_specs(self) -> dict:
+        return PM.param_specs(self.spec)
+
+    def param_axes(self) -> dict:
+        return PM.param_axes(self.spec)
 
     def loss(self, params, batch: dict, remat=None):
         if self.cfg.family == "ssm":

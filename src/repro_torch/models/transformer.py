@@ -38,8 +38,8 @@ from torch.utils import checkpoint as _ckpt
 from repro_torch.configs import ArchConfig
 from repro_torch.core.spec import LayerSpec, ModuleSpec
 from repro_torch.kernels import ops
-from repro_torch.mesh_ctx import (current_mesh_shape, current_rules,
-                                  mesh_context)
+from repro_torch.mesh_ctx import (current_mesh, current_mesh_shape,
+                                  current_rules, mesh_context)
 from repro_torch.models import layers as L
 from repro_torch.models.attention import (_mla_kv, gqa_decode, gqa_forward,
                                           gqa_spec, mla_decode, mla_forward,
@@ -187,8 +187,10 @@ def _remat(fn, policy: str):
         fwd, rec = (_ckpt.create_selective_checkpoint_contexts(_save_dots)
                     if policy == "dots" else
                     (contextlib.nullcontext(), contextlib.nullcontext()))
-        return fwd, _entered(rec, mesh_context(current_mesh_shape(),
-                                               current_rules()))
+        mesh = current_mesh()        # a live DeviceMesh, else the shape
+        return fwd, _entered(rec, mesh_context(
+            mesh if mesh is not None else current_mesh_shape(),
+            current_rules()))
     return functools.partial(_ckpt.checkpoint, fn, use_reentrant=False,
                              context_fn=contexts)
 

@@ -16,10 +16,12 @@ injectable failure source so the logic is testable:
   data range is reassigned to healthy hosts (deterministic re-partition);
 * ``rescale(new_n_shards)`` re-partitions the data for a new host count.
 
-``pipeline=None`` with ``make_batch`` is the supported use until the data
-pipeline is ported (ROADMAP A8); a pipeline object with ``n_shards`` /
-``shard_id`` / ``global_batch(step)`` is driven as the reference drives
-its own.
+The pipeline is ``repro_torch.data.SyntheticPipeline`` (or any object
+with ``n_shards`` / ``shard_id`` / ``global_batch(step)``), driven as the
+reference drives its own: batches come from ``global_batch(step)``
+unless ``make_batch`` is given (the launcher's moves the pipeline's numpy
+batch onto the device), a straggler rotates ``shard_id`` and ``rescale``
+sets ``n_shards``.
 """
 
 from __future__ import annotations

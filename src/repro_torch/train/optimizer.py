@@ -88,36 +88,57 @@ def _master(leaf) -> torch.Tensor:
     return out
 
 
-def _leaf_state(leaf, cfg: OptimizerConfig) -> dict:
-    shape = leaf.shape
-    f32 = dict(dtype=torch.float32, device=leaf.params[0][1].device)
+def _state_specs(shape: tuple, cfg: OptimizerConfig) -> dict:
+    """(shape, dtype) of each state tensor of a leaf of ``shape``."""
+    f32, i8 = torch.float32, torch.int8
     if cfg.name == "adamw":
-        st = {"m": torch.zeros(shape, **f32),
-              "v": torch.zeros(shape, **f32)}
+        st = {"m": (shape, f32), "v": (shape, f32)}
     elif cfg.name == "adamw8bit":
         nblk = -(-_size(shape) // BLOCK)
-        i8 = dict(f32, dtype=torch.int8)
-        st = {"m_q": torch.zeros((nblk, BLOCK), **i8),
-              "m_s": torch.zeros((nblk,), **f32),
-              "v_q": torch.zeros((nblk, BLOCK), **i8),
-              "v_s": torch.zeros((nblk,), **f32)}
+        st = {"m_q": ((nblk, BLOCK), i8), "m_s": ((nblk,), f32),
+              "v_q": ((nblk, BLOCK), i8), "v_s": ((nblk,), f32)}
     elif cfg.name == "adafactor":
         if len(shape) >= 2:
-            st = {"v_row": torch.zeros(shape[:-1], **f32),
-                  "v_col": torch.zeros(shape[:-2] + shape[-1:], **f32)}
+            st = {"v_row": (shape[:-1], f32),
+                  "v_col": (shape[:-2] + shape[-1:], f32)}
         else:
-            st = {"v": torch.zeros(shape, **f32)}
+            st = {"v": (shape, f32)}
     else:
         raise ValueError(f"optimizer {cfg.name!r}: expected adamw, "
                          f"adamw8bit or adafactor")
     if cfg.name in ("adamw", "adamw8bit") and cfg.master_fp32:
-        st["master"] = _master(leaf)
+        st["master"] = (shape, f32)
     return st
+
+
+def _leaf_state(leaf, cfg: OptimizerConfig) -> dict:
+    device = leaf.params[0][1].device
+    return {name: _master(leaf) if name == "master"
+            else torch.zeros(shape, dtype=dtype, device=device)
+            for name, (shape, dtype) in _state_specs(leaf.shape,
+                                                     cfg).items()}
 
 
 def init_opt_state(leaves: list, cfg: OptimizerConfig) -> dict:
     """``leaves`` (``param.Leaf``s) -> {leaf name: state dict}."""
     return {leaf.name: _leaf_state(leaf, cfg) for leaf in leaves}
+
+
+def opt_state_specs(trainable_specs: dict, cfg: OptimizerConfig) -> dict:
+    """The reference's ``opt_state_specs``: for each leaf of a tree of
+    ``param.TensorSpec``s in the reference's layout (``None`` for a frozen
+    leaf), its state's ``TensorSpec``s by name (no allocation)."""
+    from repro_torch.models.param import TensorSpec
+
+    def leaf(p):
+        if p is None:
+            return None
+        if isinstance(p, dict):
+            return {k: leaf(v) for k, v in p.items()}
+        return {name: TensorSpec(tuple(shape), dtype) for name, (shape, dtype)
+                in _state_specs(tuple(p.shape), cfg).items()}
+
+    return leaf(trainable_specs)
 
 
 def state_bytes(state: dict) -> dict:

@@ -65,7 +65,9 @@ for want in ("repro_torch.core.batch_torch", "repro_torch.core.sweep",
              "repro_torch.autopilot.guard", "repro_torch.autopilot.harness",
              "repro_torch.autopilot.mitigation",
              "repro_torch.checkpoint", "repro_torch.checkpoint.checkpointing",
-             "repro_torch.runtime", "repro_torch.runtime.fault_tolerance"):
+             "repro_torch.runtime", "repro_torch.runtime.fault_tolerance",
+             "repro_torch.data", "repro_torch.data.pipeline",
+             "repro_torch.launch.train", "repro_torch.mesh_ctx"):
     assert want in names, want
 # the calibrate package's lazy exports name the port's own modules
 import repro_torch.calibrate as C
@@ -76,6 +78,20 @@ assert all(m.startswith("repro_torch.calibrate.")
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro", "triton"))
 print("BAD_AFTER_EXPORTS", bad)
+# the sharding code's DTensor half (imported on first use) brings in
+# neither either
+import torch
+from repro_torch import mesh_ctx
+from repro_torch.launch import mesh as M
+mesh_ctx.placements((("data", "model"), None), type(
+    "Mesh", (), {"mesh_dim_names": ("data", "model"),
+                 "mesh": torch.zeros(2, 2)})())
+from repro_torch.train.train_step import _batch_mean
+from repro_torch.kernels.ops import _placed
+_placed("rmsnorm", {"x": torch.zeros(2)}, {})
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro", "triton"))
+print("BAD_AFTER_SHARDING", bad)
 """
 
 
@@ -84,8 +100,9 @@ def test_every_module_imports_without_jax_or_reference_package():
     assert r.returncode == 0, r.stderr
     assert "BAD []" in r.stdout, r.stdout
     assert "BAD_AFTER_EXPORTS []" in r.stdout, r.stdout
+    assert "BAD_AFTER_SHARDING []" in r.stdout, r.stdout
     n = int(r.stdout.split("MODULES")[1].split()[0])
-    assert n >= 58, r.stdout
+    assert n >= 61, r.stdout
 
 
 def test_no_source_line_imports_jax_or_reference_package():

@@ -210,12 +210,14 @@ def test_ep_local_matches_the_reference(cf, dtype):
 
 
 def test_ep_local_refuses_an_expert_parallel_axis():
+    """Without ranks (a mesh shape, no DeviceMesh) an expert-parallel axis
+    is refused, naming the DeviceMesh form that runs it."""
     p = {k: torch.tensor(v) for k, v in layer().items()}
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(NotImplementedError, match="DeviceMesh"):
         TMOE._ep_local(torch.zeros(2, 4, 16), p["router"], p["wg"], p["wu"],
                        p["wd"], top_k=2, n_experts=4, cf=1.25, ep_size=2)
     with TMC.mesh_context({"data": 1, "model": 2}):
-        with pytest.raises(NotImplementedError, match="A8"):
+        with pytest.raises(NotImplementedError, match="DeviceMesh"):
             TMOE.moe_forward(port_layer(layer()), torch.zeros(2, 4, 16),
                              meta_of(layer()))
 

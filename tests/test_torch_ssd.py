@@ -216,6 +216,17 @@ def test_entry_point_is_forward_only():
             TO.ssd_scan(*args, chunk=32)
 
 
+def test_forward_only_refusal_names_the_training_path():
+    """The refusal names the path that runs under autograd: the chunked
+    SSD in plain ops (``models/mamba.ssd_chunked``), which SSM training
+    takes."""
+    x, dt, A, B, C = (to_torch(a) for a in inputs(CASES[1], seed=6))
+    with pytest.raises(NotImplementedError,
+                       match=r"models/mamba\.ssd_chunked") as err:
+        TO.ssd_scan(x.requires_grad_(), dt, A, B, C, chunk=32)
+    assert "not ported" not in str(err.value)
+
+
 # ---------------------------------------------------------------------------
 # the bf16 tensor-core kernel's roundings (ssd_scan_kernel_mma)
 # ---------------------------------------------------------------------------

@@ -183,14 +183,17 @@ def test_loss_decreases_under_training():
 def test_step_refuses_what_one_device_cannot_do(llava32):
     _, _, tmodel = llava32
     cfg = OptimizerConfig(name="adamw")
-    with pytest.raises(ValueError, match="one device"):
-        make_train_step(tmodel, FULL_TRAIN, cfg, zero_shardings={})
     with pytest.raises(ValueError, match="grad_accum"):
         make_train_step(tmodel, FULL_TRAIN, cfg, grad_accum=0)
     rmodel, np_params, _ = llava32
     st = train_state(tmodel.from_numpy(np_params, "cpu"), LLAVA_STAGE1, cfg)
     batch = {k: to_torch(v) for k, v in make_batch(rmodel,
                                                    batch=3).items()}
+    # ZeRO shardings need the parameters placed on a mesh (one device
+    # holds plain tensors)
+    with pytest.raises(ValueError, match="not placed on a mesh"):
+        make_train_step(tmodel, FULL_TRAIN, cfg, zero_shardings={})(st,
+                                                                   batch)
     with pytest.raises(ValueError, match="equal microbatches"):
         make_train_step(tmodel, LLAVA_STAGE1, cfg, grad_accum=2)(st, batch)
 
