@@ -277,7 +277,31 @@ Phases (any failure exits non-zero):
    ``experiments/measured``, then the ``measure_summary`` line — the
    predictor's MAPE per arch x kind, family, the multimodal training
    cells and all cells, raw under the ``tpu`` and ``cpu`` term sets,
-   calibrated on the even cells and held out on the odd ones;
+   calibrated on the even cells and held out on the odd ones; every
+   record also carries the ``cost``, ``collectives`` and
+   ``loop_aware`` blocks of one more step of its cell counted by a
+   ``core.device_metrics.StepCounter`` once the last cell of its state
+   was measured, and ``step_s`` (CUDA events around a warm step with no
+   counter: a train cell's second, a serving cell's second run; the
+   summary's ``counted_steps_s`` is the counted steps' time), each
+   ``measure`` line a
+   ``reading`` of dot TFLOP per step, TFLOP/s and its share of the dense
+   bf16 peak; gated: every cell's ``memory.total_bytes`` equal to the
+   committed store's, FLOPs and time present, no
+   collective on one card, and on the first llava15-7b training cell
+   (``counter_twin``) a step under the counter with the peak and launches
+   of the same step without it;
+10. ``surface``: (c) the sweep CLI's ``--dry-run`` estimate for
+   the large legacy grid beside the same grid run cold on the card (in
+   this process, a reading); then, each a process of its own, all started
+   together: (a) ``python -m repro_torch.configs`` equal to the table in
+   ``docs/configs.md``; (b) ``--breakdown`` of llava15-7b on
+   ``data=4,model=2,pipe=2`` x 4 microbatches and of deepseek-v2-lite-16b
+   on an expert / context mesh; (d) the five ``repro_torch.examples`` on
+   the card (``predict_memory --validate`` on smollm-360m at 524,288
+   positions, ``train_llava_e2e --steps 20`` with its loss finite and
+   falling, ``serve_batched`` with tokens in the vocabulary; their times
+   are readings taken beside each other);
 7. timings: cold / warm wall time, cells/s and the phase split of each
    sweep, and per kernel — at the largest shape its path gave it — the
    median of CUDA-event-timed calls of its wrapper (``ms``), the kernel's
@@ -4173,6 +4197,164 @@ def autopilot_phase() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the surface — the configs CLI, the sweep's dry run, the examples
+# ---------------------------------------------------------------------------
+
+# the large legacy grid (large_grid("legacy")) as the sweep CLI's flags
+LARGE_GRID_FLAGS = [
+    "--arch", "llava15_7b", "--chips", "64,128,256",
+    "--chip", "v5e,v6e,h100", "--optimizer", "default,adafactor,adamw8bit",
+    "--remat", "none,block,dots", "--accum", "1,2,4,8",
+    "--batch", "8,16,32,64,128,256,512,1024,2048,4096,8192,16384",
+    "--seq-len", "512,1024,2048,4096"]
+
+
+def surface_env() -> dict:
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(HERE, "src")]
+        + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
+           if p]))
+
+
+def surface_procs(runs: dict, timeout: float = 600) -> dict:
+    """``python -m <args>`` for every entry of ``runs``, each a process of
+    its own from the checkout, all started together -> name -> standard
+    output; a process that exits other than 0 fails the run with its
+    error output."""
+    started = {}
+    for name, args in runs.items():
+        out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        started[name] = (subprocess.Popen(
+            [sys.executable, "-m"] + args, stdout=out, stderr=err,
+            text=True, env=surface_env(), cwd=HERE), out, err)
+    t0, texts, failed = time.perf_counter(), {}, []
+    for name, (proc, out, err) in started.items():
+        try:
+            rc = proc.wait(timeout=max(1.0, timeout
+                                       - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+        out.seek(0)
+        err.seek(0)
+        texts[name] = out.read()
+        if rc != 0:
+            failed.append(f"{name} exited {rc}: {err.read()[-1200:]}")
+        out.close()
+        err.close()
+    if failed:
+        fail("surface: " + " | ".join(failed))
+    return texts
+
+
+def cli_in_process(main, argv: list) -> str:
+    """A CLI's ``main(argv)`` in this process -> its standard output."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    if rc != 0:
+        fail(f"{main.__module__} {argv[:2]}: exit {rc}")
+    return buf.getvalue()
+
+
+def surface_phase() -> dict:
+    """The user's surface: (c) the sweep CLI's ``--dry-run`` estimate on
+    the large legacy grid beside the same grid run cold on the card (in
+    this process, alone on the card); then, each a process of its own, all
+    started together: (a) ``python -m repro_torch.configs`` equal to the
+    table embedded in ``docs/configs.md`` (the reference's output, read as
+    text); (b) two ``--breakdown`` runs; (d) the five examples on the
+    card."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    # (c) the dry run's estimate, then the same grid cold on the card
+    dry = cli_in_process(SW.main, LARGE_GRID_FLAGS + ["--dry-run"]) \
+        .splitlines()
+    est = re.match(r"estimated runtime in .*: ~([0-9.]+)s \(([0-9,]+) "
+                   r"cells/s — (.*)\)$", dry[-1])
+    run = cli_in_process(SW.main, LARGE_GRID_FLAGS + ["--top", "3"])
+    got = re.search(r"^(\d+) cells in ([0-9.]+)s \(([0-9,]+) cells/s",
+                    run, re.M)
+    if est is None or got is None or dry[0] != f"dry run: {124416:,} " \
+            f"cells" or int(got.group(1)) != 124416:
+        fail(f"the sweep CLI's dry run / cold run: {dry[:1] + dry[-1:]} "
+             f"{run.splitlines()[:2]}")
+    out["sweep"] = {"cells": 124416, "estimated_s": float(est.group(1)),
+                    "estimated_cells_per_s": est.group(2),
+                    "estimate_source": est.group(3),
+                    "measured_cold_s": float(got.group(2)),
+                    "measured_cells_per_s": got.group(3)}
+    with tempfile.TemporaryDirectory() as ckpt:
+        texts = surface_procs({
+            "configs": ["repro_torch.configs"],
+            "breakdown_llava_pipe": [
+                "repro_torch.configs", "--breakdown", "--arch", "llava15_7b",
+                "--mesh", "data=4,model=2,pipe=2", "--microbatches", "4"],
+            "breakdown_deepseek_ep_cp": [
+                "repro_torch.configs", "--breakdown", "--arch",
+                "deepseek-v2-lite-16b", "--mesh",
+                "data=2,model=2,expert=4,context=2"],
+            "quickstart": ["repro_torch.examples.quickstart"],
+            "capacity_plan": ["repro_torch.examples.capacity_plan"],
+            "predict_memory": [
+                "repro_torch.examples.predict_memory", "--arch",
+                "smollm-360m", "--shape", "long_500k", "--data", "1",
+                "--model", "1", "--validate", "--hbm-gib", "80"],
+            "train_llava_e2e": ["repro_torch.examples.train_llava_e2e",
+                                "--steps", "20", "--ckpt-dir", ckpt],
+            "serve_batched": ["repro_torch.examples.serve_batched"]})
+    # (a) the arch table
+    table = texts["configs"].strip().splitlines()
+    with open(os.path.join(HERE, "docs", "configs.md")) as f:
+        docs = [ln.rstrip("\n") for ln in f if ln.startswith("|")]
+    if table != docs:
+        fail(f"python -m repro_torch.configs differs from docs/configs.md: "
+             f"{[t for t, d in zip(table, docs) if t != d][:2]}")
+    out["configs_table_rows"] = len(table) - 2
+    # (b) breakdowns: a pipe axis; expert and context axes
+    for name in ("breakdown_llava_pipe", "breakdown_deepseek_ep_cp"):
+        peak = [ln for ln in texts[name].splitlines()
+                if ln.startswith("peak ")]
+        if not peak or "per-module breakdown" not in texts[name]:
+            fail(f"{name} printed no peak line")
+        out[name] = peak[0]
+    # (d) the examples
+    if "plain Adam would need" not in texts["quickstart"]:
+        fail("quickstart printed no OoM guard")
+    out["capacity_plan"] = [ln for ln in texts["capacity_plan"].splitlines()
+                            if ln.startswith("sweep ")]
+    line = [ln for ln in texts["predict_memory"].splitlines()
+            if ln.startswith("validation vs")]
+    if not line:
+        fail("predict_memory --validate printed no validation line")
+    out["predict_memory_validate"] = line[0]
+    loss = re.search(r"^loss ([-0-9.naif]+) -> ([-0-9.naif]+) over 20 "
+                     r"steps", texts["train_llava_e2e"], re.M)
+    if loss is None or not (np.isfinite(float(loss.group(1)))
+                            and np.isfinite(float(loss.group(2)))
+                            and float(loss.group(2)) < float(loss.group(1))):
+        fail(f"train_llava_e2e: loss not finite and falling: "
+             f"{texts['train_llava_e2e'].splitlines()[-3:]}")
+    out["train_llava_e2e"] = [float(loss.group(1)), float(loss.group(2))]
+    served = texts["serve_batched"]
+    tokens = [int(t) for ln in re.findall(r"generated \[([0-9, ]*)\]",
+                                          served)
+              for t in ln.split(",")]
+    vocab = get_config("smollm-360m").reduced().vocab
+    if len(tokens) != 4 * 16 or not all(0 <= t < vocab for t in tokens):
+        fail(f"serve_batched: {len(tokens)} tokens, not 64 in [0, {vocab})")
+    out["serve_batched"] = [ln.strip() for ln in served.splitlines()
+                            if "tok/s" in ln]
+    out["elapsed_s"] = time.perf_counter() - t_phase
+    say("surface " + json.dumps(out))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 9: the training launcher (python -m repro_torch.launch.train)
 # ---------------------------------------------------------------------------
 
@@ -4484,10 +4666,30 @@ def measure_phase() -> dict:
     calibrated on the even cells and held out on the odd ones, in sample
     as a reading.  Returns the launches the grid made."""
     t_phase = time.perf_counter()
-    mismatched = []
+    mismatched, moved, uncounted = [], [], []
+    # the allocator's readings of every cell as the runs the store was
+    # written from read them: the committed store, which phase 8 does not
+    # rewrite
+    with open(os.path.join(HERE, "src", "repro_torch", "calibrate",
+                           "measured", "h100_80gb_hbm3_700w.json")) as f:
+        committed = {(m["arch"], m["meta"]["shape"]): m["measured_bytes"]
+                     for m in json.load(f)["measurements"]}
 
     def on_record(rec):
-        say("measure " + json.dumps(rec))
+        flops = rec["cost"]["flops_per_device"]
+        say("measure " + json.dumps(dict(rec, reading={
+            "tflop_per_step": flops / 1e12,
+            "tflop_per_s": flops / rec["step_s"] / 1e12,
+            "share_of_bf16_peak": flops / rec["step_s"] / BF16_OPS_PER_S,
+            "measured_peak_bytes": rec["allocator"]["peak_bytes"]})))
+        key = (rec["arch"], rec["shape"])
+        if rec["memory"]["total_bytes"] != committed.get(key):
+            moved.append((key, rec["memory"]["total_bytes"],
+                          committed.get(key)))
+        if not (flops > 0 and rec["step_s"] > 0
+                and rec["loop_aware"]["flops_per_device"] == flops
+                and rec["collectives"]["total_wire_bytes_per_device"] == 0):
+            uncounted.append(key)
         cell = ME.MeasureCell(rec["arch"], rec["kind"], rec["seq_len"],
                               rec["global_batch"], rec["policy"],
                               rec["optimizer"], rec["remat"])
@@ -4500,8 +4702,21 @@ def measure_phase() -> dict:
             mismatched.append((cell.arch, cell.shape,
                                rec["predicted"]["peak_bytes"], want))
 
+    count_cell, count_s = ME.count_cell, [0.0]
+
+    def timed_count(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return count_cell(*args, **kwargs)
+        finally:
+            count_s[0] += time.perf_counter() - t0
+
     zero_counts()
-    records = ME.measure_grid(ME.GRID, DEV, on_record=on_record)
+    ME.count_cell = timed_count
+    try:
+        records = ME.measure_grid(ME.GRID, DEV, on_record=on_record)
+    finally:
+        ME.count_cell = count_cell
     launches = dict(model_counts(), ssd_scan=SSD.launches)
     if SF.launches or SC.launches:
         fail("the measurement grid launched a sweep kernel")
@@ -4511,6 +4726,13 @@ def measure_phase() -> dict:
     if mismatched:
         fail(f"records whose prediction is not planner.check's: "
              f"{mismatched[:4]}")
+    if moved:
+        fail(f"cells whose allocator total moved from the committed "
+             f"store's: {moved[:4]}")
+    if uncounted:
+        fail(f"records without their step's FLOPs and time, or with "
+             f"collectives on one card: {uncounted[:4]}")
+    twin = counter_twin(ME.GRID[0])
     store = ME.store_of(records)
     path = store.save(measured_dir()
                       / f"{ME.store_name(records[0]['device'])}.json")
@@ -4519,13 +4741,55 @@ def measure_phase() -> dict:
     say("measure_summary " + json.dumps({
         "cells": len(records), "archs": len({r["arch"] for r in records}),
         "store": os.path.relpath(path, HERE), "launches": launches,
-        "measure_s": measure_s,
+        "measure_s": measure_s, "counted_steps_s": count_s[0],
+        "counter_twin": twin,
+        "flop_per_step": sum(r["cost"]["flops_per_device"]
+                             for r in records),
         "worst_reserved_over_allocated": max(
             r["allocator"]["reserved_over_allocated"] for r in records),
         "alloc_retries": sum(r["allocator"]["alloc_retries"]
                              for r in records),
         **summary, "elapsed_s": time.perf_counter() - t_phase}))
     return launches
+
+
+def counter_twin(cell) -> dict:
+    """One step of ``cell`` three times on one state, each between the
+    allocator's readings: without a ``StepCounter``, under one, without
+    again.  The counter must leave the peak and the kernels' launches as
+    they are without it (the second and third steps; the first meets
+    cold cuBLAS workspaces)."""
+    from repro_torch.core import device_metrics as DM
+    model = build_model(get_config(cell.arch))
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(ME.SEED)
+    gc.collect()
+    torch.cuda.empty_cache()
+    baseline = DM.allocated_bytes(DEV)
+    state = ME.make_state(cell, model, gen, DEV)
+    runs = []
+    for counted in (False, True, False):
+        with mesh_context(ME.MESH):
+            run = ME.cell_step(cell, model, state, gen, steps=1)
+            zero_counts()
+            if counted:
+                with DM.StepCounter() as counter:
+                    mem, out = DM.memory_stats(run, baseline, DEV)
+            else:
+                mem, out = DM.memory_stats(run, baseline, DEV)
+        runs.append({"peak_bytes": mem.peak_bytes,
+                     "launches": model_counts()})
+        del run, out
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    twin = {"cell": f"{cell.arch} {cell.shape}", "runs": runs,
+            "counted_flops": counter.flops,
+            "counted_kernel_reports": counter.kernel_launches}
+    if runs[1] != runs[2] or counter.kernel_launches != sum(
+            runs[1]["launches"].values()):
+        fail(f"the step counter moved the step's peak or path: {twin}")
+    return twin
 
 
 # ---------------------------------------------------------------------------
@@ -5303,6 +5567,10 @@ def main(argv: list) -> int:
     for k, n in launch_phase().items():
         launches[k] += n
     phase_done("9 launch_train_smollm_360m")
+    # phase 10: the surface, each entry point in a process of its own on
+    # the card (its launches are that process's, not this one's)
+    surface_phase()
+    phase_done("10 surface")
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["launches"] <= 0:

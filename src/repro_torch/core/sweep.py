@@ -65,7 +65,9 @@ CLI::
 
 ``--device cpu`` runs the torch engine on the host; ``--engine numpy``
 selects the host columnar path; ``--dry-run`` prints the per-knob
-cardinality table first; ``--mode cell`` selects the reference path; an
+cardinality table and the estimated runtime (a rate measured into
+``BENCH_sweep.json``, else a planning estimate) and touches no device;
+``--mode cell`` selects the reference path; an
 empty grid exits with status 2 and a "0 cells matched" explanation.
 """
 
@@ -1051,6 +1053,67 @@ def _str_list(s: Optional[str]) -> tuple:
                  for x in s.split(",") if x)
 
 
+# order-of-magnitude planning rates for --dry-run's runtime estimate —
+# the FALLBACK when BENCH_sweep.json has no measured rate for the (mode,
+# engine, device, assembly) key on this machine.  The numpy keys are the
+# reference's (its numpy engine is the port's).  The torch engine on the
+# card: the smaller of the two cold rates measured on an H100 80GB HBM3 at
+# 700 W by chip_smoke.py's sweeps (124,416 cells in 123.3 ms legacy,
+# 1,959,552 in 244.2 ms under liveness), since a dry run is
+# followed by a cold run.  Its other keys (the liveness assembly; the
+# host, not measured) take the mode's planning rate.
+EST_CELLS_PER_SEC = {"columnar": 1_000_000, "cell": 15_000,
+                     "columnar_liveness": 1_000_000,
+                     "cell_liveness": 10_000,
+                     "columnar_torch": 1_000_000}
+_CARD_ESTIMATE = "planning estimate (H100 80GB HBM3, 700 W)"
+_HOST_ESTIMATE = "planning estimate (the host, not measured)"
+
+
+def _rate_key(mode: str, engine: str = "numpy", assembly: str = "legacy",
+              device: Optional[str] = None) -> str:
+    """BENCH_sweep.json ``modes`` key for a (mode, engine, assembly)
+    triple — the numpy engine keeps the bare mode name and the legacy
+    assembly adds no suffix, as the reference's keys; the torch engine
+    also names its device (``columnar_torch`` on the card,
+    ``columnar_torch_cpu`` on the host)."""
+    key = mode if (mode == "cell" or engine in (None, "numpy")) \
+        else f"{mode}_{engine}"
+    if engine == "torch" and mode != "cell" and device == "cpu":
+        key = f"{key}_cpu"
+    if assembly not in (None, "legacy"):
+        key = f"{key}_{assembly}"
+    return key
+
+
+def _planning_rate(mode: str, engine: str = "numpy",
+                   assembly: str = "legacy",
+                   device: Optional[str] = None) -> tuple[float, str]:
+    """(cells/sec, source) for --dry-run's runtime estimate: the last
+    measured throughput for this exact key from BENCH_sweep.json when
+    present, else the planning rate.  A measured rate for a DIFFERENT
+    assembly or device never substitutes."""
+    import json
+    import os
+    key = _rate_key(mode, engine, assembly, device)
+    try:
+        from repro_torch.calibrate.paths import repo_root
+        path = os.path.join(str(repo_root()), "BENCH_sweep.json")
+        with open(path) as f:
+            rate = float(json.load(f)["modes"][key]["cells_per_sec"])
+        if rate > 0:
+            return rate, f"measured, {os.path.basename(path)}"
+    except (ImportError, OSError, KeyError, ValueError, TypeError):
+        pass
+    if key.startswith("columnar_torch"):
+        source = _HOST_ESTIMATE if "_cpu" in key else _CARD_ESTIMATE
+    else:
+        source = ("planning estimate; run benchmarks/sweep_throughput.py "
+                  "to measure")
+    return float(EST_CELLS_PER_SEC.get(key, EST_CELLS_PER_SEC[mode])), \
+        source
+
+
 def _preview(values, limit: int = 6) -> str:
     vals = [str(v) if v is not None else "default" for v in values]
     if len(vals) > limit:
@@ -1342,8 +1405,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     if args.dry_run:
         n = grid.size()
+        rate, source = _planning_rate(
+            args.mode, args.engine, args.assembly,
+            device if args.engine == "torch" else None)
         print(f"dry run: {n:,} cells")
         print(_cardinality_table(grid))
+        print(f"estimated runtime in --mode {args.mode} --engine "
+              f"{args.engine} --assembly {args.assembly}: ~{n / rate:.1f}s "
+              f"({rate:,.0f} cells/s — {source})")
         if n == 0:
             print(_empty_grid_msg())
             return 2

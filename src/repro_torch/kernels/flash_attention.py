@@ -23,6 +23,13 @@ layer and of the vision tower.
   the CPU path.
 * ``launches``, ``dq_launches``, ``dkv_launches`` — how many times each
   kernel was launched.
+* :func:`fwd_flops`, :func:`dq_flops`, :func:`dkv_flops` — the dot FLOPs
+  each launch reports to an active ``core.device_metrics.StepCounter``:
+  the products the plain versions compute (the whole ``Sq x Skv`` score
+  matrix, causal or not, as the reference's chunked lax twin computes
+  it), so a step counts the same FLOPs on either path.  The plain
+  backward's five products are split between the passes: s, dp and dq to
+  the dq pass, dv and dk to the dk / dv pass.
 
 Layouts are the reference's: q ``(B, Sq, H, D)``, k ``(B, Skv, Hkv, D)``,
 v ``(B, Skv, Hkv, Dv)`` -> out ``(B, Sq, H, Dv)`` in q's type and lse
@@ -59,6 +66,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.device_metrics import report_kernel
+
 NEG_INF = -1e30
 
 # (D, Dv) pairs the kernels are compiled for (csrc/flash_attention.cu,
@@ -82,6 +91,33 @@ DKV_TILE = (128, 64)
 launches = 0          # forward kernel
 dq_launches = 0       # backward, dq pass
 dkv_launches = 0      # backward, dk / dv pass
+
+
+def _pairs(q, k) -> int:
+    """(query, key) pairs over the heads: B * H * Sq * Skv."""
+    B, Sq, H, _ = q.shape
+    return B * H * Sq * k.shape[1]
+
+
+def fwd_flops(q, k, v) -> int:
+    """The forward's dot FLOPs: q k^T at D, p v at Dv."""
+    return 2 * _pairs(q, k) * (q.shape[3] + v.shape[3])
+
+
+def dq_flops(q, k, v) -> int:
+    """The dq pass's share of the plain backward: s = q k^T (D), dp = dO
+    v^T (Dv), dq = ds k (D)."""
+    return 2 * _pairs(q, k) * (2 * q.shape[3] + v.shape[3])
+
+
+def dkv_flops(q, k, v) -> int:
+    """The dk / dv pass's share: dv = p^T dO (Dv), dk = ds^T q (D).  Both
+    sum over the q rows of a kv head's group; with one row (a step of one
+    query without GQA) the plain version's products are elementwise, and
+    no dot."""
+    if q.shape[1] * (q.shape[2] // k.shape[2]) == 1:
+        return 0
+    return 2 * _pairs(q, k) * (q.shape[3] + v.shape[3])
 
 
 def mma_smem_bytes(kernel: str, D: int, Dv: int) -> int:
@@ -181,6 +217,7 @@ def flash_fwd(q, k, v, *, causal: bool = True, q_offset: int = 0):
             f"{tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, "
             f"{q.dtype}")
     launches += 1
+    report_kernel((q, k, v, out, lse), lambda: fwd_flops(q, k, v))
     return out, lse
 
 
@@ -290,6 +327,8 @@ def flash_bwd_dq(q, k, v, out, lse, dout, *, causal: bool = True,
             f"{tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, "
             f"{q.dtype}")
     dq_launches += 1
+    report_kernel((q, k, v, out, dout, lse, dq, delta),
+                  lambda: dq_flops(q, k, v))
     return dq, delta
 
 
@@ -320,6 +359,8 @@ def flash_bwd_dkv(q, k, v, lse, dout, delta, *, causal: bool = True,
             f"{tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, "
             f"{q.dtype}")
     dkv_launches += 1
+    report_kernel((q, k, v, dout, lse, delta, dk, dv),
+                  lambda: dkv_flops(q, k, v))
     return dk, dv
 
 

@@ -34,6 +34,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.device_metrics import report_kernel
+
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0          # forward kernel
@@ -97,6 +99,7 @@ def rmsnorm_fwd(x, scale, eps: float = 1e-5):
             f"rmsnorm_fwd kernel launch failed (cuda error {rc}) for x "
             f"{tuple(x.shape)}, {x.dtype}")
     launches += 1
+    report_kernel((x, scale, y))                    # no dot
     return y
 
 
@@ -175,4 +178,5 @@ def rmsnorm_bwd(x, scale, dy, eps: float = 1e-5):
             f"rmsnorm_bwd kernel launch failed (cuda error {rc}) for x "
             f"{tuple(x.shape)}, {x.dtype}")
     bwd_launches += 1
+    report_kernel((x, scale, dy, dx, parts))        # no dot
     return dx, parts.sum(0).to(scale.dtype)

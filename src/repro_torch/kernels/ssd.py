@@ -12,6 +12,8 @@ every prefill of the SSM family, forward only.
   matrix ``L``, ``C B^T``, the diagonal and the off-diagonal term, then the
   state pass).  The cross-check on the device and the CPU path.
 * ``launches`` — how many times a kernel was launched.
+* :func:`plain_flops` — the dot FLOPs a launch reports to an active
+  ``core.device_metrics.StepCounter``: the plain version's products.
 
 Shapes (group size 1, the group dim squeezed): x ``(b, S, H, P)``, dt
 ``(b, S, H)`` fp32 after softplus, A ``(H,)`` fp32 and negative, B and C
@@ -55,6 +57,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.core.device_metrics import report_kernel
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)       # the kernels' template instances
@@ -150,6 +154,18 @@ def check_kernel_operands(x, dt, A, B, C, chunk: int) -> int:
     return need
 
 
+def plain_flops(b: int, S: int, H: int, P: int, N: int,
+                chunk: int = 256) -> int:
+    """The dot FLOPs of :func:`ssd_scan_plain`: per chunk of Q rows (the
+    last zero-padded to Q), ``C B^T`` (2 b Q^2 N, heads share B and C),
+    the masked product with x (2 b H Q^2 P), ``C state^T`` and the state
+    update (2 b H Q N P each)."""
+    Q = min(chunk, S)
+    n = -(-S // Q)
+    return n * (2 * b * Q * Q * N + 2 * b * H * Q * Q * P
+                + 4 * b * H * Q * N * P)
+
+
 def ssd_scan_plain(x, dt, A, B, C, chunk: int = 256):
     """The chunked SSD in plain fp32 torch ops -> ``(y, final_state)``."""
     _check(x, dt, A, B, C, chunk)
@@ -222,4 +238,6 @@ def ssd_scan(x, dt, A, B, C, chunk: int = 256):
             f"ssd_scan kernel launch failed (cuda error {rc}) for x "
             f"{tuple(x.shape)}, N {N}, chunk {chunk}, {x.dtype}")
     launches += 1
+    report_kernel((x, dt, A, B, C, y, state),
+                  lambda: plain_flops(b, S, H, P, N, chunk))
     return y, state

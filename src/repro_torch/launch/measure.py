@@ -25,6 +25,16 @@ The prediction goes through ``planner.make_context`` on a 1 x 1 mesh with
 the ``tpu`` term set and the ``h100`` chip (:func:`context_for`) — the
 path ``calibrate.residual`` rebuilds the cell by, so a record and its
 ingest cannot disagree.
+
+A record also carries the reference's ``cost``, ``collectives`` and
+``loop_aware`` blocks (``core.device_metrics.cost_blocks``: dot FLOPs,
+bytes accessed and collectives of one step, counted by a
+``StepCounter`` over one more step of the cell, run once no later cell
+reads its state, so that the counter's host work reaches neither the
+allocator's readings nor the time, and its update no other cell's
+state) and ``step_s``: the wall time of a warm step with no counter
+active, from CUDA events recorded around it (a train cell's second
+step; a serving cell's step after its measured one).
 """
 
 from __future__ import annotations
@@ -161,10 +171,14 @@ def card_identity() -> dict:
     return {"name": name, "power_limit": power}
 
 
-def record_for(cell: MeasureCell, stats, device: dict) -> dict:
+def record_for(cell: MeasureCell, stats, device: dict, counter,
+               step_s: float) -> dict:
     """The dry-run-schema record of one measured cell (host only):
     ``stats`` a ``device_metrics.StepMemory``, ``device`` the card's
-    :func:`card_identity`."""
+    :func:`card_identity`, ``counter`` a ``device_metrics.StepCounter``
+    of one step of the cell (the ``cost``, ``collectives`` and
+    ``loop_aware`` blocks) and ``step_s`` the time of a step."""
+    from repro_torch.core import device_metrics as DM
     mem = stats.stats
     pred = predict(cell)
     return {
@@ -199,6 +213,8 @@ def record_for(cell: MeasureCell, stats, device: dict) -> dict:
         "backend": BACKEND, "chip": CHIP, "optimizer": cell.optimizer,
         "remat": cell.remat, "policy": cell.policy, "grad_accum": 1,
         "device": dict(device),
+        **DM.cost_blocks(counter),
+        "step_s": step_s,
     }
 
 
@@ -242,12 +258,27 @@ def make_batch(model, cell: MeasureCell, generator: torch.Generator) -> dict:
     return out
 
 
-def cell_step(cell: MeasureCell, model, state, generator: torch.Generator
+class StepTimer:
+    """The wall time of a step, from two CUDA events recorded around it
+    on the current stream (they allocate nothing)."""
+
+    def __init__(self):
+        self.begin = torch.cuda.Event(enable_timing=True)
+        self.end = torch.cuda.Event(enable_timing=True)
+
+    def seconds(self) -> float:
+        self.end.synchronize()
+        return self.begin.elapsed_time(self.end) / 1e3
+
+
+def cell_step(cell: MeasureCell, model, state, generator: torch.Generator,
+              steps: int = TRAIN_STEPS, timer: Optional[StepTimer] = None
               ) -> Callable[[], dict]:
     """The cell's inputs, made now on the generator's device, and a closure
-    that runs its step once and returns its outputs:
+    that runs its step once and returns its outputs (``timer``, where
+    given, records around the last step):
 
-    * train: ``TRAIN_STEPS`` steps of ``make_train_step`` -> ``{"loss":
+    * train: ``steps`` steps of ``make_train_step`` -> ``{"loss":
       [...], "state": ...}``;
     * prefill: one ``make_prefill_step`` -> ``{"logits", "cache"}``;
     * decode: a zeroed cache of ``seq_len`` positions with ``len =
@@ -264,9 +295,13 @@ def cell_step(cell: MeasureCell, model, state, generator: torch.Generator
 
         def run():
             st, losses = state, []
-            for _ in range(TRAIN_STEPS):
+            for i in range(steps):
+                if timer is not None and i == steps - 1:
+                    timer.begin.record()
                 st, metrics = step(st, batch)
                 losses.append(metrics["loss"])
+            if timer is not None:
+                timer.end.record()
             return {"loss": [float(x) for x in losses], "state": st}
         return run
     if cell.kind == "prefill":
@@ -274,7 +309,11 @@ def cell_step(cell: MeasureCell, model, state, generator: torch.Generator
         prefill = make_prefill_step(model)
 
         def run():
+            if timer is not None:
+                timer.begin.record()
             logits, cache = prefill(state, batch)
+            if timer is not None:
+                timer.end.record()
             return {"logits": logits, "cache": cache}
         return run
     B, S = cell.global_batch, cell.seq_len
@@ -285,7 +324,11 @@ def cell_step(cell: MeasureCell, model, state, generator: torch.Generator
     decode = make_decode_step(model)
 
     def run():
+        if timer is not None:
+            timer.begin.record()
         tok, logits, new_cache = decode(state, token, cache)
+        if timer is not None:
+            timer.end.record()
         return {"token": tok, "logits": logits, "cache": new_cache}
     return run
 
@@ -315,11 +358,26 @@ class CellRun:
     state: object
     baseline: int
     resident: int
+    step_s: float                  # a warm step, no counter active
 
 
 def same_state(a: MeasureCell, b: MeasureCell) -> bool:
     return (a.arch, a.kind == "train", a.policy, a.optimizer) \
         == (b.arch, b.kind == "train", b.policy, b.optimizer)
+
+
+def _card(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type != "cuda" or not torch.cuda.is_available():
+        raise RuntimeError(f"a cell's step is measured on a CUDA device, "
+                           f"not {dev}")
+    return dev
+
+
+def _generator(dev) -> torch.Generator:
+    generator = torch.Generator(device=dev)
+    generator.manual_seed(SEED)
+    return generator
 
 
 def run_cell(cell: MeasureCell, reuse: Optional[CellRun] = None,
@@ -331,21 +389,20 @@ def run_cell(cell: MeasureCell, reuse: Optional[CellRun] = None,
     forward reads it: it takes the expert-parallel path).  ``baseline``
     is read before the state is made; on reuse, the allocator must read
     exactly what it read once the state was made (``resident``), so the
-    baseline still holds.  Raises off the card."""
+    baseline still holds.  ``step_s`` times a train cell's second step;
+    a serving cell's measured step is its first, cold (the cuBLAS
+    workspaces, new segments), so a second one is run and timed.
+    Raises off the card."""
     from repro_torch.configs import get_config
     from repro_torch.core import device_metrics as DM
     from repro_torch.mesh_ctx import mesh_context
     from repro_torch.models import build_model
-    dev = torch.device(device)
-    if dev.type != "cuda" or not torch.cuda.is_available():
-        raise RuntimeError(f"run_cell measures a step on a CUDA device, "
-                           f"not {dev}")
+    dev = _card(device)
     if reuse is not None and not same_state(reuse.cell, cell):
         raise ValueError(f"{cell.shape} of {cell.arch} cannot reuse the "
                          f"state of {reuse.cell}")
     model = build_model(get_config(cell.arch))
-    generator = torch.Generator(device=dev)
-    generator.manual_seed(SEED)
+    generator = _generator(dev)
     gc.collect()
     # the cuBLAS workspaces, kept by the allocator once a matmul ran, are
     # freed so that every cell's step allocates its own within the step
@@ -364,37 +421,71 @@ def run_cell(cell: MeasureCell, reuse: Optional[CellRun] = None,
         baseline = DM.allocated_bytes(dev)
         state = make_state(cell, model, generator, dev)
         resident = DM.allocated_bytes(dev)
+    timer = StepTimer()
+    train = cell.kind == "train"
     with mesh_context(MESH):
-        run = cell_step(cell, model, state, generator)
+        run = cell_step(cell, model, state, generator,
+                        timer=timer if train else None)
         memory, out = DM.memory_stats(run, baseline, dev)
     check_outputs(cell, model, out)
-    outputs = {"loss": out["loss"]} if cell.kind == "train" else {
+    outputs = {"loss": out["loss"]} if train else {
         "logits_shape": list(out["logits"].shape)}
     del run, out
     gc.collect()
+    if not train:
+        with mesh_context(MESH):
+            run = cell_step(cell, model, state, generator, timer=timer)
+            out = run()
+        del run, out
     return CellRun(cell=cell, memory=memory, outputs=outputs, state=state,
-                   baseline=baseline, resident=resident)
+                   baseline=baseline, resident=resident,
+                   step_s=timer.seconds())
+
+
+def count_cell(cell: MeasureCell, state, device="cuda"):
+    """One more step of ``cell`` on ``state`` under a ``device_metrics.
+    StepCounter`` -> the counter.  A train step updates ``state``: count
+    once no cell still to be measured reads it."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import device_metrics as DM
+    from repro_torch.mesh_ctx import mesh_context
+    from repro_torch.models import build_model
+    dev = _card(device)
+    model = build_model(get_config(cell.arch))
+    with mesh_context(MESH):
+        run = cell_step(cell, model, state, _generator(dev), steps=1)
+        counter, out = DM.count_step(run)
+    torch.cuda.synchronize(dev)
+    del run, out
+    return counter
 
 
 def measure_grid(cells, device="cuda", on_record=None) -> list[dict]:
     """Every cell in order on the card; a cell reuses the state of the one
     before it where they share arch and train state (any other state is
-    released before the next is made).  Returns the records;
+    released before the next is made).  Once the last cell of a state is
+    measured, each of its cells' step is counted on it (:func:`count_cell`)
+    and their records made, in order.  Returns the records;
     ``on_record(record)`` is called as each is made."""
     ident = card_identity()
-    records, prev = [], None
+    records, group = [], []
+
+    def close_group():
+        for run in group:
+            rec = record_for(run.cell, run.memory, ident,
+                             count_cell(run.cell, run.state, device),
+                             run.step_s)
+            rec["outputs"] = run.outputs
+            records.append(rec)
+            if on_record is not None:
+                on_record(rec)
+        group.clear()
+
     for cell in cells:
-        reuse = prev if prev is not None and same_state(prev.cell,
-                                                        cell) else None
-        prev = None
-        prev = run_cell(cell, reuse, device)
-        del reuse
-        rec = record_for(cell, prev.memory, ident)
-        rec["outputs"] = prev.outputs
-        records.append(rec)
-        if on_record is not None:
-            on_record(rec)
-    del prev
+        if group and not same_state(group[-1].cell, cell):
+            close_group()
+        group.append(run_cell(cell, group[-1] if group else None, device))
+    close_group()
     gc.collect()
     torch.cuda.empty_cache()
     return records
@@ -512,7 +603,10 @@ def main(argv=None) -> int:
         gib = 1024 ** 3
         print(f"[measure] {rec['arch']} x {rec['shape']}: measured "
               f"{rec['memory']['total_bytes'] / gib:.2f} GiB, predicted "
-              f"{rec['predicted']['peak_bytes'] / gib:.2f} GiB", flush=True)
+              f"{rec['predicted']['peak_bytes'] / gib:.2f} GiB "
+              f"step={rec['step_s']:.3f}s "
+              f"flops={rec['cost']['flops_per_device']:.4g} "
+              f"colls={rec['collectives']['counts']}", flush=True)
     records = measure_grid(cells, on_record=write)
     path = store_of(records).save(out / f"{store_name(records[0]['device'])}"
                                         f".json")

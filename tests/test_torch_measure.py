@@ -62,6 +62,12 @@ def fake_memory(total: int, start: int = 3 << 30) -> DM.StepMemory:
                          alloc_retries=0)
 
 
+def record(cell, memory) -> dict:
+    """The record of ``cell`` at the allocator readings ``memory``, with
+    an empty step counter and a 1 s step (for the host-only paths)."""
+    return M.record_for(cell, memory, DEVICE, DM.StepCounter(), 1.0)
+
+
 def test_grid_covers_the_cells_asked_for():
     archs = {c.arch for c in M.GRID}
     assert len(M.GRID) >= 35 and len(archs) >= 7
@@ -92,7 +98,7 @@ def test_grid_covers_the_cells_asked_for():
 
 @pytest.mark.parametrize("cell", M.GRID, ids=lambda c: f"{c.arch}-{c.shape}")
 def test_record_predicts_what_the_reference_planner_predicts(cell):
-    rec = M.record_for(cell, fake_memory(20 << 30), DEVICE)
+    rec = record(cell, fake_memory(20 << 30))
     want = RPL.check(cell.arch, RShape(cell.shape, cell.seq_len,
                                        cell.global_batch, cell.kind),
                      {"data": 1, "model": 1}, policy=POLICIES[cell.policy],
@@ -114,7 +120,7 @@ def test_record_predicts_what_the_reference_planner_predicts(cell):
 
 
 def test_observed_bytes_reads_the_total_and_rebuilds_it():
-    rec = M.record_for(M.GRID[0], fake_memory(7 << 30), DEVICE)
+    rec = record(M.GRID[0], fake_memory(7 << 30))
     for watch in (TW, RW):
         assert watch.observed_bytes(rec) == 7 << 30
         assert watch.observed_bytes(rec["memory"]) == 7 << 30
@@ -217,8 +223,8 @@ def test_summary_of_a_store():
     records = []
     for c in cells:
         peak = M.predict(c).peak_bytes
-        records.append(M.record_for(c, fake_memory(
-            int(peak * factors[c.arch])), DEVICE))
+        records.append(record(c, fake_memory(
+            int(peak * factors[c.arch]))))
     out = M.summary(M.store_of(records))
     rows = {r["group"]: r for r in out["rows"]}
     assert out["cells"] == len(cells)
@@ -352,3 +358,53 @@ def test_card_store_has_the_hybrid_rows(card_store):
         assert table[group][1] == pytest.approx(
             rows[group]["mape_raw_tpu"], abs=0.01)
     assert rows["hybrid"]["cells"] == 6 and rows["MoE"]["cells"] == 2
+
+
+def test_grid_counts_a_state_once_no_later_cell_reads_it(monkeypatch):
+    """``measure_grid`` runs the cells in order, each reusing the state
+    of the one before it where they share it, and counts a cell's step
+    only once the last cell of its state was measured: no measured step
+    reads a state that a counted step updated.  The records come in the
+    grid's order, each with its own counter and time."""
+    events, states = [], []
+
+    def run_cell(cell, reuse=None, device="cuda"):
+        if reuse is None:
+            states.append(object())
+        state = states[-1]
+        assert reuse is None or reuse.state is state
+        events.append(("run", cell.shape))
+        return M.CellRun(cell=cell, memory=fake_memory(1 << 30),
+                         outputs={}, state=state, baseline=0, resident=0,
+                         step_s=0.25 + len(events))
+
+    def count_cell(cell, state, device="cuda"):
+        assert state is states[-1]
+        events.append(("count", cell.shape))
+        c = DM.StepCounter()
+        c.flops = len(events)
+        return c
+
+    monkeypatch.setattr(M, "run_cell", run_cell)
+    monkeypatch.setattr(M, "count_cell", count_cell)
+    monkeypatch.setattr(M, "card_identity", lambda: DEVICE)
+    cells = [c for c in M.GRID if c.arch == "llava15-7b"]
+    seen = []
+    records = M.measure_grid(cells, "cpu", on_record=seen.append)
+    assert [r["shape"] for r in records] == [c.shape for c in cells]
+    assert seen == records
+    # each state's cells: all measured, then all counted
+    groups = [[cells[0]]]
+    for c in cells[1:]:
+        if M.same_state(groups[-1][-1], c):
+            groups[-1].append(c)
+        else:
+            groups.append([c])
+    want = []
+    for g in groups:
+        want += [("run", c.shape) for c in g]
+        want += [("count", c.shape) for c in g]
+    assert events == want and len(states) == len(groups) == 3
+    assert len({r["cost"]["flops_per_device"] for r in records}) \
+        == len(records)
+    assert all(r["step_s"] > 0 for r in records)
