@@ -50,23 +50,38 @@ Phases (any failure exits non-zero):
    (96, 64) and (80, 80) (causal and not, ragged S, a q-offset
    continuation, H = Hkv and GQA) and at deepseek-v2-lite-16b's,
    minicpm3-4b's and zamba2-2.7b's 4 x 2,048 shapes, the RMSNorm at their
-   widths (256, 512, 768, 2,560, and zamba2's gated 5,120), and the
-   reduced MLA pair (24, 16) refused;
+   widths (256, 512, 768, 2,560, and zamba2's gated 5,120);
    ``flash_bwd`` (the dq and the dk/dv kernels) on the same cases, the
    training path's shapes and the reduced configs' head dim 16, fp32
    within 5e-4 and bf16 within 2e-2 of each
    gradient's scale, and ``rmsnorm_bwd`` (dx and dscale, 1e-4 / 2e-2),
    each (the forward too) also bit-equal on a second launch, and every
-   wrapper refusing what its kernel does not take (a bf16 view off the
-   16-byte grid for the tensor-core kernels); ``ssd_scan`` (fp32: the FMA
+   wrapper refusing what its kernel does not take (float16, a head dim
+   above 256); ``ssd_scan`` (fp32: the FMA
    kernel; bf16: the tensor-core kernel) on the reference's three SSD
    cases, a prompt shorter than the chunk, the mamba2 prefill's full-width
    shape (4, 2,000, 64, 64, 128, 256) and its batch-1 twin, zamba2-2.7b's
-   prefill shape (4, 2,048, 80, 64, 64, 256), and a state
+   prefill shape (4, 2,048, 80, 64, 64, 256), a state
    width the bf16 kernel pads (N 20, P 128): y and the final state within
    1e-4 in fp32, bf16 y within 2e-2 and the state within 1e-4 of their
-   scales, bit-equal on a second launch and on strided views, bf16
-   operands off the copies' grid refused; every error also per shape;
+   scales, bit-equal on a second launch and on strided views; float16, a
+   chunk past shared memory, P above 256 and N above 512 refused; every
+   error also per shape; the same checks, each in the same loop, at
+   the shapes the widened kernels take — flash forward and backward at
+   the pairs no instance is compiled for, run zero-padded on
+   ``FL.instance_for``'s (the reduced MLA archs' (24, 16), (20, 12),
+   (112, 112), (256, 128)) and at the (256, 256) instance, 4 x 2,048
+   tokens with GQA 2, causal and not; the inputs the wrappers once
+   refused, now copied or padded for the kernels (a head-dim slice,
+   transposed views, bf16 views off the 16-byte grid, H or B above
+   65,535); the RMSNorm backward at D 16,384, past the shared-memory
+   partial row; ``SSD.kernel_plan``'s shapes at 4 x 2,048 tokens (P 80 as
+   two slabs, P 256 as two slabs of one launch, N 256 at P 64, N 512
+   walked in two pieces), the fp32 kernel at (4, 2,048, 64, 64, 256, 256)
+   under the reference test's dt against the float64 recurrence (within
+   max(1e-4, 2 x the plain version's distance)), and the SSD inputs once
+   refused (a head-dim slice, N 14, a strided head dim, bf16 operands off
+   the copies' grid, batch 70,000);
 3. ``sweep_large``: the 124,416-cell llava15-7b grid, legacy and liveness
    assembly, device engine == host columnar path column for column; one
    ``shard_factor`` launch per stage table build (``table_builds``);
@@ -217,8 +232,13 @@ Phases (any failure exits non-zero):
    both ways at 768 / 256 / 2,560; launches per step the reference's
    program), the fp32 and float64 comparisons on the first sample (one
    4.07 B-param model's float64 weights and gradients take 65 GB);
-   (phases 5e, 5f and 6f run after phase 8, so that every earlier phase
-   and grid cell meets the caching allocator as before them);
+6h. ``reduced_mla``: the reduced deepseek-v2-lite-16b (under the 1 x 1
+   mesh) and minicpm3-4b, whose attention pair (24, 16) runs zero-padded
+   on the (32, 32) instance: each on the card against the CPU, prefill +
+   4 decode steps and one Adafactor step under FULL_TRAIN, the logits,
+   losses, gradients and params within their family's bound (deepseek
+   ``MOE_TOL``, routing flips a reading; minicpm3 2e-2 of scale), flash
+   forward, dq and dk/dv launched at (24, 16);
 5g. ``serve_zamba2_2_7b``: nothing cut (54 Mamba-2 blocks, 2 shared
    attention blocks invoked 9 times, d_model 2,560, 32 heads x 80, d_state
    64, vocab 32,000; 2.45 B params) with random bf16 weights from a
@@ -269,8 +289,10 @@ Phases (any failure exits non-zero):
    mesh (parameters, optimizer state, loss), then a checkpoint restored
    with ``shardings`` onto the mesh, every leaf a ``DTensor`` on its
    placements and bit-equal; the group destroyed at the end;
-8. ``measure``: every cell of ``repro_torch.launch.measure.GRID`` (56
-   cells of 10 archs at full width and depth) through ``measure_grid``,
+8. ``measure`` (run right after phase 2, in a process of its own,
+   ``--measure-only``, so that its cells meet a caching allocator nothing
+   ran on before them): every cell of ``repro_torch.launch.measure.GRID``
+   (56 cells of 10 archs at full width and depth) through ``measure_grid``,
    one real step each with the allocator read around it: a ``measure``
    line per dry-run-schema record, each record's prediction equal to the
    host's ``planner.check`` for its cell, the store written to
@@ -315,7 +337,12 @@ Phases (any failure exits non-zero):
    at D for the q / k products and at Dv for P v and dv; the SDPA
    backend that ran named; the backward at (192, 128) at deepseek's
    prefill shape), the RMSNorm both ways and the SSD also at
-   zamba2-2.7b's shapes,
+   zamba2-2.7b's shapes; the widened kernels: flash forward, dq and dk/dv
+   at the (256, 256) instance (4 x 2,048, 16 heads) and at the padded
+   (24, 16) as the reduced MLA archs give it, each with its instance and
+   the padded products over the true ones (the bound counts the true
+   shape's work, SDPA runs at the true shape), the RMSNorm backward at D
+   16,384, the SSD at P 256 (two slabs) and N 512 (two launches);
    ``shard_factor`` at the packed shape of the sweeps' largest table
    build.
 
@@ -336,6 +363,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import gc
+import itertools
 import json
 import os
 import re
@@ -966,6 +994,15 @@ FLASH_CASES = [
     MINICPM3_CASE,                             # minicpm3-4b
     ZAMBA2_CASE,                               # zamba2-2.7b
 ]
+# the pairs the kernels take beyond their compiled instances (zero-padded
+# to FL.instance_for's pair: the reduced MLA archs' (24, 16), (20, 12) off
+# the 16-byte grid, (112, 112)) and the (256, 256) instance, also padded
+# from (256, 128), at a layer's size: 4 x 2,048 tokens, 8 q heads over 4
+# kv heads, causal and not
+WIDE_FLASH_CASES = [(4, 2048, 2048, 8, 4, d, dv, causal)
+                    for d, dv in ((24, 16), (20, 12), (112, 112),
+                                  (256, 256), (256, 128))
+                    for causal in (True, False)]
 TRAIN_ROWS = (TRAIN_BATCH * 2048, 4096)        # the LM's RMSNorms, training
 RMSNORM_SHAPES = [(64, 128), (3, 50, 96), (2, 7, 33, 64), (5, 33),
                   (4 * 1088, 4096), (4, 1, 4096), TRAIN_ROWS,
@@ -987,7 +1024,10 @@ TOLERANCE = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
 def case_key(case) -> str:
-    """The key of one checked shape in a check's ``max_abs_err_by_case``."""
+    """The key of one checked shape in a check's ``max_abs_err_by_case``
+    (a name as it is)."""
+    if isinstance(case, str):
+        return case
     return "x".join(str(int(c)) for c in case)
 
 
@@ -1000,10 +1040,14 @@ def _note(errs: dict, by_case: dict, case, key: str, err: float) -> None:
 
 def _excess(got, want, tol) -> tuple:
     """(max |got - want|, max of |got - want| - tol * (1 + |want|)): the
-    second is > 0 where allclose(atol=tol, rtol=tol) fails."""
+    second is > 0 where allclose(atol=tol, rtol=tol) fails; both inf
+    where a difference is NaN (``max`` returns NaN then, and a NaN
+    compares false: it would pass unseen)."""
     d = (got.float() - want.float()).abs()
-    return (float(d.max()),
-            float((d - tol * (1 + want.float().abs())).max()))
+    worst = float(d.max())
+    if worst != worst:
+        return float("inf"), float("inf")
+    return worst, float((d - tol * (1 + want.float().abs())).max())
 
 
 def _refuses(call, errors=(TypeError, ValueError)) -> bool:
@@ -1014,58 +1058,109 @@ def _refuses(call, errors=(TypeError, ValueError)) -> bool:
     return False
 
 
-def unaligned_bf16(shape) -> torch.Tensor:
+def unaligned_bf16(shape, gen=None) -> torch.Tensor:
     """A contiguous bf16 tensor that starts 2 bytes past a 16-byte
-    boundary."""
+    boundary: zeros, or N(0, 1) values from ``gen``."""
     n = int(np.prod(shape))
-    return torch.zeros(n + 1, dtype=torch.bfloat16, device=DEV)[1:] \
-        .view(shape)
+    t = torch.zeros(n + 1, dtype=torch.bfloat16, device=DEV)[1:].view(shape)
+    if gen is not None:
+        t.copy_(torch.randn(shape, generator=gen, device=DEV))
+    return t
+
+
+def flash_layout_cases(gen) -> list:
+    """Inputs the flash kernels refused before they took every layout, head
+    dim and grid: a head-dim slice (D 48, strided), transposed views, the
+    reduced MLA pair (24, 16), H or B above 65,535, bf16 views off the
+    16-byte grid; each ``(name, dtype, q, k, v, dout)``, causal."""
+    def rnd(*shape, dt):
+        return torch.randn(shape, generator=gen, device=DEV).to(dt)
+    out = []
+    for dt in (torch.float32, torch.bfloat16):
+        base = [rnd(1, 8, 4, 64, dt=dt) for _ in range(4)]
+        out.append(("head slice D 48", dt, *(t[..., :48] for t in base)))
+        out.append(("transposed views", dt, *(rnd(1, 4, 8, 64, dt=dt)
+                                              .transpose(1, 2)
+                                              for _ in range(4))))
+        out.append(("reduced MLA pair (24, 16)", dt,
+                    *(rnd(2, 40, 4, w, dt=dt) for w in (24, 24, 16, 16))))
+        out.append(("H 70,000", dt, *(rnd(1, 8, 70000, 16, dt=dt)
+                                      for _ in range(4))))
+        out.append(("B 70,000", dt, *(rnd(70000, 8, 1, 16, dt=dt)
+                                      for _ in range(4))))
+    out.append(("bf16 off the 16-byte grid", torch.bfloat16,
+                *(unaligned_bf16((1, 8, 4, 64), gen) for _ in range(4))))
+    return out
+
+
+def flash_inputs(cases: list, gen, n: int):
+    """``(case, dtype, causal, q_offset, q, k, v[, dout])`` for every case
+    in fp32, then bf16; ``n`` tensors on the card drawn from ``gen`` one
+    case at a time."""
+    for dt in (torch.float32, torch.bfloat16):
+        for case in cases:
+            b, sq, skv, h, hkv, d, dv, causal = case
+            shapes = ((b, sq, h, d), (b, skv, hkv, d), (b, skv, hkv, dv),
+                      (b, sq, h, dv))[:n]
+            yield (case, dt, causal, skv - sq if causal else 0,
+                   *[torch.randn(sh, generator=gen, device=DEV).to(dt)
+                     for sh in shapes])
+
+
+def flash_layout_inputs(gen, n: int):
+    """:func:`flash_layout_cases` as :func:`flash_inputs` gives its cases,
+    each keyed by its name and dtype."""
+    for name, dt, *tensors in flash_layout_cases(gen):
+        yield (f"{name}, {dt}", dt, True, 0, *tensors[:n])
+
+
+def wide_gen(seed: int) -> torch.Generator:
+    """The generator of a check's widened shapes: its own seed, so that
+    the earlier cases draw what they drew before those shapes existed."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed + 7)
+    return gen
 
 
 def check_flash() -> dict:
+    """out and lse of the forward kernels against flash_fwd_plain, a second
+    launch bit-equal, on FLASH_CASES, on WIDE_FLASH_CASES (pairs run
+    zero-padded on ``FL.instance_for``'s, and the (256, 256) instance) and
+    on the inputs the wrappers once refused; what the kernels do not take
+    refused."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(SEED)
+    wide = wide_gen(SEED)
     errs, by_case = {}, {}
     cases = 0
-    for dt in (torch.float32, torch.bfloat16):
-        for (b, sq, skv, h, hkv, d, dv, causal) in FLASH_CASES:
-            q = torch.randn(b, sq, h, d, generator=gen, device=DEV).to(dt)
-            k = torch.randn(b, skv, hkv, d, generator=gen, device=DEV).to(dt)
-            v = torch.randn(b, skv, hkv, dv, generator=gen,
-                            device=DEV).to(dt)
-            qoff = skv - sq if causal else 0
-            out, lse = FL.flash_fwd(q, k, v, causal=causal, q_offset=qoff)
-            again = FL.flash_fwd(q, k, v, causal=causal, q_offset=qoff)
-            torch.cuda.synchronize()
-            if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
-                fail(f"flash_fwd: two launches differ ({dt}, case "
-                     f"{(b, sq, skv, h, hkv, d, dv, causal)})")
-            p_out, p_lse = FL.flash_fwd_plain(q, k, v, causal=causal,
-                                              q_offset=qoff)
-            tol = TOLERANCE[dt]
-            for what, got, want in (("out", out, p_out),
-                                    ("lse", lse, p_lse)):
-                err, over = _excess(got, want, tol)
-                _note(errs, by_case, (b, sq, skv, h, hkv, d, dv, causal),
-                      f"{what}_{str(dt).split('.')[-1]}", err)
-                if over > 0 or got.shape != want.shape:
-                    fail(f"flash_fwd kernel != plain version ({what}, "
-                         f"{dt}, case {(b, sq, skv, h, hkv, d, dv, causal)}"
-                         f": max abs diff {err}, tolerance {tol})")
-            cases += 1
-            del q, k, v, out, lse, again, p_out, p_lse
-    # what the kernels do not take raises (no fallback)
+    for case, dt, causal, qoff, q, k, v in itertools.chain(
+            flash_inputs(FLASH_CASES, gen, 3),
+            flash_inputs(WIDE_FLASH_CASES, wide, 3),
+            flash_layout_inputs(wide, 3)):
+        out, lse = FL.flash_fwd(q, k, v, causal=causal, q_offset=qoff)
+        again = FL.flash_fwd(q, k, v, causal=causal, q_offset=qoff)
+        torch.cuda.synchronize()
+        if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+            fail(f"flash_fwd: two launches differ ({dt}, case {case})")
+        p_out, p_lse = FL.flash_fwd_plain(q, k, v, causal=causal,
+                                          q_offset=qoff)
+        tol = TOLERANCE[dt]
+        for what, got, want in (("out", out, p_out), ("lse", lse, p_lse)):
+            err, over = _excess(got, want, tol)
+            _note(errs, by_case, case, f"{what}_{str(dt).split('.')[-1]}",
+                  err)
+            if over > 0 or got.shape != want.shape:
+                fail(f"flash_fwd kernel != plain version ({what}, {dt}, "
+                     f"case {case}: max abs diff {err}, tolerance {tol})")
+        cases += 1
+        del q, k, v, out, lse, again, p_out, p_lse
+    # what the kernels do not take raises (no fallback): float16, a head
+    # dim above 256
     q = torch.zeros(1, 8, 4, 64, device=DEV)
-    bad = [lambda: FL.flash_fwd(q[..., :48], q[..., :48], q[..., :48]),
-           lambda: FL.flash_fwd(q.transpose(1, 2), q.transpose(1, 2),
-                                q.transpose(1, 2)),
-           lambda: FL.flash_fwd(q.half(), q.half(), q.half()),
-           # contiguous bf16 at a 2-byte offset: off cp.async's 16 bytes
-           lambda: FL.flash_fwd(*[unaligned_bf16(q.shape)] * 3),
-           # the reduced MLA pair (24, 16): no kernel instance (C13)
-           lambda: FL.flash_fwd(q[..., :24].contiguous(),
-                                q[..., :24].contiguous(),
-                                q[..., :16].contiguous())]
+    broad = torch.zeros(1, 8, 4, 288, device=DEV)
+    bad = [lambda: FL.flash_fwd(q.half(), q.half(), q.half()),
+           lambda: FL.flash_fwd(broad, broad, q),
+           lambda: FL.flash_fwd(q, q, broad[..., :264])]
     for call in bad:
         if not _refuses(call):
             fail("flash_fwd accepted an input the kernel does not take")
@@ -1126,6 +1221,8 @@ RMSNORM_BWD_SHAPES = RMSNORM_SHAPES[:4] + [TRAIN_ROWS, (40, 96),
                                            (4 * 2048, 2560),
                                            # zamba2-2.7b's gated norm
                                            (4 * 2048, 5120)]
+# phase 2b's: past the shared-memory partial row (RN.BWD_SMEM_D)
+WIDE_RMSNORM_BWD_SHAPES = [(4 * 2048, 16384)]
 BWD_TOLERANCE = {"flash": {torch.float32: 5e-4, torch.bfloat16: 2e-2},
                  "rmsnorm": {torch.float32: 1e-4, torch.bfloat16: 2e-2}}
 
@@ -1137,47 +1234,51 @@ def _bwd_excess(got, want, dt, tol) -> tuple:
         return _excess(got, want, tol)
     d = (got.float() - want.float()).abs()
     scale = float(want.float().abs().max())
-    return float(d.max()), float(d.max()) - tol * scale
+    worst = float(d.max())
+    if worst != worst:
+        return float("inf"), float("inf")
+    return worst, worst - tol * scale
 
 
 def check_flash_bwd() -> dict:
-    """dq, dk and dv of the two kernels against flash_bwd_plain; a second
-    launch bit-equal to the first; the autograd Function's gradients equal
-    the wrapper's."""
+    """dq, dk and dv of the two kernels against flash_bwd_plain, a second
+    launch bit-equal to the first, on FLASH_BWD_CASES, WIDE_FLASH_CASES and
+    the inputs once refused (the passes alone on the bf16 views off the
+    grid); the autograd Function's gradients equal the wrapper's."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(SEED + 3)
+    wide = wide_gen(SEED + 3)
     errs, by_case = {}, {}
     cases = 0
-    for dt in (torch.float32, torch.bfloat16):
+    for case, dt, causal, qoff, q, k, v, do in itertools.chain(
+            flash_inputs(FLASH_BWD_CASES, gen, 4),
+            flash_inputs(WIDE_FLASH_CASES, wide, 4),
+            flash_layout_inputs(wide, 4)):
         tol = BWD_TOLERANCE["flash"][dt]
-        for case in FLASH_BWD_CASES:
-            b, sq, skv, h, hkv, d, dv, causal = case
-            q = torch.randn(b, sq, h, d, generator=gen, device=DEV).to(dt)
-            k = torch.randn(b, skv, hkv, d, generator=gen, device=DEV).to(dt)
-            v = torch.randn(b, skv, hkv, dv, generator=gen,
-                            device=DEV).to(dt)
-            do = torch.randn(b, sq, h, dv, generator=gen, device=DEV).to(dt)
-            qoff = skv - sq if causal else 0
-            out, lse = FL.flash_fwd(q, k, v, causal=causal, q_offset=qoff)
-            got = FL.flash_bwd(q, k, v, out, lse, do, causal=causal,
-                               q_offset=qoff)
-            again = FL.flash_bwd(q, k, v, out, lse, do, causal=causal,
-                                 q_offset=qoff)
-            torch.cuda.synchronize()
-            if not all(torch.equal(a, c) for a, c in zip(got, again)):
-                fail(f"flash_bwd: two launches differ ({dt}, case {case})")
-            want = FL.flash_bwd_plain(q, k, v, out, lse, do, causal=causal,
-                                      q_offset=qoff)
-            for what, g, w in zip(("dq", "dk", "dv"), got, want):
-                err, over = _bwd_excess(g, w, dt, tol)
-                _note(errs, by_case, case, f"{what}_{str(dt).split('.')[-1]}",
-                      err)
-                if over > 0 or g.shape != w.shape or g.dtype != w.dtype:
-                    fail(f"flash_bwd kernels != plain version ({what}, "
-                         f"{dt}, case {case}: max abs diff {err}, "
-                         f"tolerance {tol})")
-            cases += 1
-            del q, k, v, do, out, lse, got, again, want
+        out, lse = FL.flash_fwd(q, k, v, causal=causal, q_offset=qoff)
+        got = FL.flash_bwd(q, k, v, out, lse, do, causal=causal,
+                           q_offset=qoff)
+        again = FL.flash_bwd(q, k, v, out, lse, do, causal=causal,
+                             q_offset=qoff)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, c) for a, c in zip(got, again)):
+            fail(f"flash_bwd: two launches differ ({dt}, case {case})")
+        if isinstance(case, str) and case.startswith("bf16 off"):
+            dq, delta = FL.flash_bwd_dq(q, k, v, out, lse, do)
+            alone = (dq,) + FL.flash_bwd_dkv(q, k, v, lse, do, delta)
+            if not all(torch.equal(a, c) for a, c in zip(got, alone)):
+                fail("flash_bwd_dq / flash_bwd_dkv alone != flash_bwd")
+        want = FL.flash_bwd_plain(q, k, v, out, lse, do, causal=causal,
+                                  q_offset=qoff)
+        for what, g, w in zip(("dq", "dk", "dv"), got, want):
+            err, over = _bwd_excess(g, w, dt, tol)
+            _note(errs, by_case, case, f"{what}_{str(dt).split('.')[-1]}",
+                  err)
+            if over > 0 or g.shape != w.shape or g.dtype != w.dtype:
+                fail(f"flash_bwd kernels != plain version ({what}, {dt}, "
+                     f"case {case}: max abs diff {err}, tolerance {tol})")
+        cases += 1
+        del q, k, v, do, out, lse, got, again, want
     # the autograd Function launches the kernels and returns their result
     q, k, v, do = (torch.randn(2, 130, 4, 64, generator=gen, device=DEV)
                    .to(torch.bfloat16) for _ in range(4))
@@ -1193,21 +1294,15 @@ def check_flash_bwd() -> dict:
     if not all(torch.equal(g, w) for g, w in zip(grads, want)):
         fail("ops.flash_attention's gradients differ from flash_bwd's")
     cases += 1
-    # what the kernels do not take raises (no fallback)
+    # what the kernels do not take raises (no fallback): float16, a delta
+    # of another shape, a head dim above 256
     z = torch.zeros(1, 8, 4, 64, device=DEV)
     lz = torch.zeros(1, 4, 8, device=DEV)
+    broad = torch.zeros(1, 8, 4, 288, device=DEV)
     bad = [lambda: FL.flash_bwd(z.half(), z.half(), z.half(), z.half(), lz,
                                 z.half()),
-           lambda: FL.flash_bwd(*(t[..., :48] for t in (z, z, z, z)), lz,
-                                z[..., :48]),
-           lambda: FL.flash_bwd(z, z, z, z, lz, torch.zeros(
-               1, 4, 8, 64, device=DEV).transpose(1, 2)),
            lambda: FL.flash_bwd_dkv(z, z, z, lz, z, lz[:, :2]),
-           # contiguous bf16 at a 2-byte offset: off cp.async's 16 bytes
-           lambda: FL.flash_bwd_dq(*[unaligned_bf16(z.shape)] * 4, lz,
-                                   unaligned_bf16(z.shape)),
-           lambda: FL.flash_bwd_dkv(*[unaligned_bf16(z.shape)] * 3, lz,
-                                    unaligned_bf16(z.shape), lz)]
+           lambda: FL.flash_bwd(broad, broad, z, z, lz, z)]
     for call in bad:
         if not _refuses(call):
             fail("flash_bwd accepted an input the kernels do not take")
@@ -1219,38 +1314,49 @@ def check_flash_bwd() -> dict:
             "tolerance": {"float32": 5e-4, "bfloat16": "2e-2 of scale"}}
 
 
+def rmsnorm_bwd_inputs(shapes: list, gen):
+    """``(dtype, x, scale, dy)`` for every shape in fp32, then bf16, drawn
+    from ``gen`` one shape at a time."""
+    for dt in (torch.float32, torch.bfloat16):
+        for shape in shapes:
+            yield (dt, *[torch.randn(sh, generator=gen, device=DEV).to(dt)
+                         for sh in (shape, shape[-1:], shape)])
+
+
 def check_rmsnorm_bwd() -> dict:
+    """dx and dscale of the backward kernel against rmsnorm_bwd_plain, a
+    second launch bit-equal, also on row-offset views, on
+    RMSNORM_BWD_SHAPES and WIDE_RMSNORM_BWD_SHAPES (past the shared-memory
+    partial row); the autograd Function's backward one launch; what the
+    kernel does not take refused."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(SEED + 4)
     errs, by_case = {}, {}
     cases = 0
-    for dt in (torch.float32, torch.bfloat16):
+    for dt, x, sc, dy in itertools.chain(
+            rmsnorm_bwd_inputs(RMSNORM_BWD_SHAPES, gen),
+            rmsnorm_bwd_inputs(WIDE_RMSNORM_BWD_SHAPES, wide_gen(SEED + 4))):
         tol = BWD_TOLERANCE["rmsnorm"][dt]
-        for shape in RMSNORM_BWD_SHAPES:
-            x = torch.randn(shape, generator=gen, device=DEV).to(dt)
-            sc = torch.randn(shape[-1:], generator=gen, device=DEV).to(dt)
-            dy = torch.randn(shape, generator=gen, device=DEV).to(dt)
-            # a row-offset view: off the 16-byte grid where D * elt is not
-            # a multiple of 16 (the scalar path)
-            for xs, dys in ((x, dy), (x.view(-1, shape[-1])[1:],
-                                      dy.view(-1, shape[-1])[1:])):
-                got = RN.rmsnorm_bwd(xs, sc, dys, 1e-5)
-                again = RN.rmsnorm_bwd(xs, sc, dys, 1e-5)
-                torch.cuda.synchronize()
-                if not all(torch.equal(a, c) for a, c in zip(got, again)):
-                    fail(f"rmsnorm_bwd: two launches differ ({dt}, "
-                         f"{tuple(xs.shape)})")
-                want = RN.rmsnorm_bwd_plain(xs, sc, dys, 1e-5)
-                for what, g, w in zip(("dx", "dscale"), got, want):
-                    err, over = _excess(g, w, tol)
-                    _note(errs, by_case, xs.shape,
-                          f"{what}_{str(dt).split('.')[-1]}", err)
-                    if over > 0 or g.shape != w.shape or g.dtype != w.dtype:
-                        fail(f"rmsnorm_bwd kernel != plain version ({what},"
-                             f" {dt}, {tuple(xs.shape)}: max abs diff "
-                             f"{err})")
-                cases += 1
-            del x, sc, dy
+        D = x.shape[-1]
+        # a row-offset view: off the 16-byte grid where D * elt is not a
+        # multiple of 16 (the scalar path)
+        for xs, dys in ((x, dy), (x.view(-1, D)[1:], dy.view(-1, D)[1:])):
+            got = RN.rmsnorm_bwd(xs, sc, dys, 1e-5)
+            again = RN.rmsnorm_bwd(xs, sc, dys, 1e-5)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, c) for a, c in zip(got, again)):
+                fail(f"rmsnorm_bwd: two launches differ ({dt}, "
+                     f"{tuple(xs.shape)})")
+            want = RN.rmsnorm_bwd_plain(xs, sc, dys, 1e-5)
+            for what, g, w in zip(("dx", "dscale"), got, want):
+                err, over = _excess(g, w, tol)
+                _note(errs, by_case, xs.shape,
+                      f"{what}_{str(dt).split('.')[-1]}", err)
+                if over > 0 or g.shape != w.shape or g.dtype != w.dtype:
+                    fail(f"rmsnorm_bwd kernel != plain version ({what}, "
+                         f"{dt}, {tuple(xs.shape)}: max abs diff {err})")
+            cases += 1
+        del x, sc, dy
     x = torch.randn(6, 64, generator=gen, device=DEV)
     sc = torch.randn(64, generator=gen, device=DEV)
     dy = torch.randn(6, 64, generator=gen, device=DEV)
@@ -1289,19 +1395,26 @@ SSD_CASES = [(2, 128, 4, 16, 32, 32), (1, 96, 2, 32, 16, 32),
              (1, 64, 1, 64, 64, 64), (2, 40, 3, 16, 16, 64), SERVE_SSD_CASE,
              (1,) + SERVE_SSD_CASE[1:], (2, 75, 3, 128, 20, 32),
              ZAMBA2_SSD_CASE]
+# the shapes the kernels take beyond their instances (SSD.kernel_plan), at
+# a layer's size, 4 x 2,048 tokens: P 80 as slabs of 64 and 16, P 256 as
+# two 128-column slabs of one launch, N 256 at P 64 (fp32: two 32-column
+# slabs), N 512 walked in two pieces
+WIDE_SSD_CASES = [(4, 2048, 32, 80, 64, 256), (4, 2048, 16, 256, 128, 256),
+                  (4, 2048, 64, 64, 256, 256), (4, 2048, 64, 16, 512, 256)]
 SSD_TOLERANCE = 1e-4          # fp32 y and state; bf16 state, of its scale
 SSD_BF16_Y_TOLERANCE = 2e-2   # bf16 y, of its scale (one rounding of y)
 
 
-def ssd_inputs(case, gen, dtype):
+def ssd_inputs(case, gen, dtype, shift: float = None):
     """x, dt (post-softplus), A (< 0), B, C on the card.  The reference's
     test distribution (dt ~ softplus(N(0, 1))) on its own cases; at the
-    serving widths (mamba2's at any batch, zamba2's) dt ~ softplus(N(0, 1)
-    - 3), ~0.05, so the state carries across chunks as a served model's
-    does."""
+    serving widths (mamba2's at any batch, zamba2's) and the layer-size
+    WIDE_SSD_CASES dt ~ softplus(N(0, 1) - 3), ~0.05, so the state carries
+    across chunks as a served model's does (``shift`` overrides)."""
     b, S, H, P, N, _ = case
-    shift = 3.0 if case[1:] in (SERVE_SSD_CASE[1:], ZAMBA2_SSD_CASE[1:]) \
-        else 0.0
+    if shift is None:
+        shift = 3.0 if case[1:] in (SERVE_SSD_CASE[1:], ZAMBA2_SSD_CASE[1:]) \
+            or case in WIDE_SSD_CASES else 0.0
     x = torch.randn(b, S, H, P, generator=gen, device=DEV) * 0.5
     dt = F.softplus(torch.randn(b, S, H, generator=gen, device=DEV) - shift)
     A = -torch.exp(torch.randn(H, generator=gen, device=DEV) * 0.3)
@@ -1310,71 +1423,154 @@ def ssd_inputs(case, gen, dtype):
     return x.to(dtype), dt, A, Bm.to(dtype), Cm.to(dtype)
 
 
+def ssd_recurrence64(x, dt, A, B, C) -> tuple:
+    """The SSD's sequential recurrence in float64 -> (y, final state)."""
+    x, dt, A, B, C = (t.double() for t in (x, dt, A, B, C))
+    st = x.new_zeros((x.shape[0], x.shape[2], x.shape[3], B.shape[-1]))
+    ys = []
+    for t in range(x.shape[1]):
+        st = st * torch.exp(dt[:, t] * A)[..., None, None] + torch.einsum(
+            "bn,bhp,bh->bhpn", B[:, t], x[:, t], dt[:, t])
+        ys.append(torch.einsum("bhpn,bn->bhp", st, C[:, t]))
+    return torch.stack(ys, 1), st
+
+
+# the fp32 kernel at a state of 256 under the reference test's dt
+# (softplus of N(0, 1)), at WIDE_SSD_CASES' N-256 shape: over a 256-token
+# chunk a_cum runs to about -180, and exp of its differences carries
+# fp32's rounding of those running sums (the kernel's and the plain
+# version's, summed in other orders), so the two part by more than 1e-4
+# (about 8e-4 at this shape on an H100 80GB HBM3).  Both are held to the
+# float64 recurrence: the kernel within max(SSD_TOLERANCE,
+# FP64_WITNESS_RATIO x the plain version's distance), each of its
+# tensor's scale
+SSD_WITNESS_CASE = (4, 2048, 64, 64, 256, 256)
+
+
+def ssd_case_inputs(cases: list, gen):
+    """``(case, (x, dt, A, B, C), chunk)`` for every case in fp32, then
+    bf16, drawn from ``gen`` one case at a time."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in cases:
+            yield case, ssd_inputs(case, gen, dtype), case[-1]
+
+
+def ssd_layout_inputs(gen):
+    """The inputs the kernels once refused, as :func:`ssd_case_inputs`
+    gives its cases (chunk 8): a head-dim slice (P 48: slabs of 32 and 16
+    read in place), a state width off the multiples of 4 (padded), a
+    strided head dim, bf16 x off the 16-byte grid and B off the 8-byte
+    grid (copied), batch 70,000."""
+    x, dtv, A, Bm, Cm = ssd_inputs((1, 8, 2, 64, 16, 8), gen, torch.float32)
+    xb, Bb, Cb = x.bfloat16(), Bm.bfloat16(), Cm.bfloat16()
+    ux, uB = unaligned_bf16(x.shape), unaligned_bf16(Bm.shape)
+    ux.copy_(xb)
+    uB.copy_(Bb)
+    for name, args in (
+            ("head slice P 48", (x[..., :48], dtv, A, Bm, Cm)),
+            ("state width 14", (x, dtv, A, Bm[..., :14], Cm[..., :14])),
+            ("strided head dim", (x.transpose(2, 3).contiguous()
+                                  .transpose(2, 3), dtv, A, Bm, Cm)),
+            ("bf16 x off the grid", (ux, dtv, A, Bb, Cb)),
+            ("bf16 B off the grid", (xb, dtv, A, uB, Cb)),
+            ("batch 70,000", ssd_inputs((70000, 8, 2, 16, 16, 8), gen,
+                                        torch.bfloat16))):
+        yield name, args, 8
+
+
+def ssd_witness() -> dict:
+    """The fp32 kernel and the plain version at SSD_WITNESS_CASE under the
+    reference test's dt, each against the float64 recurrence (of its
+    tensor's scale); a second launch bit-equal."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 13)
+    args = ssd_inputs(SSD_WITNESS_CASE, gen, torch.float32, shift=0.0)
+    chunk = SSD_WITNESS_CASE[-1]
+    got = SSD.ssd_scan(*args, chunk=chunk)
+    again = SSD.ssd_scan(*args, chunk=chunk)
+    plain = SSD.ssd_scan_plain(*args, chunk=chunk)
+    exact = ssd_recurrence64(*args)
+    witness = {}
+    for i, what in enumerate(("y", "state")):
+        scale = float(exact[i].abs().max())
+        k_err = float((got[i].double() - exact[i]).abs().max()) / scale
+        p_err = float((plain[i].double() - exact[i]).abs().max()) / scale
+        witness[what] = {"kernel_vs_fp64": k_err, "plain_vs_fp64": p_err,
+                         "kernel_vs_plain": _excess(got[i], plain[i],
+                                                    SSD_TOLERANCE)[0]}
+        if k_err > max(SSD_TOLERANCE, FP64_WITNESS_RATIO * p_err) or \
+                not torch.equal(got[i], again[i]):
+            fail(f"ssd_scan fp32 kernel at {SSD_WITNESS_CASE}: {what} "
+                 f"{k_err} of its scale from float64 against the plain "
+                 f"version's {p_err}, or a second launch differs")
+    return {"case": SSD_WITNESS_CASE, **witness}
+
+
 def check_ssd() -> dict:
     """y and the final state of the kernels (fp32: FMA, bf16: tensor
-    cores) against ssd_scan_plain on every case; a second launch bit-equal;
-    x, B and C read in place through a token stride (views into one
-    conv-output buffer, as the model hands them) bit-equal to contiguous
-    copies; what the kernels do not take refused."""
+    cores) against ssd_scan_plain on SSD_CASES, on WIDE_SSD_CASES
+    (``SSD.kernel_plan``'s slabs and N pieces) and on the inputs once
+    refused; a second launch bit-equal; x, B and C read in place through a
+    token stride (views into one conv-output buffer, as the model hands
+    them) bit-equal to contiguous copies; the fp32 kernel under the
+    reference test's dt against float64 (:func:`ssd_witness`); what the
+    kernels do not take refused."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(SEED + 5)
+    wide = wide_gen(SEED + 5)
     errs, by_case = {}, {}
     cases = 0
-    for dt_ in (torch.float32, torch.bfloat16):
-        tag = str(dt_).split(".")[-1]
-        for case in SSD_CASES:
-            chunk = case[-1]
-            args = ssd_inputs(case, gen, dt_)
-            y, st = SSD.ssd_scan(*args, chunk=chunk)
-            y2, st2 = SSD.ssd_scan(*args, chunk=chunk)
+    for case, args, chunk in itertools.chain(
+            ssd_case_inputs(SSD_CASES, gen),
+            ssd_case_inputs(WIDE_SSD_CASES, wide), ssd_layout_inputs(wide)):
+        in_dt = args[0].dtype
+        tag = str(in_dt).split(".")[-1]
+        y, st = SSD.ssd_scan(*args, chunk=chunk)
+        y2, st2 = SSD.ssd_scan(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        if not (torch.equal(y, y2) and torch.equal(st, st2)):
+            fail(f"ssd_scan: two launches differ ({in_dt}, case {case})")
+        py, pst = SSD.ssd_scan_plain(*args, chunk=chunk)
+        for what, got, want in (("y", y, py), ("state", st, pst)):
+            if in_dt == torch.float32:
+                err, over = _excess(got, want, SSD_TOLERANCE)
+            else:
+                tol = SSD_BF16_Y_TOLERANCE if what == "y" else SSD_TOLERANCE
+                err, over = _bwd_excess(got, want, in_dt, tol)
+            _note(errs, by_case, case, f"{what}_{tag}", err)
+            if over > 0 or got.shape != want.shape or \
+                    got.dtype != want.dtype or \
+                    not bool(torch.isfinite(got).all()):
+                fail(f"ssd_scan kernel != plain version ({what}, {in_dt}, "
+                     f"case {case}: max abs diff {err})")
+        if case == SERVE_SSD_CASE:
+            x, dtv, A, Bm, Cm = args
+            b, S, H, P, N, _ = case
+            buf = torch.cat([x.reshape(b, S, H * P), Bm, Cm], dim=-1)
+            xv = buf[..., :H * P].view(b, S, H, P)
+            Bv, Cv = buf[..., H * P:H * P + N], buf[..., H * P + N:]
+            yv, stv = SSD.ssd_scan(xv, dtv, A, Bv, Cv, chunk=chunk)
             torch.cuda.synchronize()
-            if not (torch.equal(y, y2) and torch.equal(st, st2)):
-                fail(f"ssd_scan: two launches differ ({dt_}, case {case})")
-            py, pst = SSD.ssd_scan_plain(*args, chunk=chunk)
-            for what, got, want in (("y", y, py), ("state", st, pst)):
-                if dt_ == torch.float32:
-                    err, over = _excess(got, want, SSD_TOLERANCE)
-                else:
-                    tol = SSD_BF16_Y_TOLERANCE if what == "y" \
-                        else SSD_TOLERANCE
-                    err, over = _bwd_excess(got, want, dt_, tol)
-                _note(errs, by_case, case, f"{what}_{tag}", err)
-                if over > 0 or got.shape != want.shape or \
-                        got.dtype != want.dtype or \
-                        not bool(torch.isfinite(got).all()):
-                    fail(f"ssd_scan kernel != plain version ({what}, {dt_},"
-                         f" case {case}: max abs diff {err})")
-            if case == SERVE_SSD_CASE:
-                x, dtv, A, Bm, Cm = args
-                b, S, H, P, N, _ = case
-                buf = torch.cat([x.reshape(b, S, H * P), Bm, Cm], dim=-1)
-                xv = buf[..., :H * P].view(b, S, H, P)
-                Bv, Cv = buf[..., H * P:H * P + N], buf[..., H * P + N:]
-                yv, stv = SSD.ssd_scan(xv, dtv, A, Bv, Cv, chunk=chunk)
-                torch.cuda.synchronize()
-                if not (torch.equal(yv, y) and torch.equal(stv, st)):
-                    fail(f"ssd_scan on strided views != on contiguous "
-                         f"copies ({dt_})")
-                del buf, xv, Bv, Cv, yv, stv
-            cases += 1
-            del args, y, st, y2, st2, py, pst
-    # what the kernel does not take raises (no fallback)
+            if not (torch.equal(yv, y) and torch.equal(stv, st)):
+                fail(f"ssd_scan on strided views != on contiguous copies "
+                     f"({in_dt})")
+            del buf, xv, Bv, Cv, yv, stv
+        cases += 1
+        del args, y, st, y2, st2, py, pst
+    witness = ssd_witness()
+    cases += 1
+    # what the kernel does not take raises (no fallback): float16, a chunk
+    # past shared memory, a head above 256, a state above 512
     x, dtv, A, Bm, Cm = ssd_inputs((1, 8, 2, 64, 16, 8), gen, torch.float32)
-    for call in (lambda: SSD.ssd_scan(x[..., :48], dtv, A, Bm, Cm),
-                 lambda: SSD.ssd_scan(x, dtv, A, Bm[..., :14], Cm[..., :14]),
-                 lambda: SSD.ssd_scan(x.transpose(2, 3).contiguous()
-                                      .transpose(2, 3), dtv, A, Bm, Cm),
-                 lambda: SSD.ssd_scan(x.half(), dtv, A, Bm.half(),
+    for call in (lambda: SSD.ssd_scan(x.half(), dtv, A, Bm.half(),
                                       Cm.half()),
-                 lambda: SSD.ssd_scan(*ssd_inputs((1, 30000, 2, 64, 128, 1),
-                                                  gen, torch.float32),
-                                      chunk=30000),
-                 # bf16 x off the 16-byte grid, B off the 8-byte grid
-                 lambda: SSD.ssd_scan(unaligned_bf16(x.shape), dtv, A,
-                                      Bm.bfloat16(), Cm.bfloat16()),
-                 lambda: SSD.ssd_scan(x.bfloat16(), dtv, A,
-                                      unaligned_bf16(Bm.shape),
-                                      Cm.bfloat16())):
+                 lambda: SSD.ssd_scan(*ssd_inputs(
+                     (1, 30000, 2, 64, 128, 1), gen, torch.float32),
+                     chunk=30000),
+                 lambda: SSD.ssd_scan(*ssd_inputs(
+                     (1, 8, 2, 264, 16, 8), gen, torch.float32)),
+                 lambda: SSD.ssd_scan(*ssd_inputs(
+                     (1, 8, 2, 16, 520, 8), gen, torch.float32))):
         if not _refuses(call):
             fail("ssd_scan accepted an input the kernel does not take")
         cases += 1
@@ -1389,6 +1585,7 @@ def check_ssd() -> dict:
     return {"name": "ssd_scan", "ok": True, "cases": cases,
             "max_abs_err": max(errs.values()), "max_abs_err_by": errs,
             "max_abs_err_by_case": by_case, "deterministic": True,
+            "fp64_witness": witness,
             "tolerance": {"float32": SSD_TOLERANCE,
                           "bfloat16": {"y": "2e-2 of scale",
                                        "state": "1e-4 of scale"}}}
@@ -2050,23 +2247,25 @@ def vlm_batch(cfg, gen: torch.Generator, n_batch: int, n_text: int) -> dict:
     return {"patches": patches.to(torch.bfloat16), "tokens": tokens}
 
 
-def logits_agree(got, want, what: str, problems: list = None) -> dict:
-    """The serving tests' tolerance: |got - want| <= 2e-2 * max(1,
-    max|want|), and the same greedy token wherever want's top-2 margin
-    exceeds twice that.  A miss fails the run at once, or with
-    ``problems`` is added to it (the caller fails after its line)."""
+def logits_agree(got, want, what: str, problems: list = None,
+                 tol: float = 2e-2) -> dict:
+    """The serving tests' tolerance: |got - want| <= tol * max(1,
+    max|want|) (tol 2e-2 but for an MoE's card-vs-CPU runs), and the same
+    greedy token wherever want's top-2 margin exceeds twice that.  A miss
+    fails the run at once, or with ``problems`` is added to it (the caller
+    fails after its line)."""
     got, want = got.float(), want.float()
     scale = max(1.0, float(want.abs().max()))
     err = float((got - want).abs().max())
     top2 = want.topk(2, dim=-1).values
-    clear = (top2[..., 0] - top2[..., 1]) > 2 * 2e-2 * scale
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * tol * scale
     same = got.argmax(-1) == want.argmax(-1)
     miss = None
     if not bool(torch.isfinite(got).all()):
         miss = f"{what}: non-finite logits"
-    elif err > 2e-2 * scale or not bool(same[clear].all()):
+    elif err > tol * scale or not bool(same[clear].all()):
         miss = (f"{what}: max abs diff {err} against tolerance "
-                f"{2e-2 * scale}, greedy tokens equal where clear: "
+                f"{tol * scale}, greedy tokens equal where clear: "
                 f"{bool(same[clear].all())}")
     if miss and problems is None:
         fail(miss)
@@ -2077,11 +2276,13 @@ def logits_agree(got, want, what: str, problems: list = None) -> dict:
             "same_tokens": int(same.sum()), "tokens": int(same.numel())}
 
 
-def reduced_card_vs_cpu(arch: str, make_batch, counts) -> dict:
+def reduced_card_vs_cpu(arch: str, make_batch, counts,
+                        tol: float = 2e-2) -> dict:
     """The reduced ``arch``, same weights and batch (``make_batch(cfg,
     generator)`` on the CPU), on the card (kernels) and on the CPU (plain
-    versions): prefill + 4 decode steps; ``counts()`` the kernels the card
-    run must launch."""
+    versions): prefill + 4 decode steps, the logits within ``tol`` of
+    their scale; ``counts()`` the kernels the card run must launch; the
+    share of routing choices that differ (an MoE config), a reading."""
     cfg = get_config(arch).reduced()
     model = build_model(cfg)
     gen = torch.Generator()
@@ -2091,25 +2292,37 @@ def reduced_card_vs_cpu(arch: str, make_batch, counts) -> dict:
     card_params = copy.deepcopy(cpu_params).to(DEV)
     card_batch = {k: v.to(DEV) for k, v in cpu_batch.items()}
     prefill, decode = SV.make_prefill_step(model), SV.make_decode_step(model)
+    routes = {"cpu": RouteLog(), "card": RouteLog()}
+    for log in routes.values():
+        log.top_i = []
+
+    def routed(side, fn, *args):
+        """fn(*args), its routings added to ``side``'s log."""
+        with RouteLog() as log:
+            res = fn(*args)
+        routes[side].top_i += log.top_i
+        return res
     before = counts()
     out = {}
-    lc, cc = prefill(cpu_params, cpu_batch)
-    lg, cg = prefill(card_params, card_batch)
+    lc, cc = routed("cpu", prefill, cpu_params, cpu_batch)
+    lg, cg = routed("card", prefill, card_params, card_batch)
     out["prefill"] = logits_agree(lg.cpu(), lc,
-                                  f"reduced {arch} prefill card/cpu")
+                                  f"reduced {arch} prefill card/cpu", tol=tol)
     cc, cg = SV.pad_cache(cc, 4), SV.pad_cache(cg, 4)
     tok = lc[:, -1].argmax(-1)[:, None].to(torch.int32)
     for i in range(4):
-        tok_next, lc, cc = decode(cpu_params, tok, cc)
-        _, lg, cg = decode(card_params, tok.to(DEV), cg)
+        tok_next, lc, cc = routed("cpu", decode, cpu_params, tok, cc)
+        _, lg, cg = routed("card", decode, card_params, tok.to(DEV), cg)
         out[f"decode_{i}"] = logits_agree(lg.cpu(), lc,
                                           f"reduced {arch} decode {i} "
-                                          f"card/cpu")
+                                          f"card/cpu", tol=tol)
         tok = tok_next
     used = {k: counts()[k] - before[k] for k in before}
     if min(used.values()) <= 0:
         fail(f"reduced {arch} card run launched no kernel: {used}")
     out["launches"] = used
+    if cfg.moe:
+        out["routing_flips"] = flipped(routes["card"], routes["cpu"])
     return out
 
 
@@ -3797,6 +4010,54 @@ def train_minicpm3_4b() -> dict:
     return out
 
 
+def reduced_mla() -> dict:
+    """The reduced MLA archs, deepseek-v2-lite-16b (MoE, 4 experts top-2
+    and a shared expert, a leading dense block, under
+    ``mesh_context(MOE_MESH)``) and minicpm3-4b (dense, q rank 32), whose
+    attention pairs qk 16 + 8 = 24 with v 16: no compiled pair, so the
+    flash kernels run zero-padded on ``FL.instance_for(24, 16)``.  Each,
+    the same weights on the card (kernels) and on the CPU (plain
+    versions): prefill + 4 decode steps, then one Adafactor step under
+    FULL_TRAIN, within its family's card-vs-CPU bound (deepseek the MoE's
+    MOE_TOL, its routing flips a reading; minicpm3 2e-2 of each tensor's
+    scale); the flash launches at (24, 16), forward and both backward
+    passes, counted and above 0.  Their launches are a check's, not the
+    main path's."""
+    t_phase = time.perf_counter()
+    problems, out = [], {}
+
+    def tokens(cfg, gen):
+        return {"tokens": torch.randint(0, cfg.vocab, (2, 40), generator=gen,
+                                        dtype=torch.int32)}
+
+    def train(cfg, gen):
+        return model_batch(build_model(cfg), gen, 2, 40, "train")
+    for arch, mesh, tol in (("deepseek-v2-lite-16b", MOE_MESH, MOE_TOL),
+                            ("minicpm3-4b", None, 2e-2)):
+        m = get_config(arch).reduced().mla
+        pair = (m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim)
+        row = {"head_dims": list(pair),
+               "instance": list(FL.instance_for(*pair)), "tolerance": tol}
+        with mesh_context(mesh):
+            row["serve"] = reduced_card_vs_cpu(arch, tokens, serve_counts,
+                                               tol=tol)
+            row["train"] = reduced_train_card_vs_cpu(
+                problems, arch, FULL_TRAIN, train, optimizer="adafactor",
+                tol=tol)
+        flash = [row["serve"]["launches"]["flash_fwd"]] + [
+            row["train"]["launches"][k]
+            for k in ("flash_fwd", "flash_dq", "flash_dkv")]
+        if pair != (24, 16) or min(flash) <= 0:
+            problems.append(f"reduced {arch}: head dims {pair}, flash "
+                            f"launches {flash}")
+        out[arch] = row
+    out["elapsed_s"] = time.perf_counter() - t_phase
+    say("reduced_mla " + json.dumps(out))
+    if problems:
+        fail("; ".join(problems))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phases 5g and 6g: the hybrid zamba2-2.7b
 # ---------------------------------------------------------------------------
@@ -4718,6 +4979,11 @@ def measure_phase() -> dict:
     finally:
         ME.count_cell = count_cell
     launches = dict(model_counts(), ssd_scan=SSD.launches)
+    # the store first, so that a run the gates below fail leaves its
+    # readings
+    store = ME.store_of(records)
+    path = store.save(measured_dir()
+                      / f"{ME.store_name(records[0]['device'])}.json")
     if SF.launches or SC.launches:
         fail("the measurement grid launched a sweep kernel")
     if min(launches.values()) <= 0:
@@ -4733,9 +4999,6 @@ def measure_phase() -> dict:
         fail(f"records without their step's FLOPs and time, or with "
              f"collectives on one card: {uncounted[:4]}")
     twin = counter_twin(ME.GRID[0])
-    store = ME.store_of(records)
-    path = store.save(measured_dir()
-                      / f"{ME.store_name(records[0]['device'])}.json")
     measure_s = time.perf_counter() - t_phase
     summary = ME.summary(store)
     say("measure_summary " + json.dumps({
@@ -4751,6 +5014,36 @@ def measure_phase() -> dict:
                              for r in records),
         **summary, "elapsed_s": time.perf_counter() - t_phase}))
     return launches
+
+
+# phase 8 reads 56 cells in about 300 s on an H100
+MEASURE_TIMEOUT_S = 900
+
+
+def measure_alone() -> dict:
+    """Phase 8 in a process of its own (``--measure-only``), after this
+    one's cached blocks are released: its cells meet a caching allocator
+    that nothing ran on before them, so each cell's allocator total is the
+    cell's own, whatever runs in this process and in which order.  Its
+    lines are echoed here (its errors go to this process's); returns its
+    launches."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        proc = subprocess.run(
+            [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+             "--measure-only"], stdout=subprocess.PIPE, text=True,
+            env=surface_env(), cwd=HERE, timeout=MEASURE_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        out = e.stdout or b""
+        sys.stdout.write(out.decode() if isinstance(out, bytes) else out)
+        fail(f"phase 8 did not end within {MEASURE_TIMEOUT_S} s")
+    sys.stdout.write(proc.stdout)
+    sys.stdout.flush()
+    if proc.returncode != 0:
+        fail(f"phase 8 exited {proc.returncode}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])[
+        "measure_launches"]
 
 
 def counter_twin(cell) -> dict:
@@ -5004,9 +5297,9 @@ def _attention_inputs(shape: tuple, gen, n: int = 3) -> tuple:
 
 def _shape_row(shape: tuple, causal: bool) -> dict:
     b, sq, h, d = shape[:4]
-    return {"B": b, "S": sq, "H": h, "D": d,
-            "Dv": shape[4] if len(shape) > 4 else d, "causal": causal,
-            "dtype": "bfloat16"}
+    dv = shape[4] if len(shape) > 4 else d
+    return {"B": b, "S": sq, "H": h, "D": d, "Dv": dv, "causal": causal,
+            "dtype": "bfloat16", "instance": list(FL.instance_for(d, dv))}
 
 
 def _flash_timing(shape: tuple, causal: bool, gen) -> dict:
@@ -5023,8 +5316,11 @@ def _flash_timing(shape: tuple, causal: bool, gen) -> dict:
     bound_ms, bound_by = _bound(n_bytes, n_ops, BF16_OPS_PER_S)
     library = lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                      is_causal=causal)
+    di, dvi = FL.instance_for(d, dv)
     return {
         "shape": _shape_row(shape, causal),
+        # the instance's products over the true shape's (zero columns)
+        "padded_ops_over_true": (di + dvi) / (d + dv),
         "ms": event_ms(lambda: FL.flash_fwd(q, k, v, causal=causal),
                       flush=True),
         "device_ms": device_ms(lambda: FL.flash_fwd(q, k, v, causal=causal),
@@ -5085,16 +5381,19 @@ def _flash_bwd_timing(shape: tuple, causal: bool, gen) -> tuple:
     t_d = q.numel() * q.element_size()          # a tensor at D
     t_dv = v.numel() * v.element_size()         # a tensor at Dv
     stat = 4 * b * h * sq
+    di, dvi = FL.instance_for(d, dv)
     rows = []
-    for name, width, n_bytes, fn, kern in (
+    for name, width, padded, n_bytes, fn, kern in (
             # dq pass: s, dp and dq; reads q k v out dout lse, writes dq
             # and delta
-            ("flash_dq", 2 * d + dv, 3 * t_d + 3 * t_dv + 2 * stat,
+            ("flash_dq", 2 * d + dv, 2 * di + dvi,
+             3 * t_d + 3 * t_dv + 2 * stat,
              lambda: FL.flash_bwd_dq(q, k, v, out, lse, do, causal=causal),
              "flash_bwd_dq_kernel_mma"),
             # dk / dv pass: s, dp, dv and dk; reads q k v dout lse delta,
             # writes dk dv
-            ("flash_dkv", 2 * d + 2 * dv, 3 * t_d + 3 * t_dv + 2 * stat,
+            ("flash_dkv", 2 * d + 2 * dv, 2 * di + 2 * dvi,
+             3 * t_d + 3 * t_dv + 2 * stat,
              lambda: FL.flash_bwd_dkv(q, k, v, lse, do, delta,
                                       causal=causal),
              "flash_bwd_dkv_kernel_mma")):
@@ -5102,6 +5401,7 @@ def _flash_bwd_timing(shape: tuple, causal: bool, gen) -> tuple:
         bound_ms, bound_by = _bound(n_bytes, n_ops, BF16_OPS_PER_S)
         rows.append({
             "shape": _shape_row(shape, causal),
+            "padded_ops_over_true": padded / width,
             "ms": event_ms(fn, flush=True),
             "device_ms": device_ms(fn, kern, flush=True),
             "l2": "flushed before each timed launch",
@@ -5176,13 +5476,17 @@ def time_model_kernels(checks: dict, launches: dict) -> list:
     for shape in ((4, 2048, 16, 192, 128), (4, 2048, 40, 96, 64),
                   (4, 2048, 32, 80)):
         fwd_other.append(_flash_timing(shape, True, gen))
+    # the (256, 256) instance at 4 x 2,048, 16 heads, and the reduced MLA
+    # archs' (24, 16), padded to (32, 32), as their card runs give it
+    for shape in WIDE_TIMED:
+        fwd_other.append(_flash_timing(shape, True, gen))
     dq, dkv = _flash_bwd_timing(lm_shape, True, gen)
     # the pairs' backward: minicpm3-4b's and zamba2-2.7b's training, and
     # deepseek-v2-lite-16b's (192, 128) at its prefill shape (no path
     # trains deepseek: its training does not fit one card)
     bwd_other = [_flash_bwd_timing(shape, True, gen)
                  for shape in ((4, 2048, 40, 96, 64), (4, 2048, 32, 80),
-                               (4, 2048, 16, 192, 128))]
+                               (4, 2048, 16, 192, 128), *WIDE_TIMED)]
     rn_main = _rmsnorm_timing((TRAIN_BATCH * S_train, cfg.d_model), gen)
     rn_other = [_rmsnorm_timing((SERVE_BATCH * S_serve, cfg.d_model), gen),
                 _rmsnorm_timing((SERVE_BATCH, 1, cfg.d_model), gen),
@@ -5193,8 +5497,10 @@ def time_model_kernels(checks: dict, launches: dict) -> list:
                 _rmsnorm_timing((HYBRID_BATCH * HYBRID_PROMPT, 2560), gen),
                 _rmsnorm_timing((HYBRID_BATCH * HYBRID_PROMPT, 5120), gen)]
     rn_bwd = _rmsnorm_bwd_timing((TRAIN_BATCH * S_train, cfg.d_model), gen)
+    # and past the shared-memory partial row: 8,192 rows of 16,384
     rn_bwd_other = [_rmsnorm_bwd_timing((HYBRID_TRAIN_BATCH * HYBRID_PROMPT,
-                                         d), gen) for d in (2560, 5120)]
+                                         d), gen) for d in (2560, 5120,
+                                                            16384)]
     out = []
     # per kernel: its check, the outputs of that check that are its own,
     # and the checked shape it is timed at
@@ -5235,15 +5541,23 @@ def time_model_kernels(checks: dict, launches: dict) -> list:
         entry["other_shapes"] = others
         if name in MMA_KERNELS:
             for o in others:        # each shape's own instance
-                sh = o["shape"]
+                di, dvi = o["shape"]["instance"]
                 o["ptxas"] = mma_resources().get(
-                    f"{MMA_KERNELS[name][0]}<{sh['D']},{sh['Dv']}>")
+                    f"{MMA_KERNELS[name][0]}<{di},{dvi}>")
+                o["smem_bytes_per_block"] = FL.mma_smem_bytes(
+                    MMA_KERNELS[name][1], di, dvi)
         for k in [entry] + others:
             if not (k["ms"] > 0 and k["plain_ms"] > 0 and k["bound_ms"] > 0
                     and k["library_ms"] > 0):
                 fail(f"{name}: a timing came back non-positive")
         out.append(entry)
     return out
+
+
+# the flash shapes phase 7 adds for the widened kernels: the (256, 256)
+# instance at 4 x 2,048, 16 heads; the reduced MLA pair (24, 16) at the
+# reduced archs' card-vs-CPU shape (2 x 40 tokens, 4 heads)
+WIDE_TIMED = ((4, 2048, 16, 256, 256), (2, 40, 4, 24, 16))
 
 
 def with_ratios(k: dict) -> dict:
@@ -5272,6 +5586,39 @@ def ssd_work(case) -> tuple:
     n_bytes = 2 * (2 * b * S * H * P + 2 * b * S * N) + 4 * (
         b * S * H + H + b * H * P * N)
     return n_ops, n_bytes
+
+
+# the widened SSD's timed shapes (checked in phase 2's WIDE_SSD_CASES)
+SSD_SLAB_CASE = (4, 2048, 16, 256, 128, 256)
+SSD_WALK_CASE = (4, 2048, 64, 16, 512, 256)
+
+
+def _ssd_timing(case, c: dict, gen) -> dict:
+    """One SSD shape in bf16 for ``other_shapes``: wrapper call, the
+    kernel alone (per call: the mean launch times the plan's launches),
+    the plain version, the bound; the plan's slabs and pieces."""
+    args = ssd_inputs(case, gen, torch.bfloat16)
+    b, S, H, P, N, chunk = case
+    plan = SSD.kernel_plan(P, N, torch.bfloat16)
+    n_ops, n_bytes = ssd_work(case)
+    bound_ms, bound_by = _bound(n_bytes, n_ops, BF16_OPS_PER_S)
+    per_launch = device_ms(lambda: SSD.ssd_scan(*args, chunk=chunk),
+                           SSD_MMA_KERNEL)
+    return {
+        "shape": {"b": b, "S": S, "H": H, "P": P, "N": N, "chunk": chunk,
+                  "dtype": "bfloat16"},
+        "plan": {"slabs": plan.slabs, "pieces": plan.pieces,
+                 "launches_per_call": plan.launches},
+        "max_abs_err_at_shape": c["max_abs_err_by_case"][case_key(case)],
+        "ms": event_ms(lambda: SSD.ssd_scan(*args, chunk=chunk)),
+        "device_ms": None if per_launch is None
+        else per_launch * plan.launches,
+        "plain_ms": event_ms(lambda: SSD.ssd_scan_plain(*args, chunk=chunk),
+                             launches=10),
+        "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+        "flops": n_ops, "bytes": n_bytes,
+        "grid_blocks": b * H * max(n for _, _, n in plan.slabs),
+        "smem_bytes_per_block": SSD.plan_smem(plan, chunk, torch.bfloat16)}
 
 
 def time_ssd(checks: dict, launches: dict) -> dict:
@@ -5317,24 +5664,12 @@ def time_ssd(checks: dict, launches: dict) -> dict:
                          "threads": 32 * SSD.MMA_WARPS,
                          "ptxas": mma_resources().get(
                              f"{SSD_MMA_KERNEL}<{P}>")}}
-    # zamba2-2.7b's prefill shape
-    zargs = ssd_inputs(ZAMBA2_SSD_CASE, gen, torch.bfloat16)
-    b, S, H, P, N, chunk = ZAMBA2_SSD_CASE
-    n_ops, n_bytes = ssd_work(ZAMBA2_SSD_CASE)
-    bound_ms, bound_by = _bound(n_bytes, n_ops, BF16_OPS_PER_S)
-    entry["other_shapes"] = [{
-        "shape": {"b": b, "S": S, "H": H, "P": P, "N": N, "chunk": chunk,
-                  "dtype": "bfloat16"},
-        "max_abs_err_at_shape": c["max_abs_err_by_case"][
-            case_key(ZAMBA2_SSD_CASE)],
-        "ms": event_ms(lambda: SSD.ssd_scan(*zargs, chunk=chunk)),
-        "device_ms": device_ms(lambda: SSD.ssd_scan(*zargs, chunk=chunk),
-                               SSD_MMA_KERNEL),
-        "plain_ms": event_ms(lambda: SSD.ssd_scan_plain(*zargs, chunk=chunk),
-                             launches=10),
-        "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
-        "flops": n_ops, "bytes": n_bytes, "grid_blocks": b * H,
-        "smem_bytes_per_block": SSD.mma_smem_bytes(P, N, chunk)}]
+    # zamba2-2.7b's prefill shape; P 256 as two slabs of one launch; N
+    # 512 walked in two launches (their kernel-alone time is the launches'
+    # sum: the profiler's mean per launch times the launches a call makes)
+    entry["other_shapes"] = [_ssd_timing(case, c, gen)
+                             for case in (ZAMBA2_SSD_CASE, SSD_SLAB_CASE,
+                                          SSD_WALK_CASE)]
     for e in [entry] + entry["other_shapes"]:
         if not (e["ms"] > 0 and e["plain_ms"] > 0 and e["bound_ms"] > 0):
             fail("ssd_scan: a timing came back non-positive")
@@ -5367,7 +5702,15 @@ def main(argv: list) -> int:
                     "version (phase 2) and time the model kernels at the "
                     "main path's shapes, without driving the main path; "
                     "prints no result line")
+    ap.add_argument("--measure-only", action="store_true",
+                    help="phase 8 alone in this process, its launches as "
+                    "the last line (the full run starts it so, in a "
+                    "process of its own)")
     args = ap.parse_args(argv)
+    if args.measure_only:
+        _build.load()
+        say(json.dumps({"measure_launches": measure_phase()}))
+        return 0
     t_start = time.perf_counter()
     # phase 1: toolchain, card, build
     smi = run_text(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5407,6 +5750,10 @@ def main(argv: list) -> int:
         checks[c["name"]] = c
     say("kernels_check " + json.dumps(list(checks.values())))
     phase_done("2 kernels_check")
+    if not args.kernels_only:
+        # phase 8: the measurement grid, in a process of its own
+        measure_launches = measure_alone()
+        phase_done("8 measure")
     if args.kernels_only:
         for k in time_model_kernels(checks, {n: None for n in model_counts()}) \
                 + [time_ssd(checks, {"ssd_scan": None})]:
@@ -5517,15 +5864,10 @@ def main(argv: list) -> int:
     train_arctic_reduced()
     phase_done("6e train_arctic_reduced")
 
-    # phase 8: the measurement grid
-    for k, n in measure_phase().items():
+    for k, n in measure_launches.items():
         launches[k] += n
-    phase_done("8 measure")
 
-    # phases 5e, 5f and 6f: the MLA family at full size, after the grid,
-    # so that every earlier phase and cell meets the caching allocator as
-    # it found it before these phases existed (its free blocks move
-    # allocator peaks by a few MB)
+    # phases 5e, 5f and 6f: the MLA family at full size
     for k, n in serve_mla("deepseek-v2-lite-16b", MOE_MESH)[
             "launches"]["generate"].items():
         launches[k] += n
@@ -5537,6 +5879,10 @@ def main(argv: list) -> int:
     for k, n in train_minicpm3_4b()["launches_total"].items():
         launches[k] += n
     phase_done("6f train_minicpm3_4b")
+    # phase 6h: the reduced MLA archs on the card against the CPU, their
+    # attention on the padded (24, 16) pair (a check's launches)
+    reduced_mla()
+    phase_done("6h reduced_mla")
 
     # phase 7: kernel timings at the main paths' shapes, before phases
     # 5g-4i: the profiler traces nothing more in a process once it has

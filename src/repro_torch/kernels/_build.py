@@ -185,7 +185,7 @@ def load():
         lib.ssd_scan_launch.argtypes = [
             c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_int, c_int,
             c_int, c_int, c_int, c_int, c_int, ctypes.POINTER(c_ll), c_ll,
-            c_ptr]
+            ctypes.POINTER(c_ll), c_ptr, c_ptr]
         lib.ssd_scan_launch.restype = c_int
         _lib = lib
         return lib

@@ -67,15 +67,27 @@
 // Head dims are template parameters: 16 for the reduced test configs, 32,
 // 64, 128, 128 -> 64, and the MLA pairs 192 -> 128 (deepseek-v2-lite-16b:
 // qk_nope 128 + qk_rope 64, v 128) and 96 -> 64 (minicpm3-4b: 64 + 32, v
-// 64), and 80 (zamba2-2.7b's shared attention).  80 and 96 are not
-// multiples of 32: every loop over a head dim strides by 16 B cp.async
-// chunks (D / 8 of them), 16-column ldmatrix pairs (D / 16) or the FMA
-// kernels' 16 columns a thread (D / 16), so a multiple of 16 is all a pair
-// needs; the padded row strides (D + 8 bf16: 176, 208 and 400 bytes) keep
-// ldmatrix's 8 rows in 8 different 16-byte bank groups.  At D = 192 the
-// tensor-core kernel computes each 64-row kv tile in two 32-row halves
-// (kv_halves): q's fragments take 48 registers a thread there, and a whole
-// tile's scores and P parts another 64.
+// 64), 80 (zamba2-2.7b's shared attention) and 256, the widest head the
+// kernels take.  Any other pair 1 <= D, Dv <= 256 runs on the instance
+// that dominates it with the fewest columns (flash_attention.py's
+// instance_for): the wrapper zero-pads q, k and v to it, which is exact
+// (zero columns add nothing to q k^T and give zero columns of out, which
+// the wrapper drops) and passes the true D^-0.5 as the scale.  80 and 96
+// are not multiples of 32: every loop over a head dim strides by 16 B
+// cp.async chunks (D / 8 of them), 16-column ldmatrix pairs (D / 16) or
+// the FMA kernels' 16 columns a thread (D / 16), so a multiple of 16 is
+// all a pair needs; the padded row strides (D + 8 bf16: 176, 208 and 400
+// bytes) keep ldmatrix's 8 rows in 8 different 16-byte bank groups.  At D
+// = 192 the tensor-core kernel computes each 64-row kv tile in two 32-row
+// halves (kv_halves): q's fragments take 48 registers a thread there, and
+// a whole tile's scores and P parts another 64.  At D = 256 the output's
+// accumulators alone take 128 registers a thread, so q's fragments are
+// read from shared memory per use (q_in_registers) and the kv tile is
+// computed in four 16-row quarters; its shared memory is 202,752 bytes.
+//
+// The grid is one-dimensional: block i is (head, batch, q tile) in the
+// order a (H, B, q tiles) grid would launch them, unfolded from i, so B,
+// H and the q tiles are bounded only by their product (< 2^31).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -144,8 +156,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float* Ps = smem + S::P_OFF;
 
     const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-    const int q0 = blockIdx.x * BQ;
-    const int h = blockIdx.y, b = blockIdx.z;
+    // block (q tile, head, batch), q tiles fastest
+    const int n_qt = (Sq + BQ - 1) / BQ;
+    const int q0 = (int)(blockIdx.x % n_qt) * BQ;
+    const int h = (int)(blockIdx.x / n_qt % H), b = (int)(blockIdx.x / n_qt / H);
     const int hk = h / (H / Hkv);
 
     const long long q_row = (long long)H * D;      // element strides of a
@@ -268,8 +282,15 @@ constexpr int MMA_THREADS = 256;    // 8 warps
 
 // sub-tiles a kv tile is computed in: 2 at D > 128, where q's fragments
 // (D / 4 registers a thread) leave too few registers for a whole tile's
-// scores and P fragments; 1 (the whole tile) below
-__host__ __device__ constexpr int kv_halves(int D) { return D > 128 ? 2 : 1; }
+// scores and P fragments; 4 at D > 192, where the output's accumulators
+// take DV / 2; 1 (the whole tile) below
+__host__ __device__ constexpr int kv_halves(int D) {
+    return D > 192 ? 4 : D > 128 ? 2 : 1;
+}
+
+// q's fragments stay in registers (D / 4 a thread) up to D = 192; above,
+// each is read from the resident q tile in shared memory where it is used
+__host__ __device__ constexpr bool q_in_registers(int D) { return D <= 192; }
 
 template <int D, int DV>
 struct MmaSmem {                    // bf16 elements; rows padded by 8
@@ -289,9 +310,10 @@ flash_fwd_kernel_mma(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
                      __nv_bfloat16* __restrict__ out,
-                     float* __restrict__ lse, int Sq, int Skv, int H,
+                     float* __restrict__ lse, int B, int Sq, int Skv, int H,
                      int Hkv, int q_offset, int causal, float scale) {
     using S = MmaSmem<D, DV>;
+    constexpr bool QREG = q_in_registers(D);
     // at D > 128 the kv tile is computed in two 32-row halves, so that
     // the scores and P's fragments (16 + 16 registers, not 32 + 32) fit
     // beside the longer q fragments (qf: D / 4 registers)
@@ -307,8 +329,11 @@ flash_fwd_kernel_mma(const __nv_bfloat16* __restrict__ q,
 
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int g = lane >> 2, t = lane & 3;
-    const int h = blockIdx.x, b = blockIdx.y;
-    const int q0 = (gridDim.z - 1 - blockIdx.z) * MMA_BQ;   // heaviest first
+    // block (head, batch, q tile), heads fastest; the q tiles in reverse,
+    // heaviest first
+    const int h = (int)(blockIdx.x % H), b = (int)(blockIdx.x / H % B);
+    const int n_qt = (Sq + MMA_BQ - 1) / MMA_BQ;
+    const int q0 = (n_qt - 1 - (int)(blockIdx.x / H / B)) * MMA_BQ;
     const int hk = h / (H / Hkv);
     const long long q_row = (long long)H * D;      // element strides of a
     const long long k_row = (long long)Hkv * D;    // sequence position
@@ -351,7 +376,9 @@ flash_fwd_kernel_mma(const __nv_bfloat16* __restrict__ q,
     const int wrow = q0 + 16 * warp;
     const int pos0 = q_offset + wrow + g, pos1 = pos0 + 8;
     const float c = scale * tc::LOG2E;   // exp(scale s) = exp2(c s)
-    uint32_t qf[D / 16][4];
+    uint32_t qf[QREG ? D / 16 : 1][4];
+    const uint32_t qA = sQ + ((16 * warp + tc::a_row(lane)) * S::QS +
+                              tc::a_col(lane)) * 2;
     float o[NO][4];
     #pragma unroll
     for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
@@ -367,9 +394,9 @@ flash_fwd_kernel_mma(const __nv_bfloat16* __restrict__ q,
             tc::cp_async_wait<0>();
         }
         __syncthreads();
-        if (j == 0) {
+        if (QREG && j == 0) {
             #pragma unroll
-            for (int dc = 0; dc < D / 16; ++dc)
+            for (int dc = 0; dc < (QREG ? D / 16 : 1); ++dc)
                 tc::ldsm_x4(qf[dc], sQ + ((16 * warp + tc::a_row(lane)) *
                                           S::QS + dc * 16 + tc::a_col(lane)) * 2);
         }
@@ -383,15 +410,31 @@ flash_fwd_kernel_mma(const __nv_bfloat16* __restrict__ q,
             float s[NT][4];
             #pragma unroll
             for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-            #pragma unroll
-            for (int dc = 0; dc < D / 16; ++dc) {
+            if constexpr (QREG) {
                 #pragma unroll
-                for (int np = 0; np < NT / 2; ++np) {
-                    uint32_t kr[4];
-                    tc::ldsm_x4(kr, kt + ((np * 16 + tc::bn_row(lane)) * S::KS +
-                                          dc * 16 + tc::bn_col(lane)) * 2);
-                    tc::mma_bf16(s[2 * np], qf[dc], kr[0], kr[1]);
-                    tc::mma_bf16(s[2 * np + 1], qf[dc], kr[2], kr[3]);
+                for (int dc = 0; dc < D / 16; ++dc) {
+                    #pragma unroll
+                    for (int np = 0; np < NT / 2; ++np) {
+                        uint32_t kr[4];
+                        tc::ldsm_x4(kr, kt + ((np * 16 + tc::bn_row(lane)) * S::KS +
+                                              dc * 16 + tc::bn_col(lane)) * 2);
+                        tc::mma_bf16(s[2 * np], qf[dc], kr[0], kr[1]);
+                        tc::mma_bf16(s[2 * np + 1], qf[dc], kr[2], kr[3]);
+                    }
+                }
+            } else {
+                #pragma unroll
+                for (int dc = 0; dc < D / 16; ++dc) {
+                    uint32_t qa[4];
+                    tc::ldsm_x4(qa, qA + dc * 32);
+                    #pragma unroll
+                    for (int np = 0; np < NT / 2; ++np) {
+                        uint32_t kr[4];
+                        tc::ldsm_x4(kr, kt + ((np * 16 + tc::bn_row(lane)) * S::KS +
+                                              dc * 16 + tc::bn_col(lane)) * 2);
+                        tc::mma_bf16(s[2 * np], qa, kr[0], kr[1]);
+                        tc::mma_bf16(s[2 * np + 1], qa, kr[2], kr[3]);
+                    }
                 }
             }
             // masks only where the sub-tile crosses the diagonal or Skv
@@ -481,6 +524,9 @@ flash_fwd_kernel_mma(const __nv_bfloat16* __restrict__ q,
     }
 }
 
+// a one-dimensional grid's limit
+constexpr long long MAX_BLOCKS = 0x7fffffffLL;
+
 // above 48 KB of dynamic shared memory a kernel needs an opt-in, once
 template <typename K>
 cudaError_t allow_smem(K kern, size_t bytes, bool& configured) {
@@ -497,16 +543,18 @@ int launch_mma(const void* q, const void* k, const void* v, void* out,
                int q_offset, int causal, float scale, cudaStream_t stream) {
     auto kern = flash_fwd_kernel_mma<D, DV>;
     constexpr size_t bytes = MmaSmem<D, DV>::BYTES;
+    const long long blocks =
+        (long long)H * B * ((Sq + MMA_BQ - 1) / MMA_BQ);
+    if (blocks > MAX_BLOCKS) return -1;
     static bool configured = false;
     const cudaError_t e = allow_smem(kern, bytes, configured);
     if (e != cudaSuccess) return (int)e;
-    const dim3 grid(H, B, (Sq + MMA_BQ - 1) / MMA_BQ);
-    kern<<<grid, MMA_THREADS, bytes, stream>>>(
+    kern<<<(unsigned)blocks, MMA_THREADS, bytes, stream>>>(
         static_cast<const __nv_bfloat16*>(q),
         static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v),
-        static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), Sq, Skv,
-        H, Hkv, q_offset, causal, scale);
+        static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), B, Sq,
+        Skv, H, Hkv, q_offset, causal, scale);
     return (int)cudaGetLastError();
 }
 
@@ -516,11 +564,12 @@ int launch(const void* q, const void* k, const void* v, void* out,
            int causal, float scale, cudaStream_t stream) {
     auto kern = flash_fwd_kernel<T, D, DV>;
     constexpr size_t bytes = Smem<D, DV>::BYTES;
+    const long long blocks = (long long)((Sq + BQ - 1) / BQ) * H * B;
+    if (blocks > MAX_BLOCKS) return -1;
     static bool configured = false;
     const cudaError_t e = allow_smem(kern, bytes, configured);
     if (e != cudaSuccess) return (int)e;
-    const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-    kern<<<grid, THREADS, bytes, stream>>>(
+    kern<<<(unsigned)blocks, THREADS, bytes, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(out),
         static_cast<float*>(lse), Sq, Skv, H, Hkv, q_offset, causal, scale);
@@ -546,6 +595,7 @@ int dispatch(int D, int Dv, const void* q, const void* k, const void* v,
     FLASH_CASE(192, 128)
     FLASH_CASE(96, 64)
     FLASH_CASE(80, 80)
+    FLASH_CASE(256, 256)
 #undef FLASH_CASE
     return -1;
 }
@@ -557,15 +607,16 @@ int dispatch(int D, int Dv, const void* q, const void* k, const void* v,
 // out (B, Sq, H, Dv) in the inputs' type and lse (B, H, Sq) fp32; for
 // bf16, q, k, v and out 16-byte aligned (the tensor-core kernel's
 // cp.async copies).  Returns the launch's cudaGetLastError() (0 on
-// success), or -1 on arguments the kernels do not take (the Python wrapper
-// checks first and raises).
+// success), or -1 on arguments the kernels do not take: a pair that is no
+// instance, or more than 2^31 - 1 blocks (the Python wrapper pads to an
+// instance, checks first and raises).
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 void* out, void* lse, int dtype, int B,
                                 int Sq, int Skv, int H, int Hkv, int D,
                                 int Dv, int q_offset, int causal, float scale,
                                 void* stream) {
-    if (B < 1 || B > 65535 || H < 1 || H > 65535 || Hkv < 1 || H % Hkv ||
-        Sq < 1 || Skv < 1 || q_offset < 0)
+    if (B < 1 || H < 1 || Hkv < 1 || H % Hkv || Sq < 1 || Skv < 1 ||
+        q_offset < 0)
         return -1;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (dtype == 0)
@@ -576,7 +627,7 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                               reinterpret_cast<uintptr_t>(k) |
                               reinterpret_cast<uintptr_t>(v) |
                               reinterpret_cast<uintptr_t>(out);
-        if (any % 16 || (Sq + MMA_BQ - 1) / MMA_BQ > 65535) return -1;
+        if (any % 16) return -1;
         return dispatch<true>(D, Dv, q, k, v, out, lse, B, Sq, Skv, H, Hkv,
                               q_offset, causal, scale, st);
     }

@@ -37,12 +37,28 @@
 // at D = Dv (FA2's count), against q + k + v + out + dout + dq + dk + dv
 // bytes plus lse and delta.
 //
-// Head dims as in flash_attention.cu, (192, 128), (96, 64) and (80, 80)
-// included.  At D > 128 the tensor-core dq pass computes each 64-row kv
-// tile in two 32-row halves (kv_halves), and at D + DV > 256 the dk / dv
-// pass sweeps its q tiles twice (dkv_split): (192, 128) then takes 245
-// (dq) and 241 (dk / dv) registers a thread, no spills (ptxas -v, nvcc
-// 12.9), with the shared memory of one sweep.
+// Head dims as in flash_attention.cu, (192, 128), (96, 64), (80, 80) and
+// (256, 256) included; any other pair up to 256 runs zero-padded on the
+// instance that dominates it (the wrapper pads q, k, v, out and dout and
+// drops the gradients' extra columns, which are zero; lse and delta are
+// unchanged by zero columns).  At D > 128 the tensor-core dq pass computes
+// each 64-row kv tile in two 32-row halves (kv_halves), and at D + DV >
+// 256 the dk / dv pass sweeps its q tiles twice (dkv_sweeps): (192, 128)
+// then takes 245 (dq) and 241 (dk / dv) registers a thread, no spills
+// (ptxas -v, nvcc 12.9), with the shared memory of one sweep.  At (256,
+// 256) the tiles of the layouts above would need 270,336 (dq) and 271,360
+// (dk / dv) bytes of shared memory: there the dq pass takes 32-row kv
+// tiles (dq_bkv) and the dk / dv pass 32-row q tiles (dkv_bq), 202,752 and
+// 203,264 bytes, and the dk / dv pass sweeps four times, each sweep
+// holding half of dV's or dK's columns (64 accumulator registers, as at
+// head dim 128).  The fp32 kernels there hold one kv (dq pass) or one q /
+// dO (dk / dv pass) tile at a time, loading each operand when its product
+// runs (dkv_share / dq_share), within 232,448 bytes.
+//
+// Every grid is one-dimensional: block i is the (x, y, z) block of the
+// three-dimensional grid described below, unfolded from i in the order
+// such a grid launches, so B, H and the tile count are bounded only by
+// their product (< 2^31).
 //
 // For bf16 inputs both passes run on the tensor cores (m16n8k16 bf16
 // mma.sync, fp32 accumulation), in blocks of 8 warps (256 threads), with
@@ -160,13 +176,32 @@ __device__ __forceinline__ void tile_dot(float (&acc)[4][4], const float* A,
     }
 }
 
+constexpr size_t MAX_SMEM = 232448;   // an H100 block's opt-in
+
+// the fp32 passes' layouts; where every tile at once would not fit a
+// block's shared memory (head dim 256), K and V (dq pass) or q and dO (dk /
+// dv pass) take turns in one buffer of the wider row
+template <int D, int DV>
+__host__ __device__ constexpr bool dq_share() {
+    return (size_t)(2 * BQ * (D + DV + 2) + BQ * (BK + 1)) * sizeof(float)
+        > MAX_SMEM;
+}
+
+template <int D, int DV>
+__host__ __device__ constexpr bool dkv_share() {
+    return (size_t)(2 * BK * (D + DV + 2) + 2 * BQ * (BK + 1)) *
+        sizeof(float) > MAX_SMEM;
+}
+
 template <int D, int DV>
 struct DqSmem {
     static constexpr int Q_OFF = 0;
     static constexpr int DO_OFF = Q_OFF + BQ * (D + 1);
     static constexpr int K_OFF = DO_OFF + BQ * (DV + 1);
-    static constexpr int V_OFF = K_OFF + BK * (D + 1);
-    static constexpr int DS_OFF = V_OFF + BK * (DV + 1);
+    static constexpr int V_OFF = dq_share<D, DV>() ? K_OFF
+                                                   : K_OFF + BK * (D + 1);
+    static constexpr int DS_OFF = dq_share<D, DV>()
+        ? K_OFF + BK * ((D > DV ? D : DV) + 1) : V_OFF + BK * (DV + 1);
     static constexpr size_t BYTES =
         (size_t)(DS_OFF + BQ * (BK + 1)) * sizeof(float);
 };
@@ -176,8 +211,10 @@ struct DkvSmem {
     static constexpr int K_OFF = 0;
     static constexpr int V_OFF = K_OFF + BK * (D + 1);
     static constexpr int Q_OFF = V_OFF + BK * (DV + 1);
-    static constexpr int DO_OFF = Q_OFF + BQ * (D + 1);
-    static constexpr int P_OFF = DO_OFF + BQ * (DV + 1);
+    static constexpr int DO_OFF = dkv_share<D, DV>() ? Q_OFF
+                                                     : Q_OFF + BQ * (D + 1);
+    static constexpr int P_OFF = dkv_share<D, DV>()
+        ? Q_OFF + BQ * ((D > DV ? D : DV) + 1) : DO_OFF + BQ * (DV + 1);
     static constexpr int DS_OFF = P_OFF + BQ * (BK + 1);
     static constexpr size_t BYTES =
         (size_t)(DS_OFF + BQ * (BK + 1)) * sizeof(float);
@@ -192,6 +229,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     float* __restrict__ dq, int Sq, int Skv, int H, int Hkv,
                     int q_offset, int causal, float scale) {
     using S = DqSmem<D, DV>;
+    constexpr bool SHARE = dq_share<D, DV>();
     constexpr int NC = D / 16;           // dq columns per thread
     constexpr int NV = DV / 16;
     extern __shared__ float smem[];
@@ -202,8 +240,10 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* dSs = smem + S::DS_OFF;
 
     const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-    const int q0 = blockIdx.x * BQ;
-    const int h = blockIdx.y, b = blockIdx.z;
+    // block (q tile, head, batch), q tiles fastest
+    const int n_qt = (Sq + BQ - 1) / BQ;
+    const int q0 = (int)(blockIdx.x % n_qt) * BQ;
+    const int h = (int)(blockIdx.x / n_qt % H), b = (int)(blockIdx.x / n_qt / H);
     const int hk = h / (H / Hkv);
     const long long q_row = (long long)H * D;      // element strides of a
     const long long o_row = (long long)H * DV;     // sequence position
@@ -248,13 +288,22 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int kv_end = causal ? min(Skv, q_offset + q0 + BQ) : Skv;
     for (int k0 = 0; k0 < kv_end; k0 += BK) {
         __syncthreads();                 // previous tile fully consumed
-        load_tile<D, BK>(Ks, kb, k_row, k0, Skv, 1.f);
-        load_tile<DV, BK>(Vs, vb, v_row, k0, Skv, 1.f);
-        __syncthreads();
-
         float s[4][4], dp[4][4];
-        tile_dot<D>(s, Qs, Ks, ty, tx);
-        tile_dot<DV>(dp, dOs, Vs, ty, tx);
+        if constexpr (SHARE) {           // V, then K in its place
+            load_tile<DV, BK>(Vs, vb, v_row, k0, Skv, 1.f);
+            __syncthreads();
+            tile_dot<DV>(dp, dOs, Vs, ty, tx);
+            __syncthreads();
+            load_tile<D, BK>(Ks, kb, k_row, k0, Skv, 1.f);
+            __syncthreads();
+            tile_dot<D>(s, Qs, Ks, ty, tx);
+        } else {
+            load_tile<D, BK>(Ks, kb, k_row, k0, Skv, 1.f);
+            load_tile<DV, BK>(Vs, vb, v_row, k0, Skv, 1.f);
+            __syncthreads();
+            tile_dot<D>(s, Qs, Ks, ty, tx);
+            tile_dot<DV>(dp, dOs, Vs, ty, tx);
+        }
         #pragma unroll
         for (int i = 0; i < 4; ++i) {
             const int r = ty + 16 * i;
@@ -303,6 +352,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      float* __restrict__ dv, int Sq, int Skv, int H, int Hkv,
                      int q_offset, int causal, float scale) {
     using S = DkvSmem<D, DV>;
+    constexpr bool SHARE = dkv_share<D, DV>();
     constexpr int NC = D / 16;           // dk columns per thread
     constexpr int NV = DV / 16;          // dv columns per thread
     extern __shared__ float smem[];
@@ -314,8 +364,11 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* dSs = smem + S::DS_OFF;
 
     const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-    const int k0 = blockIdx.x * BK;
-    const int hk = blockIdx.y, b = blockIdx.z;
+    // block (kv tile, kv head, batch), kv tiles fastest
+    const int n_kt = (Skv + BK - 1) / BK;
+    const int k0 = (int)(blockIdx.x % n_kt) * BK;
+    const int hk = (int)(blockIdx.x / n_kt % Hkv);
+    const int b = (int)(blockIdx.x / n_kt / Hkv);
     const int G = H / Hkv;
     const long long q_row = (long long)H * D;
     const long long o_row = (long long)H * DV;
@@ -347,13 +400,22 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const long long stat = ((long long)b * H + h) * Sq;
         for (int q0 = q_first; q0 < Sq; q0 += BQ) {
             __syncthreads();             // previous tiles fully consumed
-            load_tile<D, BQ>(Qs, qb, q_row, q0, Sq, scale);
-            load_tile<DV, BQ>(dOs, ob, o_row, q0, Sq, 1.f);
-            __syncthreads();
-
             float s[4][4], dp[4][4];
-            tile_dot<D>(s, Qs, Ks, ty, tx);
-            tile_dot<DV>(dp, dOs, Vs, ty, tx);
+            if constexpr (SHARE) {       // dO, then q in its place
+                load_tile<DV, BQ>(dOs, ob, o_row, q0, Sq, 1.f);
+                __syncthreads();
+                tile_dot<DV>(dp, dOs, Vs, ty, tx);
+                __syncthreads();
+                load_tile<D, BQ>(Qs, qb, q_row, q0, Sq, scale);
+                __syncthreads();
+                tile_dot<D>(s, Qs, Ks, ty, tx);
+            } else {
+                load_tile<D, BQ>(Qs, qb, q_row, q0, Sq, scale);
+                load_tile<DV, BQ>(dOs, ob, o_row, q0, Sq, 1.f);
+                __syncthreads();
+                tile_dot<D>(s, Qs, Ks, ty, tx);
+                tile_dot<DV>(dp, dOs, Vs, ty, tx);
+            }
             #pragma unroll
             for (int i = 0; i < 4; ++i) {
                 const int r = ty + 16 * i, sq = q0 + r;
@@ -373,6 +435,42 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
             }
             __syncthreads();
 
+            if constexpr (SHARE) {
+                // dk from q, then dO back in its place for dv: each sum
+                // takes its terms in the order the loop below takes them
+                #pragma unroll 4
+                for (int r = 0; r < BQ; ++r) {
+                    float ds[4];
+                    #pragma unroll
+                    for (int i = 0; i < 4; ++i)
+                        ds[i] = dSs[r * (BK + 1) + ty + 16 * i];
+                    #pragma unroll
+                    for (int c = 0; c < NC; ++c) {
+                        const float qq = Qs[r * (D + 1) + tx + 16 * c];
+                        #pragma unroll
+                        for (int i = 0; i < 4; ++i)
+                            dk_acc[i][c] = fmaf(ds[i], qq, dk_acc[i][c]);
+                    }
+                }
+                __syncthreads();
+                load_tile<DV, BQ>(dOs, ob, o_row, q0, Sq, 1.f);
+                __syncthreads();
+                #pragma unroll 4
+                for (int r = 0; r < BQ; ++r) {
+                    float p[4];
+                    #pragma unroll
+                    for (int i = 0; i < 4; ++i)
+                        p[i] = Ps[r * (BK + 1) + ty + 16 * i];
+                    #pragma unroll
+                    for (int c = 0; c < NV; ++c) {
+                        const float o = dOs[r * (DV + 1) + tx + 16 * c];
+                        #pragma unroll
+                        for (int i = 0; i < 4; ++i)
+                            dv_acc[i][c] = fmaf(p[i], o, dv_acc[i][c]);
+                    }
+                }
+                continue;
+            }
             // dv[kv row][c] += sum_q p[q][kv row] dO[q][c]; dk likewise
             // with ds and the pre-scaled q
             #pragma unroll 4
@@ -422,6 +520,13 @@ constexpr int MMA_BKV = 128;        // kv rows per block, 16 per warp
 constexpr int MMA_BQ = 64;          // q rows per tile, two halves of 32
 constexpr int MMA_THREADS = 256;    // 8 warps
 
+// q rows per tile of the dk / dv pass: 32 (one half) at (256, 256), where
+// two 64-row q and dO tiles beside K and V would take 271,360 bytes
+template <int D, int DV>
+__host__ __device__ constexpr int dkv_bq() {
+    return D + DV > 384 ? 32 : MMA_BQ;
+}
+
 // sub-tiles the dq pass computes a kv tile in: 2 at D > 128, where dQ's
 // accumulators (D / 2 registers a thread) leave too few registers for a
 // whole tile's scores, dP and dS fragments; 1 (the whole tile) below
@@ -433,11 +538,12 @@ struct DkvMmaSmem {                 // byte offsets; bf16 rows padded by 8
     static constexpr int VS = DV + 8;         // v and dO rows
     static constexpr int K_OFF = 0;
     static constexpr int V_OFF = K_OFF + MMA_BKV * KS * 2;
+    static constexpr int BQT = dkv_bq<D, DV>();
     static constexpr int Q_OFF = V_OFF + MMA_BKV * VS * 2;      // 2 buffers
-    static constexpr int DO_OFF = Q_OFF + 2 * MMA_BQ * KS * 2;  // 2 buffers
-    static constexpr int LSE_OFF = DO_OFF + 2 * MMA_BQ * VS * 2;
-    static constexpr int DELTA_OFF = LSE_OFF + 2 * MMA_BQ * 4;
-    static constexpr size_t BYTES = DELTA_OFF + 2 * MMA_BQ * 4;
+    static constexpr int DO_OFF = Q_OFF + 2 * BQT * KS * 2;     // 2 buffers
+    static constexpr int LSE_OFF = DO_OFF + 2 * BQT * VS * 2;
+    static constexpr int DELTA_OFF = LSE_OFF + 2 * BQT * 4;
+    static constexpr size_t BYTES = DELTA_OFF + 2 * BQT * 4;
 };
 
 // dk / dv pass, split at (D + DV) > 256: each warp's fp32 dK and dV
@@ -450,23 +556,31 @@ struct DkvMmaSmem {                 // byte offsets; bf16 rows padded by 8
 // (1.3x at (192, 128)), and each value is computed from the same operands
 // in the same order as in one sweep, so the roundings are those of the
 // unsplit kernel.  (Fewer warps per block would not help: a warp's 16 kv
-// rows hold the same accumulators whatever the block's size.)
+// rows hold the same accumulators whatever the block's size.)  At (256,
+// 256) dV's and dK's accumulators take 128 registers each, so the block
+// sweeps four times, for dV's and then dK's two column halves (64 each).
 template <int D, int DV>
-__host__ __device__ constexpr bool dkv_split() { return D + DV > 256; }
+__host__ __device__ constexpr int dkv_sweeps() {
+    return D + DV > 384 ? 4 : D + DV > 256 ? 2 : 1;
+}
 
-// One sweep of a dk / dv block over its (head of the group, q tile)
-// pairs, accumulating dK (DO_DK) and / or dV (DO_DV) and storing them.
-// K and V are in flight in shared memory (committed with the first q
-// tile's copies); the caller syncs the block between two sweeps.
-template <int D, int DV, bool DO_DK, bool DO_DV>
+// One sweep of a dk / dv block (kv head hk, batch b, kv rows from k0) over
+// its (head of the group, q tile) pairs, accumulating the NK columns of
+// dK from column K0 and the NV columns of dV from V0 (none where 0) and
+// storing them.  K and V are in flight in shared memory (committed with
+// the first q tile's copies); the caller syncs the block between two
+// sweeps.
+template <int D, int DV, int K0, int NK, int V0, int NV>
 __device__ __forceinline__ void dkv_sweep(
         const __nv_bfloat16* __restrict__ q,
         const __nv_bfloat16* __restrict__ dout,
         const float* __restrict__ lse, const float* __restrict__ delta,
         __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-        unsigned char* smem_raw, int Sq, int Skv, int H, int Hkv,
-        int q_offset, int causal, float scale) {
+        unsigned char* smem_raw, int hk, int b, int k0, int Sq, int Skv,
+        int H, int Hkv, int q_offset, int causal, float scale) {
     using S = DkvMmaSmem<D, DV>;
+    constexpr bool DO_DK = NK > 0, DO_DV = NV > 0;
+    constexpr int BQT = S::BQT;
     const uint32_t base = tc::smem_addr(smem_raw);
     const uint32_t sK = base + S::K_OFF, sV = base + S::V_OFF;
     const uint32_t sQ = base + S::Q_OFF, sO = base + S::DO_OFF;
@@ -477,8 +591,6 @@ __device__ __forceinline__ void dkv_sweep(
 
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int g = lane >> 2, t = lane & 3;
-    const int hk = blockIdx.x, b = blockIdx.y;
-    const int k0 = blockIdx.z * MMA_BKV;
     const int G = H / Hkv;
     const long long q_row = (long long)H * D;
     const long long o_row = (long long)H * DV;
@@ -489,44 +601,44 @@ __device__ __forceinline__ void dkv_sweep(
 
     // q tiles whose last row lies before this KV tile are fully masked
     int q_first = 0;
-    if (causal && k0 > q_offset) q_first = ((k0 - q_offset) / MMA_BQ) * MMA_BQ;
-    const int nq = q_first < Sq ? (Sq - q_first + MMA_BQ - 1) / MMA_BQ : 0;
+    if (causal && k0 > q_offset) q_first = ((k0 - q_offset) / BQT) * BQT;
+    const int nq = q_first < Sq ? (Sq - q_first + BQT - 1) / BQT : 0;
     const int n_it = G * nq;             // (head of the group, q tile) pairs
 
     auto load_q = [&](int it, int buf) {
         const int h = hk * G + it / nq;
-        const int q0 = q_first + (it % nq) * MMA_BQ;
+        const int q0 = q_first + (it % nq) * BQT;
         const long long qb = (long long)b * Sq * q_row + (long long)h * D;
         const long long ob = (long long)b * Sq * o_row + (long long)h * DV;
         const long long stat = ((long long)b * H + h) * Sq;
-        const uint32_t dq_ = sQ + buf * MMA_BQ * S::KS * 2;
-        const uint32_t do_ = sO + buf * MMA_BQ * S::VS * 2;
-        for (int i = tid; i < MMA_BQ * (D / 8); i += MMA_THREADS) {
+        const uint32_t dq_ = sQ + buf * BQT * S::KS * 2;
+        const uint32_t do_ = sO + buf * BQT * S::VS * 2;
+        for (int i = tid; i < BQT * (D / 8); i += MMA_THREADS) {
             const int r = i / (D / 8), c = (i % (D / 8)) * 8, s = q0 + r;
             const bool in = s < Sq;
             tc::cp_async16(dq_ + (r * S::KS + c) * 2,
                            q + qb + (in ? s : 0) * q_row + c, in);
         }
-        for (int i = tid; i < MMA_BQ * (DV / 8); i += MMA_THREADS) {
+        for (int i = tid; i < BQT * (DV / 8); i += MMA_THREADS) {
             const int r = i / (DV / 8), c = (i % (DV / 8)) * 8, s = q0 + r;
             const bool in = s < Sq;
             tc::cp_async16(do_ + (r * S::VS + c) * 2,
                            dout + ob + (in ? s : 0) * o_row + c, in);
         }
-        if (tid < 2 * MMA_BQ) {
-            const int r = tid % MMA_BQ, s = q0 + r;
+        if (tid < 2 * BQT) {
+            const int r = tid % BQT, s = q0 + r;
             const bool in = s < Sq;
-            const float* src = tid < MMA_BQ ? lse : delta;
-            const uint32_t dst = tid < MMA_BQ ? sL : sD;
-            tc::cp_async4(dst + (buf * MMA_BQ + r) * 4,
+            const float* src = tid < BQT ? lse : delta;
+            const uint32_t dst = tid < BQT ? sL : sD;
+            tc::cp_async4(dst + (buf * BQT + r) * 4,
                           src + stat + (in ? s : 0), in);
         }
     };
     if (n_it > 0) load_q(0, 0);
     tc::cp_async_commit();               // with K and V in the first sweep
 
-    constexpr int NKA = DO_DK ? D / 8 : 1;       // accumulator n-tiles
-    constexpr int NVA = DO_DV ? DV / 8 : 1;
+    constexpr int NKA = DO_DK ? NK / 8 : 1;      // accumulator n-tiles
+    constexpr int NVA = DO_DV ? NV / 8 : 1;
     float dka[NKA][4], dva[NVA][4];
     #pragma unroll
     for (int n = 0; n < NKA; ++n) dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
@@ -549,14 +661,14 @@ __device__ __forceinline__ void dkv_sweep(
             tc::cp_async_wait<0>();
         }
         __syncthreads();
-        const int q0 = q_first + (it % nq) * MMA_BQ;
+        const int q0 = q_first + (it % nq) * BQT;
         const int buf = it & 1;
-        const uint32_t qt = sQ + buf * MMA_BQ * S::KS * 2;
-        const uint32_t ot = sO + buf * MMA_BQ * S::VS * 2;
-        const float* lt = lse_s + buf * MMA_BQ;
-        const float* dt = delta_s + buf * MMA_BQ;
+        const uint32_t qt = sQ + buf * BQT * S::KS * 2;
+        const uint32_t ot = sO + buf * BQT * S::VS * 2;
+        const float* lt = lse_s + buf * BQT;
+        const float* dt = delta_s + buf * BQT;
         #pragma unroll
-        for (int half = 0; half < 2; ++half) {
+        for (int half = 0; half < BQT / 32; ++half) {
             const int qs = 32 * half;
             const int qpos = q_offset + q0 + qs;   // the half's first q row
             // every kv row of this warp after every q row: all masked
@@ -611,10 +723,10 @@ __device__ __forceinline__ void dkv_sweep(
                 #pragma unroll
                 for (int kc = 0; kc < 2; ++kc) {
                     #pragma unroll
-                    for (int np = 0; np < DV / 16; ++np) {
+                    for (int np = 0; np < NV / 16; ++np) {
                         uint32_t orr[4];
                         tc::ldsm_x4_trans(orr, ot + ((qs + kc * 16 + tc::a_row(lane)) *
-                                                     S::VS + np * 16 +
+                                                     S::VS + V0 + np * 16 +
                                                      tc::a_col(lane)) * 2);
                         tc::mma_bf16(dva[2 * np], pa[kc], orr[0], orr[1]);
                         tc::mma_bf16(dva[2 * np + 1], pa[kc], orr[2], orr[3]);
@@ -654,10 +766,10 @@ __device__ __forceinline__ void dkv_sweep(
                 #pragma unroll
                 for (int kc = 0; kc < 2; ++kc) {
                     #pragma unroll
-                    for (int np = 0; np < D / 16; ++np) {
+                    for (int np = 0; np < NK / 16; ++np) {
                         uint32_t qr[4];
                         tc::ldsm_x4_trans(qr, qt + ((qs + kc * 16 + tc::a_row(lane)) *
-                                                    S::KS + np * 16 +
+                                                    S::KS + K0 + np * 16 +
                                                     tc::a_col(lane)) * 2);
                         tc::mma_bf16(dka[2 * np], da[kc], qr[0], qr[1]);
                         tc::mma_bf16(dka[2 * np + 1], da[kc], qr[2], qr[3]);
@@ -676,15 +788,15 @@ __device__ __forceinline__ void dkv_sweep(
         if constexpr (DO_DK) {
             __nv_bfloat16* kr = dk + kb + (long long)s * k_row;
             #pragma unroll
-            for (int n = 0; n < D / 8; ++n)
-                *reinterpret_cast<uint32_t*>(kr + n * 8 + 2 * t) = tc::pack_bf16(
+            for (int n = 0; n < NK / 8; ++n)
+                *reinterpret_cast<uint32_t*>(kr + K0 + n * 8 + 2 * t) = tc::pack_bf16(
                     dka[n][2 * half] * scale, dka[n][2 * half + 1] * scale);
         }
         if constexpr (DO_DV) {
             __nv_bfloat16* vr = dv + vb + (long long)s * v_row;
             #pragma unroll
-            for (int n = 0; n < DV / 8; ++n)
-                *reinterpret_cast<uint32_t*>(vr + n * 8 + 2 * t) = tc::pack_bf16(
+            for (int n = 0; n < NV / 8; ++n)
+                *reinterpret_cast<uint32_t*>(vr + V0 + n * 8 + 2 * t) = tc::pack_bf16(
                     dva[n][2 * half], dva[n][2 * half + 1]);
         }
     }
@@ -699,16 +811,17 @@ flash_bwd_dkv_kernel_mma(const __nv_bfloat16* __restrict__ q,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
                          __nv_bfloat16* __restrict__ dk,
-                         __nv_bfloat16* __restrict__ dv, int Sq, int Skv,
-                         int H, int Hkv, int q_offset, int causal,
+                         __nv_bfloat16* __restrict__ dv, int B, int Sq,
+                         int Skv, int H, int Hkv, int q_offset, int causal,
                          float scale) {
     using S = DkvMmaSmem<D, DV>;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const uint32_t base = tc::smem_addr(smem_raw);
     const uint32_t sK = base + S::K_OFF, sV = base + S::V_OFF;
     const int tid = threadIdx.x;
-    const int hk = blockIdx.x, b = blockIdx.y;
-    const int k0 = blockIdx.z * MMA_BKV;
+    // block (kv head, batch, kv tile), kv heads fastest
+    const int hk = (int)(blockIdx.x % Hkv), b = (int)(blockIdx.x / Hkv % B);
+    const int k0 = (int)(blockIdx.x / Hkv / B) * MMA_BKV;
     const long long k_row = (long long)Hkv * D;
     const long long v_row = (long long)Hkv * DV;
     const long long kb = (long long)b * Skv * k_row + (long long)hk * D;
@@ -727,18 +840,36 @@ flash_bwd_dkv_kernel_mma(const __nv_bfloat16* __restrict__ q,
         tc::cp_async16(sV + (r * S::VS + c) * 2,
                        v + vb + (in ? s : 0) * v_row + c, in);
     }
-    if constexpr (dkv_split<D, DV>()) {
-        dkv_sweep<D, DV, false, true>(q, dout, lse, delta, dk, dv, smem_raw,
-                                      Sq, Skv, H, Hkv, q_offset, causal,
-                                      scale);
+    if constexpr (dkv_sweeps<D, DV>() == 4) {
+        dkv_sweep<D, DV, 0, 0, 0, DV / 2>(q, dout, lse, delta, dk, dv,
+                                          smem_raw, hk, b, k0, Sq, Skv, H,
+                                          Hkv, q_offset, causal, scale);
         __syncthreads();
-        dkv_sweep<D, DV, true, false>(q, dout, lse, delta, dk, dv, smem_raw,
-                                      Sq, Skv, H, Hkv, q_offset, causal,
-                                      scale);
+        dkv_sweep<D, DV, 0, 0, DV / 2, DV / 2>(q, dout, lse, delta, dk, dv,
+                                               smem_raw, hk, b, k0, Sq, Skv,
+                                               H, Hkv, q_offset, causal,
+                                               scale);
+        __syncthreads();
+        dkv_sweep<D, DV, 0, D / 2, 0, 0>(q, dout, lse, delta, dk, dv,
+                                         smem_raw, hk, b, k0, Sq, Skv, H,
+                                         Hkv, q_offset, causal, scale);
+        __syncthreads();
+        dkv_sweep<D, DV, D / 2, D / 2, 0, 0>(q, dout, lse, delta, dk, dv,
+                                             smem_raw, hk, b, k0, Sq, Skv,
+                                             H, Hkv, q_offset, causal,
+                                             scale);
+    } else if constexpr (dkv_sweeps<D, DV>() == 2) {
+        dkv_sweep<D, DV, 0, 0, 0, DV>(q, dout, lse, delta, dk, dv, smem_raw,
+                                      hk, b, k0, Sq, Skv, H, Hkv, q_offset,
+                                      causal, scale);
+        __syncthreads();
+        dkv_sweep<D, DV, 0, D, 0, 0>(q, dout, lse, delta, dk, dv, smem_raw,
+                                     hk, b, k0, Sq, Skv, H, Hkv, q_offset,
+                                     causal, scale);
     } else {
-        dkv_sweep<D, DV, true, true>(q, dout, lse, delta, dk, dv, smem_raw,
-                                     Sq, Skv, H, Hkv, q_offset, causal,
-                                     scale);
+        dkv_sweep<D, DV, 0, D, 0, DV>(q, dout, lse, delta, dk, dv, smem_raw,
+                                      hk, b, k0, Sq, Skv, H, Hkv, q_offset,
+                                      causal, scale);
     }
 }
 
@@ -747,17 +878,22 @@ flash_bwd_dkv_kernel_mma(const __nv_bfloat16* __restrict__ q,
 // ---------------------------------------------------------------------------
 
 constexpr int DQ_BQ = 128;          // q rows per block, 16 per warp
-constexpr int DQ_BKV = 64;          // kv rows per tile
+
+// kv rows per tile of the dq pass: 32 at (256, 256), where two 64-row K
+// and V tiles beside q and dO would take 270,336 bytes; 64 below
+template <int D, int DV>
+__host__ __device__ constexpr int dq_bkv() { return D + DV > 384 ? 32 : 64; }
 
 template <int D, int DV>
 struct DqMmaSmem {                  // byte offsets; bf16 rows padded by 8
+    static constexpr int BKV = dq_bkv<D, DV>();
     static constexpr int KS = D + 8;          // q and k rows
     static constexpr int VS = DV + 8;         // dO and v rows
     static constexpr int Q_OFF = 0;
     static constexpr int DO_OFF = Q_OFF + DQ_BQ * KS * 2;
     static constexpr int K_OFF = DO_OFF + DQ_BQ * VS * 2;
-    static constexpr int V_OFF = K_OFF + 2 * DQ_BKV * KS * 2;     // 2 buffers
-    static constexpr size_t BYTES = V_OFF + 2 * DQ_BKV * VS * 2;  // 2 buffers
+    static constexpr int V_OFF = K_OFF + 2 * BKV * KS * 2;     // 2 buffers
+    static constexpr size_t BYTES = V_OFF + 2 * BKV * VS * 2;  // 2 buffers
 };
 
 template <int D, int DV>
@@ -769,10 +905,11 @@ flash_bwd_dq_kernel_mma(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ dout,
                         const float* __restrict__ lse,
                         float* __restrict__ delta,
-                        __nv_bfloat16* __restrict__ dq, int Sq, int Skv,
-                        int H, int Hkv, int q_offset, int causal,
+                        __nv_bfloat16* __restrict__ dq, int B, int Sq,
+                        int Skv, int H, int Hkv, int q_offset, int causal,
                         float scale) {
     using S = DqMmaSmem<D, DV>;
+    constexpr int DQ_BKV = S::BKV;       // kv rows per tile
     // at D > 128 the kv tile is computed in two 32-row halves: the scores,
     // dP and dS fragments (16 + 16 + 8 registers, not 32 + 32 + 16) make
     // room for dQ's D / 2 accumulator registers
@@ -788,8 +925,11 @@ flash_bwd_dq_kernel_mma(const __nv_bfloat16* __restrict__ q,
 
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int g = lane >> 2, t = lane & 3;
-    const int h = blockIdx.x, b = blockIdx.y;
-    const int q0 = (gridDim.z - 1 - blockIdx.z) * DQ_BQ;   // heaviest first
+    // block (head, batch, q tile), heads fastest; the q tiles in reverse,
+    // heaviest first
+    const int h = (int)(blockIdx.x % H), b = (int)(blockIdx.x / H % B);
+    const int n_qt = (Sq + DQ_BQ - 1) / DQ_BQ;
+    const int q0 = (n_qt - 1 - (int)(blockIdx.x / H / B)) * DQ_BQ;
     const int hk = h / (H / Hkv);
     const long long q_row = (long long)H * D;      // element strides of a
     const long long o_row = (long long)H * DV;     // sequence position
@@ -999,15 +1139,19 @@ struct Args {
     float scale;
 };
 
+// a one-dimensional grid's limit
+constexpr long long MAX_BLOCKS = 0x7fffffffLL;
+
 template <int D, int DV>
 int launch_dq(const Args& a, cudaStream_t st) {
     auto kern = flash_bwd_dq_kernel<D, DV>;
     constexpr size_t bytes = DqSmem<D, DV>::BYTES;
+    const long long blocks = (long long)((a.Sq + BQ - 1) / BQ) * a.H * a.B;
+    if (blocks > MAX_BLOCKS) return -1;
     static bool configured = false;
     const cudaError_t e = allow_smem(kern, bytes, configured);
     if (e != cudaSuccess) return (int)e;
-    const dim3 grid((a.Sq + BQ - 1) / BQ, a.H, a.B);
-    kern<<<grid, THREADS, bytes, st>>>(
+    kern<<<(unsigned)blocks, THREADS, bytes, st>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<const float*>(a.out),
         static_cast<const float*>(a.dout), static_cast<const float*>(a.lse),
@@ -1020,11 +1164,13 @@ template <int D, int DV>
 int launch_dkv(const Args& a, cudaStream_t st) {
     auto kern = flash_bwd_dkv_kernel<D, DV>;
     constexpr size_t bytes = DkvSmem<D, DV>::BYTES;
+    const long long blocks =
+        (long long)((a.Skv + BK - 1) / BK) * a.Hkv * a.B;
+    if (blocks > MAX_BLOCKS) return -1;
     static bool configured = false;
     const cudaError_t e = allow_smem(kern, bytes, configured);
     if (e != cudaSuccess) return (int)e;
-    const dim3 grid((a.Skv + BK - 1) / BK, a.Hkv, a.B);
-    kern<<<grid, THREADS, bytes, st>>>(
+    kern<<<(unsigned)blocks, THREADS, bytes, st>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
@@ -1037,18 +1183,20 @@ template <int D, int DV>
 int launch_dq_mma(const Args& a, cudaStream_t st) {
     auto kern = flash_bwd_dq_kernel_mma<D, DV>;
     constexpr size_t bytes = DqMmaSmem<D, DV>::BYTES;
+    const long long blocks =
+        (long long)a.H * a.B * ((a.Sq + DQ_BQ - 1) / DQ_BQ);
+    if (blocks > MAX_BLOCKS) return -1;
     static bool configured = false;
     const cudaError_t e = allow_smem(kern, bytes, configured);
     if (e != cudaSuccess) return (int)e;
-    const dim3 grid(a.H, a.B, (a.Sq + DQ_BQ - 1) / DQ_BQ);
-    kern<<<grid, MMA_THREADS, bytes, st>>>(
+    kern<<<(unsigned)blocks, MMA_THREADS, bytes, st>>>(
         static_cast<const __nv_bfloat16*>(a.q),
         static_cast<const __nv_bfloat16*>(a.k),
         static_cast<const __nv_bfloat16*>(a.v),
         static_cast<const __nv_bfloat16*>(a.out),
         static_cast<const __nv_bfloat16*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<float*>(a.delta),
-        static_cast<__nv_bfloat16*>(a.dq), a.Sq, a.Skv, a.H, a.Hkv,
+        static_cast<__nv_bfloat16*>(a.dq), a.B, a.Sq, a.Skv, a.H, a.Hkv,
         a.q_offset, a.causal, a.scale);
     return (int)cudaGetLastError();
 }
@@ -1057,18 +1205,20 @@ template <int D, int DV>
 int launch_dkv_mma(const Args& a, cudaStream_t st) {
     auto kern = flash_bwd_dkv_kernel_mma<D, DV>;
     constexpr size_t bytes = DkvMmaSmem<D, DV>::BYTES;
+    const long long blocks =
+        (long long)a.Hkv * a.B * ((a.Skv + MMA_BKV - 1) / MMA_BKV);
+    if (blocks > MAX_BLOCKS) return -1;
     static bool configured = false;
     const cudaError_t e = allow_smem(kern, bytes, configured);
     if (e != cudaSuccess) return (int)e;
-    const dim3 grid(a.Hkv, a.B, (a.Skv + MMA_BKV - 1) / MMA_BKV);
-    kern<<<grid, MMA_THREADS, bytes, st>>>(
+    kern<<<(unsigned)blocks, MMA_THREADS, bytes, st>>>(
         static_cast<const __nv_bfloat16*>(a.q),
         static_cast<const __nv_bfloat16*>(a.k),
         static_cast<const __nv_bfloat16*>(a.v),
         static_cast<const __nv_bfloat16*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
         static_cast<__nv_bfloat16*>(a.dk), static_cast<__nv_bfloat16*>(a.dv),
-        a.Sq, a.Skv, a.H, a.Hkv, a.q_offset, a.causal, a.scale);
+        a.B, a.Sq, a.Skv, a.H, a.Hkv, a.q_offset, a.causal, a.scale);
     return (int)cudaGetLastError();
 }
 
@@ -1089,14 +1239,15 @@ int dispatch(bool dq_pass, int D, int Dv, const Args& a, cudaStream_t st) {
     FLASH_BWD_CASE(192, 128)
     FLASH_BWD_CASE(96, 64)
     FLASH_BWD_CASE(80, 80)
+    FLASH_BWD_CASE(256, 256)
 #undef FLASH_BWD_CASE
     return -1;
 }
 
 int run(bool dq_pass, int dtype, int D, int Dv, const Args& a,
         void* stream) {
-    if (a.B < 1 || a.B > 65535 || a.H < 1 || a.H > 65535 || a.Hkv < 1 ||
-        a.H % a.Hkv || a.Sq < 1 || a.Skv < 1 || a.q_offset < 0)
+    if (a.B < 1 || a.H < 1 || a.Hkv < 1 || a.H % a.Hkv || a.Sq < 1 ||
+        a.Skv < 1 || a.q_offset < 0)
         return -1;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (dtype == 0) return dispatch<false>(dq_pass, D, Dv, a, st);
@@ -1109,9 +1260,7 @@ int run(bool dq_pass, int dtype, int D, int Dv, const Args& a,
                               reinterpret_cast<uintptr_t>(a.dq) |
                               reinterpret_cast<uintptr_t>(a.dk) |
                               reinterpret_cast<uintptr_t>(a.dv);
-        const int tiles = dq_pass ? (a.Sq + DQ_BQ - 1) / DQ_BQ
-                                  : (a.Skv + MMA_BKV - 1) / MMA_BKV;
-        if (any % 16 || tiles > 65535) return -1;
+        if (any % 16) return -1;
         return dispatch<true>(dq_pass, D, Dv, a, st);
     }
     return -1;
@@ -1127,8 +1276,9 @@ int run(bool dq_pass, int dtype, int D, int Dv, const Args& a,
 // in both passes.  The dq pass writes dq and delta; the dkv pass reads
 // delta and must run after it on the same stream.  Each
 // returns the launch's cudaGetLastError() (0 on success), or -1 on
-// arguments the kernels do not take (the Python wrapper checks first and
-// raises).
+// arguments the kernels do not take: a pair that is no instance, or more
+// than 2^31 - 1 blocks (the Python wrapper pads to an instance, checks
+// first and raises).
 extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
                                    const void* v, const void* out,
                                    const void* dout, const void* lse,

@@ -31,7 +31,14 @@
 // in a D-float shared-memory row that no other thread touches.  Per row:
 // one pass reduces sum x^2 and sum dy * scale * x together (one two-value
 // block reduction), a second pass (from L1/L2) writes dx.  Bound: bytes,
-// 3*R*D*elt (x, dy read, dx written) + D*elt + the partial rows.
+// 3*R*D*elt (x, dy read, dx written) + D*elt + the partial rows.  Above
+// D = 12,032 (SMEM_MAX_D) that row would pass the 48 KB a block gets
+// without an opt-in: there (GLOBAL_ACC) each thread sums its columns
+// straight into the block's partial row in device memory, which no other
+// thread touches either, in the same order (row by row, fmaf from 0), so
+// any D is taken, the sums are the same and the partial rows, their
+// number and their order do not change.  The row's reads and writes stay
+// in L2 (D * 4 bytes a block).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -147,17 +154,21 @@ __device__ __forceinline__ float2 block_sum2(float a, float b, float* red) {
                        red[2 * (MAX_THREADS / 32) + 1]);
 }
 
-template <typename T, int VEC>
+constexpr int SMEM_MAX_D = 12032;    // a partial row in 48 KB of shared memory
+
+template <typename T, int VEC, bool GLOBAL_ACC>
 __global__ void __launch_bounds__(MAX_THREADS)
 rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ scale,
                    const T* __restrict__ dy, T* __restrict__ dx,
                    float* __restrict__ dscale_part, long long rows,
                    int rows_per_block, int D, float eps) {
-    extern __shared__ float ds_acc[];    // this block's partial dscale row
+    extern __shared__ float ds_smem[];   // this block's partial dscale row
     __shared__ float red[2 * (MAX_THREADS / 32 + 1)];
     using P = Pack<T, VEC>;
     const P* sr = reinterpret_cast<const P*>(scale);
     const int n_vec = D / VEC;
+    float* part = dscale_part + (long long)blockIdx.x * D;
+    float* ds_acc = GLOBAL_ACC ? part : ds_smem;
     for (int i = threadIdx.x; i < n_vec; i += blockDim.x)
         #pragma unroll
         for (int e = 0; e < VEC; ++e) ds_acc[i * VEC + e] = 0.f;
@@ -195,7 +206,7 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ scale,
             dr[i] = o;
         }
     }
-    float* part = dscale_part + (long long)blockIdx.x * D;
+    if (GLOBAL_ACC) return;              // the sums are in place
     for (int i = threadIdx.x; i < n_vec; i += blockDim.x)
         #pragma unroll
         for (int e = 0; e < VEC; ++e) part[i * VEC + e] = ds_acc[i * VEC + e];
@@ -234,20 +245,31 @@ int launch_bwd(const void* x, const void* scale, const void* dy, void* dx,
     int threads = ((n_vec + 31) / 32) * 32;
     if (threads > MAX_THREADS) threads = MAX_THREADS;
     const long long blocks = (rows + rows_per_block - 1) / rows_per_block;
-    const size_t smem = (size_t)D * sizeof(float);
+    const bool global_acc = D > SMEM_MAX_D;
+    const size_t smem = global_acc ? 0 : (size_t)D * sizeof(float);
     const T* xt = static_cast<const T*>(x);
     const T* st = static_cast<const T*>(scale);
     const T* gt = static_cast<const T*>(dy);
     T* dt = static_cast<T*>(dx);
     float* pt = static_cast<float*>(dscale_part);
-    if (vec)
-        rmsnorm_bwd_kernel<T, VEC><<<(unsigned)blocks, threads, smem,
-                                     stream>>>(xt, st, gt, dt, pt, rows,
-                                               rows_per_block, D, eps);
+    if (vec && !global_acc)
+        rmsnorm_bwd_kernel<T, VEC, false><<<(unsigned)blocks, threads, smem,
+                                            stream>>>(xt, st, gt, dt, pt,
+                                                      rows, rows_per_block,
+                                                      D, eps);
+    else if (!global_acc)
+        rmsnorm_bwd_kernel<T, 1, false><<<(unsigned)blocks, threads, smem,
+                                          stream>>>(xt, st, gt, dt, pt, rows,
+                                                    rows_per_block, D, eps);
+    else if (vec)
+        rmsnorm_bwd_kernel<T, VEC, true><<<(unsigned)blocks, threads, smem,
+                                           stream>>>(xt, st, gt, dt, pt,
+                                                     rows, rows_per_block, D,
+                                                     eps);
     else
-        rmsnorm_bwd_kernel<T, 1><<<(unsigned)blocks, threads, smem,
-                                   stream>>>(xt, st, gt, dt, pt, rows,
-                                             rows_per_block, D, eps);
+        rmsnorm_bwd_kernel<T, 1, true><<<(unsigned)blocks, threads, smem,
+                                         stream>>>(xt, st, gt, dt, pt, rows,
+                                                   rows_per_block, D, eps);
     return (int)cudaGetLastError();
 }
 
@@ -271,8 +293,8 @@ extern "C" int rmsnorm_fwd_launch(const void* x, const void* scale, void* y,
 // Plain C entry point of the backward.  dtype: 0 = float32, 1 = bfloat16.
 // Device pointers to contiguous x, dy, dx (rows, D) and scale (D,) in one
 // type, and the fp32 partial rows dscale_part (ceil(rows / rows_per_block),
-// D).  D <= 12032 (its partial row and the reduction slots fit the 48 KB of
-// shared memory a kernel gets without an opt-in).
+// D).  Any D: up to 12,032 a block's partial row is summed in shared
+// memory, above it in its row of dscale_part.
 // Returns the launch's cudaGetLastError() (0 on success), or -1 on
 // arguments the kernel does not take (the Python wrapper checks first and
 // raises).
@@ -281,7 +303,7 @@ extern "C" int rmsnorm_bwd_launch(const void* x, const void* scale,
                                   void* dscale_part, int dtype,
                                   long long rows, int rows_per_block, int D,
                                   float eps, void* stream) {
-    if (rows < 1 || D < 1 || D > 12032 || rows_per_block < 1 ||
+    if (rows < 1 || D < 1 || rows_per_block < 1 ||
         (rows + rows_per_block - 1) / rows_per_block > 0x7fffffffLL)
         return -1;
     cudaStream_t st = static_cast<cudaStream_t>(stream);

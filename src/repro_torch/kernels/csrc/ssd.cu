@@ -102,7 +102,24 @@
 //   bytes of shared memory at the full config, one block per SM.
 //
 // Head dims P are template parameters (16 for the reduced test configs,
-// 32, 64 and 128).
+// 32, 64 and 128).  Wider or other heads, and states too wide for a
+// block's shared memory, are cut by the wrapper (ssd.py's kernel_plan):
+//   - P slabs.  Given dt, A, B and C, the columns of y and the rows of the
+//     state are independent, so a head of P columns (rounded up to 16
+//     with zero columns) runs as slabs of compiled widths: one launch per
+//     width, its slabs an index of the grid (block = (head, batch, slab)),
+//     each slab reading x at its column offset through x's head stride
+//     and writing its columns of y and rows of the state.
+//   - N pieces.  C B^T and C state^T are sums over N, and the state's
+//     columns evolve independently, so the wrapper walks N in pieces, one
+//     launch each on the same stream: every piece writes its columns of
+//     the state, and y is the sum of the pieces' y, kept in fp32 (y
+//     itself for fp32 inputs, a scratch buffer for bf16) and rounded to
+//     y's type by the last piece.
+// The plan depends on (P, N, dtype) alone and keeps the compiled instance
+// wherever it fits at chunk 256: every registered arch's shape runs one
+// launch as before.  Limits that stay: P <= 256, N <= 512, and the chunk
+// the plan's widest launch fits in shared memory.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -120,6 +137,17 @@ constexpr int TQ = 64;          // rows of a sub-tile of a chunk
 // ---------------------------------------------------------------------------
 
 constexpr int LDK = TQ + 4;     // padded stride of the n-major tiles
+
+// where a launch's slabs and state piece lie in the whole problem: x's
+// head stride (elements); the width PT of y's and the state's heads and
+// the first column p0 of the launch's first slab (slab s starts at p0 + s
+// P); the state's width NT and the piece's first column n0; whether the
+// piece is the first (y is written, not added to) and the last (the bf16
+// kernel rounds the fp32 sum into y)
+struct Geometry {
+    long long xsh;
+    int PT, p0, NT, n0, first, last;
+};
 
 __device__ __forceinline__ float4 ld4(const float* p) {
     return *reinterpret_cast<const float4*>(p);
@@ -142,12 +170,15 @@ __global__ void __launch_bounds__(4 * P)
 ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ A, const float* __restrict__ Bm,
                 const float* __restrict__ Cm, float* __restrict__ y,
-                float* __restrict__ state_out, int S, int H, int N, int chunk,
-                long long xsb, long long xss, long long bsb, long long bss,
-                long long csb, long long css) {
+                float* __restrict__ state_out, int batch, int S, int H, int N,
+                int chunk, long long xsb, long long xss, long long bsb,
+                long long bss, long long csb, long long css, Geometry geo) {
     constexpr int NT = 4 * P;            // threads
     constexpr int PG = P / 4;            // 4-wide column groups of p
-    const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+    // block (head, batch, slab), heads fastest
+    const int h = (int)(blockIdx.x % H), b = (int)(blockIdx.x / H % batch);
+    const int p_off = geo.p0 + (int)(blockIdx.x / H / batch) * P;
+    const int tid = threadIdx.x;
 
     extern __shared__ float smem[];
     float* Cs = smem;                    // N x LDK, C of the query sub-tile
@@ -158,11 +189,11 @@ ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     float* acum = St + N * P;            // n_sub * TQ, a_cum of the chunk
 
     const float Ah = A[h];
-    const float* xb = x + b * xsb + (long long)h * P;
+    const float* xb = x + b * xsb + h * geo.xsh + p_off;
     const float* Bb = Bm + b * bsb;
     const float* Cb = Cm + b * csb;
     const float* dtb = dt + (long long)b * S * H + h;
-    float* yb = y + (long long)b * S * H * P + (long long)h * P;
+    float* yb = y + ((long long)b * S * H + h) * geo.PT + p_off;
 
     for (int e = tid; e < N * P; e += NT) St[e] = 0.f;
 
@@ -267,10 +298,12 @@ ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                 const int t = i0 + r0 + i;
                 if (t >= q_len) continue;
                 const float ea = expf(acum[t]);
-                float* yr = yb + (long long)(c0 + t) * H * P + p0;
+                float* yr = yb + (long long)(c0 + t) * H * geo.PT + p0;
                 #pragma unroll
-                for (int j = 0; j < 4; ++j)
-                    yr[j] = acc[i][j] + off[i][j] * ea;
+                for (int j = 0; j < 4; ++j) {
+                    const float v = acc[i][j] + off[i][j] * ea;
+                    yr[j] = geo.first ? v : yr[j] + v;   // N pieces add up
+                }
             }
         }
 
@@ -312,10 +345,11 @@ ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
         }
     }
     __syncthreads();
-    float* so = state_out + ((long long)b * H + h) * P * N;
+    float* so = state_out + (((long long)b * H + h) * geo.PT + p_off) *
+                geo.NT + geo.n0;
     for (int e = tid; e < P * N; e += NT) {
         const int p = e / N, n = e % N;
-        so[e] = St[n * P + p];
+        so[(long long)p * geo.NT + n] = St[n * P + p];
     }
 }
 
@@ -365,9 +399,11 @@ ssd_scan_kernel_mma(const __nv_bfloat16* __restrict__ x,
                     const __nv_bfloat16* __restrict__ Bm,
                     const __nv_bfloat16* __restrict__ Cm,
                     __nv_bfloat16* __restrict__ y,
-                    float* __restrict__ state_out, int S, int H, int N,
-                    int chunk, long long xsb, long long xss, long long bsb,
-                    long long bss, long long csb, long long css, int bc16) {
+                    float* __restrict__ state_out, int batch, int S, int H,
+                    int N, int chunk, long long xsb, long long xss,
+                    long long bsb, long long bss, long long csb,
+                    long long css, int bc16, Geometry geo,
+                    float* __restrict__ yacc) {
     constexpr int XLD = P + 8;           // padded x row, bf16 elements
     constexpr int NO = P / 8;            // y n-tiles
     constexpr int PM = P / 16;           // state m-tiles
@@ -385,9 +421,11 @@ ssd_scan_kernel_mma(const __nv_bfloat16* __restrict__ x,
 
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int g = lane >> 2, t = lane & 3;
-    const int h = blockIdx.x, b = blockIdx.y;
+    // block (head, batch, slab), heads fastest
+    const int h = (int)(blockIdx.x % H), b = (int)(blockIdx.x / H % batch);
+    const int p_off = geo.p0 + (int)(blockIdx.x / H / batch) * P;
     const float Ah = A[h];
-    const __nv_bfloat16* xb = x + b * xsb + (long long)h * P;
+    const __nv_bfloat16* xb = x + b * xsb + h * geo.xsh + p_off;
     const __nv_bfloat16* Bb = Bm + b * bsb;
     const __nv_bfloat16* Cb = Cm + b * csb;
 
@@ -727,19 +765,45 @@ ssd_scan_kernel_mma(const __nv_bfloat16* __restrict__ x,
             for (int half = 0; half < 2; ++half) {
                 const int r = half ? r1 : r0;
                 if (r >= q_len) continue;
-                __nv_bfloat16* yr = y + (((long long)b * S + c0 + r) * H + h) * P;
+                const long long yo =
+                    (((long long)b * S + c0 + r) * H + h) * geo.PT + p_off;
+                __nv_bfloat16* yr = y + yo;
+                if (geo.first && geo.last) {
+                    #pragma unroll
+                    for (int n = 0; n < NO; ++n)
+                        *reinterpret_cast<uint32_t*>(yr + n * 8 + 2 * t) =
+                            tc::pack_bf16(acc[n][2 * half],
+                                          acc[n][2 * half + 1]);
+                    continue;
+                }
+                // one piece of an N walk: the fp32 sum of the pieces so
+                // far, rounded into y by the last
+                float* ya = yacc + yo;
                 #pragma unroll
-                for (int n = 0; n < NO; ++n)
-                    *reinterpret_cast<uint32_t*>(yr + n * 8 + 2 * t) =
-                        tc::pack_bf16(acc[n][2 * half], acc[n][2 * half + 1]);
+                for (int n = 0; n < NO; ++n) {
+                    float2 v = make_float2(acc[n][2 * half],
+                                           acc[n][2 * half + 1]);
+                    float2* pa = reinterpret_cast<float2*>(ya + n * 8 + 2 * t);
+                    if (!geo.first) {
+                        const float2 prev = *pa;
+                        v.x = prev.x + v.x;
+                        v.y = prev.y + v.y;
+                    }
+                    if (geo.last)
+                        *reinterpret_cast<uint32_t*>(yr + n * 8 + 2 * t) =
+                            tc::pack_bf16(v.x, v.y);
+                    else
+                        *pa = v;
+                }
             }
         }
     }
     __syncthreads();                     // every warp's state items are in
-    float* so = state_out + ((long long)b * H + h) * P * N;
+    float* so = state_out + (((long long)b * H + h) * geo.PT + p_off) *
+                geo.NT + geo.n0;
     for (int e = tid; e < P * N; e += MMA_THREADS) {
         const int p = e / N, n = e % N;
-        so[e] = st[p * LD + n];
+        so[(long long)p * geo.NT + n] = st[p * LD + n];
     }
 }
 
@@ -757,18 +821,17 @@ template <int P>
 int launch(const void* x, const void* dt, const void* A, const void* Bm,
            const void* Cm, void* y, void* state, int batch, int S, int H,
            int N, int chunk, const long long* strides, size_t smem_bytes,
-           cudaStream_t stream) {
+           const Geometry& geo, unsigned blocks, cudaStream_t stream) {
     auto kern = ssd_scan_kernel<P>;
     static size_t configured = 0;
     const cudaError_t e = allow_smem(kern, smem_bytes, configured);
     if (e != cudaSuccess) return (int)e;
-    const dim3 grid(H, batch);
-    kern<<<grid, 4 * P, smem_bytes, stream>>>(
+    kern<<<blocks, 4 * P, smem_bytes, stream>>>(
         static_cast<const float*>(x), static_cast<const float*>(dt),
         static_cast<const float*>(A), static_cast<const float*>(Bm),
         static_cast<const float*>(Cm), static_cast<float*>(y),
-        static_cast<float*>(state), S, H, N, chunk, strides[0], strides[1],
-        strides[2], strides[3], strides[4], strides[5]);
+        static_cast<float*>(state), batch, S, H, N, chunk, strides[0],
+        strides[1], strides[2], strides[3], strides[4], strides[5], geo);
     return (int)cudaGetLastError();
 }
 
@@ -776,7 +839,8 @@ template <int P>
 int launch_mma(const void* x, const void* dt, const void* A, const void* Bm,
                const void* Cm, void* y, void* state, int batch, int S, int H,
                int N, int chunk, const long long* strides, size_t smem_bytes,
-               int bc16, cudaStream_t stream) {
+               int bc16, const Geometry& geo, void* yacc, unsigned blocks,
+               cudaStream_t stream) {
     auto kern = ssd_scan_kernel_mma<P>;
     static size_t configured = 0;
     if (configured == 0) {               // two blocks per SM want the
@@ -787,14 +851,13 @@ int launch_mma(const void* x, const void* dt, const void* A, const void* Bm,
     }
     const cudaError_t e = allow_smem(kern, smem_bytes, configured);
     if (e != cudaSuccess) return (int)e;
-    const dim3 grid(H, batch);
-    kern<<<grid, MMA_THREADS, smem_bytes, stream>>>(
+    kern<<<blocks, MMA_THREADS, smem_bytes, stream>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(dt),
         static_cast<const float*>(A), static_cast<const __nv_bfloat16*>(Bm),
         static_cast<const __nv_bfloat16*>(Cm),
-        static_cast<__nv_bfloat16*>(y), static_cast<float*>(state), S, H, N,
-        chunk, strides[0], strides[1], strides[2], strides[3], strides[4],
-        strides[5], bc16);
+        static_cast<__nv_bfloat16*>(y), static_cast<float*>(state), batch, S,
+        H, N, chunk, strides[0], strides[1], strides[2], strides[3],
+        strides[4], strides[5], bc16, geo, static_cast<float*>(yacc));
     return (int)cudaGetLastError();
 }
 
@@ -803,13 +866,15 @@ template <bool MMA>
 int dispatch(int P, const void* x, const void* dt, const void* A,
              const void* Bm, const void* Cm, void* y, void* state, int batch,
              int S, int H, int N, int chunk, const long long* strides,
-             size_t smem_bytes, int bc16, cudaStream_t st) {
+             size_t smem_bytes, int bc16, const Geometry& geo, void* yacc,
+             unsigned blocks, cudaStream_t st) {
 #define SSD_CASE(p)                                                         \
     if (P == p)                                                             \
         return MMA ? launch_mma<p>(x, dt, A, Bm, Cm, y, state, batch, S, H, \
-                                   N, chunk, strides, smem_bytes, bc16, st) \
+                                   N, chunk, strides, smem_bytes, bc16,     \
+                                   geo, yacc, blocks, st)                   \
                    : launch<p>(x, dt, A, Bm, Cm, y, state, batch, S, H, N,  \
-                               chunk, strides, smem_bytes, st);
+                               chunk, strides, smem_bytes, geo, blocks, st);
     SSD_CASE(16)
     SSD_CASE(32)
     SSD_CASE(64)
@@ -818,48 +883,64 @@ int dispatch(int P, const void* x, const void* dt, const void* A,
     return -1;
 }
 
-bool on_grid(const void* p, long long s0, long long s1, int bytes) {
+bool on_grid(const void* p, long long s0, long long s1, int bytes,
+             long long s2 = 0) {
     const int elems = bytes / 2;         // bf16
     return reinterpret_cast<uintptr_t>(p) % bytes == 0 && s0 % elems == 0 &&
-           s1 % elems == 0;
+           s1 % elems == 0 && s2 % elems == 0;
 }
 
 }  // namespace
 
-// Plain C entry point.  dtype: 0 = float32, 1 = bfloat16 (x, B, C and y).
-// Device pointers: x (b, S, H, P) with unit stride along p and stride P
-// along h; dt (b, S, H) fp32 contiguous; A (H,) fp32; B and C (b, S, N)
-// with unit stride along n; y (b, S, H, P) contiguous in x's type; state
-// (b, H, P, N) fp32 contiguous.  strides: x, B, C batch and token strides
-// in elements, in that order.  For bf16, x starts and steps on the 16-byte
-// grid and B and C on the 8-byte grid (the tensor-core kernel's cp.async
-// copies).  smem_bytes: the dynamic shared memory the wrapper computed for
-// (P, N, chunk) and the dtype.  Returns the launch's cudaGetLastError() (0
-// on success), or -1 on arguments the kernels do not take (the Python
-// wrapper checks first and raises).
+// Plain C entry point: one launch of n_slab slabs of P columns from column
+// geom[2] of x, y and the state, over the state columns n0 .. n0 + N - 1.
+// dtype: 0 = float32, 1 = bfloat16 (x, B, C and y).  Device pointers: x
+// (b, S, H, >= p0 + n_slab P) with unit stride along p; dt (b, S, H) fp32
+// contiguous; A (H,) fp32; B and C (b, S, N) with unit stride along n
+// (views of the piece's columns); y (b, S, H, PT) contiguous in x's type;
+// state (b, H, PT, NT) fp32 contiguous; yacc, for bf16 pieces of an N walk
+// other than a lone one, an fp32 (b, S, H, PT) scratch (else null).
+// strides: x, B, C batch and token strides in elements, in that order;
+// geom: x's head stride, PT, p0, n_slab, NT, n0, first, last.  For bf16,
+// x starts and steps on the 16-byte grid and B and C on the 8-byte grid
+// (the tensor-core kernel's cp.async copies).  smem_bytes: the dynamic
+// shared memory the wrapper computed for (P, N, chunk) and the dtype.
+// Returns the launch's cudaGetLastError() (0 on success), or -1 on
+// arguments the kernels do not take (the Python wrapper checks first and
+// raises).
 extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A,
                                const void* Bm, const void* Cm, void* y,
                                void* state, int dtype, int batch, int S,
                                int H, int P, int N, int chunk,
                                const long long* strides,
-                               long long smem_bytes, void* stream) {
-    if (batch < 1 || batch > 65535 || H < 1 || S < 1 || N < 4 || N % 4 ||
-        chunk < 1 || chunk > S || smem_bytes < 1 || smem_bytes > 232448)
+                               long long smem_bytes, const long long* geom,
+                               void* yacc, void* stream) {
+    const Geometry geo{geom[0], (int)geom[1], (int)geom[2], (int)geom[4],
+                       (int)geom[5], (int)geom[6], (int)geom[7]};
+    const long long n_slab = geom[3];
+    const long long blocks = (long long)H * batch * n_slab;
+    if (batch < 1 || H < 1 || S < 1 || N < 4 || N % 4 || chunk < 1 ||
+        chunk > S || smem_bytes < 1 || smem_bytes > 232448 || n_slab < 1 ||
+        blocks > 0x7fffffffLL || geo.p0 < 0 || geo.p0 + n_slab * P > geo.PT ||
+        geo.n0 < 0 || geo.n0 + N > geo.NT)
         return -1;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (dtype == 0)
         return dispatch<false>(P, x, dt, A, Bm, Cm, y, state, batch, S, H, N,
-                               chunk, strides, (size_t)smem_bytes, 0, st);
+                               chunk, strides, (size_t)smem_bytes, 0, geo,
+                               nullptr, (unsigned)blocks, st);
     if (dtype == 1) {
         if ((size_t)smem_bytes != MmaLayout(P, N, chunk).bytes ||
-            !on_grid(x, strides[0], strides[1], 16) ||
+            !on_grid(x, strides[0], strides[1], 16, geo.xsh) ||
             !on_grid(Bm, strides[2], strides[3], 8) ||
-            !on_grid(Cm, strides[4], strides[5], 8))
+            !on_grid(Cm, strides[4], strides[5], 8) ||
+            (!(geo.first && geo.last) && yacc == nullptr))
             return -1;
         const int bc16 = N % 8 == 0 && on_grid(Bm, strides[2], strides[3], 16)
                          && on_grid(Cm, strides[4], strides[5], 16);
         return dispatch<true>(P, x, dt, A, Bm, Cm, y, state, batch, S, H, N,
-                              chunk, strides, (size_t)smem_bytes, bc16, st);
+                              chunk, strides, (size_t)smem_bytes, bc16, geo,
+                              yacc, (unsigned)blocks, st);
     }
     return -1;
 }

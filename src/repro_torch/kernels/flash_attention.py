@@ -49,8 +49,20 @@ dk / dv pass P and dS, as FlashAttention-2 does); the fp32 kernels
 compute in fp32 FMA (see the sources' notes).
 Their times stand beside the bound in PERF.md.  The bf16 tensor-core
 kernels copy with 16-byte ``cp.async``, so they take q, k, v, out / dout
-and the gradients at 16-byte aligned addresses (a fresh tensor always
-is; a view at an odd offset raises).
+and the gradients at 16-byte aligned addresses; the wrappers hand them a
+contiguous copy of a strided or unaligned view, never the plain version.
+
+Head dims: the kernels are compiled for the pairs ``HEAD_DIMS``; any
+other ``1 <= D, Dv <= 256`` runs on :func:`instance_for`'s pair, the
+compiled one that dominates it with the fewest columns, its operands
+zero-padded to that pair (:func:`pad_operands`) and the extra columns of
+out and the gradients dropped.  That is exact: zero columns of q and k add
+nothing to ``q k^T``, zero columns of v give zero columns of out, lse and
+``delta = sum(dout * out)`` do not move, and the gradients' extra columns
+are zero.  The softmax scale stays the true ``D ** -0.5``: it is an
+explicit argument of every launch and plain version.  What stays refused,
+with a ValueError: D or Dv above 256 (``MAX_HEAD_DIM``), rank other than
+4, ``H % Hkv != 0``; float16 raises a TypeError.
 
 Tolerance: fp32 forward outputs agree with the plain version within 2e-5
 (both in full fp32, no TF32), fp32 gradients within 5e-4 (longer sums in
@@ -64,6 +76,8 @@ against the reference package's Pallas kernels in interpret mode,
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.core.device_metrics import report_kernel
@@ -73,17 +87,20 @@ NEG_INF = -1e30
 # (D, Dv) pairs the kernels are compiled for (csrc/flash_attention.cu,
 # csrc/flash_attention_bwd.cu): the reduced configs' 16, GQA's 32 / 64 /
 # 128, 128 -> 64, the MLA pairs of deepseek-v2-lite-16b (qk_nope 128 +
-# qk_rope 64 -> v 128) and minicpm3-4b (64 + 32 -> 64), and zamba2-2.7b's
-# shared attention (80)
+# qk_rope 64 -> v 128) and minicpm3-4b (64 + 32 -> 64), zamba2-2.7b's
+# shared attention (80), and 256, which covers every pair up to it
 HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (128, 64),
-             (192, 128), (96, 64), (80, 80))
+             (192, 128), (96, 64), (80, 80), (256, 256))
+MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # the bf16 tensor-core kernels' tiles (csrc/flash_attention.cu,
 # csrc/flash_attention_bwd.cu): forward and dq 128 q rows x 64 kv rows per
 # step (at D > 128 in two 32-row halves, which changes no shared memory),
 # dk / dv 128 kv rows x 64 q rows per step (at D + Dv > 256 in two sweeps,
-# dV then dK, over the same tiles); 8 warps each
+# dV then dK, over the same tiles); 8 warps each.  At (256, 256) the dq
+# pass takes 32 kv rows and the dk / dv pass 32 q rows a step
+# (:func:`mma_tiles`)
 FWD_TILE = (128, 64)
 DQ_TILE = (128, 64)
 DKV_TILE = (128, 64)
@@ -120,22 +137,85 @@ def dkv_flops(q, k, v) -> int:
     return 2 * _pairs(q, k) * (q.shape[3] + v.shape[3])
 
 
+@functools.lru_cache(maxsize=None)
+def instance_for(D: int, Dv: int) -> tuple:
+    """The compiled pair a ``(D, Dv)`` problem runs on: the pair of
+    ``HEAD_DIMS`` that dominates it (``Di >= D``, ``Dvi >= Dv``) with the
+    fewest columns ``Di + Dvi`` (then the narrower ``Di``); a compiled pair
+    is its own.  ValueError outside ``1 <= D, Dv <= MAX_HEAD_DIM``."""
+    if not (1 <= D <= MAX_HEAD_DIM and 1 <= Dv <= MAX_HEAD_DIM):
+        raise ValueError(f"flash kernels take head dims 1 <= D, Dv <= "
+                         f"{MAX_HEAD_DIM}, got ({D}, {Dv})")
+    return min((p for p in HEAD_DIMS if p[0] >= D and p[1] >= Dv),
+               key=lambda p: (p[0] + p[1], p[0]))
+
+
+def mma_tiles(kernel: str, D: int, Dv: int) -> tuple:
+    """The tile of a bf16 tensor-core kernel (``"fwd"``, ``"dq"`` or
+    ``"dkv"``) at the compiled pair (D, Dv): (q rows, kv rows a step) for
+    the forward and the dq pass, (kv rows, q rows a step) for the dk / dv
+    pass."""
+    wide = D + Dv > 384                 # (256, 256): csrc dq_bkv, dkv_bq
+    if kernel == "fwd":
+        return FWD_TILE
+    if kernel == "dq":
+        return (DQ_TILE[0], 32) if wide else DQ_TILE
+    return (DKV_TILE[0], 32) if wide else DKV_TILE
+
+
 def mma_smem_bytes(kernel: str, D: int, Dv: int) -> int:
     """Dynamic shared memory per block of a bf16 tensor-core kernel
     (``"fwd"``, ``"dq"`` or ``"dkv"``) at head dims (D, Dv): bf16 rows
     padded by 8 elements; the forward holds the q tile and two K and two V
     tiles, the dq pass the q and dO tiles and two K and two V tiles, the
     dk / dv pass K, V, two q and two dO tiles and two rows each of lse and
-    delta (fp32)."""
+    delta (fp32), at :func:`mma_tiles`' tiles."""
     if kernel == "fwd":
-        bq, bk = FWD_TILE
+        bq, bk = mma_tiles(kernel, D, Dv)
         return 2 * (bq * (D + 8) + 2 * bk * (D + 8) + 2 * bk * (Dv + 8))
     if kernel == "dq":
-        bq, bk = DQ_TILE
+        bq, bk = mma_tiles(kernel, D, Dv)
         return 2 * ((bq + 2 * bk) * (D + 8) + (bq + 2 * bk) * (Dv + 8))
-    bkv, bq = DKV_TILE
+    bkv, bq = mma_tiles(kernel, D, Dv)
     return 2 * ((bkv + 2 * bq) * (D + 8) + (bkv + 2 * bq) * (Dv + 8)) \
         + 2 * 2 * bq * 4
+
+
+def _operand(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t`` as a kernel reads it: contiguous, 16-byte aligned in bf16,
+    its last dim zero-padded to ``width`` (a fresh tensor where any of
+    that does not hold already)."""
+    if t.shape[-1] != width:
+        return torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+    if not t.is_contiguous() or (t.dtype == torch.bfloat16
+                                 and t.data_ptr() % 16):
+        return t.clone(memory_format=torch.contiguous_format)
+    return t
+
+
+def pad_operands(q, k, v, *rest) -> tuple:
+    """The problem the kernels run for ``(q, k, v[, out, dout])``: each
+    operand contiguous, aligned and zero-padded to :func:`instance_for`'s
+    pair (q, k to its D; v and the rest to its Dv), and the true scale
+    ``D ** -0.5``."""
+    D, Dv = q.shape[3], v.shape[3]
+    Di, Dvi = instance_for(D, Dv)
+    return ((_operand(q, Di), _operand(k, Di), _operand(v, Dvi))
+            + tuple(_operand(t, Dvi) for t in rest) + (D ** -0.5,))
+
+
+def _unpad(t: torch.Tensor, width: int) -> torch.Tensor:
+    return t if t.shape[-1] == width else t[..., :width].contiguous()
+
+
+def _check_grid(what: str, q, k) -> None:
+    """The kernels' one-dimensional grids: (B, H, q tiles) and (B, Hkv, kv
+    tiles) blocks below 2^31 (the tiles of 64 rows, the smallest)."""
+    B, Sq, H, _ = q.shape
+    blocks = B * max(H * -(-Sq // 64), k.shape[2] * -(-k.shape[1] // 64))
+    if blocks > 0x7FFFFFFF:
+        raise ValueError(f"{what}: {blocks} blocks of 64 rows exceed a "
+                         f"grid's 2**31 - 1")
 
 
 def _check(q, k, v, q_offset) -> None:
@@ -161,13 +241,16 @@ def _check(q, k, v, q_offset) -> None:
                          f"{q_offset!r}")
 
 
-def flash_fwd_plain(q, k, v, *, causal: bool = True, q_offset: int = 0):
-    """Plain PyTorch: full fp32 scores, softmax, lse; GQA by grouping."""
+def flash_fwd_plain(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                    scale: float = None):
+    """Plain PyTorch: full fp32 scores, softmax, lse; GQA by grouping.
+    ``scale`` multiplies q (default ``D ** -0.5``)."""
     _check(q, k, v, q_offset)
     B, Sq, H, D = q.shape
     Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     G = H // Hkv
-    qg = q.float().reshape(B, Sq, Hkv, G, D) * D ** -0.5
+    qg = q.float().reshape(B, Sq, Hkv, G, D) * (
+        D ** -0.5 if scale is None else scale)
     s = torch.einsum("bshgd,bthd->bhgst", qg, k.float())
     if causal:
         q_pos = q_offset + torch.arange(Sq, device=q.device)
@@ -192,38 +275,35 @@ def flash_fwd(q, k, v, *, causal: bool = True, q_offset: int = 0):
                          f"{q.device}")
     B, Sq, H, D = q.shape
     Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
-    if (D, Dv) not in HEAD_DIMS:
-        raise ValueError(f"flash_fwd kernel is built for (D, Dv) in "
-                         f"{HEAD_DIMS}, got ({D}, {Dv})")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_fwd kernel takes contiguous q, k and v")
-    if B > 65535 or H > 65535:
-        raise ValueError(f"flash_fwd kernel takes B, H <= 65535, got "
-                         f"B={B}, H={H}")
-    _check_aligned("flash_fwd", (q, k, v))
-    out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
+    _check_grid("flash_fwd", q, k)
+    qp, kp, vp, scale = pad_operands(q, k, v)
+    Di, Dvi = qp.shape[3], vp.shape[3]
+    _check_aligned("flash_fwd", (qp, kp, vp))
+    out = torch.empty((B, Sq, H, Dvi), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     from repro_torch.kernels import _build
     lib = _build.load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.flash_fwd_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), _DTYPES[q.dtype], B, Sq, Skv, H, Hkv, D, Dv,
-            q_offset, int(bool(causal)), D ** -0.5, stream)
+            qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), _DTYPES[q.dtype], B, Sq, Skv, H, Hkv, Di, Dvi,
+            q_offset, int(bool(causal)), scale, stream)
     if rc != 0:
         raise RuntimeError(
             f"flash_fwd kernel launch failed (cuda error {rc}) for q "
             f"{tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, "
-            f"{q.dtype}")
+            f"{q.dtype} on the ({Di}, {Dvi}) instance")
     launches += 1
+    out = _unpad(out, Dv)
     report_kernel((q, k, v, out, lse), lambda: fwd_flops(q, k, v))
     return out, lse
 
 
 def _check_aligned(what: str, tensors) -> None:
     """The bf16 tensor-core kernels copy 16 bytes at a time (``cp.async``):
-    their tensors must start on a 16-byte boundary."""
+    the tensors a launch is given must start on a 16-byte boundary (the
+    wrappers hand it :func:`pad_operands`' copies of any that do not)."""
     if tensors[0].dtype == torch.bfloat16 and any(
             t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{what}: the bf16 kernel takes tensors at 16-byte "
@@ -248,16 +328,17 @@ def _check_bwd(q, k, v, out, lse, dout, q_offset) -> None:
 
 
 def flash_bwd_plain(q, k, v, out, lse, dout, *, causal: bool = True,
-                    q_offset: int = 0):
+                    q_offset: int = 0, scale: float = None):
     """Plain PyTorch backward -> ``(dq, dk, dv)``: the full fp32 score
     matrix, ``p = exp(s - lse)``, ``delta = sum(dout * out)``, ``ds = p *
     (dout . v^T - delta)``; dq = scale * ds . k, dk = ds^T . (scale * q),
-    dv = p^T . dout, summed over each kv head's group."""
+    dv = p^T . dout, summed over each kv head's group (``scale`` default
+    ``D ** -0.5``)."""
     _check_bwd(q, k, v, out, lse, dout, q_offset)
     B, Sq, H, D = q.shape
     Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     G = H // Hkv
-    scale = D ** -0.5
+    scale = D ** -0.5 if scale is None else scale
     qg = q.float().reshape(B, Sq, Hkv, G, D) * scale
     kf, vf = k.float(), v.float()
     do = dout.float().reshape(B, Sq, Hkv, G, Dv)
@@ -278,27 +359,66 @@ def flash_bwd_plain(q, k, v, out, lse, dout, *, causal: bool = True,
             dv.to(v.dtype))
 
 
-def _check_bwd_kernels(q, k, v, tensors) -> None:
+def _check_bwd_kernels(q, k, tensors) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"flash_bwd kernels run on cuda tensors, got "
                          f"{q.device}")
-    B, _, H, D = q.shape
-    Dv = v.shape[3]
-    if (D, Dv) not in HEAD_DIMS:
-        raise ValueError(f"flash_bwd kernels are built for (D, Dv) in "
-                         f"{HEAD_DIMS}, got ({D}, {Dv})")
+    _check_grid("flash_bwd", q, k)
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("flash_bwd kernels take contiguous q, k, v, out, "
-                         "lse, dout and delta")
-    if B > 65535 or H > 65535:
-        raise ValueError(f"flash_bwd kernels take B, H <= 65535, got "
-                         f"B={B}, H={H}")
+        raise ValueError("flash_bwd kernels take contiguous lse and delta")
 
 
-def _dims(q, k, v, causal, q_offset) -> tuple:
-    B, Sq, H, D = q.shape
-    return (_DTYPES[q.dtype], B, Sq, k.shape[1], H, k.shape[2], D,
-            v.shape[3], q_offset, int(bool(causal)), D ** -0.5)
+def _dims(qp, kp, vp, causal, q_offset, scale) -> tuple:
+    B, Sq, H, Di = qp.shape
+    return (_DTYPES[qp.dtype], B, Sq, kp.shape[1], H, kp.shape[2], Di,
+            vp.shape[3], q_offset, int(bool(causal)), scale)
+
+
+def _launch_dq(qp, kp, vp, outp, lse, doutp, causal, q_offset, scale):
+    """One launch of the dq pass on operands padded to an instance ->
+    ``(dq at the instance's D, delta)``."""
+    global dq_launches
+    _check_aligned("flash_bwd dq", (qp, kp, vp, outp, doutp))
+    dq = torch.empty_like(qp)
+    delta = torch.empty_like(lse)
+    from repro_torch.kernels import _build
+    lib = _build.load()
+    with torch.cuda.device(qp.device):
+        rc = lib.flash_bwd_dq_launch(
+            qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), outp.data_ptr(),
+            doutp.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), *_dims(qp, kp, vp, causal, q_offset, scale),
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"flash_bwd dq kernel launch failed (cuda error {rc}) for q "
+            f"{tuple(qp.shape)}, k {tuple(kp.shape)}, v {tuple(vp.shape)}, "
+            f"{qp.dtype}")
+    dq_launches += 1
+    return dq, delta
+
+
+def _launch_dkv(qp, kp, vp, lse, doutp, delta, causal, q_offset, scale):
+    """One launch of the dk / dv pass on operands padded to an instance ->
+    ``(dk, dv)`` at the instance's widths."""
+    global dkv_launches
+    _check_aligned("flash_bwd dk/dv", (qp, kp, vp, doutp))
+    dk, dv = torch.empty_like(kp), torch.empty_like(vp)
+    from repro_torch.kernels import _build
+    lib = _build.load()
+    with torch.cuda.device(qp.device):
+        rc = lib.flash_bwd_dkv_launch(
+            qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), doutp.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *_dims(qp, kp, vp, causal, q_offset, scale),
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"flash_bwd dk/dv kernel launch failed (cuda error {rc}) for q "
+            f"{tuple(qp.shape)}, k {tuple(kp.shape)}, v {tuple(vp.shape)}, "
+            f"{qp.dtype}")
+    dkv_launches += 1
+    return dk, dv
 
 
 def flash_bwd_dq(q, k, v, out, lse, dout, *, causal: bool = True,
@@ -307,26 +427,12 @@ def flash_bwd_dq(q, k, v, out, lse, dout, *, causal: bool = True,
     Sq)`` fp32 for :func:`flash_bwd_dkv`: bf16 on the tensor cores
     (``flash_bwd_dq_kernel_mma``, dS rounded to bf16 once before ``dS k``),
     fp32 in fp32 FMA (``flash_bwd_dq_kernel``)."""
-    global dq_launches
     _check_bwd(q, k, v, out, lse, dout, q_offset)
-    _check_bwd_kernels(q, k, v, (q, k, v, out, lse, dout))
-    _check_aligned("flash_bwd dq", (q, k, v, out, dout))
-    dq = torch.empty_like(q)
-    delta = torch.empty_like(lse)
-    from repro_torch.kernels import _build
-    lib = _build.load()
-    with torch.cuda.device(q.device):
-        rc = lib.flash_bwd_dq_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            *_dims(q, k, v, causal, q_offset),
-            torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"flash_bwd dq kernel launch failed (cuda error {rc}) for q "
-            f"{tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, "
-            f"{q.dtype}")
-    dq_launches += 1
+    _check_bwd_kernels(q, k, (lse,))
+    qp, kp, vp, outp, doutp, scale = pad_operands(q, k, v, out, dout)
+    dq, delta = _launch_dq(qp, kp, vp, outp, lse, doutp, causal, q_offset,
+                           scale)
+    dq = _unpad(dq, q.shape[3])
     report_kernel((q, k, v, out, dout, lse, dq, delta),
                   lambda: dq_flops(q, k, v))
     return dq, delta
@@ -336,29 +442,16 @@ def flash_bwd_dkv(q, k, v, lse, dout, delta, *, causal: bool = True,
                   q_offset: int = 0):
     """The dk / dv pass alone on CUDA tensors -> ``(dk, dv)``; ``delta``
     from :func:`flash_bwd_dq` (enqueued before it on the same stream)."""
-    global dkv_launches
     _check_bwd(q, k, v, dout, lse, dout, q_offset)
     if not isinstance(delta, torch.Tensor) or delta.shape != lse.shape or \
             delta.dtype != torch.float32 or delta.device != q.device:
         raise ValueError(f"flash_bwd: delta must be float32 "
                          f"{tuple(lse.shape)} on {q.device}")
-    _check_bwd_kernels(q, k, v, (q, k, v, lse, dout, delta))
-    _check_aligned("flash_bwd dk/dv", (q, k, v, dout))
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    from repro_torch.kernels import _build
-    lib = _build.load()
-    with torch.cuda.device(q.device):
-        rc = lib.flash_bwd_dkv_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            *_dims(q, k, v, causal, q_offset),
-            torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"flash_bwd dk/dv kernel launch failed (cuda error {rc}) for q "
-            f"{tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, "
-            f"{q.dtype}")
-    dkv_launches += 1
+    _check_bwd_kernels(q, k, (lse, delta))
+    qp, kp, vp, doutp, scale = pad_operands(q, k, v, dout)
+    dk, dv = _launch_dkv(qp, kp, vp, lse, doutp, delta, causal, q_offset,
+                         scale)
+    dk, dv = _unpad(dk, k.shape[3]), _unpad(dv, v.shape[3])
     report_kernel((q, k, v, dout, lse, delta, dk, dv),
                   lambda: dkv_flops(q, k, v))
     return dk, dv
@@ -367,14 +460,23 @@ def flash_bwd_dkv(q, k, v, lse, dout, delta, *, causal: bool = True,
 def flash_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
               q_offset: int = 0):
     """Attention backward -> ``(dq, dk, dv)`` for the forward's ``out`` and
-    ``lse``; the two kernels on CUDA tensors (dq pass, then dk / dv pass),
-    the plain version on CPU tensors."""
+    ``lse``; the two kernels on CUDA tensors (dq pass, then dk / dv pass,
+    on operands padded once), the plain version on CPU tensors."""
     _check_bwd(q, k, v, out, lse, dout, q_offset)
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, out, lse, dout, causal=causal,
                                q_offset=q_offset)
-    dq, delta = flash_bwd_dq(q, k, v, out, lse, dout, causal=causal,
-                             q_offset=q_offset)
-    dk, dv = flash_bwd_dkv(q, k, v, lse, dout, delta, causal=causal,
-                           q_offset=q_offset)
+    _check_bwd_kernels(q, k, (lse,))
+    qp, kp, vp, outp, doutp, scale = pad_operands(q, k, v, out, dout)
+    dq, delta = _launch_dq(qp, kp, vp, outp, lse, doutp, causal, q_offset,
+                           scale)
+    del outp
+    dk, dv = _launch_dkv(qp, kp, vp, lse, doutp, delta, causal, q_offset,
+                         scale)
+    dq = _unpad(dq, q.shape[3])
+    dk, dv = _unpad(dk, k.shape[3]), _unpad(dv, v.shape[3])
+    report_kernel((q, k, v, out, dout, lse, dq, delta),
+                  lambda: dq_flops(q, k, v))
+    report_kernel((q, k, v, dout, lse, delta, dk, dv),
+                  lambda: dkv_flops(q, k, v))
     return dq, dk, dv

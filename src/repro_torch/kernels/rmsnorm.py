@@ -45,7 +45,9 @@ bwd_launches = 0      # backward kernel
 # writing one partial dscale row; the split depends on the row count
 # alone, so the sum of the partial rows does not depend on the card
 BWD_BLOCKS = 512
-BWD_MAX_D = 12032     # a block's partial row lives in shared memory
+# up to this D a block sums its partial row in shared memory; above, in its
+# row of the partial rows in device memory (csrc/rmsnorm.cu): any D
+BWD_SMEM_D = 12032
 
 
 def _check(x, scale) -> None:
@@ -156,9 +158,6 @@ def rmsnorm_bwd(x, scale, dy, eps: float = 1e-5):
         raise ValueError("rmsnorm_bwd kernel takes contiguous x, scale and "
                          "dy")
     D = x.shape[-1]
-    if D > BWD_MAX_D:
-        raise ValueError(f"rmsnorm_bwd kernel takes D <= {BWD_MAX_D}, got "
-                         f"{D}")
     rows = x.numel() // D if D else 0
     dx = torch.empty_like(x)
     if rows == 0:

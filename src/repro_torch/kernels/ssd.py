@@ -22,13 +22,29 @@ x's type and the final state ``(b, H, P, N)`` fp32.  ``chunk`` is cut to
 S; the last chunk is the ragged rest, which is the reference's zero
 padding (dt = 0 there).
 
-The kernels read x, B and C in place through their batch and token
-strides (the model hands views into the conv output), so they need only
-be dense along their last dims (x along h and p); the bf16 kernel copies
-x in 16-byte and B, C in 8- or 16-byte pieces, so there x must start and
-step on the 16-byte grid and B and C on the 8-byte grid.  N is any
-multiple of 4 (the bf16 kernel pads it to 16 with zeros in shared
-memory); P is one of ``HEAD_DIMS``.
+The kernels read x, B and C in place through their batch, token (and
+x's head) strides (the model hands views into the conv output), so they
+need only be dense along their last dims; the bf16 kernel copies x in
+16-byte and B, C in 8- or 16-byte pieces, so there x must start and step
+on the 16-byte grid and B and C on the 8-byte grid.  Operands that are
+not so are copied first (never sent to the plain version).
+
+Shapes: the kernels are compiled for head widths ``HEAD_DIMS`` and take
+any N that is a multiple of 4 (the bf16 kernel pads it to 16 with zeros
+in shared memory).  :func:`kernel_plan` runs any ``1 <= P <= 256`` and
+``1 <= N <= 512`` on them: P rounded up to 16 with zero columns (and N to
+4) and cut into slabs of compiled widths, one launch per width with its
+slabs an index of the grid; where the plan's launch would not fit a
+block's shared memory at chunk 256, narrower slabs, then N in pieces,
+one launch each, y summed over the pieces in fp32.  All of it is exact:
+zero columns of x give zero columns of y and rows of the state, zero
+columns of B and C change no ``C B^T``, the columns of y and rows of the
+state are independent given dt, A, B and C, and y is linear in the N
+pieces of ``C B^T`` and ``C state^T`` while each piece's state columns
+evolve alone.  What stays refused, with a ValueError naming the limit: P
+above 256, N above 512, and a chunk whose plan does not fit shared memory
+(the limit the compiled instance had: at mamba2's P 64 / N 128, chunks up
+to 7,872 in bf16).
 
 Design of the bf16 kernel: one block of 4 warps per (b, h) walks the
 chunks in order with the fp32 state in shared memory; per 64-row
@@ -55,6 +71,9 @@ and a rounding model of the bf16 kernel against the plain version;
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -65,6 +84,8 @@ HEAD_DIMS = (16, 32, 64, 128)       # the kernels' template instances
 TQ, LDK = 64, 68                    # sub-tile rows, padded n-major stride
 MMA_WARPS = 4                       # warps of the bf16 kernel's block
 MAX_SMEM = 232448                   # what an H100 block may opt into
+MAX_P, MAX_N = 256, 512             # the widest head and state taken
+PLAN_CHUNK = 256                    # the chunk a plan is fitted at
 
 launches = 0
 
@@ -90,10 +111,90 @@ def mma_smem_bytes(P: int, N: int, chunk: int) -> int:
 
 
 def _on_grid(t: torch.Tensor, n_bytes: int) -> bool:
-    """t's start and batch / token strides lie on the n_bytes grid."""
+    """t's start and its strides but the last (batch, token and x's head)
+    lie on the n_bytes grid."""
     step = n_bytes // t.element_size()
-    return t.data_ptr() % n_bytes == 0 and t.stride(0) % step == 0 and \
-        t.stride(1) % step == 0
+    return t.data_ptr() % n_bytes == 0 and all(
+        st % step == 0 for st in t.stride()[:-1])
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How :func:`ssd_scan` runs a (P, N) problem on the kernels: x, y and
+    the state at width ``P`` (the head rounded up to 16), B, C and the
+    state at width ``N`` (rounded up to 4); ``slabs`` the launches over P,
+    each ``(p0, width, count)``: ``count`` slabs of ``width`` from column
+    ``p0``; ``pieces`` the walk over N, each ``(n0, width)``."""
+    P: int
+    N: int
+    slabs: tuple
+    pieces: tuple
+
+    @property
+    def launches(self) -> int:
+        return len(self.slabs) * len(self.pieces)
+
+
+def _slabs(P: int, widest: int) -> tuple:
+    """P (a multiple of 16) as slabs of compiled widths up to ``widest``,
+    the widest first."""
+    out, p0 = [], 0
+    while p0 < P:
+        w = max(h for h in HEAD_DIMS if h <= min(widest, P - p0))
+        count = (P - p0) // w
+        out.append((p0, w, count))
+        p0 += count * w
+    return tuple(out)
+
+
+def _pieces(N: int, k: int) -> tuple:
+    """N (a multiple of 4) in ``k`` pieces of a multiple of 16 (the last
+    the rest)."""
+    if k == 1:
+        return ((0, N),)
+    w = -(-N // (16 * k)) * 16
+    return tuple((n0, min(w, N - n0)) for n0 in range(0, N, w))
+
+
+def _smem_of(dtype) -> "callable":
+    return mma_smem_bytes if dtype == torch.bfloat16 else smem_bytes
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_plan(P: int, N: int, dtype) -> Plan:
+    """The launches for head width P and state width N in ``dtype``: of
+    the slab widths and N pieces whose widest launch fits a block's shared
+    memory at chunk ``PLAN_CHUNK``, the fewest (slab, piece) programs,
+    then the fewest pieces.  A compiled P that fits keeps its one launch.
+    ValueError above ``MAX_P`` / ``MAX_N``."""
+    if not (1 <= P <= MAX_P and 1 <= N <= MAX_N):
+        raise ValueError(f"ssd_scan kernel takes head dims 1 <= P <= "
+                         f"{MAX_P} and state widths 1 <= N <= {MAX_N}, got "
+                         f"P {P}, N {N}")
+    Pp, Np = -(-P // 16) * 16, max(4, -(-N // 4) * 4)
+    smem = _smem_of(dtype)
+    best = None
+    for widest in (128, 64, 32, 16):
+        slabs = _slabs(Pp, widest)
+        w = max(width for _, width, _ in slabs)
+        k = 1
+        while smem(w, max(n for _, n in _pieces(Np, k)), PLAN_CHUNK) > \
+                MAX_SMEM and -(-Np // k) > 16:
+            k *= 2
+        pieces = _pieces(Np, k)
+        if smem(w, max(n for _, n in pieces), PLAN_CHUNK) > MAX_SMEM:
+            continue
+        cost = (sum(c for _, _, c in slabs) * len(pieces), len(pieces))
+        if best is None or cost < best[0]:
+            best = (cost, Plan(Pp, Np, slabs, pieces))
+    return best[1]
+
+
+def plan_smem(plan: Plan, chunk: int, dtype) -> int:
+    """The shared memory of the plan's widest launch at ``chunk``."""
+    smem = _smem_of(dtype)
+    return max(smem(w, n, chunk) for _, w, _ in plan.slabs
+               for _, n in plan.pieces)
 
 
 def _check(x, dt, A, B, C, chunk) -> None:
@@ -126,32 +227,56 @@ def _check(x, dt, A, B, C, chunk) -> None:
 
 
 def check_kernel_operands(x, dt, A, B, C, chunk: int) -> int:
-    """Raise ValueError where the kernel does not take checked operands
-    (any device); else its shared-memory bytes for ``chunk`` (already cut
-    to S)."""
-    b, _, _, P = x.shape
+    """Raise ValueError where one launch does not take checked operands as
+    they are (any device): x the launch's first slab (a compiled width,
+    dense along p, its head stride at least its width), B and C the
+    piece's columns (a multiple of 4, dense along n); else its
+    shared-memory bytes for ``chunk`` (already cut to S)."""
+    P = x.shape[3]
     N = B.shape[-1]
-    if P not in HEAD_DIMS or N % 4:
+    if P not in HEAD_DIMS or N % 4 or N < 4:
         raise ValueError(f"ssd_scan kernel takes head dims {HEAD_DIMS} and "
                          f"a state width that is a multiple of 4, got P {P},"
                          f" N {N}")
-    if x.stride(3) != 1 or x.stride(2) != P or B.stride(2) != 1 or \
-            C.stride(2) != 1 or not (dt.is_contiguous()
-                                     and A.is_contiguous()):
-        raise ValueError("ssd_scan kernel takes x dense along (H, P), B and "
-                         "C dense along N, contiguous dt and A")
+    if x.stride(3) != 1 or (x.shape[2] > 1 and x.stride(2) < P) or \
+            B.stride(2) != 1 or C.stride(2) != 1 or \
+            not (dt.is_contiguous() and A.is_contiguous()):
+        raise ValueError("ssd_scan kernel takes x dense along P, B and C "
+                         "dense along N, contiguous dt and A")
     if x.dtype == torch.bfloat16 and not (
             _on_grid(x, 16) and _on_grid(B, 8) and _on_grid(C, 8)):
         raise ValueError("ssd_scan bf16 kernel copies x in 16-byte and B, C "
                          "in 8-byte pieces: x must start and step on the "
                          "16-byte grid, B and C on the 8-byte grid")
-    need = (mma_smem_bytes if x.dtype == torch.bfloat16 else smem_bytes)(
-        P, N, chunk)
-    if need > MAX_SMEM or b > 65535:
+    need = _smem_of(x.dtype)(P, N, chunk)
+    if need > MAX_SMEM:
         raise ValueError(f"ssd_scan kernel: P {P}, N {N}, chunk {chunk} "
                          f"need {need} B of shared memory (at most "
-                         f"{MAX_SMEM}), batch at most 65535")
+                         f"{MAX_SMEM})")
     return need
+
+
+def _dense(t: torch.Tensor, grid: int) -> torch.Tensor:
+    """t, or a contiguous copy where it is not dense along its last dim
+    or (bf16) off the ``grid``-byte grid."""
+    if t.stride(-1) == 1 and (t.dtype != torch.bfloat16
+                              or _on_grid(t, grid)):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def kernel_operands(x, dt, A, B, C, plan: Plan) -> tuple:
+    """``(x, dt, A, B, C)`` as the plan's launches read them: x zero-padded
+    to ``plan.P`` columns, B and C to ``plan.N``, each a copy only where it
+    is padded, not dense along its last dim or (bf16) off its grid; dt and
+    A contiguous."""
+    if x.shape[3] != plan.P:
+        x = F.pad(x, (0, plan.P - x.shape[3]))
+    else:
+        x = _dense(x, 16)
+    B, C = ((F.pad(t, (0, plan.N - t.shape[2])) if t.shape[2] != plan.N
+             else _dense(t, 8)) for t in (B, C))
+    return x, dt.contiguous(), A.contiguous(), B, C
 
 
 def plain_flops(b: int, S: int, H: int, P: int, N: int,
@@ -208,7 +333,8 @@ def ssd_scan_plain(x, dt, A, B, C, chunk: int = 256):
 
 def ssd_scan(x, dt, A, B, C, chunk: int = 256):
     """Chunked SSD -> ``(y (b, S, H, P), final_state (b, H, P, N) fp32)``;
-    the kernel on CUDA tensors, the plain version on CPU tensors."""
+    the kernel on CUDA tensors (:func:`kernel_plan`'s launches), the plain
+    version on CPU tensors."""
     global launches
     _check(x, dt, A, B, C, chunk)
     if x.device.type == "cpu":
@@ -219,25 +345,57 @@ def ssd_scan(x, dt, A, B, C, chunk: int = 256):
     b, S, H, P = x.shape
     N = B.shape[-1]
     chunk = min(chunk, S)
-    need = check_kernel_operands(x, dt, A, B, C, chunk)
-    y = torch.empty((b, S, H, P), dtype=x.dtype, device=x.device)
-    state = torch.empty((b, H, P, N), dtype=torch.float32, device=x.device)
+    plan = kernel_plan(P, N, x.dtype)
+    need = plan_smem(plan, chunk, x.dtype)
+    if need > MAX_SMEM:
+        raise ValueError(f"ssd_scan kernel: P {P}, N {N}, chunk {chunk} "
+                         f"need {need} B of shared memory (at most "
+                         f"{MAX_SMEM}) on the plan's widest launch")
+    if H * b * max(c for _, _, c in plan.slabs) > 0x7FFFFFFF:
+        raise ValueError(f"ssd_scan kernel: {H} heads x batch {b} exceed a "
+                         f"grid's 2**31 - 1 blocks")
+    xk, dtk, Ak, Bk, Ck = kernel_operands(x, dt, A, B, C, plan)
+    y = torch.empty((b, S, H, plan.P), dtype=x.dtype, device=x.device)
+    state = torch.empty((b, H, plan.P, plan.N), dtype=torch.float32,
+                        device=x.device)
+    # the bf16 kernel sums an N walk's pieces of y in fp32 here
+    yacc = torch.empty(y.shape, dtype=torch.float32, device=x.device) \
+        if x.dtype == torch.bfloat16 and len(plan.pieces) > 1 else None
     import ctypes
-    strides = (ctypes.c_longlong * 6)(x.stride(0), x.stride(1), B.stride(0),
-                                      B.stride(1), C.stride(0), C.stride(1))
+    strides = (ctypes.c_longlong * 6)(xk.stride(0), xk.stride(1),
+                                      Bk.stride(0), Bk.stride(1),
+                                      Ck.stride(0), Ck.stride(1))
     from repro_torch.kernels import _build
     lib = _build.load()
+    last = len(plan.pieces) - 1
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.ssd_scan_launch(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), y.data_ptr(), state.data_ptr(), _DTYPES[x.dtype],
-            b, S, H, P, N, chunk, strides, need, stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"ssd_scan kernel launch failed (cuda error {rc}) for x "
-            f"{tuple(x.shape)}, N {N}, chunk {chunk}, {x.dtype}")
-    launches += 1
+        for i, (n0, nw) in enumerate(plan.pieces):
+            Bs, Cs = Bk[..., n0:n0 + nw], Ck[..., n0:n0 + nw]
+            for p0, w, count in plan.slabs:
+                xs = xk[..., p0:p0 + w]
+                need = check_kernel_operands(xs, dtk, Ak, Bs, Cs, chunk)
+                geom = (ctypes.c_longlong * 8)(
+                    xk.stride(2), plan.P, p0, count, plan.N, n0,
+                    int(i == 0), int(i == last))
+                # x from its first column: the kernel adds each slab's
+                rc = lib.ssd_scan_launch(
+                    xk.data_ptr(), dtk.data_ptr(), Ak.data_ptr(),
+                    Bs.data_ptr(), Cs.data_ptr(), y.data_ptr(),
+                    state.data_ptr(), _DTYPES[x.dtype], b, S, H, w, nw,
+                    chunk, strides, need, geom,
+                    None if yacc is None else yacc.data_ptr(), stream)
+                if rc != 0:
+                    raise RuntimeError(
+                        f"ssd_scan kernel launch failed (cuda error {rc}) "
+                        f"for x {tuple(x.shape)}, N {N}, chunk {chunk}, "
+                        f"{x.dtype}: slabs {(p0, w, count)}, state "
+                        f"columns {(n0, nw)}")
+                launches += 1
+    if plan.P != P:
+        y = y[..., :P].contiguous()
+    if (plan.P, plan.N) != (P, N):
+        state = state[:, :, :P, :N].contiguous()
     report_kernel((x, dt, A, B, C, y, state),
                   lambda: plain_flops(b, S, H, P, N, chunk))
     return y, state

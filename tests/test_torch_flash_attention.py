@@ -229,9 +229,10 @@ def test_tensor_core_roundings_fit_the_bf16_tolerance(case):
 
 
 def test_bf16_kernel_refuses_tensors_off_the_16_byte_grid():
-    """The tensor-core kernel copies 16 bytes at a time: a bf16 view at a
-    2-byte offset is refused before any launch; fp32 (the FMA kernel) and
-    fresh bf16 tensors pass."""
+    """The tensor-core kernel copies 16 bytes at a time: the launch's guard
+    refuses a bf16 view at a 2-byte offset (the wrappers hand the launch a
+    fresh copy of one, ``pad_operands``); fp32 (the FMA kernel) and fresh
+    bf16 tensors pass."""
     base = torch.zeros(1 * 8 * 4 * 64 + 8, dtype=torch.bfloat16)
     odd = base[1:1 + 8 * 4 * 64].view(1, 8, 4, 64)
     even = base[8:].view(1, 8, 4, 64)
@@ -251,7 +252,9 @@ def test_bf16_kernel_refuses_tensors_off_the_16_byte_grid():
 # and the lse / delta rows), each under the H100's 232,448-byte opt-in
 MMA_SMEM = {(192, 128): {"fwd": 137216, "dq": 172032, "dkv": 173056},
             (96, 64): {"fwd": 71680, "dq": 90112, "dkv": 91136},
-            (80, 80): {"fwd": 67584, "dq": 90112, "dkv": 91136}}
+            (80, 80): {"fwd": 67584, "dq": 90112, "dkv": 91136},
+            # 32-row kv tiles in the dq pass, 32-row q tiles in dk / dv
+            (256, 256): {"fwd": 202752, "dq": 202752, "dkv": 203264}}
 
 
 @pytest.mark.parametrize("pair", list(MMA_SMEM),

@@ -193,16 +193,21 @@ def test_mla_decode_matches_the_reference(q_lora, dtype):
 
 
 def test_the_kernels_are_built_for_the_mla_pairs_not_the_reduced_one():
-    """The MLA archs' pairs are kernel instances; the reduced MLA pair
-    (24, 16) is not (ROADMAP C13): on the CPU the plain version takes it
-    (the tests above), on the card the wrapper refuses it before any
-    launch (``chip_smoke.py`` phase 2)."""
+    """The MLA archs' pairs are kernel instances, each its own; the
+    reduced MLA pair (24, 16) is no instance but reaches one through
+    ``instance_for``: on the card it runs zero-padded on (32, 32) with
+    the scale of its true D (``chip_smoke.py`` phase 2 and the reduced
+    MLA archs' card-vs-CPU runs), on the CPU the plain version takes it
+    (the tests above) and nothing is launched."""
     from repro_torch.kernels import flash_attention as TFA
     assert (24, 16) not in TFA.HEAD_DIMS
+    assert TFA.instance_for(24, 16) == (32, 32)
     for pair in ((192, 128), (96, 64), (80, 80)):
-        assert pair in TFA.HEAD_DIMS
+        assert pair in TFA.HEAD_DIMS and TFA.instance_for(*pair) == pair
     q = torch.zeros(1, 4, 2, 24)
     v = torch.zeros(1, 4, 2, 16)
+    qp, kp, vp, scale = TFA.pad_operands(q, q, v)
+    assert (qp.shape[3], vp.shape[3]) == (32, 32) and scale == 24 ** -0.5
     before = TFA.launches
     out, lse = TFA.flash_fwd(q, q, v)
     assert tuple(out.shape) == (1, 4, 2, 16) and TFA.launches == before
