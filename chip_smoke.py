@@ -34,9 +34,13 @@ step on a 1 x 1 ``DeviceMesh``) — and holds every hand-written kernel
 against its plain PyTorch version on the card.
 Phases (any failure exits non-zero):
 
-1. toolchain + card line, then the kernels' build (set-up time) and the
-   ``ptxas`` line: registers, spills and stack of the bf16 tensor-core
-   flash and SSD kernels from ``ptxas -v``;
+1. toolchain + card line, then the kernels' build (set-up time; a C7508
+   "setmaxnreg ignored" warning fails it) and the ``ptxas`` line:
+   registers, spills and stack of the bf16 tensor-core flash and SSD
+   kernels from ``ptxas -v``; the ``wgmma_build`` line: every wgmma flash
+   instance built without a spill and its plan in ``csrc/wgmma_plan.cuh``
+   equal to ``flash_attention.wgmma_plan`` (else the run fails), and
+   ptxas's performance notes on them;
 2. ``kernels_check``: ``shard_factor`` on randomized step programs, one
    request per launch and packed builds of up to 400 requests per launch
    (broadcast operands, dims past 2^31, the kernel's limits; bit-equal on
@@ -299,17 +303,19 @@ Phases (any failure exits non-zero):
    ``experiments/measured``, then the ``measure_summary`` line — the
    predictor's MAPE per arch x kind, family, the multimodal training
    cells and all cells, raw under the ``tpu`` and ``cpu`` term sets,
-   calibrated on the even cells and held out on the odd ones; every
-   record also carries the ``cost``, ``collectives`` and
-   ``loop_aware`` blocks of one more step of its cell counted by a
-   ``core.device_metrics.StepCounter`` once the last cell of its state
-   was measured, and ``step_s`` (CUDA events around a warm step with no
-   counter: a train cell's second, a serving cell's second run; the
-   summary's ``counted_steps_s`` is the counted steps' time), each
-   ``measure`` line a
+   calibrated on the even cells and held out on the odd ones; the
+   records of the 32 counted cells (``measure.counted_cells``: the first
+   of each arch x kind x sequence length x policy x remat) also carry the
+   ``cost``, ``collectives`` and ``loop_aware`` blocks of one more step of
+   their cell counted by a ``core.device_metrics.StepCounter`` once the last
+   cell of its state was measured, every record ``step_s`` (CUDA events
+   around a warm step with no counter: a train cell's second, a serving
+   cell's second run; the summary's ``counted_steps_s`` is the counted
+   steps' time), each counted ``measure`` line a
    ``reading`` of dot TFLOP per step, TFLOP/s and its share of the dense
    bf16 peak; gated: every cell's ``memory.total_bytes`` equal to the
-   committed store's, FLOPs and time present, no
+   committed store's, time present, FLOPs present exactly on the counted
+   cells, no
    collective on one card, and on the first llava15-7b training cell
    (``counter_twin``) a step under the counter with the peak and launches
    of the same step without it;
@@ -344,7 +350,9 @@ Phases (any failure exits non-zero):
    shape's work, SDPA runs at the true shape), the RMSNorm backward at D
    16,384, the SSD at P 256 (two slabs) and N 512 (two launches);
    ``shard_factor`` at the packed shape of the sweeps' largest table
-   build.
+   build; each flash row names its design (``wgmma`` or ``mma``, from
+   ``flash_attention.DESIGN``) and its instance's tile, threads, ptxas
+   line and shared memory.
 
 The ``sweep_resident`` line gives the bytes the sweeps leave allocated,
 which every later allocator peak includes (none: the sweep engines are
@@ -1643,27 +1651,77 @@ def model_counts() -> dict:
             "rmsnorm_bwd": RN.bwd_launches}
 
 
-# the bf16 tensor-core kernels: name in the kernels line -> (CUDA kernel,
-# FL.mma_smem_bytes kind)
-MMA_KERNELS = {"flash_fwd": ("flash_fwd_kernel_mma", "fwd"),
-               "flash_dq": ("flash_bwd_dq_kernel_mma", "dq"),
-               "flash_dkv": ("flash_bwd_dkv_kernel_mma", "dkv")}
-MMA_TILES = {"fwd": FL.FWD_TILE, "dq": FL.DQ_TILE, "dkv": FL.DKV_TILE}
+# the bf16 tensor-core kernels: name in the kernels line -> the pass
+# (FL.DESIGN's key); the CUDA kernel of each pass
+MMA_KERNELS = {"flash_fwd": "fwd", "flash_dq": "dq", "flash_dkv": "dkv"}
+FLASH_KERNEL = {"fwd": "flash_fwd_kernel_wgmma",
+                "dq": "flash_bwd_dq_kernel_mma",
+                "dkv": "flash_bwd_dkv_kernel_wgmma"}
 SSD_MMA_KERNEL = "ssd_scan_kernel_mma"
 
 
 def mma_resources() -> dict:
     """``ptxas -v``'s registers, spills and stack of every instance of the
-    tensor-core kernels, by ``kernel<D,Dv>`` (flash) / ``kernel<P>``
-    (SSD)."""
+    tensor-core kernels (mma.sync and wgmma), by ``kernel<D,Dv>`` (flash)
+    / ``kernel<P>`` (SSD)."""
     out = {}
-    kernels = [kern for kern, _ in MMA_KERNELS.values()] + [SSD_MMA_KERNEL]
+    kernels = list(FLASH_KERNEL.values()) + [SSD_MMA_KERNEL]
     for name, r in _build.kernel_resources().items():
         for kern in kernels:
-            if kern in name:
+            if re.search(kern + r"I", name):
                 dims = re.findall(r"Li(\d+)E", name)
                 out[f"{kern}<{','.join(dims)}>"] = r
     return out
+
+
+def flash_design(which: str, di: int, dvi: int) -> dict:
+    """The design, CUDA kernel, tile, threads, ptxas line and shared memory
+    of the bf16 pass ``which`` at the compiled pair (di, dvi)."""
+    design, kern = FL.DESIGN[which], FLASH_KERNEL[which]
+    if design == "wgmma":
+        plan = FL.wgmma_plan(which, di, dvi)
+        tile, threads, smem = plan["tile"], plan["threads"], \
+            plan["smem_bytes"]
+    else:
+        tile, threads = FL.dq_tile(di, dvi), 256
+        smem = FL.dq_smem_bytes(di, dvi)
+    return {"design": design, "kernel": kern, "tile": list(tile),
+            "threads": threads,
+            "ptxas": mma_resources().get(f"{kern}<{di},{dvi}>"),
+            "smem_bytes_per_block": smem}
+
+
+def check_wgmma_build() -> dict:
+    """Phase 1's gate on the wgmma kernels: every compiled instance
+    (``FL.HEAD_DIMS``) built (its ptxas line present) without a spill, and
+    its plan in csrc/wgmma_plan.cuh (rows, step rows, stages, sweeps,
+    shared memory) equal to flash_attention.py's wgmma_plan.  (A C7508
+    "setmaxnreg ignored" warning fails the build itself.)"""
+    import ctypes
+    lib = _build.load()
+    res = mma_resources()
+    checked = []
+    for which, k in (("fwd", 0), ("dkv", 1)):
+        for pair in FL.HEAD_DIMS:
+            name = f"{FLASH_KERNEL[which]}<{pair[0]},{pair[1]}>"
+            r = res.get(name)
+            if r is None:
+                fail(f"ptxas reported nothing for {name}")
+            if r.get("spill_store_bytes") or r.get("spill_load_bytes"):
+                fail(f"{name} spills registers: {r}")
+            got = (ctypes.c_int * 5)()
+            if lib.flash_wgmma_plan(k, pair[0], pair[1], got):
+                fail(f"flash_wgmma_plan refused {which} {pair}")
+            plan = FL.wgmma_plan(which, *pair)
+            want = [*plan["tile"], plan["stages"], plan["sweeps"],
+                    plan["smem_bytes"]]
+            if list(got) != want:
+                fail(f"{which} {pair}: csrc's plan {list(got)} != "
+                     f"flash_attention.wgmma_plan's {want}")
+            checked.append(name)
+    return {"wgmma_instances": checked,
+            "ptxas_notes": [w for w in _build.ptxas_warnings()
+                            if "Performance Loss" in w]}
 
 
 def timed_sweep(engine, grid) -> tuple:
@@ -2356,11 +2414,11 @@ def device_breakdown(fn, wall_ms: float, top: int = 6):
         return None
     rows.sort(reverse=True)
     # by substring of the demangled name: "flash_fwd_kernel<" is the fp32
-    # FMA kernel, "flash_fwd_kernel_mma" the bf16 tensor-core one
+    # FMA kernel, "flash_fwd_kernel_wgmma" the bf16 tensor-core one
     part = {name.rstrip("<"): sum(r[0] for r in rows if name in r[1])
-            for name in ("flash_fwd_kernel_mma", "flash_fwd_kernel<",
+            for name in ("flash_fwd_kernel_wgmma", "flash_fwd_kernel<",
                          "flash_bwd_dq_kernel_mma", "flash_bwd_dq_kernel<",
-                         "flash_bwd_dkv_kernel_mma", "flash_bwd_dkv_kernel<",
+                         "flash_bwd_dkv_kernel_wgmma", "flash_bwd_dkv_kernel<",
                          "rmsnorm_fwd_kernel", "rmsnorm_bwd_kernel",
                          "ssd_scan_kernel_mma", "ssd_scan_kernel<")}
     part = {k: v for k, v in part.items() if v}
@@ -4936,24 +4994,35 @@ def measure_phase() -> dict:
         committed = {(m["arch"], m["meta"]["shape"]): m["measured_bytes"]
                      for m in json.load(f)["measurements"]}
 
+    counted = ME.counted_cells(ME.GRID)
+
     def on_record(rec):
-        flops = rec["cost"]["flops_per_device"]
-        say("measure " + json.dumps(dict(rec, reading={
-            "tflop_per_step": flops / 1e12,
-            "tflop_per_s": flops / rec["step_s"] / 1e12,
-            "share_of_bf16_peak": flops / rec["step_s"] / BF16_OPS_PER_S,
-            "measured_peak_bytes": rec["allocator"]["peak_bytes"]})))
+        cell = ME.MeasureCell(rec["arch"], rec["kind"], rec["seq_len"],
+                              rec["global_batch"], rec["policy"],
+                              rec["optimizer"], rec["remat"])
+        reading = {"measured_peak_bytes": rec["allocator"]["peak_bytes"]}
+        if "cost" in rec:
+            flops = rec["cost"]["flops_per_device"]
+            reading.update({
+                "tflop_per_step": flops / 1e12,
+                "tflop_per_s": flops / rec["step_s"] / 1e12,
+                "share_of_bf16_peak":
+                    flops / rec["step_s"] / BF16_OPS_PER_S})
+        say("measure " + json.dumps(dict(rec, reading=reading)))
         key = (rec["arch"], rec["shape"])
         if rec["memory"]["total_bytes"] != committed.get(key):
             moved.append((key, rec["memory"]["total_bytes"],
                           committed.get(key)))
-        if not (flops > 0 and rec["step_s"] > 0
-                and rec["loop_aware"]["flops_per_device"] == flops
-                and rec["collectives"]["total_wire_bytes_per_device"] == 0):
+        # a counted cell's record has its step's FLOPs, no collective on
+        # one card; every record its time
+        if ("cost" in rec) != (cell in counted) or not rec["step_s"] > 0 \
+                or ("cost" in rec and not (
+                    rec["cost"]["flops_per_device"] > 0
+                    and rec["loop_aware"]["flops_per_device"]
+                    == rec["cost"]["flops_per_device"]
+                    and rec["collectives"]["total_wire_bytes_per_device"]
+                    == 0)):
             uncounted.append(key)
-        cell = ME.MeasureCell(rec["arch"], rec["kind"], rec["seq_len"],
-                              rec["global_batch"], rec["policy"],
-                              rec["optimizer"], rec["remat"])
         want = PL.check(cell.arch, ShapeConfig(cell.shape, cell.seq_len,
                                                cell.global_batch, cell.kind),
                         ME.MESH, policy=SW.POLICIES[cell.policy],
@@ -4996,8 +5065,9 @@ def measure_phase() -> dict:
         fail(f"cells whose allocator total moved from the committed "
              f"store's: {moved[:4]}")
     if uncounted:
-        fail(f"records without their step's FLOPs and time, or with "
-             f"collectives on one card: {uncounted[:4]}")
+        fail(f"records without their time, counted cells without their "
+             f"step's FLOPs or with collectives on one card, or uncounted "
+             f"ones with them: {uncounted[:4]}")
     twin = counter_twin(ME.GRID[0])
     measure_s = time.perf_counter() - t_phase
     summary = ME.summary(store)
@@ -5006,8 +5076,9 @@ def measure_phase() -> dict:
         "store": os.path.relpath(path, HERE), "launches": launches,
         "measure_s": measure_s, "counted_steps_s": count_s[0],
         "counter_twin": twin,
+        "counted_cells": sum("cost" in r for r in records),
         "flop_per_step": sum(r["cost"]["flops_per_device"]
-                             for r in records),
+                             for r in records if "cost" in r),
         "worst_reserved_over_allocated": max(
             r["allocator"]["reserved_over_allocated"] for r in records),
         "alloc_retries": sum(r["allocator"]["alloc_retries"]
@@ -5321,10 +5392,12 @@ def _flash_timing(shape: tuple, causal: bool, gen) -> dict:
         "shape": _shape_row(shape, causal),
         # the instance's products over the true shape's (zero columns)
         "padded_ops_over_true": (di + dvi) / (d + dv),
+        "design": FL.DESIGN["fwd"],
         "ms": event_ms(lambda: FL.flash_fwd(q, k, v, causal=causal),
                       flush=True),
-        "device_ms": device_ms(lambda: FL.flash_fwd(q, k, v, causal=causal),
-                               "flash_fwd_kernel_mma", flush=True),
+        "device_ms": device_ms(
+            lambda: FL.flash_fwd(q, k, v, causal=causal),
+            FLASH_KERNEL["fwd"], flush=True),
         "plain_ms": event_ms(
             lambda: FL.flash_fwd_plain(q, k, v, causal=causal), launches=10,
             flush=True),
@@ -5389,21 +5462,22 @@ def _flash_bwd_timing(shape: tuple, causal: bool, gen) -> tuple:
             ("flash_dq", 2 * d + dv, 2 * di + dvi,
              3 * t_d + 3 * t_dv + 2 * stat,
              lambda: FL.flash_bwd_dq(q, k, v, out, lse, do, causal=causal),
-             "flash_bwd_dq_kernel_mma"),
+             "dq"),
             # dk / dv pass: s, dp, dv and dk; reads q k v dout lse delta,
             # writes dk dv
             ("flash_dkv", 2 * d + 2 * dv, 2 * di + 2 * dvi,
              3 * t_d + 3 * t_dv + 2 * stat,
              lambda: FL.flash_bwd_dkv(q, k, v, lse, do, delta,
                                       causal=causal),
-             "flash_bwd_dkv_kernel_mma")):
+             "dkv")):
         n_ops = 2 * scores * width
         bound_ms, bound_by = _bound(n_bytes, n_ops, BF16_OPS_PER_S)
         rows.append({
             "shape": _shape_row(shape, causal),
             "padded_ops_over_true": padded / width,
+            "design": FL.DESIGN[kern],
             "ms": event_ms(fn, flush=True),
-            "device_ms": device_ms(fn, kern, flush=True),
+            "device_ms": device_ms(fn, FLASH_KERNEL[kern], flush=True),
             "l2": "flushed before each timed launch",
             "plain_ms": plain_ms, "plain_covers": "dq, dk and dv",
             "library_ms": library_ms,
@@ -5532,20 +5606,12 @@ def time_model_kernels(checks: dict, launches: dict) -> list:
                      c["max_abs_err_by_case"][case_key(case)])}
         entry.update(main)
         if name in MMA_KERNELS:
-            kern, which = MMA_KERNELS[name]
-            entry["tensor_cores"] = {
-                "kernel": kern, "tile": list(MMA_TILES[which]),
-                "threads": 256,
-                "ptxas": mma_resources().get(f"{kern}<{d},{d}>"),
-                "smem_bytes_per_block": FL.mma_smem_bytes(which, d, d)}
+            entry["tensor_cores"] = flash_design(MMA_KERNELS[name], d, d)
         entry["other_shapes"] = others
         if name in MMA_KERNELS:
             for o in others:        # each shape's own instance
                 di, dvi = o["shape"]["instance"]
-                o["ptxas"] = mma_resources().get(
-                    f"{MMA_KERNELS[name][0]}<{di},{dvi}>")
-                o["smem_bytes_per_block"] = FL.mma_smem_bytes(
-                    MMA_KERNELS[name][1], di, dvi)
+                o["tensor_cores"] = flash_design(MMA_KERNELS[name], di, dvi)
         for k in [entry] + others:
             if not (k["ms"] > 0 and k["plain_ms"] > 0 and k["bound_ms"] > 0
                     and k["library_ms"] > 0):
@@ -5683,7 +5749,8 @@ def say_kernel(k: dict) -> None:
         else f", {100 * k['share_of_bound']:.1f} % of the bound"
     lib = "" if k["vs_library"] is None \
         else f", {k['vs_library']:.2f}x the library call"
-    say(f"kernel {k['name']}: {k['ms'] * 1e3:.1f} us/call by CUDA "
+    design = f" ({k['design']} design)" if k.get("design") else ""
+    say(f"kernel {k['name']}{design}: {k['ms'] * 1e3:.1f} us/call by CUDA "
         f"events (kernel alone on the device: {dev}; plain "
         f"{k['plain_ms'] * 1e3:.1f} us, bound "
         f"{k['bound_ms'] * 1e3:.3f} us by {k['bound_by']}{share}{lib}) at "
@@ -5732,6 +5799,7 @@ def main(argv: list) -> int:
     if spills or not resources:
         print(f"chip_smoke: the tensor-core kernels spill registers or "
               f"ptxas reported nothing: {spills}", file=sys.stderr)
+    say("wgmma_build " + json.dumps(check_wgmma_build()))
 
     t_phase = [t_start]
 

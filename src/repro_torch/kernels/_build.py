@@ -9,7 +9,8 @@ sources and flags, so a second call — or a second process — reuses it and
 an edited source rebuilds.  A failed build raises with ``nvcc``'s output.
 ``ptxas -v`` reports each kernel's registers, spills and static shared
 memory; the report is kept beside the library (``*.ptxas.txt``) and
-:func:`kernel_resources` reads it.
+:func:`kernel_resources` and :func:`ptxas_warnings` read it.  A C7508
+warning (``setmaxnreg`` ignored) fails the build.
 
 ``nvcc`` and ``ctypes`` are touched only inside ``load()``: importing this
 module needs neither.
@@ -93,6 +94,12 @@ def _build(lib_path: Path, srcs: list[Path]) -> None:
     try:
         log = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)]
                         for s, o in zip(srcs, objs)])
+        ignored = [ln for ln in log.splitlines() if "C7508" in ln]
+        if ignored:
+            # setmaxnreg ignored: the warp-specialised kernels would run
+            # their consumers at the launch's register share
+            raise RuntimeError("ptxas ignored setmaxnreg:\n" +
+                               "\n".join(ignored))
         _report_path(lib_path).write_text(log)
         tmp = out_dir / f"{tag}.so"
         _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
@@ -135,6 +142,21 @@ def kernel_resources() -> dict:
     return out
 
 
+def ptxas_warnings() -> list:
+    """The warning lines of the ``ptxas -v`` report of the library
+    :func:`load` built, and its "Potential Performance Loss" notes (wgmma
+    serialised); a build with a C7508 "setmaxnreg ignored" warning fails,
+    so none of those."""
+    if _lib is None:
+        raise RuntimeError("ptxas_warnings() reads the report of the "
+                           "library load() built: call load() first")
+    path = _report_path(Path(_lib._name))
+    if not path.is_file():
+        return []
+    return [ln.strip() for ln in path.read_text().splitlines()
+            if "warning" in ln.lower() or "Performance Loss" in ln]
+
+
 def load():
     """The kernels' shared library as a ``ctypes.CDLL`` (built on first
     use, then cached in the process)."""
@@ -165,7 +187,7 @@ def load():
         c_float = ctypes.c_float
         lib.flash_fwd_launch.argtypes = [
             c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_int, c_int, c_int, c_int,
-            c_int, c_int, c_int, c_int, c_int, c_int, c_float, c_ptr]
+            c_int, c_int, c_int, c_int, c_int, c_float, c_ptr]
         lib.flash_fwd_launch.restype = c_int
         lib.rmsnorm_fwd_launch.argtypes = [
             c_ptr, c_ptr, c_ptr, c_int, c_ll, c_int, c_float, c_ptr]
@@ -175,13 +197,25 @@ def load():
             c_int, c_int, c_int, c_int, c_int, c_int, c_int, c_int, c_int,
             c_float, c_ptr]
         lib.flash_bwd_dq_launch.restype = c_int
-        lib.flash_bwd_dkv_launch.argtypes = \
-            lib.flash_bwd_dq_launch.argtypes
-        lib.flash_bwd_dkv_launch.restype = c_int
         lib.rmsnorm_bwd_launch.argtypes = [
             c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_int, c_ll, c_int, c_int,
             c_float, c_ptr]
         lib.rmsnorm_bwd_launch.restype = c_int
+        lib.flash_fwd_wgmma_launch.argtypes = [
+            c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_int, c_int, c_int, c_int,
+            c_int, c_int, c_int, c_int, c_int, c_float, c_ptr]
+        lib.flash_fwd_wgmma_launch.restype = c_int
+        lib.flash_bwd_dkv_wgmma_launch.argtypes = [
+            c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_int,
+            c_int, c_int, c_int, c_int, c_int, c_int, c_int, c_int, c_float,
+            c_ptr]
+        lib.flash_bwd_dkv_wgmma_launch.restype = c_int
+        lib.flash_bwd_dkv_launch.argtypes = \
+            lib.flash_bwd_dkv_wgmma_launch.argtypes
+        lib.flash_bwd_dkv_launch.restype = c_int
+        lib.flash_wgmma_plan.argtypes = [c_int, c_int, c_int,
+                                         ctypes.POINTER(c_int)]
+        lib.flash_wgmma_plan.restype = c_int
         lib.ssd_scan_launch.argtypes = [
             c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_int, c_int,
             c_int, c_int, c_int, c_int, c_int, ctypes.POINTER(c_ll), c_ll,

@@ -1,4 +1,4 @@
-// flash_bwd_dq_kernel(_mma) / flash_bwd_dkv_kernel(_mma): FlashAttention-2
+// flash_bwd_dq_kernel(_mma) / flash_bwd_dkv_kernel: FlashAttention-2
 // backward with GQA, causal masking from a q offset, for the out + lse
 // that the forward (flash_attention.cu) saved.
 //
@@ -29,7 +29,8 @@
 // Causal tiles wholly above the diagonal are skipped with the TPU kernels'
 // test on absolute positions: in the fp32 kernels a (64-row q tile, KV
 // tile) pair is computed when k0 <= q_offset + q0 + 63; the tensor-core
-// kernels apply the same test per warp.
+// dq pass applies the same test per warp (the wgmma dk / dv pass of
+// flash_attention_bwd_wgmma.cu per warpgroup).
 //
 // What bounds them on an H100: operations.  The dq pass does three
 // products per score tile (s and dq at D, dp at Dv) and the dkv pass four
@@ -42,16 +43,11 @@
 // instance that dominates it (the wrapper pads q, k, v, out and dout and
 // drops the gradients' extra columns, which are zero; lse and delta are
 // unchanged by zero columns).  At D > 128 the tensor-core dq pass computes
-// each 64-row kv tile in two 32-row halves (kv_halves), and at D + DV >
-// 256 the dk / dv pass sweeps its q tiles twice (dkv_sweeps): (192, 128)
-// then takes 245 (dq) and 241 (dk / dv) registers a thread, no spills
-// (ptxas -v, nvcc 12.9), with the shared memory of one sweep.  At (256,
-// 256) the tiles of the layouts above would need 270,336 (dq) and 271,360
-// (dk / dv) bytes of shared memory: there the dq pass takes 32-row kv
-// tiles (dq_bkv) and the dk / dv pass 32-row q tiles (dkv_bq), 202,752 and
-// 203,264 bytes, and the dk / dv pass sweeps four times, each sweep
-// holding half of dV's or dK's columns (64 accumulator registers, as at
-// head dim 128).  The fp32 kernels there hold one kv (dq pass) or one q /
+// each 64-row kv tile in two 32-row halves (kv_halves): (192, 128) then
+// takes 245 registers a thread, no spills (ptxas -v, nvcc 12.9).  At (256,
+// 256) two 64-row K and V tiles beside q and dO would need 270,336 bytes
+// of shared memory: there the dq pass takes 32-row kv tiles (dq_bkv),
+// 202,752 bytes.  The fp32 kernels there hold one kv (dq pass) or one q /
 // dO (dk / dv pass) tile at a time, loading each operand when its product
 // runs (dkv_share / dq_share), within 232,448 bytes.
 //
@@ -60,7 +56,7 @@
 // such a grid launches, so B, H and the tile count are bounded only by
 // their product (< 2^31).
 //
-// For bf16 inputs both passes run on the tensor cores (m16n8k16 bf16
+// For bf16 inputs the dq pass runs on the tensor cores (m16n8k16 bf16
 // mma.sync, fp32 accumulation), in blocks of 8 warps (256 threads), with
 // bf16 tiles in shared memory whose rows are padded by 16 bytes, so the 8
 // rows an ldmatrix reads fall in 8 different 4-bank groups:
@@ -89,26 +85,9 @@
 //   139,264 bytes of shared memory (q, dO, two K and two V tiles), one
 //   block per SM (ptxas -v's registers and spills: chip_smoke.py prints
 //   them).
-// * flash_bwd_dkv_kernel_mma: one block per (kv head, batch, 128-row KV
-//   tile), grid (Hkv, B, KV tiles): the first KV tiles, which under a
-//   causal mask meet the most q rows, start first.  K and V stay resident
-//   in shared memory; each warp owns 16 KV rows and keeps their fp32 dK
-//   and dV accumulators in mma fragments (at head dim 128, 64 + 64
-//   registers).  The block walks the G query heads of its group and every
-//   64-row q tile from the causal start, in a fixed order; q, dO and the
-//   tile's rows of lse and delta come through cp.async copies,
-//   double-buffered, rows past Sq zero-filled.  Each q tile is computed in
-//   two 32-row halves (16 + 16 registers of scores and dp), in the
-//   kv-major orientation, so nothing is transposed through shared memory:
-//     S^T = K Q^T;  P^T = exp(scale S^T - lse) (fp32), rounded to bf16 in
-//     registers;  dV += P^T dO (dO by ldmatrix.trans);  dP^T = V dO^T;
-//     dS^T = P^T (dP^T - delta) -> bf16;  dK += dS^T Q (Q by ldmatrix.trans);
-//   dK is multiplied by D^-0.5 once at the end.  A warp skips the halves
-//   wholly above its diagonal and masks only the halves on the diagonal
-//   or a ragged edge.  Per block at head dim 128: 256 threads of 253
-//   registers, no spills (ptxas -v for sm_90a, nvcc 12.9), and 140,288
-//   bytes of shared memory (K, V, two q and two dO tiles, and two rows
-//   each of lse and delta).
+// * bf16 dk / dv runs flash_bwd_dkv_kernel_wgmma of
+//   flash_attention_bwd_wgmma.cu (Hopper's wgmma, TMA and warp
+//   specialisation) at every pair.
 // Each dq and each dk / dv tile is written once by one block after a
 // fixed loop order: no atomics, bit-equal from one launch to the next.
 //
@@ -513,369 +492,15 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// dk / dv for bf16 on the tensor cores
+// dq for bf16 on the tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int MMA_BKV = 128;        // kv rows per block, 16 per warp
-constexpr int MMA_BQ = 64;          // q rows per tile, two halves of 32
 constexpr int MMA_THREADS = 256;    // 8 warps
-
-// q rows per tile of the dk / dv pass: 32 (one half) at (256, 256), where
-// two 64-row q and dO tiles beside K and V would take 271,360 bytes
-template <int D, int DV>
-__host__ __device__ constexpr int dkv_bq() {
-    return D + DV > 384 ? 32 : MMA_BQ;
-}
 
 // sub-tiles the dq pass computes a kv tile in: 2 at D > 128, where dQ's
 // accumulators (D / 2 registers a thread) leave too few registers for a
 // whole tile's scores, dP and dS fragments; 1 (the whole tile) below
 __host__ __device__ constexpr int kv_halves(int D) { return D > 128 ? 2 : 1; }
-
-template <int D, int DV>
-struct DkvMmaSmem {                 // byte offsets; bf16 rows padded by 8
-    static constexpr int KS = D + 8;          // k and q rows
-    static constexpr int VS = DV + 8;         // v and dO rows
-    static constexpr int K_OFF = 0;
-    static constexpr int V_OFF = K_OFF + MMA_BKV * KS * 2;
-    static constexpr int BQT = dkv_bq<D, DV>();
-    static constexpr int Q_OFF = V_OFF + MMA_BKV * VS * 2;      // 2 buffers
-    static constexpr int DO_OFF = Q_OFF + 2 * BQT * KS * 2;     // 2 buffers
-    static constexpr int LSE_OFF = DO_OFF + 2 * BQT * VS * 2;
-    static constexpr int DELTA_OFF = LSE_OFF + 2 * BQT * 4;
-    static constexpr size_t BYTES = DELTA_OFF + 2 * BQT * 4;
-};
-
-// dk / dv pass, split at (D + DV) > 256: each warp's fp32 dK and dV
-// accumulators take (D + DV) / 2 registers a thread (128 at head dim 128,
-// beside 253 in all); at (192, 128) they would take 160, past the 255 a
-// thread may hold.  A split block walks its (head, q tile) pairs twice:
-// first for dV alone (S^T, P^T, dV; 64 accumulator registers), then for
-// dK alone (S^T, P^T, dP^T, dS^T, dK; 96).  The second sweep recomputes
-// S^T, 3D + 2DV products per score tile where one sweep does 2D + 2DV
-// (1.3x at (192, 128)), and each value is computed from the same operands
-// in the same order as in one sweep, so the roundings are those of the
-// unsplit kernel.  (Fewer warps per block would not help: a warp's 16 kv
-// rows hold the same accumulators whatever the block's size.)  At (256,
-// 256) dV's and dK's accumulators take 128 registers each, so the block
-// sweeps four times, for dV's and then dK's two column halves (64 each).
-template <int D, int DV>
-__host__ __device__ constexpr int dkv_sweeps() {
-    return D + DV > 384 ? 4 : D + DV > 256 ? 2 : 1;
-}
-
-// One sweep of a dk / dv block (kv head hk, batch b, kv rows from k0) over
-// its (head of the group, q tile) pairs, accumulating the NK columns of
-// dK from column K0 and the NV columns of dV from V0 (none where 0) and
-// storing them.  K and V are in flight in shared memory (committed with
-// the first q tile's copies); the caller syncs the block between two
-// sweeps.
-template <int D, int DV, int K0, int NK, int V0, int NV>
-__device__ __forceinline__ void dkv_sweep(
-        const __nv_bfloat16* __restrict__ q,
-        const __nv_bfloat16* __restrict__ dout,
-        const float* __restrict__ lse, const float* __restrict__ delta,
-        __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-        unsigned char* smem_raw, int hk, int b, int k0, int Sq, int Skv,
-        int H, int Hkv, int q_offset, int causal, float scale) {
-    using S = DkvMmaSmem<D, DV>;
-    constexpr bool DO_DK = NK > 0, DO_DV = NV > 0;
-    constexpr int BQT = S::BQT;
-    const uint32_t base = tc::smem_addr(smem_raw);
-    const uint32_t sK = base + S::K_OFF, sV = base + S::V_OFF;
-    const uint32_t sQ = base + S::Q_OFF, sO = base + S::DO_OFF;
-    const uint32_t sL = base + S::LSE_OFF, sD = base + S::DELTA_OFF;
-    const float* lse_s = reinterpret_cast<const float*>(smem_raw + S::LSE_OFF);
-    const float* delta_s =
-        reinterpret_cast<const float*>(smem_raw + S::DELTA_OFF);
-
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int g = lane >> 2, t = lane & 3;
-    const int G = H / Hkv;
-    const long long q_row = (long long)H * D;
-    const long long o_row = (long long)H * DV;
-    const long long k_row = (long long)Hkv * D;
-    const long long v_row = (long long)Hkv * DV;
-    const long long kb = (long long)b * Skv * k_row + (long long)hk * D;
-    const long long vb = (long long)b * Skv * v_row + (long long)hk * DV;
-
-    // q tiles whose last row lies before this KV tile are fully masked
-    int q_first = 0;
-    if (causal && k0 > q_offset) q_first = ((k0 - q_offset) / BQT) * BQT;
-    const int nq = q_first < Sq ? (Sq - q_first + BQT - 1) / BQT : 0;
-    const int n_it = G * nq;             // (head of the group, q tile) pairs
-
-    auto load_q = [&](int it, int buf) {
-        const int h = hk * G + it / nq;
-        const int q0 = q_first + (it % nq) * BQT;
-        const long long qb = (long long)b * Sq * q_row + (long long)h * D;
-        const long long ob = (long long)b * Sq * o_row + (long long)h * DV;
-        const long long stat = ((long long)b * H + h) * Sq;
-        const uint32_t dq_ = sQ + buf * BQT * S::KS * 2;
-        const uint32_t do_ = sO + buf * BQT * S::VS * 2;
-        for (int i = tid; i < BQT * (D / 8); i += MMA_THREADS) {
-            const int r = i / (D / 8), c = (i % (D / 8)) * 8, s = q0 + r;
-            const bool in = s < Sq;
-            tc::cp_async16(dq_ + (r * S::KS + c) * 2,
-                           q + qb + (in ? s : 0) * q_row + c, in);
-        }
-        for (int i = tid; i < BQT * (DV / 8); i += MMA_THREADS) {
-            const int r = i / (DV / 8), c = (i % (DV / 8)) * 8, s = q0 + r;
-            const bool in = s < Sq;
-            tc::cp_async16(do_ + (r * S::VS + c) * 2,
-                           dout + ob + (in ? s : 0) * o_row + c, in);
-        }
-        if (tid < 2 * BQT) {
-            const int r = tid % BQT, s = q0 + r;
-            const bool in = s < Sq;
-            const float* src = tid < BQT ? lse : delta;
-            const uint32_t dst = tid < BQT ? sL : sD;
-            tc::cp_async4(dst + (buf * BQT + r) * 4,
-                          src + stat + (in ? s : 0), in);
-        }
-    };
-    if (n_it > 0) load_q(0, 0);
-    tc::cp_async_commit();               // with K and V in the first sweep
-
-    constexpr int NKA = DO_DK ? NK / 8 : 1;      // accumulator n-tiles
-    constexpr int NVA = DO_DV ? NV / 8 : 1;
-    float dka[NKA][4], dva[NVA][4];
-    #pragma unroll
-    for (int n = 0; n < NKA; ++n) dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
-    #pragma unroll
-    for (int n = 0; n < NVA; ++n) dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
-    const int wrow = k0 + 16 * warp;     // this warp's first kv row
-    const int kp0 = wrow + g, kp1 = kp0 + 8;
-    const float c = scale * tc::LOG2E;
-    const uint32_t kA = sK + ((16 * warp + tc::a_row(lane)) * S::KS +
-                              tc::a_col(lane)) * 2;
-    const uint32_t vA = sV + ((16 * warp + tc::a_row(lane)) * S::VS +
-                              tc::a_col(lane)) * 2;
-
-    for (int it = 0; it < n_it; ++it) {
-        if (it + 1 < n_it) {
-            load_q(it + 1, (it + 1) & 1);
-            tc::cp_async_commit();
-            tc::cp_async_wait<1>();
-        } else {
-            tc::cp_async_wait<0>();
-        }
-        __syncthreads();
-        const int q0 = q_first + (it % nq) * BQT;
-        const int buf = it & 1;
-        const uint32_t qt = sQ + buf * BQT * S::KS * 2;
-        const uint32_t ot = sO + buf * BQT * S::VS * 2;
-        const float* lt = lse_s + buf * BQT;
-        const float* dt = delta_s + buf * BQT;
-        #pragma unroll
-        for (int half = 0; half < BQT / 32; ++half) {
-            const int qs = 32 * half;
-            const int qpos = q_offset + q0 + qs;   // the half's first q row
-            // every kv row of this warp after every q row: all masked
-            if (causal && wrow > qpos + 31) continue;
-            // S^T = K Q^T (16 kv rows x 32 q rows)
-            float st[4][4];
-            #pragma unroll
-            for (int n = 0; n < 4; ++n) st[n][0] = st[n][1] = st[n][2] = st[n][3] = 0.f;
-            #pragma unroll
-            for (int dc = 0; dc < D / 16; ++dc) {
-                uint32_t ka[4];
-                tc::ldsm_x4(ka, kA + dc * 32);
-                #pragma unroll
-                for (int np = 0; np < 2; ++np) {
-                    uint32_t qr[4];
-                    tc::ldsm_x4(qr, qt + ((qs + np * 16 + tc::bn_row(lane)) *
-                                          S::KS + dc * 16 + tc::bn_col(lane)) * 2);
-                    tc::mma_bf16(st[2 * np], ka, qr[0], qr[1]);
-                    tc::mma_bf16(st[2 * np + 1], ka, qr[2], qr[3]);
-                }
-            }
-            // P^T = exp(scale S^T - lse) in fp32; masked on edge halves
-            const bool edge = q0 + qs + 32 > Sq || wrow + 16 > Skv ||
-                              (causal && wrow + 15 > qpos);
-            #pragma unroll
-            for (int n = 0; n < 4; ++n) {
-                const int qc = qs + n * 8 + 2 * t;
-                const float2 L = *reinterpret_cast<const float2*>(lt + qc);
-                #pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    float p = exp2f(fmaf(st[n][e], c,
-                                         -(e & 1 ? L.y : L.x) * tc::LOG2E));
-                    if (edge) {
-                        const int kp = e < 2 ? kp0 : kp1;
-                        const int qr = q0 + qc + (e & 1);
-                        if (qr >= Sq || kp >= Skv ||
-                            (causal && kp > q_offset + qr))
-                            p = 0.f;
-                    }
-                    st[n][e] = p;
-                }
-            }
-            if constexpr (DO_DV) {
-                // dV += P^T dO, P^T rounded to bf16 in registers
-                uint32_t pa[2][4];
-                #pragma unroll
-                for (int n = 0; n < 4; ++n) {
-                    pa[n / 2][(n & 1) * 2] = tc::pack_bf16(st[n][0], st[n][1]);
-                    pa[n / 2][(n & 1) * 2 + 1] =
-                        tc::pack_bf16(st[n][2], st[n][3]);
-                }
-                #pragma unroll
-                for (int kc = 0; kc < 2; ++kc) {
-                    #pragma unroll
-                    for (int np = 0; np < NV / 16; ++np) {
-                        uint32_t orr[4];
-                        tc::ldsm_x4_trans(orr, ot + ((qs + kc * 16 + tc::a_row(lane)) *
-                                                     S::VS + V0 + np * 16 +
-                                                     tc::a_col(lane)) * 2);
-                        tc::mma_bf16(dva[2 * np], pa[kc], orr[0], orr[1]);
-                        tc::mma_bf16(dva[2 * np + 1], pa[kc], orr[2], orr[3]);
-                    }
-                }
-            }
-            if constexpr (DO_DK) {
-                // dP^T = V dO^T
-                float dp[4][4];
-                #pragma unroll
-                for (int n = 0; n < 4; ++n) dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
-                #pragma unroll
-                for (int dc = 0; dc < DV / 16; ++dc) {
-                    uint32_t va[4];
-                    tc::ldsm_x4(va, vA + dc * 32);
-                    #pragma unroll
-                    for (int np = 0; np < 2; ++np) {
-                        uint32_t orr[4];
-                        tc::ldsm_x4(orr, ot + ((qs + np * 16 + tc::bn_row(lane)) *
-                                               S::VS + dc * 16 + tc::bn_col(lane)) * 2);
-                        tc::mma_bf16(dp[2 * np], va, orr[0], orr[1]);
-                        tc::mma_bf16(dp[2 * np + 1], va, orr[2], orr[3]);
-                    }
-                }
-                // dS^T = P^T (dP^T - delta), rounded to bf16
-                uint32_t da[2][4];
-                #pragma unroll
-                for (int n = 0; n < 4; ++n) {
-                    const float2 dl = *reinterpret_cast<const float2*>(
-                        dt + qs + n * 8 + 2 * t);
-                    da[n / 2][(n & 1) * 2] = tc::pack_bf16(
-                        st[n][0] * (dp[n][0] - dl.x), st[n][1] * (dp[n][1] - dl.y));
-                    da[n / 2][(n & 1) * 2 + 1] = tc::pack_bf16(
-                        st[n][2] * (dp[n][2] - dl.x), st[n][3] * (dp[n][3] - dl.y));
-                }
-                // dK += dS^T Q
-                #pragma unroll
-                for (int kc = 0; kc < 2; ++kc) {
-                    #pragma unroll
-                    for (int np = 0; np < NK / 16; ++np) {
-                        uint32_t qr[4];
-                        tc::ldsm_x4_trans(qr, qt + ((qs + kc * 16 + tc::a_row(lane)) *
-                                                    S::KS + K0 + np * 16 +
-                                                    tc::a_col(lane)) * 2);
-                        tc::mma_bf16(dka[2 * np], da[kc], qr[0], qr[1]);
-                        tc::mma_bf16(dka[2 * np + 1], da[kc], qr[2], qr[3]);
-                    }
-                }
-            }
-        }
-        __syncthreads();                 // tile it's buffers free again
-    }
-    tc::cp_async_wait<0>();              // K / V when no q tile was met
-
-    #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-        const int s = kp0 + 8 * half;
-        if (s >= Skv) continue;
-        if constexpr (DO_DK) {
-            __nv_bfloat16* kr = dk + kb + (long long)s * k_row;
-            #pragma unroll
-            for (int n = 0; n < NK / 8; ++n)
-                *reinterpret_cast<uint32_t*>(kr + K0 + n * 8 + 2 * t) = tc::pack_bf16(
-                    dka[n][2 * half] * scale, dka[n][2 * half + 1] * scale);
-        }
-        if constexpr (DO_DV) {
-            __nv_bfloat16* vr = dv + vb + (long long)s * v_row;
-            #pragma unroll
-            for (int n = 0; n < NV / 8; ++n)
-                *reinterpret_cast<uint32_t*>(vr + V0 + n * 8 + 2 * t) = tc::pack_bf16(
-                    dva[n][2 * half], dva[n][2 * half + 1]);
-        }
-    }
-}
-
-template <int D, int DV>
-__global__ void __launch_bounds__(MMA_THREADS, 1)
-flash_bwd_dkv_kernel_mma(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         __nv_bfloat16* __restrict__ dk,
-                         __nv_bfloat16* __restrict__ dv, int B, int Sq,
-                         int Skv, int H, int Hkv, int q_offset, int causal,
-                         float scale) {
-    using S = DkvMmaSmem<D, DV>;
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    const uint32_t base = tc::smem_addr(smem_raw);
-    const uint32_t sK = base + S::K_OFF, sV = base + S::V_OFF;
-    const int tid = threadIdx.x;
-    // block (kv head, batch, kv tile), kv heads fastest
-    const int hk = (int)(blockIdx.x % Hkv), b = (int)(blockIdx.x / Hkv % B);
-    const int k0 = (int)(blockIdx.x / Hkv / B) * MMA_BKV;
-    const long long k_row = (long long)Hkv * D;
-    const long long v_row = (long long)Hkv * DV;
-    const long long kb = (long long)b * Skv * k_row + (long long)hk * D;
-    const long long vb = (long long)b * Skv * v_row + (long long)hk * DV;
-
-    // K and V stay resident for the block's sweeps
-    for (int i = tid; i < MMA_BKV * (D / 8); i += MMA_THREADS) {
-        const int r = i / (D / 8), c = (i % (D / 8)) * 8, s = k0 + r;
-        const bool in = s < Skv;
-        tc::cp_async16(sK + (r * S::KS + c) * 2,
-                       k + kb + (in ? s : 0) * k_row + c, in);
-    }
-    for (int i = tid; i < MMA_BKV * (DV / 8); i += MMA_THREADS) {
-        const int r = i / (DV / 8), c = (i % (DV / 8)) * 8, s = k0 + r;
-        const bool in = s < Skv;
-        tc::cp_async16(sV + (r * S::VS + c) * 2,
-                       v + vb + (in ? s : 0) * v_row + c, in);
-    }
-    if constexpr (dkv_sweeps<D, DV>() == 4) {
-        dkv_sweep<D, DV, 0, 0, 0, DV / 2>(q, dout, lse, delta, dk, dv,
-                                          smem_raw, hk, b, k0, Sq, Skv, H,
-                                          Hkv, q_offset, causal, scale);
-        __syncthreads();
-        dkv_sweep<D, DV, 0, 0, DV / 2, DV / 2>(q, dout, lse, delta, dk, dv,
-                                               smem_raw, hk, b, k0, Sq, Skv,
-                                               H, Hkv, q_offset, causal,
-                                               scale);
-        __syncthreads();
-        dkv_sweep<D, DV, 0, D / 2, 0, 0>(q, dout, lse, delta, dk, dv,
-                                         smem_raw, hk, b, k0, Sq, Skv, H,
-                                         Hkv, q_offset, causal, scale);
-        __syncthreads();
-        dkv_sweep<D, DV, D / 2, D / 2, 0, 0>(q, dout, lse, delta, dk, dv,
-                                             smem_raw, hk, b, k0, Sq, Skv,
-                                             H, Hkv, q_offset, causal,
-                                             scale);
-    } else if constexpr (dkv_sweeps<D, DV>() == 2) {
-        dkv_sweep<D, DV, 0, 0, 0, DV>(q, dout, lse, delta, dk, dv, smem_raw,
-                                      hk, b, k0, Sq, Skv, H, Hkv, q_offset,
-                                      causal, scale);
-        __syncthreads();
-        dkv_sweep<D, DV, 0, D, 0, 0>(q, dout, lse, delta, dk, dv, smem_raw,
-                                     hk, b, k0, Sq, Skv, H, Hkv, q_offset,
-                                     causal, scale);
-    } else {
-        dkv_sweep<D, DV, 0, D, 0, DV>(q, dout, lse, delta, dk, dv, smem_raw,
-                                      hk, b, k0, Sq, Skv, H, Hkv, q_offset,
-                                      causal, scale);
-    }
-}
-
-// ---------------------------------------------------------------------------
-// dq for bf16 on the tensor cores
-// ---------------------------------------------------------------------------
 
 constexpr int DQ_BQ = 128;          // q rows per block, 16 per warp
 
@@ -1201,35 +826,15 @@ int launch_dq_mma(const Args& a, cudaStream_t st) {
     return (int)cudaGetLastError();
 }
 
-template <int D, int DV>
-int launch_dkv_mma(const Args& a, cudaStream_t st) {
-    auto kern = flash_bwd_dkv_kernel_mma<D, DV>;
-    constexpr size_t bytes = DkvMmaSmem<D, DV>::BYTES;
-    const long long blocks =
-        (long long)a.Hkv * a.B * ((a.Skv + MMA_BKV - 1) / MMA_BKV);
-    if (blocks > MAX_BLOCKS) return -1;
-    static bool configured = false;
-    const cudaError_t e = allow_smem(kern, bytes, configured);
-    if (e != cudaSuccess) return (int)e;
-    kern<<<(unsigned)blocks, MMA_THREADS, bytes, st>>>(
-        static_cast<const __nv_bfloat16*>(a.q),
-        static_cast<const __nv_bfloat16*>(a.k),
-        static_cast<const __nv_bfloat16*>(a.v),
-        static_cast<const __nv_bfloat16*>(a.dout),
-        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-        static_cast<__nv_bfloat16*>(a.dk), static_cast<__nv_bfloat16*>(a.dv),
-        a.B, a.Sq, a.Skv, a.H, a.Hkv, a.q_offset, a.causal, a.scale);
-    return (int)cudaGetLastError();
-}
-
-// fp32 -> the FMA kernels; bf16 -> the tensor-core kernels
+// fp32 -> the FMA kernels of both passes; bf16 -> the mma.sync dq pass
+// (bf16 dk / dv runs flash_attention_bwd_wgmma.cu's kernel, and never
+// comes here: flash_bwd_dkv_launch takes fp32 only)
 template <bool MMA>
 int dispatch(bool dq_pass, int D, int Dv, const Args& a, cudaStream_t st) {
 #define FLASH_BWD_CASE(d, dv)                                               \
     if (D == d && Dv == dv)                                                 \
-        return MMA ? (dq_pass ? launch_dq_mma<d, dv>(a, st)                 \
-                              : launch_dkv_mma<d, dv>(a, st))               \
-                   : (dq_pass ? launch_dq<d, dv>(a, st)              \
+        return MMA ? launch_dq_mma<d, dv>(a, st)                            \
+                   : (dq_pass ? launch_dq<d, dv>(a, st)                     \
                               : launch_dkv<d, dv>(a, st));
     FLASH_BWD_CASE(16, 16)
     FLASH_BWD_CASE(32, 32)
@@ -1251,15 +856,13 @@ int run(bool dq_pass, int dtype, int D, int Dv, const Args& a,
         return -1;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (dtype == 0) return dispatch<false>(dq_pass, D, Dv, a, st);
-    if (dtype == 1) {                    // the tensor-core kernels' copies
+    if (dtype == 1 && dq_pass) {         // the tensor-core kernel's copies
         const uintptr_t any = reinterpret_cast<uintptr_t>(a.q) |
                               reinterpret_cast<uintptr_t>(a.k) |
                               reinterpret_cast<uintptr_t>(a.v) |
                               reinterpret_cast<uintptr_t>(a.out) |
                               reinterpret_cast<uintptr_t>(a.dout) |
-                              reinterpret_cast<uintptr_t>(a.dq) |
-                              reinterpret_cast<uintptr_t>(a.dk) |
-                              reinterpret_cast<uintptr_t>(a.dv);
+                              reinterpret_cast<uintptr_t>(a.dq);
         if (any % 16) return -1;
         return dispatch<true>(dq_pass, D, Dv, a, st);
     }
@@ -1268,13 +871,14 @@ int run(bool dq_pass, int dtype, int D, int Dv, const Args& a,
 
 }  // namespace
 
-// Plain C entry points.  dtype: 0 = float32, 1 = bfloat16.  Device
-// pointers to contiguous q / dq (B, Sq, H, D), k / dk (B, Skv, Hkv, D),
-// v / dv (B, Skv, Hkv, Dv), out / dout (B, Sq, H, Dv) in the inputs' type,
-// and lse / delta (B, H, Sq) fp32; for bf16 (the tensor-core kernels'
-// cp.async copies) q, k, v, out, dout and the gradients 16-byte aligned,
-// in both passes.  The dq pass writes dq and delta; the dkv pass reads
-// delta and must run after it on the same stream.  Each
+// Plain C entry points: the dq pass in either type (dtype: 0 = float32, 1
+// = bfloat16), the dk / dv pass in fp32 (bf16 has
+// flash_bwd_dkv_wgmma_launch).  Device pointers to contiguous q / dq (B,
+// Sq, H, D), k / dk (B, Skv, Hkv, D), v / dv (B, Skv, Hkv, Dv), out / dout
+// (B, Sq, H, Dv) in the inputs' type, and lse / delta (B, H, Sq) fp32; for
+// the bf16 dq pass (the tensor-core kernel's cp.async copies) q, k, v,
+// out, dout and dq 16-byte aligned.  The dq pass writes dq and delta; the
+// dkv pass reads delta and must run after it on the same stream.  Each
 // returns the launch's cudaGetLastError() (0 on success), or -1 on
 // arguments the kernels do not take: a pair that is no instance, or more
 // than 2^31 - 1 blocks (the Python wrapper pads to an instance, checks
@@ -1294,12 +898,12 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
 extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
                                     const void* v, const void* dout,
                                     const void* lse, const void* delta,
-                                    void* dk, void* dv, int dtype, int B,
-                                    int Sq, int Skv, int H, int Hkv, int D,
-                                    int Dv, int q_offset, int causal,
-                                    float scale, void* stream) {
+                                    void* dk, void* dv, int B, int Sq,
+                                    int Skv, int H, int Hkv, int D, int Dv,
+                                    int q_offset, int causal, float scale,
+                                    void* stream) {
     const Args a{q, k, v, nullptr, dout, lse, const_cast<void*>(delta),
                  nullptr, dk, dv, B, Sq, Skv, H, Hkv, q_offset, causal,
                  scale};
-    return run(false, dtype, D, Dv, a, stream);
+    return run(false, 0, D, Dv, a, stream);
 }

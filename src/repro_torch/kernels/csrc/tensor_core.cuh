@@ -1,7 +1,8 @@
-// Building blocks of the bf16 tensor-core kernels (flash_attention.cu,
-// flash_attention_bwd.cu, ssd.cu): asynchronous 16- and 8-byte copies into
-// shared memory, ldmatrix fragment loads and the m16n8k16 bf16 mma of
-// sm_80+ (all in sm_90a), as inline PTX.
+// Building blocks of the bf16 mma.sync kernels (flash_attention_bwd.cu's
+// dq pass, ssd.cu; the wgmma kernels take the fragment helpers too):
+// asynchronous 16-, 8- and 4-byte copies into shared memory, ldmatrix
+// fragment loads and the m16n8k16 bf16 mma of sm_80+ (all in sm_90a), as
+// inline PTX.
 //
 // Fragment layouts of mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32
 // for lane l of a warp, g = l / 4, t = l % 4 (PTX ISA, "Matrix fragments

@@ -2,21 +2,22 @@
 layer and of the vision tower.
 
 * :func:`flash_fwd` — the forward's wrapper: on CUDA tensors it launches
-  the hand-written kernels of ``csrc/flash_attention.cu`` (which replace
-  the TPU kernel ``repro/kernels/flash_attention.py::_fwd_kernel``): bf16
-  on the tensor cores (``flash_fwd_kernel_mma``), fp32 in fp32 FMA
-  (``flash_fwd_kernel``); on CPU tensors it takes the plain version.  It
-  never falls back: CUDA tensors the kernels do not take raise.
+  a hand-written kernel that replaces the TPU kernel
+  ``repro/kernels/flash_attention.py::_fwd_kernel``: bf16 on the tensor
+  cores with Hopper's wgmma, TMA and warp specialisation
+  (``flash_fwd_kernel_wgmma``, ``csrc/flash_attention_wgmma.cu``), fp32
+  in fp32 FMA (``flash_fwd_kernel``, ``csrc/flash_attention.cu``); on CPU
+  tensors it takes the plain version.  It never falls back: CUDA tensors the kernels do not take
+  raise.
 * :func:`flash_bwd` — the backward's wrapper, the same way: on CUDA
-  tensors it launches the two kernels of ``csrc/flash_attention_bwd.cu``
-  through :func:`flash_bwd_dq`, the q-stationary dq pass (replaces
-  ``_dq_kernel``; it also computes ``delta = sum(dout * out)`` of its
-  rows; bf16 on the tensor cores, ``flash_bwd_dq_kernel_mma``), and then
-  :func:`flash_bwd_dkv`, the kv-stationary dk / dv pass (replaces
-  ``_dkv_kernel``; each block sums over the G query heads of its group
-  and every q tile; bf16 on the tensor cores,
-  ``flash_bwd_dkv_kernel_mma``).  Each block writes its tile of a gradient
-  once: no atomics, bit-equal results from launch to launch.
+  tensors it launches :func:`flash_bwd_dq`, the q-stationary dq pass of
+  ``csrc/flash_attention_bwd.cu`` (replaces ``_dq_kernel``; it also
+  computes ``delta = sum(dout * out)`` of its rows; bf16 on mma.sync,
+  ``flash_bwd_dq_kernel_mma``), and then :func:`flash_bwd_dkv`, the
+  kv-stationary dk / dv pass (replaces ``_dkv_kernel``; each block sums
+  over the G query heads of its group and every q tile; bf16 on wgmma,
+  ``flash_bwd_dkv_kernel_wgmma`` of ``csrc/flash_attention_bwd_wgmma.cu``).  Each block writes its tile of a
+  gradient once: no atomics, bit-equal results from launch to launch.
 * :func:`flash_fwd_plain`, :func:`flash_bwd_plain` — the same functions
   in plain PyTorch from the full fp32 score matrix, the backward by its
   explicit formulas (not autograd).  The cross-check on the device and
@@ -42,15 +43,18 @@ Bound on an H100: operations over the bf16 tensor-core peak — with
 forward (q k^T at D, P v at Dv), ``2*scores*(2D + Dv)`` for the dq pass
 (s, dq at D; dp at Dv) and ``2*scores*(2D + 2Dv)`` for the dk / dv pass
 (s, dk at D; dp, dv at Dv), FA2's count — against the bytes of the
-tensors read and written once, each at its own width.  The bf16 kernels run on the tensor cores (bf16 products,
-fp32 sums; before the second product the forward carries the
-probabilities as two bf16 parts, the dq pass rounds dS to bf16 once, the
-dk / dv pass P and dS, as FlashAttention-2 does); the fp32 kernels
-compute in fp32 FMA (see the sources' notes).
-Their times stand beside the bound in PERF.md.  The bf16 tensor-core
-kernels copy with 16-byte ``cp.async``, so they take q, k, v, out / dout
-and the gradients at 16-byte aligned addresses; the wrappers hand them a
-contiguous copy of a strided or unaligned view, never the plain version.
+tensors read and written once, each at its own width.  The bf16 kernels
+run on the tensor cores (bf16 products, fp32 sums; before the second
+product the forward carries the probabilities as two bf16 parts, the dq
+pass rounds dS to bf16 once, the dk / dv pass P and dS, as
+FlashAttention-2 does); the fp32 kernels compute in fp32 FMA (see the
+sources' notes).  Their times stand beside the bound in PERF.md.  The
+wgmma kernels read their operands by TMA (:func:`wgmma_plan`: 4-D (width,
+heads, seq, batch) tensor maps, encoded per launch), the mma.sync ones
+with 16-byte ``cp.async``, so all take q, k, v, out / dout and the
+gradients contiguous at 16-byte aligned addresses; the wrappers hand them
+a contiguous copy of a strided or unaligned view, never the plain
+version.
 
 Head dims: the kernels are compiled for the pairs ``HEAD_DIMS``; any
 other ``1 <= D, Dv <= 256`` runs on :func:`instance_for`'s pair, the
@@ -94,16 +98,30 @@ HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (128, 64),
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# the bf16 tensor-core kernels' tiles (csrc/flash_attention.cu,
-# csrc/flash_attention_bwd.cu): forward and dq 128 q rows x 64 kv rows per
-# step (at D > 128 in two 32-row halves, which changes no shared memory),
-# dk / dv 128 kv rows x 64 q rows per step (at D + Dv > 256 in two sweeps,
-# dV then dK, over the same tiles); 8 warps each.  At (256, 256) the dq
-# pass takes 32 kv rows and the dk / dv pass 32 q rows a step
-# (:func:`mma_tiles`)
-FWD_TILE = (128, 64)
+# the mma.sync dq pass's tile (csrc/flash_attention_bwd.cu): 128 q rows x
+# 64 kv rows per step (at D > 128 in two 32-row halves, which changes no
+# shared memory), 8 warps; at (256, 256) 32 kv rows a step (:func:`dq_tile`)
 DQ_TILE = (128, 64)
-DKV_TILE = (128, 64)
+
+# The design each bf16 pass runs at every compiled pair: "wgmma" —
+# csrc/flash_attention_wgmma.cu and csrc/flash_attention_bwd_wgmma.cu,
+# Hopper's wgmma, TMA and warp specialisation (:func:`wgmma_plan`); "mma" —
+# the mma.sync dq pass of csrc/flash_attention_bwd.cu.  The wgmma forward
+# and dk / dv replaced mma.sync kernels; timed in turns in one chip call
+# (H100 80GB HBM3, 700 W; PERF.md § 6), kernel alone, mma.sync / wgmma, us
+# at each pair's main-path shape: the forward 1,512 / 764 at (128, 128),
+# 102 / 67 at the vision tower's (64, 64), 446 / 220, 688 / 373, 563 /
+# 315, 891 / 355 and 302 / 155 at (192, 128), (96, 64), (80, 80), (256,
+# 256) and (128, 64); dk / dv 2,622 / 1,359, 181 / 102, 1,215 / 743, 1,244
+# / 598, 968 / 488, 3,152 / 2,710 and 557 / 310; at the reduced configs'
+# tiny grids, (16, 16) and (32, 32), the two were within 0.7 us (4-7 us).
+DESIGN = {"fwd": "wgmma", "dq": "mma", "dkv": "wgmma"}
+
+# the wgmma kernels' blocks: 2 consumer warpgroups and 1 producer
+# warpgroup, registers shifted between them by setmaxnreg
+WGMMA_THREADS = 384
+WGMMA_REGS = {"producer": 40, "consumer": 232}
+MAX_SMEM = 232448                 # an H100 block's shared-memory opt-in
 
 launches = 0          # forward kernel
 dq_launches = 0       # backward, dq pass
@@ -150,35 +168,104 @@ def instance_for(D: int, Dv: int) -> tuple:
                key=lambda p: (p[0] + p[1], p[0]))
 
 
-def mma_tiles(kernel: str, D: int, Dv: int) -> tuple:
-    """The tile of a bf16 tensor-core kernel (``"fwd"``, ``"dq"`` or
-    ``"dkv"``) at the compiled pair (D, Dv): (q rows, kv rows a step) for
-    the forward and the dq pass, (kv rows, q rows a step) for the dk / dv
-    pass."""
-    wide = D + Dv > 384                 # (256, 256): csrc dq_bkv, dkv_bq
-    if kernel == "fwd":
-        return FWD_TILE
-    if kernel == "dq":
-        return (DQ_TILE[0], 32) if wide else DQ_TILE
-    return (DKV_TILE[0], 32) if wide else DKV_TILE
+def swizzle_cols(cols: int) -> int:
+    """The swizzle width of a bf16 operand of ``cols`` columns in the wgmma
+    kernels: the widest of 64 (128-byte swizzle), 32 (64-byte) and 16
+    (32-byte) columns that divides it; the operand is ``cols / width``
+    TMA boxes of that width, one wgmma descriptor layout for all."""
+    return next(w for w in (64, 32, 16) if cols % w == 0)
 
 
-def mma_smem_bytes(kernel: str, D: int, Dv: int) -> int:
-    """Dynamic shared memory per block of a bf16 tensor-core kernel
-    (``"fwd"``, ``"dq"`` or ``"dkv"``) at head dims (D, Dv): bf16 rows
-    padded by 8 elements; the forward holds the q tile and two K and two V
-    tiles, the dq pass the q and dO tiles and two K and two V tiles, the
-    dk / dv pass K, V, two q and two dO tiles and two rows each of lse and
-    delta (fp32), at :func:`mma_tiles`' tiles."""
+def _tma_operand(cols: int, rows: int, swizzled: bool = True) -> dict:
+    w = swizzle_cols(cols) if swizzled else cols
+    return {"cols": cols, "rows": rows, "box": (w, 1, rows, 1),
+            "boxes": cols // w, "swizzle_bytes": 2 * w if swizzled else 0}
+
+
+@functools.lru_cache(maxsize=None)
+def wgmma_plan(kernel: str, D: int, Dv: int) -> dict:
+    """The plan of a wgmma kernel (``"fwd"`` or ``"dkv"``) at the compiled
+    pair (D, Dv), as csrc/wgmma_plan.cuh lays it out: ``tile`` (rows per
+    block, rows per step of the inner loop: q and kv for the forward, kv
+    and q for dk / dv), ring ``stages``, ``sweeps`` over the q tiles,
+    ``operands`` (each a 4-D (width, heads, seq, batch) TMA view cut into
+    ``boxes`` boxes ``box`` of ``swizzle_bytes`` swizzle), the ``products``
+    one consumer warpgroup launches per step as (name, M, N, K, where A
+    lives, B's major dim), the fp32 and packed bf16 ``live_registers`` of
+    its heaviest step, and the dynamic shared memory ``smem_bytes`` (tiles
+    and mbarriers, plus 1,024 bytes to align the base)."""
     if kernel == "fwd":
-        bq, bk = mma_tiles(kernel, D, Dv)
-        return 2 * (bq * (D + 8) + 2 * bk * (D + 8) + 2 * bk * (Dv + 8))
-    if kernel == "dq":
-        bq, bk = mma_tiles(kernel, D, Dv)
-        return 2 * ((bq + 2 * bk) * (D + 8) + (bq + 2 * bk) * (Dv + 8))
-    bkv, bq = mma_tiles(kernel, D, Dv)
-    return 2 * ((bkv + 2 * bq) * (D + 8) + (bkv + 2 * bq) * (Dv + 8)) \
-        + 2 * 2 * bq * 4
+        bq, bk = 128, (64 if D + Dv > 384 else 128)
+        # 3 stages of K and V where they fit the opt-in, else 2
+        stages = 3 if _fwd_smem(D, Dv, bq, bk, 3) <= MAX_SMEM else 2
+        operands = {"q": _tma_operand(D, bq), "k": _tma_operand(D, bk),
+                    "v": _tma_operand(Dv, bk),
+                    "out": _tma_operand(Dv, 64, swizzled=False)}
+        products = [("s = q k^T", 64, bk, D, "smem", "K"),
+                    ("o += p_hi v", 64, Dv, bk, "registers", "MN"),
+                    ("o += p_lo v", 64, Dv, bk, "registers", "MN")]
+        # O, P(j-1)'s two parts and S(j), live across one slot's products
+        live = Dv // 2 + bk // 2 + bk // 2
+        smem = _fwd_smem(D, Dv, bq, bk, stages)
+        tile, sweeps = (bq, bk), 1
+    elif kernel == "dkv":
+        # sweeps over the q tiles: one to D + Dv = 256 (dK and dV), two to
+        # 384 (dV, then dK), four above (dV's and dK's column halves); the
+        # accumulator registers of the largest sweep
+        sweeps = 1 if D + Dv <= 256 else 2 if D + Dv <= 384 else 4
+        acc = {1: (D + Dv) // 2, 2: max(D, Dv) // 2,
+               4: max(D, Dv) // 4}[sweeps]
+        # 32-row q steps beside 128 accumulator registers, or where two
+        # 64-row stages pass the opt-in; 64 elsewhere
+        bkv = 128
+        bq = 32 if acc >= 128 or _dkv_smem(D, Dv, bkv, 64, 2) > MAX_SMEM \
+            else 64
+        stages = 3 if _dkv_smem(D, Dv, bkv, bq, 3) <= MAX_SMEM else 2
+        nk, nv = {1: (D, Dv), 2: (D, Dv), 4: (D // 2, Dv // 2)}[sweeps]
+        operands = {"k": _tma_operand(D, bkv), "v": _tma_operand(Dv, bkv),
+                    "q": _tma_operand(D, bq), "dout": _tma_operand(Dv, bq)}
+        products = [("s^T = k q^T", 64, bq, D, "smem", "K"),
+                    ("dp^T = v dout^T", 64, bq, Dv, "smem", "K"),
+                    ("dv += p^T dout", 64, nv, bq, "registers", "MN"),
+                    ("dk += ds^T q", 64, nk, bq, "registers", "MN")]
+        # the sweep's accumulators, S^T and dP^T
+        live = acc + bq // 2 + bq // 2
+        smem = _dkv_smem(D, Dv, bkv, bq, stages)
+        tile = (bkv, bq)
+    else:
+        raise ValueError(f"no wgmma kernel {kernel!r}")
+    return {"design": "wgmma", "threads": WGMMA_THREADS,
+            "registers": dict(WGMMA_REGS), "tile": tile, "stages": stages,
+            "sweeps": sweeps, "operands": operands, "products": products,
+            "live_registers": live, "smem_bytes": smem}
+
+
+def _fwd_smem(D, Dv, bq, bk, stages) -> int:
+    """The forward's q tile, ``stages`` K and V tiles, its 1 + 4 stages
+    mbarriers and 1,024 bytes to align the base."""
+    return bq * D * 2 + stages * bk * (D + Dv) * 2 + 8 * (1 + 4 * stages) \
+        + 1024
+
+
+def _dkv_smem(D, Dv, bkv, bq, stages) -> int:
+    """The dk / dv pass's K and V, ``stages`` q and dO tiles with their lse
+    and delta rows, 1 + 2 stages mbarriers and 1,024 bytes of alignment."""
+    return bkv * (D + Dv) * 2 + stages * bq * ((D + Dv) * 2 + 2 * 4) \
+        + 8 * (1 + 2 * stages) + 1024
+
+
+def dq_tile(D: int, Dv: int) -> tuple:
+    """The bf16 dq pass's tile at the compiled pair (D, Dv): (q rows, kv
+    rows a step)."""
+    return (DQ_TILE[0], 32) if D + Dv > 384 else DQ_TILE
+
+
+def dq_smem_bytes(D: int, Dv: int) -> int:
+    """Dynamic shared memory per block of the bf16 dq pass at head dims
+    (D, Dv): the q and dO tiles and two K and two V tiles at
+    :func:`dq_tile`'s tile, bf16 rows padded by 8 elements."""
+    bq, bk = dq_tile(D, Dv)
+    return 2 * ((bq + 2 * bk) * (D + 8) + (bq + 2 * bk) * (Dv + 8))
 
 
 def _operand(t: torch.Tensor, width: int) -> torch.Tensor:
@@ -279,31 +366,46 @@ def flash_fwd(q, k, v, *, causal: bool = True, q_offset: int = 0):
     qp, kp, vp, scale = pad_operands(q, k, v)
     Di, Dvi = qp.shape[3], vp.shape[3]
     _check_aligned("flash_fwd", (qp, kp, vp))
-    out = torch.empty((B, Sq, H, Dvi), dtype=q.dtype, device=q.device)
-    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    from repro_torch.kernels import _build
-    lib = _build.load()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.flash_fwd_launch(
-            qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), _DTYPES[q.dtype], B, Sq, Skv, H, Hkv, Di, Dvi,
-            q_offset, int(bool(causal)), scale, stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"flash_fwd kernel launch failed (cuda error {rc}) for q "
-            f"{tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, "
-            f"{q.dtype} on the ({Di}, {Dvi}) instance")
-    launches += 1
+    out, lse = _launch_fwd(qp, kp, vp, causal, q_offset, scale)
     out = _unpad(out, Dv)
     report_kernel((q, k, v, out, lse), lambda: fwd_flops(q, k, v))
     return out, lse
 
 
+def _launch_fwd(qp, kp, vp, causal, q_offset, scale):
+    """One launch of the forward on operands padded to an instance ->
+    ``(out at the instance's Dv, lse)``: fp32 on the FMA kernel, bf16 on
+    the wgmma kernel."""
+    global launches
+    B, Sq, H, Di = qp.shape
+    Skv, Hkv, Dvi = kp.shape[1], kp.shape[2], vp.shape[3]
+    out = torch.empty((B, Sq, H, Dvi), dtype=qp.dtype, device=qp.device)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=qp.device)
+    from repro_torch.kernels import _build
+    lib = _build.load()
+    with torch.cuda.device(qp.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        ptrs = (qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(),
+                lse.data_ptr())
+        dims = (B, Sq, Skv, H, Hkv, Di, Dvi, q_offset, int(bool(causal)),
+                scale, stream)
+        launch = (lib.flash_fwd_wgmma_launch if qp.dtype == torch.bfloat16
+                  else lib.flash_fwd_launch)
+        rc = launch(*ptrs, *dims)
+    if rc != 0:
+        raise RuntimeError(
+            f"flash_fwd kernel launch failed (cuda error {rc}) for q "
+            f"{tuple(qp.shape)}, k {tuple(kp.shape)}, v {tuple(vp.shape)}, "
+            f"{qp.dtype} on the ({Di}, {Dvi}) instance")
+    launches += 1
+    return out, lse
+
+
 def _check_aligned(what: str, tensors) -> None:
-    """The bf16 tensor-core kernels copy 16 bytes at a time (``cp.async``):
-    the tensors a launch is given must start on a 16-byte boundary (the
-    wrappers hand it :func:`pad_operands`' copies of any that do not)."""
+    """The bf16 tensor-core kernels copy 16 bytes at a time (``cp.async``)
+    or by TMA, whose tensor maps take 16-byte aligned bases: the tensors a
+    launch is given must start on a 16-byte boundary (the wrappers hand it
+    :func:`pad_operands`' copies of any that do not)."""
     if tensors[0].dtype == torch.bfloat16 and any(
             t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{what}: the bf16 kernel takes tensors at 16-byte "
@@ -400,18 +502,21 @@ def _launch_dq(qp, kp, vp, outp, lse, doutp, causal, q_offset, scale):
 
 def _launch_dkv(qp, kp, vp, lse, doutp, delta, causal, q_offset, scale):
     """One launch of the dk / dv pass on operands padded to an instance ->
-    ``(dk, dv)`` at the instance's widths."""
+    ``(dk, dv)`` at the instance's widths: fp32 on the FMA kernel, bf16 on
+    the wgmma kernel."""
     global dkv_launches
     _check_aligned("flash_bwd dk/dv", (qp, kp, vp, doutp))
     dk, dv = torch.empty_like(kp), torch.empty_like(vp)
     from repro_torch.kernels import _build
     lib = _build.load()
     with torch.cuda.device(qp.device):
-        rc = lib.flash_bwd_dkv_launch(
-            qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), doutp.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            *_dims(qp, kp, vp, causal, q_offset, scale),
-            torch.cuda.current_stream().cuda_stream)
+        ptrs = (qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                doutp.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dk.data_ptr(), dv.data_ptr())
+        launch = (lib.flash_bwd_dkv_wgmma_launch
+                  if qp.dtype == torch.bfloat16 else lib.flash_bwd_dkv_launch)
+        rc = launch(*ptrs, *_dims(qp, kp, vp, causal, q_offset, scale)[1:],
+                    torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"flash_bwd dk/dv kernel launch failed (cuda error {rc}) for q "

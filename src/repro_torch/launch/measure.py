@@ -26,13 +26,14 @@ the ``tpu`` term set and the ``h100`` chip (:func:`context_for`) — the
 path ``calibrate.residual`` rebuilds the cell by, so a record and its
 ingest cannot disagree.
 
-A record also carries the reference's ``cost``, ``collectives`` and
-``loop_aware`` blocks (``core.device_metrics.cost_blocks``: dot FLOPs,
-bytes accessed and collectives of one step, counted by a
-``StepCounter`` over one more step of the cell, run once no later cell
-reads its state, so that the counter's host work reaches neither the
-allocator's readings nor the time, and its update no other cell's
-state) and ``step_s``: the wall time of a warm step with no counter
+A record of a counted cell (:func:`counted_cells`: the first of each
+arch x kind x sequence length x policy x remat) also carries the reference's ``cost``,
+``collectives`` and ``loop_aware`` blocks (``core.device_metrics.
+cost_blocks``: dot FLOPs, bytes accessed and collectives of one step,
+counted by a ``StepCounter`` over one more step of the cell, run once no
+later cell reads its state, so that the counter's host work reaches
+neither the allocator's readings nor the time, and its update no other
+cell's state); every record carries ``step_s``: the wall time of a warm step with no counter
 active, from CUDA events recorded around it (a train cell's second
 step; a serving cell's step after its measured one).
 """
@@ -177,7 +178,9 @@ def record_for(cell: MeasureCell, stats, device: dict, counter,
     ``stats`` a ``device_metrics.StepMemory``, ``device`` the card's
     :func:`card_identity`, ``counter`` a ``device_metrics.StepCounter``
     of one step of the cell (the ``cost``, ``collectives`` and
-    ``loop_aware`` blocks) and ``step_s`` the time of a step."""
+    ``loop_aware`` blocks), or None for a cell :func:`counted_cells`
+    does not count (the record goes without them), and ``step_s`` the
+    time of a step."""
     from repro_torch.core import device_metrics as DM
     mem = stats.stats
     pred = predict(cell)
@@ -213,7 +216,7 @@ def record_for(cell: MeasureCell, stats, device: dict, counter,
         "backend": BACKEND, "chip": CHIP, "optimizer": cell.optimizer,
         "remat": cell.remat, "policy": cell.policy, "grad_accum": 1,
         "device": dict(device),
-        **DM.cost_blocks(counter),
+        **(DM.cost_blocks(counter) if counter is not None else {}),
         "step_s": step_s,
     }
 
@@ -460,20 +463,40 @@ def count_cell(cell: MeasureCell, state, device="cuda"):
     return counter
 
 
+def counted_cells(cells) -> set:
+    """The cells whose step :func:`measure_grid` counts: the first of each
+    (arch, kind, sequence length, policy, remat) class in ``cells``.  Its
+    cells differ only in batch (and a train cell's optimizer, which adds
+    no dot product), so the first stands for its class's dot FLOPs per
+    token; the policy (which parts train) and remat (a recomputed forward)
+    change them.  A counted step costs the host seconds: one per cell
+    passed phase 8 of ``chip_smoke.py`` into its time limit's last
+    minute."""
+    seen, out = set(), set()
+    for c in cells:
+        key = (c.arch, c.kind, c.seq_len, c.policy, c.remat)
+        if key not in seen:
+            seen.add(key)
+            out.add(c)
+    return out
+
+
 def measure_grid(cells, device="cuda", on_record=None) -> list[dict]:
     """Every cell in order on the card; a cell reuses the state of the one
     before it where they share arch and train state (any other state is
     released before the next is made).  Once the last cell of a state is
-    measured, each of its cells' step is counted on it (:func:`count_cell`)
-    and their records made, in order.  Returns the records;
-    ``on_record(record)`` is called as each is made."""
+    measured, the step of each of its :func:`counted_cells` is counted on
+    it (:func:`count_cell`) and their records made, in order.  Returns the
+    records; ``on_record(record)`` is called as each is made."""
     ident = card_identity()
     records, group = [], []
+    counted = counted_cells(cells)
 
     def close_group():
         for run in group:
-            rec = record_for(run.cell, run.memory, ident,
-                             count_cell(run.cell, run.state, device),
+            counter = count_cell(run.cell, run.state, device) \
+                if run.cell in counted else None
+            rec = record_for(run.cell, run.memory, ident, counter,
                              run.step_s)
             rec["outputs"] = run.outputs
             records.append(rec)
@@ -601,12 +624,13 @@ def main(argv=None) -> int:
         fn = out / f"{rec['arch']}__{rec['shape']}__{rec['mesh']}.json"
         fn.write_text(json.dumps(rec, indent=1) + "\n")
         gib = 1024 ** 3
+        counted = (f" flops={rec['cost']['flops_per_device']:.4g} "
+                   f"colls={rec['collectives']['counts']}"
+                   if "cost" in rec else "")
         print(f"[measure] {rec['arch']} x {rec['shape']}: measured "
               f"{rec['memory']['total_bytes'] / gib:.2f} GiB, predicted "
               f"{rec['predicted']['peak_bytes'] / gib:.2f} GiB "
-              f"step={rec['step_s']:.3f}s "
-              f"flops={rec['cost']['flops_per_device']:.4g} "
-              f"colls={rec['collectives']['counts']}", flush=True)
+              f"step={rec['step_s']:.3f}s{counted}", flush=True)
     records = measure_grid(cells, on_record=write)
     path = store_of(records).save(out / f"{store_name(records[0]['device'])}"
                                         f".json")

@@ -161,7 +161,8 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(name, call):
 
 
 # ---------------------------------------------------------------------------
-# the bf16 tensor-core kernel's roundings (flash_fwd_kernel_mma)
+# the bf16 tensor-core kernels' roundings (flash_fwd_kernel_wgmma, and
+# flash_fwd_kernel_mma at (16, 16): the same roundings)
 # ---------------------------------------------------------------------------
 
 def split_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -172,8 +173,9 @@ def split_bf16(x: torch.Tensor) -> torch.Tensor:
 
 
 def tensor_core_forward_model(q, k, v, causal, q_offset):
-    """A rounding model of ``flash_fwd_kernel_mma`` in plain torch: the
-    products of bf16 q and k summed in fp32, the scale applied to the fp32
+    """A rounding model of ``flash_fwd_kernel_wgmma`` (and of
+    ``flash_fwd_kernel_mma``, which rounds at the same points) in plain
+    torch: the products of bf16 q and k summed in fp32, the scale applied to the fp32
     scores, the probabilities split into two bf16 parts before ``P v``
     (products of bf16 summed in fp32), the row sums and lse from the fp32
     probabilities, one rounding of out.  (The kernel splits ``exp(s - m)``
@@ -241,26 +243,71 @@ def test_bf16_kernel_refuses_tensors_off_the_16_byte_grid():
         TFA._check_aligned("flash_fwd", (odd, even, even))
     TFA._check_aligned("flash_fwd", (even, even, even))
     TFA._check_aligned("flash_fwd", (torch.zeros(9)[1:],))
-    assert TFA.mma_smem_bytes("fwd", 128, 128) == 104448
-    assert TFA.mma_smem_bytes("dkv", 128, 128) == 140288
-    assert TFA.mma_smem_bytes("dq", 128, 128) == 139264
+    assert smem_bytes("fwd", (128, 128)) == 230504
+    assert smem_bytes("dkv", (128, 128)) == 116536
+    assert smem_bytes("dq", (128, 128)) == 139264
 
 
-# the new instances' dynamic shared memory per block (rows padded by 8
-# bf16; the forward's q + two K and two V tiles, the dq pass's q and dO +
-# two K and two V tiles, the dk / dv pass's K, V, two q and two dO tiles
-# and the lse / delta rows), each under the H100's 232,448-byte opt-in
-MMA_SMEM = {(192, 128): {"fwd": 137216, "dq": 172032, "dkv": 173056},
-            (96, 64): {"fwd": 71680, "dq": 90112, "dkv": 91136},
-            (80, 80): {"fwd": 67584, "dq": 90112, "dkv": 91136},
-            # 32-row kv tiles in the dq pass, 32-row q tiles in dk / dv
-            (256, 256): {"fwd": 202752, "dq": 202752, "dkv": 203264}}
+def smem_bytes(kernel: str, pair: tuple) -> int:
+    """Dynamic shared memory per block of the bf16 pass at a compiled pair,
+    in the design the DESIGN table gives the pass."""
+    if TFA.DESIGN[kernel] == "wgmma":
+        return TFA.wgmma_plan(kernel, *pair)["smem_bytes"]
+    return TFA.dq_smem_bytes(*pair)
 
 
-@pytest.mark.parametrize("pair", list(MMA_SMEM),
-                         ids=[f"{d}x{dv}" for d, dv in MMA_SMEM])
+# the wide instances' dynamic shared memory per block, each under the
+# H100's 232,448-byte opt-in: the wgmma forward's 128-row q tile and 3 (2
+# at (192, 128), (256, 256)) stages of K and V tiles of 128 kv rows (64 at
+# (256, 256)); the dq pass's q and dO + two K and two V tiles (mma.sync,
+# rows padded by 8 bf16; 32-row kv tiles at (256, 256)); the wgmma dk / dv
+# pass's 128 rows of K and V and 3 stages of q and dO tiles with their
+# lse and delta rows (64 q rows a step, 32 at (256, 256)); each with its
+# mbarriers and 1,024 bytes to align the base
+WIDE_SMEM = {(192, 128): {"fwd": 214088, "dq": 172032, "dkv": 207416},
+             (96, 64): {"fwd": 148584, "dq": 90112, "dkv": 105016},
+             (80, 80): {"fwd": 144488, "dq": 90112, "dkv": 105016},
+             (256, 256): {"fwd": 197704, "dq": 202752, "dkv": 231224}}
+
+
+@pytest.mark.parametrize("pair", list(WIDE_SMEM),
+                         ids=[f"{d}x{dv}" for d, dv in WIDE_SMEM])
 def test_new_instances_fit_the_shared_memory_opt_in(pair):
     assert pair in TFA.HEAD_DIMS
-    for kernel, want in MMA_SMEM[pair].items():
-        got = TFA.mma_smem_bytes(kernel, *pair)
+    for kernel, want in WIDE_SMEM[pair].items():
+        got = smem_bytes(kernel, pair)
         assert got == want and got <= 232448, (kernel, got)
+
+
+def test_design_table_covers_every_compiled_pair():
+    """Each bf16 pass has one design at every compiled pair: wgmma for the
+    forward and the dk / dv pass, each with a wgmma plan at every pair, and
+    mma.sync for the dq pass, which has none."""
+    assert TFA.DESIGN == {"fwd": "wgmma", "dq": "mma", "dkv": "wgmma"}
+    for pair in TFA.HEAD_DIMS:
+        for kernel in ("fwd", "dkv"):
+            assert TFA.wgmma_plan(kernel, *pair)["design"] == "wgmma"
+    with pytest.raises(ValueError, match="no wgmma kernel"):
+        TFA.wgmma_plan("dq", 128, 128)
+
+
+@pytest.mark.parametrize("pair,boxes", [
+    ((128, 128), {"q": (64, 2), "k": (64, 2), "v": (64, 2)}),
+    ((80, 80), {"q": (16, 5), "k": (16, 5), "v": (16, 5)}),
+    ((96, 64), {"q": (32, 3), "k": (32, 3), "v": (64, 1)}),
+    ((192, 128), {"q": (64, 3), "k": (64, 3), "v": (64, 2)})],
+    ids=["128x128", "80x80", "96x64", "192x128"])
+def test_wgmma_swizzle_and_boxes_per_operand(pair, boxes):
+    """The swizzle each operand takes: the widest of 64, 32 and 16 columns
+    dividing its width (128-, 64-, 32-byte swizzle), the width cut into
+    boxes of it — an 80-column row five 16-column boxes of 32-byte
+    swizzle, a 96-column one three of 64-byte — and the output stored as
+    one unswizzled box of its whole width."""
+    for kernel in ("fwd", "dkv"):
+        ops = TFA.wgmma_plan(kernel, *pair)["operands"]
+        for name, (w, n) in boxes.items():
+            op = ops[{"v": "v", "q": "q", "k": "k"}[name]]
+            assert (op["box"][0], op["boxes"]) == (w, n), (kernel, name)
+            assert op["swizzle_bytes"] == 2 * w
+    out = TFA.wgmma_plan("fwd", *pair)["operands"]["out"]
+    assert out["box"] == (pair[1], 1, 64, 1) and out["swizzle_bytes"] == 0

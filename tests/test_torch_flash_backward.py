@@ -212,12 +212,15 @@ def test_backward_wrapper_refuses_what_the_kernels_do_not_take(name, call):
 
 
 # ---------------------------------------------------------------------------
-# the bf16 tensor-core dk / dv kernel's roundings (flash_bwd_dkv_kernel_mma)
+# the bf16 tensor-core dk / dv kernels' roundings
+# (flash_bwd_dkv_kernel_wgmma, and flash_bwd_dkv_kernel_mma at the reduced
+# pairs: the same roundings)
 # ---------------------------------------------------------------------------
 
 def tensor_core_dkv_model(q, k, v, out, lse, dout, causal, q_offset):
-    """A rounding model of ``flash_bwd_dkv_kernel_mma`` in plain torch:
-    scores from bf16 products summed in fp32, the scale on the fp32
+    """A rounding model of ``flash_bwd_dkv_kernel_wgmma`` (and of
+    ``flash_bwd_dkv_kernel_mma``, which rounds at the same points) in plain
+    torch: scores from bf16 products summed in fp32, the scale on the fp32
     scores, ``P = exp(scale s - lse)`` in fp32, rounded to bf16 for ``dV
     = P^T dO``; ``dS = P (dP - delta)`` from the fp32 P, rounded to bf16
     for ``dK = scale dS^T q``; every product of bf16 operands summed in
@@ -395,3 +398,24 @@ def test_split_ds_in_the_dq_pass_keeps_the_reduced_vlm_gradients(
     dq as two bf16 parts (as the forward carries P) holds the same gate;
     one rounding holds it too, so the kernel takes the cheaper one."""
     _hold_reduced_vlm_gate(monkeypatch, split_ds=True)
+
+
+@pytest.mark.parametrize("pair,sweeps,bq,cols", [
+    ((128, 128), 1, 32, (128, 128)), ((192, 128), 2, 64, (192, 128)),
+    ((256, 256), 4, 32, (128, 128)), ((96, 64), 1, 64, (96, 64)),
+    ((80, 80), 1, 64, (80, 80)), ((64, 64), 1, 64, (64, 64))],
+    ids=["128x128", "192x128", "256x256", "96x64", "80x80", "64x64"])
+def test_wgmma_dkv_plan_sweeps_and_steps(pair, sweeps, bq, cols):
+    """The wgmma dk / dv pass's sweeps over the q tiles and its q rows a
+    step: one sweep up to D + Dv = 256, two (dV, then dK) to 384, four
+    (dV's and dK's column halves) above; 32-row steps where a sweep holds
+    128 accumulator registers ((128, 128)) or two 64-row stages would pass
+    the opt-in ((256, 256)).  The dk and dv products of a sweep span the
+    columns it accumulates, and the sweeps' accumulators with S^T and dP^T
+    stay under the consumer's registers."""
+    plan = TFA.wgmma_plan("dkv", *pair)
+    assert plan["sweeps"] == sweeps and plan["tile"] == (128, bq)
+    n = {name.split(" ")[0]: n for name, _, n, _, _, _ in plan["products"]}
+    assert (n["dk"], n["dv"]) == cols
+    assert n["s^T"] == n["dp^T"] == bq
+    assert plan["live_registers"] <= plan["registers"]["consumer"] - 32

@@ -213,7 +213,7 @@ def test_cli_rejects_unported_family():
 
 BUILD_WITHOUT_NVCC = """
 from repro_torch.kernels import _build
-assert len(_build.sources()) == 6
+assert len(_build.sources()) == 8
 try:
     _build.load()
 except RuntimeError as e:

@@ -71,12 +71,56 @@ def test_instance_for_covers_every_pair_up_to_256():
     for pair in pairs:
         assert TFA.instance_for(*pair) == pair
         for kernel in ("fwd", "dq", "dkv"):
-            assert TFA.mma_smem_bytes(kernel, *pair) <= MAX_SMEM
+            smem = (TFA.wgmma_plan(kernel, *pair)["smem_bytes"]
+                    if TFA.DESIGN[kernel] == "wgmma"
+                    else TFA.dq_smem_bytes(*pair))
+            assert smem <= MAX_SMEM
     assert TFA.instance_for(24, 16) == (32, 32)
     assert TFA.instance_for(256, 128) == (256, 256)
     for bad in ((257, 16), (16, 257), (0, 16), (16, 0)):
         with pytest.raises(ValueError, match="256"):
             TFA.instance_for(*bad)
+
+
+# every compiled wgmma instance, per pass
+WGMMA_INSTANCES = [(kernel, pair) for kernel in ("fwd", "dkv")
+                   for pair in TFA.HEAD_DIMS]
+
+
+@pytest.mark.parametrize("kernel,pair", WGMMA_INSTANCES,
+                         ids=[f"{k}-{d}x{dv}" for k, (d, dv) in
+                              WGMMA_INSTANCES])
+def test_wgmma_plan_obeys_the_hardware_rules(kernel, pair):
+    """The plan of each wgmma instance keeps Hopper's rules: every product
+    a 64-row warpgroup tile (two consumer warpgroups cover the block's
+    128 rows) with N a multiple of 8 in [8, 256] and K in steps of 16;
+    every TMA box at most 256 a dim, its inner extent a multiple of 16
+    bytes and, swizzled, exactly the swizzle span (so one descriptor
+    layout serves the operand), the boxes tiling the operand's columns
+    and each a whole number of 1,024-byte swizzle atoms (their starts
+    stay aligned); the shared memory within the 232,448-byte opt-in; the
+    registers setmaxnreg moves within the SM's 65,536, and the consumer's
+    live accumulators and register operands leaving 32 for the rest."""
+    plan = TFA.wgmma_plan(kernel, *pair)
+    assert plan["tile"][0] == 2 * 64 and plan["threads"] == 3 * 128
+    for name, m, n, k, a_from, b_major in plan["products"]:
+        assert m == 64, name
+        assert n % 8 == 0 and 8 <= n <= 256, (name, n)
+        assert k % 16 == 0 and k >= 16, (name, k)
+        assert a_from in ("smem", "registers") and b_major in ("K", "MN")
+    for name, op in plan["operands"].items():
+        box = op["box"]
+        assert all(1 <= d <= 256 for d in box), (name, box)
+        assert (2 * box[0]) % 16 == 0, (name, box)
+        assert op["boxes"] * box[0] == op["cols"], (name, op)
+        if op["swizzle_bytes"]:
+            assert 2 * box[0] == op["swizzle_bytes"] in (32, 64, 128), name
+            assert (2 * box[0] * box[2]) % 1024 == 0, (name, box)
+    assert plan["smem_bytes"] <= MAX_SMEM
+    regs = plan["registers"]
+    assert 128 * regs["producer"] + 256 * regs["consumer"] <= 65536
+    assert all(r % 8 == 0 and 24 <= r <= 256 for r in regs.values())
+    assert plan["live_registers"] + 32 <= regs["consumer"]
 
 
 # (B, Sq, Skv, H, Hkv, D, Dv, causal): the reduced MLA archs' pair (qk 16 +

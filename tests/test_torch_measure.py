@@ -362,10 +362,11 @@ def test_card_store_has_the_hybrid_rows(card_store):
 
 def test_grid_counts_a_state_once_no_later_cell_reads_it(monkeypatch):
     """``measure_grid`` runs the cells in order, each reusing the state
-    of the one before it where they share it, and counts a cell's step
-    only once the last cell of its state was measured: no measured step
-    reads a state that a counted step updated.  The records come in the
-    grid's order, each with its own counter and time."""
+    of the one before it where they share it, and counts a counted cell's
+    step (the first of each arch x kind x sequence length x policy x
+    remat) only once the last cell of its state was measured: no measured
+    step reads a state that a counted step updated.  The records come in the grid's order,
+    each with its time, the counted cells' with their own counter."""
     events, states = [], []
 
     def run_cell(cell, reuse=None, device="cuda"):
@@ -400,11 +401,21 @@ def test_grid_counts_a_state_once_no_later_cell_reads_it(monkeypatch):
             groups[-1].append(c)
         else:
             groups.append([c])
+    counted = M.counted_cells(cells)
+    assert [c.shape for c in cells if c in counted] == [
+        "train_b1_s2048_llava_stage1_adamw_block",
+        "train_b4_s1024_llava_stage1_adamw_block",
+        "train_b1_s2048_llava_stage1_adamw_none",
+        "train_b1_s2048_llava_stage2_adafactor_block",
+        "train_b16_s1024_llava_stage2_adafactor_block", "prefill_b1_s1088",
+        "decode_b4_s4096"]
     want = []
     for g in groups:
         want += [("run", c.shape) for c in g]
-        want += [("count", c.shape) for c in g]
+        want += [("count", c.shape) for c in g if c in counted]
     assert events == want and len(states) == len(groups) == 3
-    assert len({r["cost"]["flops_per_device"] for r in records}) \
-        == len(records)
+    assert [("cost" in r) for r in records] == [c in counted
+                                                for c in cells]
+    assert len({r["cost"]["flops_per_device"] for r in records
+                if "cost" in r}) == len(counted)
     assert all(r["step_s"] > 0 for r in records)
