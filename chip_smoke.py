@@ -350,9 +350,13 @@ Phases (any failure exits non-zero):
    shape's work, SDPA runs at the true shape), the RMSNorm backward at D
    16,384, the SSD at P 256 (two slabs) and N 512 (two launches);
    ``shard_factor`` at the packed shape of the sweeps' largest table
-   build; each flash row names its design (``wgmma`` or ``mma``, from
-   ``flash_attention.DESIGN``) and its instance's tile, threads, ptxas
-   line and shared memory.
+   build; each flash row names its design (``wgmma``) and its instance's
+   tile, stages, threads, ptxas line and shared memory, and the host
+   side of a wrapper call: ``wrapper_minus_kernel_us`` (the event time
+   less the kernel alone), ``host_call_us`` (the wrapper's own time on
+   the host clock until it returns) and, for the dq pass,
+   ``encode_us``, the four ``cuTensorMapEncodeTiled`` calls of one
+   launch timed apart.
 
 The ``sweep_resident`` line gives the bytes the sweeps leave allocated,
 which every later allocator peak includes (none: the sweep engines are
@@ -1652,11 +1656,13 @@ def model_counts() -> dict:
 
 
 # the bf16 tensor-core kernels: name in the kernels line -> the pass
-# (FL.DESIGN's key); the CUDA kernel of each pass
+# (FL.wgmma_plan's kernel); the CUDA kernel of each pass, and its number
+# in csrc's flash_wgmma_plan
 MMA_KERNELS = {"flash_fwd": "fwd", "flash_dq": "dq", "flash_dkv": "dkv"}
 FLASH_KERNEL = {"fwd": "flash_fwd_kernel_wgmma",
-                "dq": "flash_bwd_dq_kernel_mma",
+                "dq": "flash_bwd_dq_kernel_wgmma",
                 "dkv": "flash_bwd_dkv_kernel_wgmma"}
+PLAN_NUMBER = {"fwd": 0, "dkv": 1, "dq": 2}
 SSD_MMA_KERNEL = "ssd_scan_kernel_mma"
 
 
@@ -1675,20 +1681,16 @@ def mma_resources() -> dict:
 
 
 def flash_design(which: str, di: int, dvi: int) -> dict:
-    """The design, CUDA kernel, tile, threads, ptxas line and shared memory
-    of the bf16 pass ``which`` at the compiled pair (di, dvi)."""
-    design, kern = FL.DESIGN[which], FLASH_KERNEL[which]
-    if design == "wgmma":
-        plan = FL.wgmma_plan(which, di, dvi)
-        tile, threads, smem = plan["tile"], plan["threads"], \
-            plan["smem_bytes"]
-    else:
-        tile, threads = FL.dq_tile(di, dvi), 256
-        smem = FL.dq_smem_bytes(di, dvi)
-    return {"design": design, "kernel": kern, "tile": list(tile),
-            "threads": threads,
+    """The design, CUDA kernel, tile, stages, threads, ptxas line and
+    shared memory of the bf16 pass ``which`` at the compiled pair (di,
+    dvi)."""
+    kern = FLASH_KERNEL[which]
+    plan = FL.wgmma_plan(which, di, dvi)
+    return {"design": plan["design"], "kernel": kern,
+            "tile": list(plan["tile"]), "stages": plan["stages"],
+            "threads": plan["threads"],
             "ptxas": mma_resources().get(f"{kern}<{di},{dvi}>"),
-            "smem_bytes_per_block": smem}
+            "smem_bytes_per_block": plan["smem_bytes"]}
 
 
 def check_wgmma_build() -> dict:
@@ -1701,7 +1703,7 @@ def check_wgmma_build() -> dict:
     lib = _build.load()
     res = mma_resources()
     checked = []
-    for which, k in (("fwd", 0), ("dkv", 1)):
+    for which, k in PLAN_NUMBER.items():
         for pair in FL.HEAD_DIMS:
             name = f"{FLASH_KERNEL[which]}<{pair[0]},{pair[1]}>"
             r = res.get(name)
@@ -2417,7 +2419,7 @@ def device_breakdown(fn, wall_ms: float, top: int = 6):
     # FMA kernel, "flash_fwd_kernel_wgmma" the bf16 tensor-core one
     part = {name.rstrip("<"): sum(r[0] for r in rows if name in r[1])
             for name in ("flash_fwd_kernel_wgmma", "flash_fwd_kernel<",
-                         "flash_bwd_dq_kernel_mma", "flash_bwd_dq_kernel<",
+                         "flash_bwd_dq_kernel_wgmma", "flash_bwd_dq_kernel<",
                          "flash_bwd_dkv_kernel_wgmma", "flash_bwd_dkv_kernel<",
                          "rmsnorm_fwd_kernel", "rmsnorm_bwd_kernel",
                          "ssd_scan_kernel_mma", "ssd_scan_kernel<")}
@@ -5196,6 +5198,39 @@ def event_ms(fn, launches: int = 30, warmup: int = 5,
     return statistics.median(times)
 
 
+def enqueue_ms(fn, calls: int = 30, warmup: int = 5) -> float:
+    """Median host time of one call of ``fn`` until it returns (the card
+    idle before each): a wrapper's own host work, without its kernel."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def encode_us(q, k, v, do, reps: int = 2000) -> float:
+    """Host time of the four ``cuTensorMapEncodeTiled`` calls one bf16 dq
+    launch makes, on its padded operands: ``reps`` rounds in one C call,
+    over ``reps``."""
+    qp, kp, vp, dop, _ = FL.pad_operands(q, k, v, do)
+    B, Sq, H, D = qp.shape
+    args = (qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), dop.data_ptr(), B,
+            Sq, kp.shape[1], H, kp.shape[2], D, vp.shape[3])
+    lib = _build.load()
+    lib.flash_bwd_dq_wgmma_encode(*args, 10)
+    t0 = time.perf_counter()
+    rc = lib.flash_bwd_dq_wgmma_encode(*args, reps)
+    us = (time.perf_counter() - t0) * 1e6 / reps
+    if rc:
+        fail(f"flash_bwd_dq_wgmma_encode refused the maps ({rc})")
+    return us
+
+
 def host_ms(fn, calls: int = 30, warmup: int = 5) -> float:
     for _ in range(warmup):
         fn()
@@ -5392,9 +5427,10 @@ def _flash_timing(shape: tuple, causal: bool, gen) -> dict:
         "shape": _shape_row(shape, causal),
         # the instance's products over the true shape's (zero columns)
         "padded_ops_over_true": (di + dvi) / (d + dv),
-        "design": FL.DESIGN["fwd"],
         "ms": event_ms(lambda: FL.flash_fwd(q, k, v, causal=causal),
                       flush=True),
+        "host_call_us": enqueue_ms(
+            lambda: FL.flash_fwd(q, k, v, causal=causal)) * 1e3,
         "device_ms": device_ms(
             lambda: FL.flash_fwd(q, k, v, causal=causal),
             FLASH_KERNEL["fwd"], flush=True),
@@ -5475,8 +5511,8 @@ def _flash_bwd_timing(shape: tuple, causal: bool, gen) -> tuple:
         rows.append({
             "shape": _shape_row(shape, causal),
             "padded_ops_over_true": padded / width,
-            "design": FL.DESIGN[kern],
             "ms": event_ms(fn, flush=True),
+            "host_call_us": enqueue_ms(fn) * 1e3,
             "device_ms": device_ms(fn, FLASH_KERNEL[kern], flush=True),
             "l2": "flushed before each timed launch",
             "plain_ms": plain_ms, "plain_covers": "dq, dk and dv",
@@ -5485,6 +5521,7 @@ def _flash_bwd_timing(shape: tuple, causal: bool, gen) -> tuple:
             "library_backend": backend,
             "bound_ms": bound_ms, "bound_by": bound_by, "flops": n_ops,
             "bytes": n_bytes})
+    rows[0]["encode_us"] = encode_us(q, k, v, do)
     return rows[0], rows[1]
 
 
@@ -5561,6 +5598,10 @@ def time_model_kernels(checks: dict, launches: dict) -> list:
     bwd_other = [_flash_bwd_timing(shape, True, gen)
                  for shape in ((4, 2048, 40, 96, 64), (4, 2048, 32, 80),
                                (4, 2048, 16, 192, 128), *WIDE_TIMED)]
+    # and the (64, 64) pair of seamless-m4t-large-v2's training (its
+    # encoder and cross-attention non-causal, its decoder causal) and of
+    # phase 9's smollm-360m
+    bwd_other += [_flash_bwd_timing(e_shape, c, gen) for c in (False, True)]
     rn_main = _rmsnorm_timing((TRAIN_BATCH * S_train, cfg.d_model), gen)
     rn_other = [_rmsnorm_timing((SERVE_BATCH * S_serve, cfg.d_model), gen),
                 _rmsnorm_timing((SERVE_BATCH, 1, cfg.d_model), gen),
@@ -5579,13 +5620,13 @@ def time_model_kernels(checks: dict, launches: dict) -> list:
     # per kernel: its check, the outputs of that check that are its own,
     # and the checked shape it is timed at
     for name, src, repl, check, mine, case, main, others in (
-            ("flash_fwd", "flash_attention.cu",
+            ("flash_fwd", "flash_attention_wgmma.cu",
              "src/repro/kernels/flash_attention.py:45", "flash_fwd",
              ("out", "lse"), TRAIN_LM_CASE, fwd_main, fwd_other),
-            ("flash_dq", "flash_attention_bwd.cu",
+            ("flash_dq", "flash_attention_bwd_wgmma.cu",
              "src/repro/kernels/flash_attention.py:165", "flash_bwd",
              ("dq",), TRAIN_LM_CASE, dq, [r[0] for r in bwd_other]),
-            ("flash_dkv", "flash_attention_bwd.cu",
+            ("flash_dkv", "flash_attention_bwd_wgmma.cu",
              "src/repro/kernels/flash_attention.py:212", "flash_bwd",
              ("dk", "dv"), TRAIN_LM_CASE, dkv, [r[1] for r in bwd_other]),
             ("rmsnorm_fwd", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:20",
@@ -5634,6 +5675,9 @@ def with_ratios(k: dict) -> dict:
         dev, lib = e["device_ms"], e.get("library_ms")
         e["share_of_bound"] = e["bound_ms"] / dev if dev else None
         e["vs_library"] = dev / lib if dev and lib else None
+        if "host_call_us" in e:
+            e["wrapper_minus_kernel_us"] = \
+                (e["ms"] - dev) * 1e3 if dev else None
     return k
 
 
@@ -5749,7 +5793,8 @@ def say_kernel(k: dict) -> None:
         else f", {100 * k['share_of_bound']:.1f} % of the bound"
     lib = "" if k["vs_library"] is None \
         else f", {k['vs_library']:.2f}x the library call"
-    design = f" ({k['design']} design)" if k.get("design") else ""
+    design = k.get("tensor_cores", {}).get("design")
+    design = f" ({design} design)" if design else ""
     say(f"kernel {k['name']}{design}: {k['ms'] * 1e3:.1f} us/call by CUDA "
         f"events (kernel alone on the device: {dev}; plain "
         f"{k['plain_ms'] * 1e3:.1f} us, bound "

@@ -192,11 +192,6 @@ def load():
         lib.rmsnorm_fwd_launch.argtypes = [
             c_ptr, c_ptr, c_ptr, c_int, c_ll, c_int, c_float, c_ptr]
         lib.rmsnorm_fwd_launch.restype = c_int
-        lib.flash_bwd_dq_launch.argtypes = [
-            c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_int,
-            c_int, c_int, c_int, c_int, c_int, c_int, c_int, c_int, c_int,
-            c_float, c_ptr]
-        lib.flash_bwd_dq_launch.restype = c_int
         lib.rmsnorm_bwd_launch.argtypes = [
             c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_int, c_ll, c_int, c_int,
             c_float, c_ptr]
@@ -210,6 +205,18 @@ def load():
             c_int, c_int, c_int, c_int, c_int, c_int, c_int, c_int, c_float,
             c_ptr]
         lib.flash_bwd_dkv_wgmma_launch.restype = c_int
+        lib.flash_bwd_dq_wgmma_launch.argtypes = [
+            c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_int,
+            c_int, c_int, c_int, c_int, c_int, c_int, c_int, c_int, c_float,
+            c_ptr]
+        lib.flash_bwd_dq_wgmma_launch.restype = c_int
+        lib.flash_bwd_dq_launch.argtypes = \
+            lib.flash_bwd_dq_wgmma_launch.argtypes
+        lib.flash_bwd_dq_launch.restype = c_int
+        lib.flash_bwd_dq_wgmma_encode.argtypes = [
+            c_ptr, c_ptr, c_ptr, c_ptr, c_int, c_int, c_int, c_int, c_int,
+            c_int, c_int, c_int]
+        lib.flash_bwd_dq_wgmma_encode.restype = c_int
         lib.flash_bwd_dkv_launch.argtypes = \
             lib.flash_bwd_dkv_wgmma_launch.argtypes
         lib.flash_bwd_dkv_launch.restype = c_int

@@ -411,9 +411,10 @@ extern "C" int flash_fwd_wgmma_launch(const void* q, const void* k,
 }
 
 // The plan of an instance of this file's or flash_attention_bwd_wgmma.cu's
-// kernel (0 forward, 1 dk / dv) at (D, Dv), for chip_smoke.py to hold
-// flash_attention.py's wgmma_plan to: out[0..4] = rows per block, rows per
-// step of the inner loop, ring stages, sweeps, dynamic shared memory bytes.
+// kernels (0 forward, 1 dk / dv, 2 dq) at (D, Dv), for chip_smoke.py to
+// hold flash_attention.py's wgmma_plan to: out[0..4] = rows per block, rows
+// per step of the inner loop, ring stages, sweeps, dynamic shared memory
+// bytes.
 extern "C" int flash_wgmma_plan(int kernel, int D, int Dv, int* out) {
     if (D < 16 || Dv < 16 || D > 256 || Dv > 256 || D % 16 || Dv % 16)
         return -1;
@@ -431,6 +432,14 @@ extern "C" int flash_wgmma_plan(int kernel, int D, int Dv, int* out) {
         out[2] = wgmma_plan::dkv_stages(D, Dv);
         out[3] = wgmma_plan::dkv_sweeps(D, Dv);
         out[4] = wgmma_plan::dkv_smem(D, Dv);
+        return 0;
+    }
+    if (kernel == 2) {
+        out[0] = wgmma_plan::DQ_BQ;
+        out[1] = wgmma_plan::dq_bk(D, Dv);
+        out[2] = wgmma_plan::dq_stages(D, Dv);
+        out[3] = 1;
+        out[4] = wgmma_plan::dq_smem(D, Dv);
         return 0;
     }
     return -1;

@@ -1,8 +1,8 @@
 // The tiles and shared memory of the Hopper flash kernels
 // (flash_attention_wgmma.cu, flash_attention_bwd_wgmma.cu), constexpr for
-// both, mirrored by flash_attention.py's wgmma_plan (chip_smoke.py holds
-// the two to each other through flash_wgmma_plan); and the host's TMA
-// tensor maps.
+// device and host, mirrored by flash_attention.py's wgmma_plan
+// (chip_smoke.py holds the two to each other through flash_wgmma_plan); and
+// the host's TMA tensor maps.
 
 #pragma once
 
@@ -74,10 +74,31 @@ __host__ __device__ constexpr int dkv_smem(int D, int DV) {
     return dkv_smem_at(D, DV, dkv_bq(D, DV), dkv_stages(D, DV));
 }
 
+// dq: 128 q rows a block (64 per consumer warpgroup), its q and dO tiles
+// loaded once, K and V tiles of dq_bk rows through a ring of dq_stages (3
+// where they fit, else 2).  dQ's accumulators take D / 2 registers a
+// thread and S and dP BK / 2 each: 64-row kv steps where D + Dv <= 384,
+// 32 at (256, 256), where dQ alone is 128 registers.
+constexpr int DQ_BQ = 128;
+__host__ __device__ constexpr int dq_bk(int D, int DV) {
+    return D + DV > 384 ? 32 : 64;
+}
+__host__ __device__ constexpr int dq_smem_at(int D, int DV, int stages) {
+    return DQ_BQ * (D + DV) * 2 + stages * dq_bk(D, DV) * (D + DV) * 2 +
+           8 * (1 + 2 * stages) + 1024;
+}
+__host__ __device__ constexpr int dq_stages(int D, int DV) {
+    return dq_smem_at(D, DV, 3) <= MAX_SMEM ? 3 : 2;
+}
+__host__ __device__ constexpr int dq_smem(int D, int DV) {
+    return dq_smem_at(D, DV, dq_stages(D, DV));
+}
+
 // The order blocks run in.  A block is a tile of one (batch, head) pair
-// (q tile of the forward, kv tile of dk / dv), and the pairs are taken in
-// chunks of `chunk` pairs whose streamed operands (the forward's K and V,
-// the dk / dv pass's q, dO, lse and delta) fit half the H100's 50 MB L2:
+// (q tile of the forward and the dq pass, kv tile of dk / dv), and the
+// pairs are taken in chunks of `chunk` pairs whose streamed operands (the
+// forward's and the dq pass's K and V, the dk / dv pass's q, dO, lse and
+// delta) fit half the H100's 50 MB L2:
 // within a chunk the tiles run heaviest first (tile order 0 first), the
 // pairs fastest, so that the blocks in flight share their operands in the
 // L2 instead of each reading its own from device memory.  Block i of a
@@ -142,6 +163,14 @@ inline bool encode(CUtensorMap* map, const void* ptr, int width, int heads,
                    int swizzle_cols) {
     const EncodeTiled fn = encoder();
     if (!fn) return false;
+    // a libcuda call: it needs the device's context current on this thread,
+    // which a thread that has made no runtime call yet (autograd's worker
+    // running a backward) lacks; cudaFree(nullptr) binds it, once a thread
+    static thread_local bool bound = false;
+    if (!bound) {
+        cudaFree(nullptr);
+        bound = true;
+    }
     const cuuint64_t dims[4] = {(cuuint64_t)width, (cuuint64_t)heads,
                                 (cuuint64_t)seq, (cuuint64_t)batch};
     const cuuint64_t row = (cuuint64_t)width * 2;

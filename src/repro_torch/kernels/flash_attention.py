@@ -10,13 +10,14 @@ layer and of the vision tower.
   tensors it takes the plain version.  It never falls back: CUDA tensors the kernels do not take
   raise.
 * :func:`flash_bwd` — the backward's wrapper, the same way: on CUDA
-  tensors it launches :func:`flash_bwd_dq`, the q-stationary dq pass of
-  ``csrc/flash_attention_bwd.cu`` (replaces ``_dq_kernel``; it also
-  computes ``delta = sum(dout * out)`` of its rows; bf16 on mma.sync,
-  ``flash_bwd_dq_kernel_mma``), and then :func:`flash_bwd_dkv`, the
-  kv-stationary dk / dv pass (replaces ``_dkv_kernel``; each block sums
-  over the G query heads of its group and every q tile; bf16 on wgmma,
-  ``flash_bwd_dkv_kernel_wgmma`` of ``csrc/flash_attention_bwd_wgmma.cu``).  Each block writes its tile of a
+  tensors it launches :func:`flash_bwd_dq`, the q-stationary dq pass
+  (replaces ``_dq_kernel``; it also computes ``delta = sum(dout * out)``
+  of its rows), and then :func:`flash_bwd_dkv`, the kv-stationary dk / dv
+  pass (replaces ``_dkv_kernel``; each block sums over the G query heads
+  of its group and every q tile): bf16 on wgmma
+  (``flash_bwd_dq_kernel_wgmma``, ``flash_bwd_dkv_kernel_wgmma`` of
+  ``csrc/flash_attention_bwd_wgmma.cu``), fp32 in fp32 FMA
+  (``csrc/flash_attention_bwd.cu``).  Each block writes its tile of a
   gradient once: no atomics, bit-equal results from launch to launch.
 * :func:`flash_fwd_plain`, :func:`flash_bwd_plain` — the same functions
   in plain PyTorch from the full fp32 score matrix, the backward by its
@@ -50,11 +51,10 @@ pass rounds dS to bf16 once, the dk / dv pass P and dS, as
 FlashAttention-2 does); the fp32 kernels compute in fp32 FMA (see the
 sources' notes).  Their times stand beside the bound in PERF.md.  The
 wgmma kernels read their operands by TMA (:func:`wgmma_plan`: 4-D (width,
-heads, seq, batch) tensor maps, encoded per launch), the mma.sync ones
-with 16-byte ``cp.async``, so all take q, k, v, out / dout and the
-gradients contiguous at 16-byte aligned addresses; the wrappers hand them
-a contiguous copy of a strided or unaligned view, never the plain
-version.
+heads, seq, batch) tensor maps, encoded per launch), so they take q, k,
+v, out / dout and the gradients contiguous at 16-byte aligned addresses;
+the wrappers hand them a contiguous copy of a strided or unaligned view,
+never the plain version.
 
 Head dims: the kernels are compiled for the pairs ``HEAD_DIMS``; any
 other ``1 <= D, Dv <= 256`` runs on :func:`instance_for`'s pair, the
@@ -96,27 +96,25 @@ NEG_INF = -1e30
 HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (128, 64),
              (192, 128), (96, 64), (80, 80), (256, 256))
 MAX_HEAD_DIM = 256
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 
-# the mma.sync dq pass's tile (csrc/flash_attention_bwd.cu): 128 q rows x
-# 64 kv rows per step (at D > 128 in two 32-row halves, which changes no
-# shared memory), 8 warps; at (256, 256) 32 kv rows a step (:func:`dq_tile`)
-DQ_TILE = (128, 64)
-
-# The design each bf16 pass runs at every compiled pair: "wgmma" —
-# csrc/flash_attention_wgmma.cu and csrc/flash_attention_bwd_wgmma.cu,
-# Hopper's wgmma, TMA and warp specialisation (:func:`wgmma_plan`); "mma" —
-# the mma.sync dq pass of csrc/flash_attention_bwd.cu.  The wgmma forward
-# and dk / dv replaced mma.sync kernels; timed in turns in one chip call
-# (H100 80GB HBM3, 700 W; PERF.md § 6), kernel alone, mma.sync / wgmma, us
-# at each pair's main-path shape: the forward 1,512 / 764 at (128, 128),
-# 102 / 67 at the vision tower's (64, 64), 446 / 220, 688 / 373, 563 /
-# 315, 891 / 355 and 302 / 155 at (192, 128), (96, 64), (80, 80), (256,
-# 256) and (128, 64); dk / dv 2,622 / 1,359, 181 / 102, 1,215 / 743, 1,244
-# / 598, 968 / 488, 3,152 / 2,710 and 557 / 310; at the reduced configs'
-# tiny grids, (16, 16) and (32, 32), the two were within 0.7 us (4-7 us).
-DESIGN = {"fwd": "wgmma", "dq": "mma", "dkv": "wgmma"}
-
+# Every bf16 pass runs one design at every compiled pair: Hopper's wgmma,
+# TMA and warp specialisation (csrc/flash_attention_wgmma.cu,
+# csrc/flash_attention_bwd_wgmma.cu; :func:`wgmma_plan`), which replaced
+# mma.sync kernels.  Timed in turns in one chip call each (H100 80GB HBM3,
+# 700 W; PERF.md § 6), kernel alone, mma.sync / wgmma, us at each pair's
+# main-path shape: the forward 1,512 / 764 at (128, 128), 102 / 67 at the
+# vision tower's (64, 64), 446 / 220, 688 / 373, 563 / 315, 891 / 355 and
+# 302 / 155 at (192, 128), (96, 64), (80, 80), (256, 256) and (128, 64);
+# dk / dv 2,622 / 1,359, 181 / 102, 1,215 / 743, 1,244 / 598, 968 / 488,
+# 3,152 / 2,710 and 557 / 310; at the reduced configs' tiny grids, (16,
+# 16) and (32, 32), the two were within 0.7 us (4-7 us).  The dq pass
+# (L2 flushed): 1,710 / 893 at (128, 128), 464 / 282 and 253 / 169 at
+# (64, 64) non-causal and causal (4 x 2,048, 16 heads), 783 / 460, 598 /
+# 385, 593 / 309 and 1,046 / 547 at (96, 64), (80, 80), (192, 128) and
+# (256, 256); at the reduced (32, 32) 3.9 / 3.8, at (16, 16) 4.1 / 5.2,
+# against the 215-277 us of host time a wrapper call takes there.
+#
 # the wgmma kernels' blocks: 2 consumer warpgroups and 1 producer
 # warpgroup, registers shifted between them by setmaxnreg
 WGMMA_THREADS = 384
@@ -184,10 +182,11 @@ def _tma_operand(cols: int, rows: int, swizzled: bool = True) -> dict:
 
 @functools.lru_cache(maxsize=None)
 def wgmma_plan(kernel: str, D: int, Dv: int) -> dict:
-    """The plan of a wgmma kernel (``"fwd"`` or ``"dkv"``) at the compiled
-    pair (D, Dv), as csrc/wgmma_plan.cuh lays it out: ``tile`` (rows per
-    block, rows per step of the inner loop: q and kv for the forward, kv
-    and q for dk / dv), ring ``stages``, ``sweeps`` over the q tiles,
+    """The plan of a wgmma kernel (``"fwd"``, ``"dq"`` or ``"dkv"``) at the
+    compiled pair (D, Dv), as csrc/wgmma_plan.cuh lays it out: ``tile``
+    (rows per block, rows per step of the inner loop: q and kv for the
+    forward and dq, kv and q for dk / dv), ring ``stages``, ``sweeps`` over
+    the q tiles,
     ``operands`` (each a 4-D (width, heads, seq, batch) TMA view cut into
     ``boxes`` boxes ``box`` of ``swizzle_bytes`` swizzle), the ``products``
     one consumer warpgroup launches per step as (name, M, N, K, where A
@@ -207,6 +206,20 @@ def wgmma_plan(kernel: str, D: int, Dv: int) -> dict:
         # O, P(j-1)'s two parts and S(j), live across one slot's products
         live = Dv // 2 + bk // 2 + bk // 2
         smem = _fwd_smem(D, Dv, bq, bk, stages)
+        tile, sweeps = (bq, bk), 1
+    elif kernel == "dq":
+        # 64-row kv steps, 32 at (256, 256), where dQ alone holds 128
+        # accumulator registers; 3 stages of K and V where they fit
+        bq, bk = 128, (32 if D + Dv > 384 else 64)
+        stages = 3 if _dq_smem(D, Dv, bq, bk, 3) <= MAX_SMEM else 2
+        operands = {"q": _tma_operand(D, bq), "dout": _tma_operand(Dv, bq),
+                    "k": _tma_operand(D, bk), "v": _tma_operand(Dv, bk)}
+        products = [("s = q k^T", 64, bk, D, "smem", "K"),
+                    ("dp = dout v^T", 64, bk, Dv, "smem", "K"),
+                    ("dq += ds k", 64, D, bk, "registers", "MN")]
+        # dQ, S and dP
+        live = D // 2 + bk // 2 + bk // 2
+        smem = _dq_smem(D, Dv, bq, bk, stages)
         tile, sweeps = (bq, bk), 1
     elif kernel == "dkv":
         # sweeps over the q tiles: one to D + Dv = 256 (dK and dV), two to
@@ -247,25 +260,18 @@ def _fwd_smem(D, Dv, bq, bk, stages) -> int:
         + 1024
 
 
+def _dq_smem(D, Dv, bq, bk, stages) -> int:
+    """The dq pass's q and dO tiles, ``stages`` K and V tiles, its 1 + 2
+    stages mbarriers and 1,024 bytes to align the base."""
+    return bq * (D + Dv) * 2 + stages * bk * (D + Dv) * 2 \
+        + 8 * (1 + 2 * stages) + 1024
+
+
 def _dkv_smem(D, Dv, bkv, bq, stages) -> int:
     """The dk / dv pass's K and V, ``stages`` q and dO tiles with their lse
     and delta rows, 1 + 2 stages mbarriers and 1,024 bytes of alignment."""
     return bkv * (D + Dv) * 2 + stages * bq * ((D + Dv) * 2 + 2 * 4) \
         + 8 * (1 + 2 * stages) + 1024
-
-
-def dq_tile(D: int, Dv: int) -> tuple:
-    """The bf16 dq pass's tile at the compiled pair (D, Dv): (q rows, kv
-    rows a step)."""
-    return (DQ_TILE[0], 32) if D + Dv > 384 else DQ_TILE
-
-
-def dq_smem_bytes(D: int, Dv: int) -> int:
-    """Dynamic shared memory per block of the bf16 dq pass at head dims
-    (D, Dv): the q and dO tiles and two K and two V tiles at
-    :func:`dq_tile`'s tile, bf16 rows padded by 8 elements."""
-    bq, bk = dq_tile(D, Dv)
-    return 2 * ((bq + 2 * bk) * (D + 8) + (bq + 2 * bk) * (Dv + 8))
 
 
 def _operand(t: torch.Tensor, width: int) -> torch.Tensor:
@@ -402,8 +408,8 @@ def _launch_fwd(qp, kp, vp, causal, q_offset, scale):
 
 
 def _check_aligned(what: str, tensors) -> None:
-    """The bf16 tensor-core kernels copy 16 bytes at a time (``cp.async``)
-    or by TMA, whose tensor maps take 16-byte aligned bases: the tensors a
+    """The bf16 kernels copy by TMA, whose tensor maps take 16-byte
+    aligned bases: the tensors a
     launch is given must start on a 16-byte boundary (the wrappers hand it
     :func:`pad_operands`' copies of any that do not)."""
     if tensors[0].dtype == torch.bfloat16 and any(
@@ -472,13 +478,14 @@ def _check_bwd_kernels(q, k, tensors) -> None:
 
 def _dims(qp, kp, vp, causal, q_offset, scale) -> tuple:
     B, Sq, H, Di = qp.shape
-    return (_DTYPES[qp.dtype], B, Sq, kp.shape[1], H, kp.shape[2], Di,
-            vp.shape[3], q_offset, int(bool(causal)), scale)
+    return (B, Sq, kp.shape[1], H, kp.shape[2], Di, vp.shape[3], q_offset,
+            int(bool(causal)), scale)
 
 
 def _launch_dq(qp, kp, vp, outp, lse, doutp, causal, q_offset, scale):
     """One launch of the dq pass on operands padded to an instance ->
-    ``(dq at the instance's D, delta)``."""
+    ``(dq at the instance's D, delta)``: fp32 on the FMA kernel, bf16 on
+    the wgmma kernel."""
     global dq_launches
     _check_aligned("flash_bwd dq", (qp, kp, vp, outp, doutp))
     dq = torch.empty_like(qp)
@@ -486,7 +493,9 @@ def _launch_dq(qp, kp, vp, outp, lse, doutp, causal, q_offset, scale):
     from repro_torch.kernels import _build
     lib = _build.load()
     with torch.cuda.device(qp.device):
-        rc = lib.flash_bwd_dq_launch(
+        launch = (lib.flash_bwd_dq_wgmma_launch
+                  if qp.dtype == torch.bfloat16 else lib.flash_bwd_dq_launch)
+        rc = launch(
             qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), outp.data_ptr(),
             doutp.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), *_dims(qp, kp, vp, causal, q_offset, scale),
@@ -515,7 +524,7 @@ def _launch_dkv(qp, kp, vp, lse, doutp, delta, causal, q_offset, scale):
                 dk.data_ptr(), dv.data_ptr())
         launch = (lib.flash_bwd_dkv_wgmma_launch
                   if qp.dtype == torch.bfloat16 else lib.flash_bwd_dkv_launch)
-        rc = launch(*ptrs, *_dims(qp, kp, vp, causal, q_offset, scale)[1:],
+        rc = launch(*ptrs, *_dims(qp, kp, vp, causal, q_offset, scale),
                     torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(
@@ -529,9 +538,9 @@ def _launch_dkv(qp, kp, vp, lse, doutp, delta, causal, q_offset, scale):
 def flash_bwd_dq(q, k, v, out, lse, dout, *, causal: bool = True,
                  q_offset: int = 0):
     """The dq pass alone on CUDA tensors -> ``(dq, delta)``, delta ``(B, H,
-    Sq)`` fp32 for :func:`flash_bwd_dkv`: bf16 on the tensor cores
-    (``flash_bwd_dq_kernel_mma``, dS rounded to bf16 once before ``dS k``),
-    fp32 in fp32 FMA (``flash_bwd_dq_kernel``)."""
+    Sq)`` fp32 for :func:`flash_bwd_dkv`: bf16 on wgmma
+    (``flash_bwd_dq_kernel_wgmma``, dS rounded to bf16 once before ``dS
+    k``), fp32 in fp32 FMA (``flash_bwd_dq_kernel``)."""
     _check_bwd(q, k, v, out, lse, dout, q_offset)
     _check_bwd_kernels(q, k, (lse,))
     qp, kp, vp, outp, doutp, scale = pad_operands(q, k, v, out, dout)

@@ -245,29 +245,27 @@ def test_bf16_kernel_refuses_tensors_off_the_16_byte_grid():
     TFA._check_aligned("flash_fwd", (torch.zeros(9)[1:],))
     assert smem_bytes("fwd", (128, 128)) == 230504
     assert smem_bytes("dkv", (128, 128)) == 116536
-    assert smem_bytes("dq", (128, 128)) == 139264
+    assert smem_bytes("dq", (128, 128)) == 164920
 
 
 def smem_bytes(kernel: str, pair: tuple) -> int:
-    """Dynamic shared memory per block of the bf16 pass at a compiled pair,
-    in the design the DESIGN table gives the pass."""
-    if TFA.DESIGN[kernel] == "wgmma":
-        return TFA.wgmma_plan(kernel, *pair)["smem_bytes"]
-    return TFA.dq_smem_bytes(*pair)
+    """Dynamic shared memory per block of the bf16 pass's wgmma kernel at
+    a compiled pair."""
+    return TFA.wgmma_plan(kernel, *pair)["smem_bytes"]
 
 
 # the wide instances' dynamic shared memory per block, each under the
 # H100's 232,448-byte opt-in: the wgmma forward's 128-row q tile and 3 (2
 # at (192, 128), (256, 256)) stages of K and V tiles of 128 kv rows (64 at
-# (256, 256)); the dq pass's q and dO + two K and two V tiles (mma.sync,
-# rows padded by 8 bf16; 32-row kv tiles at (256, 256)); the wgmma dk / dv
-# pass's 128 rows of K and V and 3 stages of q and dO tiles with their
-# lse and delta rows (64 q rows a step, 32 at (256, 256)); each with its
+# (256, 256)); the wgmma dq pass's 128-row q and dO tiles and 3 stages of
+# K and V tiles of 64 kv rows (32 at (256, 256)); the wgmma dk / dv pass's
+# 128 rows of K and V and 3 stages of q and dO tiles with their lse and
+# delta rows (64 q rows a step, 32 at (256, 256)); each with its
 # mbarriers and 1,024 bytes to align the base
-WIDE_SMEM = {(192, 128): {"fwd": 214088, "dq": 172032, "dkv": 207416},
-             (96, 64): {"fwd": 148584, "dq": 90112, "dkv": 105016},
-             (80, 80): {"fwd": 144488, "dq": 90112, "dkv": 105016},
-             (256, 256): {"fwd": 197704, "dq": 202752, "dkv": 231224}}
+WIDE_SMEM = {(192, 128): {"fwd": 214088, "dq": 205880, "dkv": 207416},
+             (96, 64): {"fwd": 148584, "dq": 103480, "dkv": 105016},
+             (80, 80): {"fwd": 144488, "dq": 103480, "dkv": 105016},
+             (256, 256): {"fwd": 197704, "dq": 230456, "dkv": 231224}}
 
 
 @pytest.mark.parametrize("pair", list(WIDE_SMEM),
@@ -280,15 +278,15 @@ def test_new_instances_fit_the_shared_memory_opt_in(pair):
 
 
 def test_design_table_covers_every_compiled_pair():
-    """Each bf16 pass has one design at every compiled pair: wgmma for the
-    forward and the dk / dv pass, each with a wgmma plan at every pair, and
-    mma.sync for the dq pass, which has none."""
-    assert TFA.DESIGN == {"fwd": "wgmma", "dq": "mma", "dkv": "wgmma"}
+    """Each bf16 pass has one design at every compiled pair, wgmma: the
+    forward, the dq and the dk / dv pass each have a wgmma plan at every
+    pair (the mma.sync designs are gone), and a pass that is none of the
+    three has none."""
     for pair in TFA.HEAD_DIMS:
-        for kernel in ("fwd", "dkv"):
+        for kernel in ("fwd", "dq", "dkv"):
             assert TFA.wgmma_plan(kernel, *pair)["design"] == "wgmma"
     with pytest.raises(ValueError, match="no wgmma kernel"):
-        TFA.wgmma_plan("dq", 128, 128)
+        TFA.wgmma_plan("dx", 128, 128)
 
 
 @pytest.mark.parametrize("pair,boxes", [
@@ -303,7 +301,7 @@ def test_wgmma_swizzle_and_boxes_per_operand(pair, boxes):
     boxes of it — an 80-column row five 16-column boxes of 32-byte
     swizzle, a 96-column one three of 64-byte — and the output stored as
     one unswizzled box of its whole width."""
-    for kernel in ("fwd", "dkv"):
+    for kernel in ("fwd", "dq", "dkv"):
         ops = TFA.wgmma_plan(kernel, *pair)["operands"]
         for name, (w, n) in boxes.items():
             op = ops[{"v": "v", "q": "q", "k": "k"}[name]]

@@ -212,15 +212,13 @@ def test_backward_wrapper_refuses_what_the_kernels_do_not_take(name, call):
 
 
 # ---------------------------------------------------------------------------
-# the bf16 tensor-core dk / dv kernels' roundings
-# (flash_bwd_dkv_kernel_wgmma, and flash_bwd_dkv_kernel_mma at the reduced
-# pairs: the same roundings)
+# the bf16 tensor-core backward kernels' roundings
+# (flash_bwd_dq_kernel_wgmma, flash_bwd_dkv_kernel_wgmma)
 # ---------------------------------------------------------------------------
 
 def tensor_core_dkv_model(q, k, v, out, lse, dout, causal, q_offset):
-    """A rounding model of ``flash_bwd_dkv_kernel_wgmma`` (and of
-    ``flash_bwd_dkv_kernel_mma``, which rounds at the same points) in plain
-    torch: scores from bf16 products summed in fp32, the scale on the fp32
+    """A rounding model of ``flash_bwd_dkv_kernel_wgmma`` in plain torch:
+    scores from bf16 products summed in fp32, the scale on the fp32
     scores, ``P = exp(scale s - lse)`` in fp32, rounded to bf16 for ``dV
     = P^T dO``; ``dS = P (dP - delta)`` from the fp32 P, rounded to bf16
     for ``dK = scale dS^T q``; every product of bf16 operands summed in
@@ -246,7 +244,7 @@ def tensor_core_dkv_model(q, k, v, out, lse, dout, causal, q_offset):
 
 def tensor_core_dq_model(q, k, v, out, lse, dout, causal, q_offset,
                          split_ds=False):
-    """A rounding model of ``flash_bwd_dq_kernel_mma`` in plain torch: S =
+    """A rounding model of ``flash_bwd_dq_kernel_wgmma`` in plain torch: S =
     q k^T and dP = dO v^T from bf16 products summed in fp32, the scale on
     the fp32 scores, ``P = exp(scale s - lse)`` and ``dS = P (dP -
     delta)`` in fp32, ``delta = sum(dO * out)`` in fp32; dS rounded to
@@ -306,11 +304,11 @@ def test_tensor_core_dkv_roundings_fit_the_bf16_tolerance(case):
                          ids=["x".join(map(str, c[:8])) for c in
                               TENSOR_CORE_CASES])
 def test_tensor_core_dq_roundings_fit_the_bf16_tolerance(case):
-    """Rounding dS to bf16 once before dq = dS k, as the tensor-core dq
-    kernel does, with P and dS in fp32 and every product summed in fp32,
-    stays
-    within 2e-2 of dq's scale of the reference's Pallas backward
-    (interpret mode) on the same out and lse."""
+    """Rounding dS to bf16 once before dq = dS k, as the wgmma dq kernel
+    does (dS packed from the fp32 accumulators into the A operand of
+    ``dQ += dS K``), with P and dS in fp32 and every product summed in
+    fp32, stays within 2e-2 of dq's scale of the reference's Pallas
+    backward (interpret mode) on the same out and lse."""
     causal, block = case[7], case[8]
     q, k, v, do, qoff = make(case, jnp.bfloat16, seed=5)
     tq, tk, tv, tdo = map(to_torch, (q, k, v, do))
@@ -419,3 +417,34 @@ def test_wgmma_dkv_plan_sweeps_and_steps(pair, sweeps, bq, cols):
     assert (n["dk"], n["dv"]) == cols
     assert n["s^T"] == n["dp^T"] == bq
     assert plan["live_registers"] <= plan["registers"]["consumer"] - 32
+
+
+@pytest.mark.parametrize("pair,bk,stages,smem", [
+    ((128, 128), 64, 3, 164920), ((192, 128), 64, 3, 205880),
+    ((256, 256), 32, 3, 230456), ((96, 64), 64, 3, 103480),
+    ((80, 80), 64, 3, 103480), ((64, 64), 64, 3, 83000),
+    ((128, 64), 64, 3, 123960), ((32, 32), 64, 3, 42040),
+    ((16, 16), 64, 3, 21560)],
+    ids=["128x128", "192x128", "256x256", "96x64", "80x80", "64x64",
+         "128x64", "32x32", "16x16"])
+def test_wgmma_dq_plan_tiles_and_steps(pair, bk, stages, smem):
+    """The wgmma dq pass's tile and ring: 128 q rows a block, kv steps of
+    64 rows where D + Dv <= 384 and 32 at (256, 256) (dQ's D / 2
+    accumulator registers and the step's S and dP, BK / 2 each, under the
+    consumer's 232), 3 stages of K and V beside the q and dO tiles within
+    the opt-in.  S = q k^T and dP = dO v^T span the step's kv rows, dQ +=
+    dS k spans D with K MN-major, and the live registers leave 32 for the
+    rest."""
+    D, Dv = pair
+    plan = TFA.wgmma_plan("dq", *pair)
+    assert plan["tile"] == (128, bk) and plan["stages"] == stages
+    assert plan["sweeps"] == 1 and plan["smem_bytes"] == smem <= 232448
+    prods = {p[0].split(" ")[0]: list(p[1:]) for p in plan["products"]}
+    assert prods["s"] == [64, bk, D, "smem", "K"]
+    assert prods["dp"] == [64, bk, Dv, "smem", "K"]
+    assert prods["dq"] == [64, D, bk, "registers", "MN"]
+    assert plan["live_registers"] == D // 2 + bk
+    assert plan["live_registers"] <= plan["registers"]["consumer"] - 32
+    assert set(plan["operands"]) == {"q", "dout", "k", "v"}
+    assert plan["operands"]["k"]["rows"] == bk
+    assert plan["operands"]["q"]["rows"] == 128

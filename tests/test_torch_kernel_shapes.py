@@ -71,10 +71,7 @@ def test_instance_for_covers_every_pair_up_to_256():
     for pair in pairs:
         assert TFA.instance_for(*pair) == pair
         for kernel in ("fwd", "dq", "dkv"):
-            smem = (TFA.wgmma_plan(kernel, *pair)["smem_bytes"]
-                    if TFA.DESIGN[kernel] == "wgmma"
-                    else TFA.dq_smem_bytes(*pair))
-            assert smem <= MAX_SMEM
+            assert TFA.wgmma_plan(kernel, *pair)["smem_bytes"] <= MAX_SMEM
     assert TFA.instance_for(24, 16) == (32, 32)
     assert TFA.instance_for(256, 128) == (256, 256)
     for bad in ((257, 16), (16, 257), (0, 16), (16, 0)):
@@ -83,7 +80,7 @@ def test_instance_for_covers_every_pair_up_to_256():
 
 
 # every compiled wgmma instance, per pass
-WGMMA_INSTANCES = [(kernel, pair) for kernel in ("fwd", "dkv")
+WGMMA_INSTANCES = [(kernel, pair) for kernel in ("fwd", "dq", "dkv")
                    for pair in TFA.HEAD_DIMS]
 
 
