@@ -39,7 +39,9 @@ Phases (any failure exits non-zero):
    registers, spills and stack of the bf16 tensor-core flash and SSD
    kernels from ``ptxas -v``; the ``wgmma_build`` line: every wgmma flash
    instance built without a spill and its plan in ``csrc/wgmma_plan.cuh``
-   equal to ``flash_attention.wgmma_plan`` (else the run fails), and
+   equal to ``flash_attention.wgmma_plan``, both SSD kernels at every
+   head width built without a spill or a wgmma serialisation note and
+   ``ssd_wgmma_plan`` equal to ``SSD.wgmma_smem`` (else the run fails), and
    ptxas's performance notes on them;
 2. ``kernels_check``: ``shard_factor`` on randomized step programs, one
    request per launch and packed builds of up to 400 requests per launch
@@ -62,14 +64,16 @@ Phases (any failure exits non-zero):
    each (the forward too) also bit-equal on a second launch, and every
    wrapper refusing what its kernel does not take (float16, a head dim
    above 256); ``ssd_scan`` (fp32: the FMA
-   kernel; bf16: the tensor-core kernel) on the reference's three SSD
+   kernel; bf16: the wgmma state pass and chunk scan) on the reference's
+   three SSD
    cases, a prompt shorter than the chunk, the mamba2 prefill's full-width
    shape (4, 2,000, 64, 64, 128, 256) and its batch-1 twin, zamba2-2.7b's
    prefill shape (4, 2,048, 80, 64, 64, 256), a state
-   width the bf16 kernel pads (N 20, P 128): y and the final state within
+   width the bf16 kernels pad (N 20, P 128): y and the final state within
    1e-4 in fp32, bf16 y within 2e-2 and the state within 1e-4 of their
    scales, bit-equal on a second launch and on strided views; float16, a
-   chunk past shared memory, P above 256 and N above 512 refused; every
+   chunk past shared memory (fp32 and bf16), P above 256 and N above 512
+   refused; every
    error also per shape; the same checks, each in the same loop, at
    the shapes the widened kernels take — flash forward and backward at
    the pairs no instance is compiled for, run zero-padded on
@@ -81,7 +85,7 @@ Phases (any failure exits non-zero):
    65,535); the RMSNorm backward at D 16,384, past the shared-memory
    partial row; ``SSD.kernel_plan``'s shapes at 4 x 2,048 tokens (P 80 as
    two slabs, P 256 as two slabs of one launch, N 256 at P 64, N 512
-   walked in two pieces), the fp32 kernel at (4, 2,048, 64, 64, 256, 256)
+   walked in two pieces in fp32 and whole in bf16), the fp32 kernel at (4, 2,048, 64, 64, 256, 256)
    under the reference test's dt against the float64 recurrence (within
    max(1e-4, 2 x the plain version's distance)), and the SSD inputs once
    refused (a head-dim slice, N 14, a strided head dim, bf16 operands off
@@ -348,7 +352,9 @@ Phases (any failure exits non-zero):
    (24, 16) as the reduced MLA archs give it, each with its instance and
    the padded products over the true ones (the bound counts the true
    shape's work, SDPA runs at the true shape), the RMSNorm backward at D
-   16,384, the SSD at P 256 (two slabs) and N 512 (two launches);
+   16,384, the SSD at P 256 (two slabs) and N 512 (one launch); the SSD
+   row names its design (``wgmma``), each of its two kernels' time alone
+   (``kernel_ms``) and their sum (``device_ms``);
    ``shard_factor`` at the packed shape of the sweeps' largest table
    build; each flash row names its design (``wgmma``) and its instance's
    tile, stages, threads, ptxas line and shared memory, and the host
@@ -471,10 +477,10 @@ MAMBA_BATCH, MAMBA_PROMPT, MAMBA_NEW = 4, 2000, 32
 # this prefill's shape, the RMSNorm's by check_rmsnorm
 MAMBA_FP32_TOL = 1e-3
 # in bf16 the kernel path's distance from the fp32 plain path, over the
-# bf16 plain path's own (logits and states): the tensor-core SSD rounds its
-# score operand and the state once more than the plain path; the CPU
-# rounding model (tests/test_torch_ssd.py) reads 0.84 / 1.00 on the
-# reduced config, 1.5 leaves room for 48 layers
+# bf16 plain path's own (logits and states): the bf16 SSD kernels round
+# their score operand and the state entering each chunk once more than the
+# plain path; the CPU rounding model (tests/test_torch_ssd.py) reads
+# 0.84 / 1.00 on the reduced config, 1.5 leaves room for 48 layers
 MAMBA_BF16_RATIO = 1.5
 
 # the training path: llava15-7b at the paper's fig2b setting, 8 samples x
@@ -1410,7 +1416,7 @@ SSD_CASES = [(2, 128, 4, 16, 32, 32), (1, 96, 2, 32, 16, 32),
 # the shapes the kernels take beyond their instances (SSD.kernel_plan), at
 # a layer's size, 4 x 2,048 tokens: P 80 as slabs of 64 and 16, P 256 as
 # two 128-column slabs of one launch, N 256 at P 64 (fp32: two 32-column
-# slabs), N 512 walked in two pieces
+# slabs), N 512 (fp32: walked in two pieces; bf16: one launch)
 WIDE_SSD_CASES = [(4, 2048, 32, 80, 64, 256), (4, 2048, 16, 256, 128, 256),
                   (4, 2048, 64, 64, 256, 256), (4, 2048, 64, 16, 512, 256)]
 SSD_TOLERANCE = 1e-4          # fp32 y and state; bf16 state, of its scale
@@ -1519,8 +1525,8 @@ def ssd_witness() -> dict:
 
 
 def check_ssd() -> dict:
-    """y and the final state of the kernels (fp32: FMA, bf16: tensor
-    cores) against ssd_scan_plain on SSD_CASES, on WIDE_SSD_CASES
+    """y and the final state of the kernels (fp32: FMA, bf16: the wgmma
+    state pass and chunk scan) against ssd_scan_plain on SSD_CASES, on WIDE_SSD_CASES
     (``SSD.kernel_plan``'s slabs and N pieces) and on the inputs once
     refused; a second launch bit-equal; x, B and C read in place through a
     token stride (views into one conv-output buffer, as the model hands
@@ -1571,14 +1577,18 @@ def check_ssd() -> dict:
         del args, y, st, y2, st2, py, pst
     witness = ssd_witness()
     cases += 1
-    # what the kernel does not take raises (no fallback): float16, a chunk
-    # past shared memory, a head above 256, a state above 512
+    # what the kernels do not take raises (no fallback): float16, a chunk
+    # past shared memory (fp32; bf16, whose state pass holds a chunk's
+    # a_cum and w), a head above 256, a state above 512
     x, dtv, A, Bm, Cm = ssd_inputs((1, 8, 2, 64, 16, 8), gen, torch.float32)
     for call in (lambda: SSD.ssd_scan(x.half(), dtv, A, Bm.half(),
                                       Cm.half()),
                  lambda: SSD.ssd_scan(*ssd_inputs(
                      (1, 30000, 2, 64, 128, 1), gen, torch.float32),
                      chunk=30000),
+                 lambda: SSD.ssd_scan(*ssd_inputs(
+                     (1, 12000, 2, 64, 128, 1), gen, torch.bfloat16),
+                     chunk=12000),
                  lambda: SSD.ssd_scan(*ssd_inputs(
                      (1, 8, 2, 264, 16, 8), gen, torch.float32)),
                  lambda: SSD.ssd_scan(*ssd_inputs(
@@ -1663,15 +1673,18 @@ FLASH_KERNEL = {"fwd": "flash_fwd_kernel_wgmma",
                 "dq": "flash_bwd_dq_kernel_wgmma",
                 "dkv": "flash_bwd_dkv_kernel_wgmma"}
 PLAN_NUMBER = {"fwd": 0, "dkv": 1, "dq": 2}
-SSD_MMA_KERNEL = "ssd_scan_kernel_mma"
+# the bf16 SSD's two kernels (csrc/ssd_wgmma.cu): the state pass, then the
+# chunk scan, both launched by every bf16 program of SSD.kernel_plan
+SSD_KERNELS = ("ssd_state_kernel_wgmma", "ssd_scan_kernel_wgmma")
+SSD_THREADS = {"ssd_state_kernel_wgmma": 192, "ssd_scan_kernel_wgmma": 160}
 
 
 def mma_resources() -> dict:
     """``ptxas -v``'s registers, spills and stack of every instance of the
-    tensor-core kernels (mma.sync and wgmma), by ``kernel<D,Dv>`` (flash)
-    / ``kernel<P>`` (SSD)."""
+    tensor-core kernels (all wgmma), by ``kernel<D,Dv>`` (flash) /
+    ``kernel<P>`` (SSD)."""
     out = {}
-    kernels = list(FLASH_KERNEL.values()) + [SSD_MMA_KERNEL]
+    kernels = list(FLASH_KERNEL.values()) + list(SSD_KERNELS)
     for name, r in _build.kernel_resources().items():
         for kern in kernels:
             if re.search(kern + r"I", name):
@@ -1693,16 +1706,59 @@ def flash_design(which: str, di: int, dvi: int) -> dict:
             "smem_bytes_per_block": plan["smem_bytes"]}
 
 
+# the (P, N, chunk) points at which csrc's ssd_wgmma_plan is held to
+# SSD.wgmma_smem: every compiled head width at the serving state widths,
+# N 512 and a chunk past the serving one
+SSD_PLAN_POINTS = [(P, N, chunk) for P in SSD.HEAD_DIMS
+                   for N, chunk in ((64, 256), (128, 256), (512, 256),
+                                    (128, 8), (128, 7872))]
+
+
+def check_ssd_build(lib, res: dict) -> list:
+    """The bf16 SSD's share of phase 1's gate: both kernels at every
+    compiled head width built without a spill and without a wgmma
+    serialisation note (C75xx "Potential Performance Loss"), and csrc's
+    ssd_wgmma_plan (shared memory of each kernel, heads a scan block, ring
+    slots) equal to SSD.wgmma_smem at ``SSD_PLAN_POINTS``."""
+    import ctypes
+    checked = []
+    for kern in SSD_KERNELS:
+        for P in SSD.HEAD_DIMS:
+            name = f"{kern}<{P}>"
+            r = res.get(name)
+            if r is None:
+                fail(f"ptxas reported nothing for {name}")
+            if r.get("spill_store_bytes") or r.get("spill_load_bytes"):
+                fail(f"{name} spills registers: {r}")
+            checked.append(name)
+    notes = [w for w in _build.ptxas_warnings()
+             if "Performance Loss" in w and "ssd_" in w]
+    if notes:
+        fail(f"ptxas serialised the SSD's wgmma: {notes}")
+    for P, N, chunk in SSD_PLAN_POINTS:
+        got = (ctypes.c_int * 5)()
+        if lib.ssd_wgmma_plan(P, N, chunk, got):
+            fail(f"ssd_wgmma_plan refused {(P, N, chunk)}")
+        want = SSD.wgmma_smem(P, N, chunk)
+        want = [want["state"], want["scan"], want["heads"], want["b_slots"],
+                want["x_slots"]]
+        if list(got) != want:
+            fail(f"SSD {(P, N, chunk)}: csrc's plan {list(got)} != "
+                 f"ssd.wgmma_smem's {want}")
+    return checked
+
+
 def check_wgmma_build() -> dict:
     """Phase 1's gate on the wgmma kernels: every compiled instance
     (``FL.HEAD_DIMS``) built (its ptxas line present) without a spill, and
     its plan in csrc/wgmma_plan.cuh (rows, step rows, stages, sweeps,
-    shared memory) equal to flash_attention.py's wgmma_plan.  (A C7508
-    "setmaxnreg ignored" warning fails the build itself.)"""
+    shared memory) equal to flash_attention.py's wgmma_plan; the SSD's
+    (:func:`check_ssd_build`).  (A C7508 "setmaxnreg ignored" warning
+    fails the build itself.)"""
     import ctypes
     lib = _build.load()
     res = mma_resources()
-    checked = []
+    checked = check_ssd_build(lib, res)
     for which, k in PLAN_NUMBER.items():
         for pair in FL.HEAD_DIMS:
             name = f"{FLASH_KERNEL[which]}<{pair[0]},{pair[1]}>"
@@ -2422,7 +2478,8 @@ def device_breakdown(fn, wall_ms: float, top: int = 6):
                          "flash_bwd_dq_kernel_wgmma", "flash_bwd_dq_kernel<",
                          "flash_bwd_dkv_kernel_wgmma", "flash_bwd_dkv_kernel<",
                          "rmsnorm_fwd_kernel", "rmsnorm_bwd_kernel",
-                         "ssd_scan_kernel_mma", "ssd_scan_kernel<")}
+                         "ssd_state_kernel_wgmma", "ssd_scan_kernel_wgmma",
+                         "ssd_scan_kernel<")}
     part = {k: v for k, v in part.items() if v}
     return {"busy_ms": busy, "wall_ms": wall_ms,
             "busy_share": busy / wall_ms,
@@ -5254,13 +5311,23 @@ def device_ms(fn, kernel_name: str, launches: int = 20,
     wrapper's host work that the event timing includes; with ``flush`` an
     L2 flush (a kernel of its own) before each call.  None when the
     profiler reports no device time for it (then only the event time is
-    known, and the report says "not measured").  A trace that lacks the
-    kernel is taken again, up to PROFILE_TRIES traces: the profiler misses
-    a kernel now and then (about half the first traces of phase 7 in one
-    run, one entry in two traces running; PERF.md § 6)."""
+    known, and the report says "not measured")."""
+    return device_ms_by(fn, (kernel_name,), launches, flush)[kernel_name]
+
+
+def device_ms_by(fn, kernel_names, launches: int = 20,
+                 flush: bool = False) -> dict:
+    """Mean device time of one launch of each named CUDA kernel over
+    ``launches`` calls of ``fn`` (each after an L2 flush with ``flush``),
+    from one torch.profiler trace.  A trace that lacks one of them is
+    taken again, up to PROFILE_TRIES traces: the profiler misses a kernel
+    now and then (about half the first traces of phase 7 in one run, one
+    entry in two traces running; PERF.md § 6).  A name no trace shows
+    maps to None."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    found = {}
     for _ in range(PROFILE_TRIES):
         try:
             with profile(activities=[ProfilerActivity.CPU,
@@ -5272,17 +5339,20 @@ def device_ms(fn, kernel_name: str, launches: int = 20,
                 torch.cuda.synchronize()
         except RuntimeError as e:       # no device tracing on this machine
             print(f"chip_smoke: profiler unavailable ({e})", file=sys.stderr)
-            return None
+            break
         for ev in prof.key_averages():
-            if kernel_name in ev.key:
-                total_us = getattr(ev, "device_time_total", None)
-                if total_us is None:
-                    total_us = getattr(ev, "cuda_time_total", 0)
-                if total_us and ev.count:
-                    return total_us / ev.count / 1e3
-        print(f"chip_smoke: the profiler's trace has no {kernel_name}",
-              file=sys.stderr)
-    return None
+            for name in kernel_names:
+                if name in ev.key and name not in found:
+                    total_us = getattr(ev, "device_time_total", None)
+                    if total_us is None:
+                        total_us = getattr(ev, "cuda_time_total", 0)
+                    if total_us and ev.count:
+                        found[name] = total_us / ev.count / 1e3
+        if len(found) == len(kernel_names):
+            break
+        print(f"chip_smoke: the profiler's trace lacks "
+              f"{sorted(set(kernel_names) - set(found))}", file=sys.stderr)
+    return {name: found.get(name) for name in kernel_names}
 
 
 def shard_factor_work(p: "SF.Packed") -> tuple:
@@ -5703,17 +5773,41 @@ SSD_SLAB_CASE = (4, 2048, 16, 256, 128, 256)
 SSD_WALK_CASE = (4, 2048, 64, 16, 512, 256)
 
 
+def ssd_device_ms(fn, plan) -> dict:
+    """The bf16 SSD's kernels alone on the device for one call of ``fn``:
+    each kernel's mean launch (profiler) times the plan's programs (each
+    launches both), and their sum as ``device_ms`` (None where the
+    profiler misses one)."""
+    per_launch = device_ms_by(fn, SSD_KERNELS)
+    kernels = {k: None if per_launch.get(k) is None
+               else per_launch[k] * plan.launches for k in SSD_KERNELS}
+    total = None if None in kernels.values() else sum(kernels.values())
+    return {"device_ms": total, "kernel_ms": kernels}
+
+
+def ssd_design(P: int, N: int, chunk: int, dtype=torch.bfloat16) -> dict:
+    """The bf16 SSD's design at (P, N, chunk): its kernels with their
+    threads and ptxas lines, shared memory per block, heads per scan block
+    and ring slots."""
+    res = mma_resources()
+    smem = SSD.wgmma_smem(P, N, chunk)
+    return {"design": "wgmma",
+            "kernels": {k: {"threads": SSD_THREADS[k],
+                            "ptxas": res.get(f"{k}<{P}>")}
+                        for k in SSD_KERNELS},
+            "heads_per_scan_block": smem["heads"],
+            "ring_slots": {"b": smem["b_slots"], "x": smem["x_slots"]}}
+
+
 def _ssd_timing(case, c: dict, gen) -> dict:
     """One SSD shape in bf16 for ``other_shapes``: wrapper call, the
-    kernel alone (per call: the mean launch times the plan's launches),
-    the plain version, the bound; the plan's slabs and pieces."""
+    kernels alone (their sum per call), the plain version, the bound; the
+    plan's slabs and pieces."""
     args = ssd_inputs(case, gen, torch.bfloat16)
     b, S, H, P, N, chunk = case
     plan = SSD.kernel_plan(P, N, torch.bfloat16)
     n_ops, n_bytes = ssd_work(case)
     bound_ms, bound_by = _bound(n_bytes, n_ops, BF16_OPS_PER_S)
-    per_launch = device_ms(lambda: SSD.ssd_scan(*args, chunk=chunk),
-                           SSD_MMA_KERNEL)
     return {
         "shape": {"b": b, "S": S, "H": H, "P": P, "N": N, "chunk": chunk,
                   "dtype": "bfloat16"},
@@ -5721,22 +5815,24 @@ def _ssd_timing(case, c: dict, gen) -> dict:
                  "launches_per_call": plan.launches},
         "max_abs_err_at_shape": c["max_abs_err_by_case"][case_key(case)],
         "ms": event_ms(lambda: SSD.ssd_scan(*args, chunk=chunk)),
-        "device_ms": None if per_launch is None
-        else per_launch * plan.launches,
+        **ssd_device_ms(lambda: SSD.ssd_scan(*args, chunk=chunk), plan),
         "plain_ms": event_ms(lambda: SSD.ssd_scan_plain(*args, chunk=chunk),
                              launches=10),
         "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
         "flops": n_ops, "bytes": n_bytes,
-        "grid_blocks": b * H * max(n for _, _, n in plan.slabs),
-        "smem_bytes_per_block": SSD.plan_smem(plan, chunk, torch.bfloat16)}
+        "smem_bytes_per_block": {
+            k: v for k, v in SSD.wgmma_smem(
+                max(w for _, w, _ in plan.slabs), plan.N, chunk).items()
+            if k in ("state", "scan")}}
 
 
 def time_ssd(checks: dict, launches: dict) -> dict:
-    """The SSD kernel at the serving path's prefill shape, bf16 (the
-    tensor-core kernel): the wrapper call (CUDA events, median of 30), the
-    kernel alone (profiler, by its own name), the plain version; no single
-    PyTorch call computes the SSD scan.  zamba2-2.7b's prefill shape under
-    ``other_shapes``."""
+    """The SSD at the serving path's prefill shape, bf16 (the state pass
+    and the chunk scan on wgmma): the wrapper call (CUDA events, median of
+    30), the kernels alone (profiler, by their own names: each one's time
+    and their sum), the plain version; no single PyTorch call computes the
+    SSD scan.  zamba2-2.7b's prefill shape, P 256 in slabs and N 512
+    under ``other_shapes``."""
     cfg = get_config(MAMBA_ARCH)
     case = (MAMBA_BATCH, MAMBA_PROMPT, cfg.ssm.n_heads(cfg.d_model),
             cfg.ssm.head_dim, cfg.ssm.d_state, cfg.ssm.chunk)
@@ -5750,9 +5846,11 @@ def time_ssd(checks: dict, launches: dict) -> dict:
     bound_ms, bound_by = _bound(n_bytes, n_ops, BF16_OPS_PER_S)
     c = checks["ssd_scan"]
     b, S, H, P, N, chunk = case
+    plan = SSD.kernel_plan(P, N, torch.bfloat16)
+    smem = SSD.wgmma_smem(P, N, chunk)
     entry = {
         "name": "ssd_scan", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/ssd.cu",
+        "source": "src/repro_torch/kernels/csrc/ssd_wgmma.cu",
         "replaces": "src/repro/kernels/ssd.py:25",
         "launches": launches["ssd_scan"],
         "max_abs_err": c["max_abs_err"],
@@ -5760,23 +5858,18 @@ def time_ssd(checks: dict, launches: dict) -> dict:
         "shape": {"b": b, "S": S, "H": H, "P": P, "N": N, "chunk": chunk,
                   "dtype": "bfloat16"},
         "ms": event_ms(lambda: SSD.ssd_scan(*args, chunk=chunk)),
-        "device_ms": device_ms(lambda: SSD.ssd_scan(*args, chunk=chunk),
-                               SSD_MMA_KERNEL),
+        **ssd_device_ms(lambda: SSD.ssd_scan(*args, chunk=chunk), plan),
         "plain_ms": event_ms(lambda: SSD.ssd_scan_plain(*args, chunk=chunk),
                              launches=10),
         "library_ms": None, "library": "none exists",
         "bound_ms": bound_ms, "bound_by": bound_by, "flops": n_ops,
         "bytes": n_bytes,
-        "grid_blocks": b * H, "sms": torch.cuda.get_device_properties(
-            DEV).multi_processor_count,
-        "smem_bytes_per_block": SSD.mma_smem_bytes(P, N, chunk),
-        "tensor_cores": {"kernel": SSD_MMA_KERNEL,
-                         "threads": 32 * SSD.MMA_WARPS,
-                         "ptxas": mma_resources().get(
-                             f"{SSD_MMA_KERNEL}<{P}>")}}
+        "grid_blocks": SSD.grid_blocks(plan, b, S, H, chunk, torch.bfloat16),
+        "sms": torch.cuda.get_device_properties(DEV).multi_processor_count,
+        "smem_bytes_per_block": {k: smem[k] for k in ("state", "scan")},
+        "tensor_cores": ssd_design(P, N, chunk)}
     # zamba2-2.7b's prefill shape; P 256 as two slabs of one launch; N
-    # 512 walked in two launches (their kernel-alone time is the launches'
-    # sum: the profiler's mean per launch times the launches a call makes)
+    # 512 in one launch
     entry["other_shapes"] = [_ssd_timing(case, c, gen)
                              for case in (ZAMBA2_SSD_CASE, SSD_SLAB_CASE,
                                           SSD_WALK_CASE)]

@@ -225,8 +225,16 @@ def load():
         lib.flash_wgmma_plan.restype = c_int
         lib.ssd_scan_launch.argtypes = [
             c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_int, c_int,
-            c_int, c_int, c_int, c_int, c_int, ctypes.POINTER(c_ll), c_ll,
-            ctypes.POINTER(c_ll), c_ptr, c_ptr]
+            c_int, c_int, c_int, c_int, ctypes.POINTER(c_ll), c_ll,
+            ctypes.POINTER(c_ll), c_ptr]
         lib.ssd_scan_launch.restype = c_int
+        lib.ssd_wgmma_launch.argtypes = [
+            c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr,
+            c_int, c_int, c_int, c_int, c_int, c_int, c_int, c_int, c_int,
+            ctypes.POINTER(c_ll), c_int, c_ptr]
+        lib.ssd_wgmma_launch.restype = c_int
+        lib.ssd_wgmma_plan.argtypes = [c_int, c_int, c_int,
+                                       ctypes.POINTER(c_int)]
+        lib.ssd_wgmma_plan.restype = c_int
         _lib = lib
         return lib

@@ -153,14 +153,14 @@ inline EncodeTiled encoder() {
     return fn;
 }
 
-// the 4-D (width, heads, seq, batch) view of a contiguous bf16 (batch, seq,
-// heads, width) tensor, boxes of box_cols x 1 head x box_rows x 1 batch;
-// swizzle_cols 64 / 32 / 16 -> 128- / 64- / 32-byte swizzle (box_cols
-// equal to it), 0 -> none.  Out-of-range rows read as zeros and are not
-// written.  False where the map is refused.
-inline bool encode(CUtensorMap* map, const void* ptr, int width, int heads,
-                   int seq, int batch, int box_cols, int box_rows,
-                   int swizzle_cols) {
+// a 4-D view of `ptr`: dims innermost first (the innermost dense), the
+// byte strides of dims 1-3, boxes of `box` elements, the given swizzle.
+// Out-of-range coordinates read as zeros and are not written.  False
+// where the map is refused.
+inline bool encode_view(CUtensorMap* map, CUtensorMapDataType type,
+                        const void* ptr, const cuuint64_t (&dims)[4],
+                        const cuuint64_t (&strides)[3],
+                        const cuuint32_t (&box)[4], CUtensorMapSwizzle swz) {
     const EncodeTiled fn = encoder();
     if (!fn) return false;
     // a libcuda call: it needs the device's context current on this thread,
@@ -171,23 +171,35 @@ inline bool encode(CUtensorMap* map, const void* ptr, int width, int heads,
         cudaFree(nullptr);
         bound = true;
     }
+    const cuuint32_t ones[4] = {1u, 1u, 1u, 1u};
+    return fn(map, type, 4, const_cast<void*>(ptr), dims, strides, box, ones,
+              CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// swizzle_cols 64 / 32 / 16 -> 128- / 64- / 32-byte swizzle, 0 -> none
+inline CUtensorMapSwizzle swizzle_of(int swizzle_cols) {
+    return swizzle_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+           : swizzle_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+           : swizzle_cols == 16 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                : CU_TENSOR_MAP_SWIZZLE_NONE;
+}
+
+// the 4-D (width, heads, seq, batch) view of a contiguous bf16 (batch, seq,
+// heads, width) tensor, boxes of box_cols x 1 head x box_rows x 1 batch;
+// swizzle_cols as swizzle_of (box_cols equal to it, or 0).
+inline bool encode(CUtensorMap* map, const void* ptr, int width, int heads,
+                   int seq, int batch, int box_cols, int box_rows,
+                   int swizzle_cols) {
     const cuuint64_t dims[4] = {(cuuint64_t)width, (cuuint64_t)heads,
                                 (cuuint64_t)seq, (cuuint64_t)batch};
     const cuuint64_t row = (cuuint64_t)width * 2;
     const cuuint64_t strides[3] = {row, row * heads, row * heads * seq};
     const cuuint32_t box[4] = {(cuuint32_t)box_cols, 1u, (cuuint32_t)box_rows,
                                1u};
-    const cuuint32_t ones[4] = {1u, 1u, 1u, 1u};
-    const CUtensorMapSwizzle swz =
-        swizzle_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-        : swizzle_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-        : swizzle_cols == 16 ? CU_TENSOR_MAP_SWIZZLE_32B
-                             : CU_TENSOR_MAP_SWIZZLE_NONE;
-    return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-              const_cast<void*>(ptr), dims, strides, box, ones,
-              CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
-              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+    return encode_view(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, dims,
+                       strides, box, swizzle_of(swizzle_cols));
 }
 
 }  // namespace wgmma_host

@@ -16,6 +16,8 @@ The kernels themselves are held to the plain versions at these shapes on
 the card by ``chip_smoke.py``.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -281,28 +283,45 @@ def test_planned_ssd_matches_pallas_kernel(case):
 
 def test_ssd_plans():
     """The launches each shape gets: a compiled (P, N) that fits keeps its
-    one launch (mamba2's and zamba2's heads, both types); the odd shapes
-    are padded and cut as the tests above run them; a state too wide for
-    one launch is walked in pieces (N 512 in bf16, N 256 at P 64 in fp32
-    narrows the slab instead); past P 256 or N 512 the plan is refused;
-    the chunk limit is the planned instance's."""
+    one launch (mamba2's and zamba2's heads, both types); fp32 pads N to a
+    multiple of 4, bf16 to one of 8 (the TMA maps' 16-byte rows); the odd
+    shapes are
+    padded and cut as the tests above run them; fp32 walks a state too wide
+    for one launch in pieces (N 256 at P 64 narrows the slab instead),
+    bf16 takes N 512 whole in one launch (slabs of 64 at P 256); past P 256
+    or N 512 the plan is refused; the chunk limit is the planned launch's
+    (bf16: the state pass holds a chunk's a_cum and w, so chunks up to
+    10,304 at mamba2's P 64 / N 128)."""
     f32_, bf16 = torch.float32, torch.bfloat16
-    for P, N in ((64, 128), (64, 64), (16, 16), (128, 20)):
+    for P, N in ((64, 128), (64, 64)):
         for dt in (f32_, bf16):
             assert SSD.kernel_plan(P, N, dt) == SSD.Plan(
                 P, N, ((0, P, 1),), ((0, N),))
+    for P, N in ((16, 16), (128, 20)):
+        assert SSD.kernel_plan(P, N, f32_) == SSD.Plan(
+            P, N, ((0, P, 1),), ((0, N),))
+    assert SSD.kernel_plan(16, 16, bf16) == SSD.Plan(
+        16, 16, ((0, 16, 1),), ((0, 16),))
+    assert SSD.kernel_plan(128, 20, bf16) == SSD.Plan(
+        128, 24, ((0, 128, 1),), ((0, 24),))
     assert SSD.kernel_plan(24, 12, f32_) == SSD.Plan(
         32, 12, ((0, 32, 1),), ((0, 12),))
-    assert SSD.kernel_plan(80, 20, f32_).slabs == ((0, 64, 1), (64, 16, 1))
-    assert SSD.kernel_plan(256, 128, bf16).slabs == ((0, 128, 2),)
-    assert SSD.kernel_plan(256, 128, f32_).slabs == ((0, 128, 2),)
+    for dt in (f32_, bf16):
+        assert SSD.kernel_plan(80, 20, dt).slabs == ((0, 64, 1), (64, 16, 1))
+        assert SSD.kernel_plan(256, 128, dt).slabs == ((0, 128, 2),)
     assert SSD.kernel_plan(64, 256, f32_) == SSD.Plan(
         64, 256, ((0, 32, 2),), ((0, 256),))
+    assert SSD.kernel_plan(64, 256, bf16) == SSD.Plan(
+        64, 256, ((0, 64, 1),), ((0, 256),))
     walk = SSD.kernel_plan(16, 512, bf16)
-    assert walk.pieces == ((0, 256), (256, 256)) and walk.launches == 2
+    assert walk.pieces == ((0, 512),) and walk.launches == 1
+    assert SSD.kernel_plan(256, 512, bf16) == SSD.Plan(
+        256, 512, ((0, 64, 4),), ((0, 512),))
     assert SSD.kernel_plan(16, 512, f32_).pieces == ((0, 256), (256, 256))
     assert SSD.kernel_plan(3, 2, f32_) == SSD.Plan(
         16, 4, ((0, 16, 1),), ((0, 4),))
+    assert SSD.kernel_plan(3, 2, bf16) == SSD.Plan(
+        16, 8, ((0, 16, 1),), ((0, 8),))
     for dt in (f32_, bf16):
         for P, N in ((256, 512), (200, 300), (1, 1)):
             plan = SSD.kernel_plan(P, N, dt)
@@ -311,14 +330,38 @@ def test_ssd_plans():
             with pytest.raises(ValueError, match="256|512"):
                 SSD.kernel_plan(P, N, dt)
     mamba = SSD.kernel_plan(64, 128, bf16)
-    assert SSD.plan_smem(mamba, 7872, bf16) <= MAX_SMEM < \
-        SSD.plan_smem(mamba, 7936, bf16)
+    assert SSD.plan_smem(mamba, 10304, bf16) <= MAX_SMEM < \
+        SSD.plan_smem(mamba, 10368, bf16)
+
+
+@pytest.mark.parametrize("case", SSD_CASES, ids=ids)
+def test_planned_bf16_ssd_matches_pallas_kernel(case):
+    """The bf16 plan's launches (N zero-padded to a multiple of 8 and on to
+    the kernels' tile width, 64, P cut into its slabs) through the plain
+    version in fp32, against the reference's Pallas kernel: the padding and
+    the cuts are exact."""
+    b, S, H, P, N, chunk = case
+    arrs = ssd_inputs(case, seed=P + N + 1)
+    plan = SSD.kernel_plan(P, N, torch.bfloat16)
+    assert plan.N % 8 == 0 and len(plan.pieces) == 1
+    tiles = dataclasses.replace(plan, N=SSD.tile_width(plan.N),
+                                pieces=((0, SSD.tile_width(plan.N)),))
+    y, state = planned_plain(*map(to_torch, arrs), chunk, tiles)
+    assert y[..., P:].abs().sum() == 0
+    assert state[:, :, P:].abs().sum() == 0 and \
+        state[..., N:].abs().sum() == 0
+    want_y, want_st = RO.ssd_scan(*map(jnp.asarray, arrs), chunk=chunk,
+                                  interpret=True)
+    np.testing.assert_allclose(f32(y[..., :P]), f32(want_y), atol=1e-4,
+                               rtol=1e-4)
+    np.testing.assert_allclose(f32(state[:, :, :P, :N]), f32(want_st),
+                               atol=1e-4, rtol=1e-4)
 
 
 def test_ssd_operands_are_copied_only_where_needed():
-    """The model's in-place views stay views; a padded head, a padded
-    state, a strided head dim and a bf16 view off the 16-byte grid become
-    fresh tensors the launch takes."""
+    """The model's in-place views stay views (fp32 and bf16); a padded
+    head, a padded state, a strided head dim and a bf16 view off the
+    16-byte grid become fresh tensors the launch takes."""
     b, S, H, P, N = 2, 40, 4, 64, 128
     conv = torch.zeros((b, S, H * P + 2 * N))
     x = conv[..., :H * P].reshape(b, S, H, P)
@@ -341,6 +384,19 @@ def test_ssd_operands_are_copied_only_where_needed():
     xk, _, _, Bk, Ck = SSD.kernel_operands(
         x[..., :24], dt, A, B[..., :6], C[..., :6], small)
     assert xk.shape[3] == 32 and Bk.shape[2] == Ck.shape[2] == 8
+    # bf16: the model's views of its conv output at mamba2's widths lie on
+    # the TMA maps' 16-byte grid and stay views; N 20 pads to 24
+    bconv = conv.bfloat16()
+    xb = bconv[..., :H * P].reshape(b, S, H, P)
+    Bb, Cb = bconv[..., H * P:H * P + N], bconv[..., H * P + N:]
+    got = SSD.kernel_operands(xb, dt, A, Bb, Cb,
+                              SSD.kernel_plan(P, N, torch.bfloat16))
+    assert got[0] is xb and got[3] is Bb and got[4] is Cb
+    SSD.check_kernel_operands(got[0], *got[1:], 40)
+    got = SSD.kernel_operands(xb, dt, A, Bb[..., :20], Cb[..., :20],
+                              SSD.kernel_plan(P, 20, torch.bfloat16))
+    assert got[3].shape[2] == got[4].shape[2] == 24
+    SSD.check_kernel_operands(got[0], *got[1:], 40)
 
 
 # ---------------------------------------------------------------------------

@@ -4,10 +4,10 @@ Pallas kernel in interpret mode (``repro.kernels.ops.ssd_scan``), its
 sequential recurrence (``repro.kernels.ref.ssd_ref``) and its lax twin
 (``repro.models.mamba.ssd_chunked``); the port's own ``ref.ssd_ref``
 against the reference's; the wrapper's checks and the forward-only entry
-point; a rounding model of the bf16 tensor-core kernel
-(``ssd_scan_kernel_mma``) against the plain version, alone and inside the
-reduced mamba2's prefill.  Inputs are made with numpy from a seed and
-handed to both sides.
+point; a rounding model of the two bf16 kernels (``ssd_state_kernel_wgmma``
+and ``ssd_scan_kernel_wgmma``) against the plain version and the reference's
+Pallas kernel, alone and inside the reduced mamba2's prefill.  Inputs are
+made with numpy from a seed and handed to both sides.
 
 Tolerances: 1e-4 in fp32 (the reference's own, tests/test_kernels.py);
 with bf16 x, B and C the y (rounded to bf16) within 2e-2 of its scale and
@@ -228,64 +228,86 @@ def test_forward_only_refusal_names_the_training_path():
 
 
 # ---------------------------------------------------------------------------
-# the bf16 tensor-core kernel's roundings (ssd_scan_kernel_mma)
+# the bf16 kernels' roundings (ssd_state_kernel_wgmma, ssd_scan_kernel_wgmma)
 # ---------------------------------------------------------------------------
 
 def _bf16(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).float()
 
 
-def _split_bf16(t: torch.Tensor) -> torch.Tensor:
-    """t as the kernel carries it into a product: hi = bf16(t) plus lo =
+def _split_bf16(t: torch.Tensor) -> tuple:
+    """t as the kernel carries it into a product: hi = bf16(t) and lo =
     bf16(t - hi), each an exact bf16 operand."""
     hi = _bf16(t)
-    return hi + _bf16(t - hi)
+    return hi, _bf16(t - hi)
 
 
-def tensor_core_ssd_model(x, dt, A, B, C, chunk, split_state=True):
-    """A rounding model of ``ssd_scan_kernel_mma`` in plain torch: the
-    kernel's chunks and 64-row sub-tiles, every product of bf16 operands
-    summed in fp32; x, B and C go in exact; per query sub-tile i, ``C_i
-    bf16(state)^T`` scaled by exp(a_cum_i), then for each key sub-tile j
-    <= i ``bf16((L o C_i B_j^T) dt_j) x_j``; one rounding of y; the state
-    update ``(x w)^T B`` with w = dt exp(a_tot - a_cum), ``x w`` split into
-    two bf16 parts (what the kernel does) or, without ``split_state``,
-    rounded to bf16 once."""
+def tensor_core_ssd_model(x, dt, A, B, C, chunk, split_state=True,
+                          head_group=None):
+    """A rounding model of the two bf16 kernels in plain torch, every
+    product of bf16 operands summed in fp32; x, B and C go in exact.
+
+    The state pass: per chunk the state entering it is kept as bf16
+    (``st_in``, the scratch the scan reads), then the state is scaled by
+    exp(a_tot) and gets ``(x w)^T B`` added per 64-token sub-tile, with w
+    = dt exp(a_tot - a_cum) and ``x w`` split into two bf16 parts (what the
+    kernel does) or, without ``split_state``, rounded to bf16 once.
+
+    The chunk scan: per chunk, 64-row query sub-tile i and group of
+    ``head_group`` heads (``SSD.head_group(P)``), ``y_h = (C_i
+    st_in_h^T) exp(a_cum_i)``, then for each key sub-tile j <= i ``S = C_i
+    B_j^T`` once for the group and ``y_h += bf16((L_h o S) dt_j) x_j`` for
+    each head; y rounded once."""
     b, S, H, P = x.shape
     N = B.shape[-1]
     chunk = min(chunk, S)
+    gh = SSD.head_group(P) if head_group is None else head_group
     xf, Bf, Cf = x.float(), B.float(), C.float()
     a = dt * A
-    st = torch.zeros((b, H, P, N))
-    y = torch.empty((b, S, H, P))
     sub = SSD.TQ
+    # the state pass
+    st = torch.zeros((b, H, P, N))
+    st_in, acums = [], []
     for c0 in range(0, S, chunk):
         q = min(chunk, S - c0)
         acum = a[:, c0:c0 + q].cumsum(1)                 # (b, q, H)
         a_tot = acum[:, -1]
-        st_op = _bf16(st)
+        st_in.append(_bf16(st))
+        acums.append(acum)
+        st = st * torch.exp(a_tot)[..., None, None]
+        w = dt[:, c0:c0 + q] * torch.exp(a_tot[:, None] - acum)
+        for j0 in range(0, q, sub):
+            rj = slice(c0 + j0, c0 + min(j0 + sub, q))
+            xw = xf[:, rj] * w[:, j0:j0 + sub, :, None]
+            for part in (_split_bf16(xw) if split_state else (_bf16(xw),)):
+                st = st + torch.einsum("bqhp,bqn->bhpn", part, Bf[:, rj])
+    # the chunk scan
+    y = torch.empty((b, S, H, P))
+    for c0, acum, sti in zip(range(0, S, chunk), acums, st_in):
+        q = min(chunk, S - c0)
         for i0 in range(0, q, sub):
             qi = min(sub, q - i0)
             Ci, ai = Cf[:, c0 + i0:c0 + i0 + qi], acum[:, i0:i0 + qi]
-            yi = torch.einsum("bin,bhpn->bihp", Ci, st_op) * \
-                torch.exp(ai)[..., None]
+            scores = []                                  # S_ij, j <= i
             for j0 in range(0, i0 + 1, sub):
                 qj = min(sub, q - j0)
                 rj = slice(c0 + j0, c0 + j0 + qj)
-                s = torch.einsum("bin,bjn->bij", Ci, Bf[:, rj])
-                seg = ai[:, :, None] - acum[:, None, j0:j0 + qj]
                 keep = (i0 + torch.arange(qi))[:, None] >= \
                     (j0 + torch.arange(qj))[None, :]
-                L = torch.exp(seg.masked_fill(~keep[None, :, :, None],
-                                              float("-inf")))
-                p = _bf16(L * s[..., None] * dt[:, None, rj])
-                yi = yi + torch.einsum("bijh,bjhp->bihp", p, xf[:, rj])
-            y[:, c0 + i0:c0 + i0 + qi] = yi
-        w = dt[:, c0:c0 + q] * torch.exp(a_tot[:, None] - acum)
-        xw = xf[:, c0:c0 + q] * w[..., None]
-        xw = _split_bf16(xw) if split_state else _bf16(xw)
-        st = st * torch.exp(a_tot)[..., None, None] + torch.einsum(
-            "bqhp,bqn->bhpn", xw, Bf[:, c0:c0 + q])
+                scores.append((rj, j0, qj, keep, torch.einsum(
+                    "bin,bjn->bij", Ci, Bf[:, rj])))
+            for h0 in range(0, H, gh):
+                hs = slice(h0, h0 + gh)
+                yi = torch.einsum("bin,bhpn->bihp", Ci, sti[:, hs]) * \
+                    torch.exp(ai[:, :, hs])[..., None]
+                for rj, j0, qj, keep, s in scores:
+                    seg = ai[:, :, None, hs] - acum[:, None, j0:j0 + qj, hs]
+                    L = torch.exp(seg.masked_fill(~keep[None, :, :, None],
+                                                  float("-inf")))
+                    p = _bf16(L * s[..., None] * dt[:, None, rj, hs])
+                    yi = yi + torch.einsum("bijh,bjhp->bihp", p,
+                                           xf[:, rj, hs])
+                y[:, c0 + i0:c0 + i0 + qi, hs] = yi
     return y.to(x.dtype), st
 
 
@@ -369,6 +391,36 @@ def reduced_mamba2_prefill_spread(split_state=True) -> dict:
             zip(("logits", "states"), kernels, plain, fp32)}
 
 
+@pytest.mark.parametrize("case", [CASES[4], (2, 130, 5, 32, 64, 64)],
+                         ids=lambda c: "x".join(map(str, c)))
+def test_tensor_core_roundings_match_the_reference_kernel(case):
+    """A second oracle: the rounding model within the bf16 gates of the
+    reference's Pallas kernel in interpret mode, on the same bf16 inputs
+    (a ragged chunk; five heads in groups of four, the last sub-tile
+    ragged)."""
+    arrs = inputs(case, seed=8, dtype=jnp.bfloat16)
+    y, st = tensor_core_ssd_model(*map(to_torch, arrs), chunk=case[-1])
+    yk, stk = RO.ssd_scan(*[jnp.asarray(a) for a in arrs], chunk=case[-1],
+                          interpret=True)
+    y_scale = float(np.abs(f32(yk)).max())
+    st_scale = float(np.abs(f32(stk)).max())
+    assert np.abs(f32(y) - f32(yk)).max() <= BF16_TOL * y_scale
+    assert np.abs(f32(st) - f32(stk)).max() <= TOL * st_scale
+
+
+@pytest.mark.parametrize("head_group", [1, 3])
+def test_tensor_core_model_shares_scores_exactly(head_group):
+    """C B^T does not depend on the head: computing it once for a group of
+    heads gives every head the bits it gets alone (group 1) or in any other
+    grouping."""
+    case = CASES[0]
+    args = [to_torch(a) for a in inputs(case, seed=9, dtype=jnp.bfloat16)]
+    got = tensor_core_ssd_model(*args, chunk=case[-1],
+                                head_group=head_group)
+    want = tensor_core_ssd_model(*args, chunk=case[-1])
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
 def test_tensor_core_roundings_keep_the_reduced_mamba2_prefill():
     """The slice as a whole: the reduced mamba2's bf16 prefill with the SSD
     through the rounding model is no further from the fp32 plain prefill
@@ -379,21 +431,22 @@ def test_tensor_core_roundings_keep_the_reduced_mamba2_prefill():
 
 
 def test_bf16_kernel_operand_checks():
-    """The tensor-core kernel copies x in 16-byte and B, C in 8-byte
-    pieces: bf16 operands off those grids are refused before any launch
-    (fp32 ones, for the FMA kernel, are not); a state width that is not a
-    multiple of 16 is taken (padded in shared memory); the serving config
-    needs at most 113 KB, so two blocks share an SM."""
-    b, S, H, P, N = 2, 40, 2, 64, 20
+    """The bf16 kernels read x, B and C through TMA maps: bf16 operands
+    off the 16-byte grid, or with a state width that is not a multiple of
+    8 (the plan pads it), are refused before any launch (fp32 ones, for
+    the FMA kernel, are not); the serving config's two kernels need 70,752
+    and 107,640 B, so three state blocks and two scan blocks share an SM."""
+    b, S, H, P, N = 2, 40, 2, 64, 64
     base = torch.zeros(b * S * H * P + 8, dtype=torch.bfloat16)
     x = base[8:].view(b, S, H, P)
-    x_odd = base[1:1 + b * S * H * P].view(b, S, H, P)
-    bc = torch.zeros(b * S * N + 4, dtype=torch.bfloat16)
-    B, B_odd = bc[4:].view(b, S, N), bc[1:1 + b * S * N].view(b, S, N)
+    x_odd = base[4:4 + b * S * H * P].view(b, S, H, P)
+    bc = torch.zeros(b * S * N + 8, dtype=torch.bfloat16)
+    B, B_odd = bc[8:].view(b, S, N), bc[4:4 + b * S * N].view(b, S, N)
     dt, A = torch.ones((b, S, H)), -torch.ones(H)
     assert x_odd.is_contiguous() and x_odd.data_ptr() % 16
     need = SSD.check_kernel_operands(x, dt, A, B, B, 32)
-    assert need == SSD.mma_smem_bytes(P, N, 32)
+    smem = SSD.wgmma_smem(P, N, 32)
+    assert need == max(smem["state"], smem["scan"])
     for args in ((x_odd, dt, A, B, B), (x, dt, A, B_odd, B),
                  (x, dt, A, B, B_odd)):
         with pytest.raises(ValueError, match="grid"):
@@ -403,9 +456,17 @@ def test_bf16_kernel_operand_checks():
     with pytest.raises(ValueError, match="grid"):
         SSD.check_kernel_operands(wide[..., :H * P].view(b, S, H, P), dt, A,
                                   B, B, 32)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        SSD.check_kernel_operands(x, dt, A, B[..., :20], B[..., :20], 32)
+    # a multiple of 8 below the tiles' 64 is taken as it is
+    SSD.check_kernel_operands(x, dt, A, B[..., :16], B[..., :16], 32)
     SSD.check_kernel_operands(x_odd.float(), dt, A, B_odd.float(),
                               B_odd.float(), 32)
-    assert SSD.mma_smem_bytes(64, 128, 256) == 109584 <= 113 * 1024
-    assert SSD.mma_smem_bytes(64, 20, 256) == SSD.mma_smem_bytes(64, 32, 256)
+    serve = SSD.wgmma_smem(64, 128, 256)
+    assert (serve["state"], serve["scan"]) == (70752, 107640)
+    assert 3 * (serve["state"] + 1024) <= 228 * 1024 and \
+        2 * (serve["scan"] + 1024) <= 228 * 1024
+    assert serve["heads"] == 2
+    assert (serve["b_slots"], serve["x_slots"]) == (3, 4)
     with pytest.raises(ValueError, match="shared memory"):
         SSD.check_kernel_operands(x, dt, A, B, B, 30000)
