@@ -42,16 +42,22 @@ Phases (any failure exits non-zero):
    equal to ``flash_attention.wgmma_plan``, both SSD kernels at every
    head width built without a spill or a wgmma serialisation note and
    ``ssd_wgmma_plan`` equal to ``SSD.wgmma_smem`` (else the run fails), and
-   ptxas's performance notes on them;
+   ptxas's performance notes on them; the ``sf_build`` line: the
+   shard-factor kernel's shape (threads, cells a thread, blocks an SM,
+   tile) as csrc reports it, equal to the wrapper's, and its ptxas line
+   (a spill fails the run);
 2. ``kernels_check``: ``shard_factor`` on randomized step programs, one
    request per launch and packed builds of up to 400 requests per launch
-   (broadcast operands, dims past 2^31, the kernel's limits; bit-equal on
-   a second launch; requests past the limits and malformed buffers
-   refused), and ``segmented_cummax`` on random delta stacks, kernel ==
-   plain version, exact int64 equality (tolerance 0); ``flash_fwd`` and
-   ``rmsnorm_fwd`` on the reference's kernel-test cases and at the
-   serving and the training paths' shapes, in fp32 (tolerance 2e-5; the
-   plain version's matmuls in full fp32, ``allow_tf32`` off) and bf16 (tolerance 2e-2), on ``out`` and ``lse``;
+   (broadcast operands, dims past 2^31 and 2^32 — the kernel's 64-bit
+   path — beside 32-bit requests in one build, one-cell tiles, the
+   kernel's limits; bit-equal on a second launch; requests past the
+   limits, a negative dim, a size of 0, a dim past 2^62 and malformed
+   buffers refused), and ``segmented_cummax`` on random delta stacks,
+   kernel == plain version, exact int64 equality (tolerance 0);
+   ``flash_fwd`` and ``rmsnorm_fwd`` on the reference's kernel-test cases
+   and at the serving and the training paths' shapes, in fp32
+   (tolerance 2e-5; the plain version's matmuls in full fp32,
+   ``allow_tf32`` off) and bf16 (tolerance 2e-2), on ``out`` and ``lse``;
    the flash kernels also at the MLA and hybrid head-dim pairs (192, 128),
    (96, 64) and (80, 80) (causal and not, ragged S, a q-offset
    continuation, H = Hkv and GQA) and at deepseek-v2-lite-16b's,
@@ -356,8 +362,12 @@ Phases (any failure exits non-zero):
    row names its design (``wgmma``), each of its two kernels' time alone
    (``kernel_ms``) and their sum (``device_ms``);
    ``shard_factor`` at the packed shape of the sweeps' largest table
-   build; each flash row names its design (``wgmma``) and its instance's
-   tile, stages, threads, ptxas line and shared memory, and the host
+   build and (``other_shapes``) at the searches' first, small, cold one,
+   each with its ``host_call_us``, ``wrapper_minus_kernel_us`` and
+   ``host_roundtrip_ms`` (upload, launch, read-back), the row with its
+   ``design`` (the ``sf_build`` line); each flash row names its design
+   (``wgmma``) and its instance's tile, stages, threads, ptxas line and
+   shared memory, and the host
    side of a wrapper call: ``wrapper_minus_kernel_us`` (the event time
    less the kernel alone), ``host_call_us`` (the wrapper's own time on
    the host clock until it returns) and, for the dq pass,
@@ -378,6 +388,7 @@ is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -793,13 +804,7 @@ def check_batched_shard_factor() -> tuple:
     plain version on the card and == the host numpy path per request,
     exactly; bit-equal on a second launch; the kernel's limits equal the
     wrapper's, and requests beyond them or malformed buffers refused."""
-    import ctypes
-    lim = [ctypes.c_int() for _ in range(4)]
-    _build.load().shard_factor_limits(*map(ctypes.byref, lim))
-    if [v.value for v in lim] != [SF.MAX_DIMS, SF.MAX_AXES, SF.MAX_STEPS,
-                                  SF.TILE]:
-        fail(f"shard_factor kernel limits {[v.value for v in lim]} != the "
-             f"wrapper's")
+    sf_design()
     rng = np.random.default_rng(SEED + 1)
     cases = max_err = 0
     builds = [[random_request(rng) for _ in range(k)]
@@ -831,7 +836,10 @@ def check_batched_shard_factor() -> tuple:
     refused = 0
     for over in (limit_request(SF.MAX_DIMS + 1, 4),
                  limit_request(4, SF.MAX_AXES + 1),
-                 limit_request(SF.MAX_DIMS, SF.MAX_AXES, dup=1)):
+                 limit_request(SF.MAX_DIMS, SF.MAX_AXES, dup=1),
+                 out_of_range_request(dim=-12),
+                 out_of_range_request(size=0),
+                 out_of_range_request(dim=SF.DIM_LIMIT + 1)):
         batch = SF.ShardFactorBatch()
         batch.add(*over)
         try:
@@ -848,10 +856,44 @@ def check_batched_shard_factor() -> tuple:
             SF.shard_factor_batch(bad)
         except (TypeError, ValueError):
             refused += 1
-    if refused != 6:
-        fail(f"shard_factor_batch refused {refused} of 6 requests or "
+    if refused != 9:
+        fail(f"shard_factor_batch refused {refused} of 9 requests or "
              f"buffers the kernel does not take")
     return cases + refused, max_err
+
+
+def out_of_range_request(dim: int = 16, size: int = 2):
+    """A request whose middle cell holds ``dim`` / ``size``: a negative
+    dim, a size of 0 or a dim past ``SF.DIM_LIMIT`` is refused."""
+    return ([np.array([8, dim, 16])], ("batch",),
+            {"data": np.array([2, size, 4])}, {"batch": ("data",)}, ())
+
+
+def sf_design() -> dict:
+    """The shard-factor kernel's limits and shape as csrc reports them,
+    held equal to the wrapper's."""
+    import ctypes
+    lim = [ctypes.c_int() for _ in range(7)]
+    _build.load().shard_factor_limits(*map(ctypes.byref, lim))
+    got = [v.value for v in lim]
+    if got[:6] != [SF.MAX_DIMS, SF.MAX_AXES, SF.MAX_STEPS, SF.TILE,
+                   SF.THREADS, SF.CELLS]:
+        fail(f"shard_factor kernel limits and shape {got} != the wrapper's")
+    return {"design": "quotient form, persistent blocks",
+            "threads": got[4], "cells_a_thread": got[5],
+            "blocks_per_sm": got[6], "tile_cells": got[3]}
+
+
+def check_sf_build() -> dict:
+    """Phase 1's gate on the shard-factor kernel: its ptxas line present
+    and no spill."""
+    res = [r for name, r in _build.kernel_resources().items()
+           if "shard_factor_batch_kernel" in name]
+    if len(res) != 1:
+        fail(f"ptxas reported {len(res)} shard_factor_batch_kernel lines")
+    if res[0].get("spill_store_bytes") or res[0].get("spill_load_bytes"):
+        fail(f"shard_factor_batch_kernel spills registers: {res[0]}")
+    return {**sf_design(), "ptxas": res[0]}
 
 
 def batch_of(reqs) -> "SF.Packed":
@@ -1628,8 +1670,26 @@ class ShapeLog:
 
     def __init__(self):
         self.sf = None          # SF.Packed (host)
+        self.sf_small = None    # the searches' first packed build (host)
         self.sc = None          # deltas (host)
         self._sf, self._sc = SF.shard_factor_batch, SC.segmented_cummax
+
+    @contextlib.contextmanager
+    def first_build(self):
+        """A context in which the first packed table build handed to the
+        wrapper is kept as ``sf_small`` (the searches' small cold
+        builds)."""
+        real = SF.shard_factor_batch
+
+        def sf(b):
+            if self.sf_small is None:
+                self.sf_small = b.host
+            return real(b)
+        SF.shard_factor_batch = sf
+        try:
+            yield
+        finally:
+            SF.shard_factor_batch = real
 
     def __enter__(self):
         def sf(b):
@@ -5356,15 +5416,48 @@ def device_ms_by(fn, kernel_names, launches: int = 20,
 
 
 def shard_factor_work(p: "SF.Packed") -> tuple:
-    """Bytes and operations of one batched launch on ``p``: every packed
-    buffer read once (the compact operands, descriptors, request table,
-    programs and tiles) and 8 bytes written per cell; 4 int64 operations
-    (multiply, remainder, compare, select) per step and cell."""
+    """Bytes and operations of the function on ``p``'s requests: what it
+    needs read once — the compact operand values (dims and sizes) and each
+    request's program (its descriptors, header and steps) — and 8 bytes
+    written per cell; nothing of the kernel's own derived buffers
+    (inverses, tiles); 4 int64 operations (the function's multiply,
+    remainder, compare, select) per step and cell."""
     n_bytes = 8 * (p.operands.size + p.rows.size + p.requests.size
-                   + p.steps.size + p.tiles.size + p.n_out)
+                   + p.steps.size + p.n_out)
     n_ops = 4 * int((p.requests[:, SF.REQ_STEPS]
                      * p.requests[:, SF.REQ_N]).sum())
     return n_bytes, n_ops
+
+
+def _sf_timing(packed: "SF.Packed", what: str) -> dict:
+    """The kernel on one packed build: CUDA events (L2 flushed), the
+    kernel alone (profiler), the wrapper's own host time until it returns
+    (``host_call_us``), the path a table build takes — the packed host
+    buffers up in one copy from pinned memory, one launch, one read-back
+    (``host_roundtrip_ms``, host clock, synchronised) — the plain version
+    and the bound."""
+    dev = packed.to(DEV)
+    n_bytes, n_ops = shard_factor_work(packed)
+    bound_ms, bound_by = _bound(n_bytes, n_ops, ALU_OPS_PER_S)
+    return {
+        "ms": event_ms(lambda: SF.shard_factor_batch(dev), flush=True),
+        "device_ms": device_ms(lambda: SF.shard_factor_batch(dev),
+                               "shard_factor_batch_kernel", flush=True),
+        "host_call_us": enqueue_ms(lambda: SF.shard_factor_batch(dev))
+        * 1e3,
+        "host_roundtrip_ms": host_ms(
+            lambda: SF.shard_factor_batch(packed.to(DEV)).cpu()),
+        "plain_ms": event_ms(lambda: SF.shard_factor_batch_plain(dev),
+                             flush=True),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "shape": {"build": what, "requests": len(packed.requests),
+                  "cells": packed.n_out, "operands": packed.operands.size,
+                  "steps": len(packed.steps),
+                  "step_cells": int((packed.requests[:, SF.REQ_STEPS]
+                                     * packed.requests[:, SF.REQ_N]).sum()),
+                  "tiles": len(packed.tiles)},
+        "bytes": n_bytes, "operations": n_ops,
+        "l2": "flushed before each timed launch"}
 
 
 def time_kernels(log: ShapeLog, checks: dict, launches: dict) -> list:
@@ -5384,34 +5477,28 @@ def time_kernels(log: ShapeLog, checks: dict, launches: dict) -> list:
         if err:
             fail(f"{name} kernel != plain version on the sweep's own "
                  f"operands (max abs diff {err})")
-    sf_bytes, sf_ops = shard_factor_work(packed)
-    sf_bound = max(sf_bytes / HBM_BYTES_PER_S, sf_ops / ALU_OPS_PER_S)
     sf = {
         "name": "shard_factor", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/shard_factor.cu",
         "replaces": "src/repro/kernels/shard_factor.py:131",
         "launches": launches["shard_factor"],
         "max_abs_err": checks["shard_factor"]["max_abs_err"],
-        "ms": event_ms(lambda: SF.shard_factor_batch(dev), flush=True),
-        "plain_ms": event_ms(lambda: SF.shard_factor_batch_plain(dev),
-                             flush=True),
-        "bound_ms": sf_bound * 1e3,
-        "bound_by": "bytes" if sf_bytes / HBM_BYTES_PER_S
-        >= sf_ops / ALU_OPS_PER_S else "operations",
+        "design": check_sf_build(),
+        **_sf_timing(packed, "the sweeps' largest table build"),
         "library_ms": None,
-        "device_ms": device_ms(lambda: SF.shard_factor_batch(dev),
-                               "shard_factor_batch_kernel", flush=True),
-        "shape": {"requests": len(packed.requests), "cells": packed.n_out,
-                  "operands": packed.operands.size,
-                  "steps": len(packed.steps), "tiles": len(packed.tiles)},
-        "bytes": sf_bytes, "operations": sf_ops,
-        "l2": "flushed before each timed launch",
     }
-    # the path the table build really takes: the packed host buffers up
-    # in one copy from pinned memory, one launch, one read-back (host
-    # clock, synchronised)
-    sf["host_roundtrip_ms"] = host_ms(
-        lambda: SF.shard_factor_batch(packed.to(DEV)).cpu())
+    small = log.sf_small
+    if small is None:
+        fail("shard_factor: the searches handed the wrapper no build")
+    dev_small = small.to(DEV)
+    err = int((SF.shard_factor_batch(dev_small)
+               - SF.shard_factor_batch_plain(dev_small)).abs().max())
+    if err:
+        fail(f"shard_factor kernel != plain version on the searches' "
+             f"first build (max abs diff {err})")
+    sf["other_shapes"] = [{**_sf_timing(small, "the searches' first (cold) "
+                                        "table build"),
+                           "library_ms": None}]
 
     n_events, m = deltas.shape
     sc_bytes = (n_events + 1) * 8 * m
@@ -5886,7 +5973,7 @@ def say_kernel(k: dict) -> None:
         else f", {100 * k['share_of_bound']:.1f} % of the bound"
     lib = "" if k["vs_library"] is None \
         else f", {k['vs_library']:.2f}x the library call"
-    design = k.get("tensor_cores", {}).get("design")
+    design = k.get("tensor_cores", k.get("design", {})).get("design")
     design = f" ({design} design)" if design else ""
     say(f"kernel {k['name']}{design}: {k['ms'] * 1e3:.1f} us/call by CUDA "
         f"events (kernel alone on the device: {dev}; plain "
@@ -5938,6 +6025,7 @@ def main(argv: list) -> int:
         print(f"chip_smoke: the tensor-core kernels spill registers or "
               f"ptxas reported nothing: {spills}", file=sys.stderr)
     say("wgmma_build " + json.dumps(check_wgmma_build()))
+    say("sf_build " + json.dumps(check_sf_build()))
 
     t_phase = [t_start]
 
@@ -5987,7 +6075,8 @@ def main(argv: list) -> int:
                         cover=(("context > 1",
                                 lambda m: m["context"] > 1),))]
     # phase 4d: the planner's search queries
-    searches = [run_searches()]
+    with log.first_build():
+        searches = [run_searches()]
     # phase 4e: calibration fitted on the host; 4f: the calibrated sweeps,
     # each followed by the same engine under the goldens' profile
     profiles = run_calibrate()

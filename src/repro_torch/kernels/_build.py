@@ -176,10 +176,11 @@ def load():
         lib = ctypes.CDLL(str(lib_path))
         c_ptr, c_int, c_ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.shard_factor_batch_launch.argtypes = [
-            c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ll, c_ptr]
+            c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ll,
+            c_ptr]
         lib.shard_factor_batch_launch.restype = c_int
         lib.shard_factor_limits.argtypes = [
-            ctypes.POINTER(c_int)] * 4
+            ctypes.POINTER(c_int)] * 7
         lib.shard_factor_limits.restype = c_int
         lib.segmented_cummax_launch.argtypes = [
             c_ptr, c_ptr, c_int, c_ll, c_ptr]

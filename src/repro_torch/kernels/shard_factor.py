@@ -22,7 +22,8 @@ read-back:
   tensors it takes :func:`shard_factor_batch_plain`.  It never falls
   back: what the kernel does not take raises;
 * :func:`shard_factor_plain` — one request's step program as masked
-  ``torch.where`` / ``%`` int64 ops; :func:`shard_factor_tensors` — one
+  ``torch.where`` / ``%`` / ``//`` int64 ops on the quotients of the dims
+  (the kernel's form, computed plainly); :func:`shard_factor_tensors` — one
   request of ``(n_dims, n)`` / ``(n_axes, n)`` tensors through the batch
   wrapper;
 * :func:`shard_factor` — the drop-in twin of
@@ -37,21 +38,46 @@ operands expanded); each operand row is stored once, compact, in
 through a descriptor ``(offset, stride over R, stride over C)`` with
 stride 0 where it broadcasts.  ``requests`` holds per request ``REQ_*``:
 its cell count, ``C``, first output cell, first row descriptor, dim and
-axis counts, first step and step count; ``tiles`` lists ``(request, first
-cell)`` per block of ``TILE`` cells.  Everything is int64.
+axis counts, first step and step count.  A :class:`Packed` is made from
+those four buffers and derives the rest itself: ``inverses``, at the same
+index as ``operands``, the inverse mod 2^64 of each value's odd part
+(:func:`size_constants`), so the kernel tests divisibility without a
+divide; ``wide``, per request 1 where an operand it reads is 2^32 or
+more; ``tiles``, per ``TILE`` cells ``(request, first cell, its row, its
+column)`` and the request's program place (:func:`_tiles`).  Everything
+is int64.
 
-Bound on an H100: bytes, the compact operands, descriptors and the
-``8 * n_out`` output bytes; for a table build (a few hundred requests of
-a few thousand cells) that is well under a microsecond, so a build costs
-one launch plus the upload and the read-back.
+The kernel (``csrc/shard_factor.cu``, which replaces the TPU kernel
+``repro/kernels/shard_factor.py::_pallas_kernel``, ``pallas_call`` at
+``:162``) keeps per cell the quotient ``q[d] = dims[d] / (the sizes
+applied to d)`` and tests a size ``s = 2^k o`` (o odd) by a shift, a
+multiply by o's inverse and a multiply-high: no division; in 32-bit words
+where ``wide`` is 0.  Persistent blocks walk the tiles in order and stage
+each request's program once; a thread takes ``CELLS`` consecutive cells
+(one in a tile of at most ``THREADS`` cells).  Bound on an H100: bytes —
+the operands and the programs read once and ``8 * n_out`` bytes written
+(6.2 MB, 1.85 us, at the sweeps' largest build of 97 requests and 771,420
+cells); on an H100 80GB HBM3 at 700 W it takes ~11 us there (the per-cell
+kernel it replaced, 35.4 us) and ~3.7 us on a search's build of 50 small
+requests; PERF.md § 6 row 1 (``chip_smoke.py``'s ``kernels`` line) has
+the current times.
+
+Limits: dims in ``[0, DIM_LIMIT]`` (2^62), sizes >= 1, ``MAX_DIMS`` dims,
+``MAX_AXES`` axes and ``MAX_STEPS`` steps a request, fewer than
+``OPERAND_LIMIT`` packed operand values; a :class:`Packed` beyond them
+raises ``ValueError`` naming the limit (so does the plain version).  The
+sweeps' operands lie far inside: the largest operand of their largest
+build is 102,400, and a size is a mesh axis of at most a few hundred.
 
 Exactness: the packed form drops the host path's ``live`` size-1 axis
 skip per cell — a size-1 axis multiplies every factor by 1 and marking it
 used only ever blocks another x1 attempt, so including such steps is
 value-identical per element.  Axes that are 1 in EVERY cell are still
-dropped host-side as a pure optimisation.  Everything is int64 with
-floor division; parity with the reference package's numpy and scalar
-paths is asserted on randomized programs in
+dropped host-side as a pure optimisation.  The quotient form is the
+scalar reference ``mesh_ctx.shard_factor`` exactly; the numpy path's test
+``dims % (totals * s)`` agrees wherever its running product stays below
+2^63, which every sweep's does.  Parity with the reference package's
+numpy and scalar paths is asserted on randomized programs in
 tests/test_torch_shard_factor.py, kernel-vs-plain equality on the device
 by ``chip_smoke.py``.
 """
@@ -59,7 +85,7 @@ by ``chip_smoke.py``.
 from __future__ import annotations
 
 import threading
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -68,15 +94,22 @@ from repro_torch.mesh_ctx import PIPE_AXIS
 
 I64 = np.int64
 
-# fixed limits of the kernel (csrc/shard_factor.cu: SF_MAX_*, SF_TILE)
+# fixed limits and shape of the kernel (csrc/shard_factor.cu: SF_MAX_*,
+# SF_THREADS, SF_CELLS, SF_TILE)
 MAX_DIMS = 8
 MAX_AXES = 8
 MAX_STEPS = 128
-TILE = 256
+THREADS = 128
+CELLS = 4                       # consecutive cells a thread
+TILE = THREADS * CELLS
+DIM_LIMIT = 2 ** 62             # dims in [0, DIM_LIMIT]
+OPERAND_LIMIT = 2 ** 31 - 1     # packed operand values (32-bit indices)
 
 # fields of a packed request (csrc/shard_factor.cu: REQ_*)
 REQ_N, REQ_C, REQ_OUT, REQ_ROW, REQ_DIMS, REQ_AXES, REQ_STEP, REQ_STEPS = \
     range(8)
+REQ_FIELDS = 8
+TILE_FIELDS = 8                 # csrc/shard_factor.cu: SF_TILE_FIELDS
 
 launches = 0
 
@@ -143,6 +176,87 @@ def _cells(shape: tuple) -> tuple:
     return n, max(c, 1)
 
 
+def _odd_parts(values) -> tuple:
+    """``(v, o)``: ``values`` as int64 with 1 where a value is < 1, and
+    their odd parts ``o = v / (v's lowest set bit)`` as uint64."""
+    v = np.asarray(values, I64)
+    v = np.where(v >= 1, v, 1)
+    return v, (v // (v & -v)).astype(np.uint64)
+
+
+def size_constants(values) -> tuple:
+    """``(k, o, inv)`` of int64 ``values`` as uint64 arrays: each value
+    ``>= 1`` is ``2^k * o`` with ``o`` odd, and ``o * inv == 1 (mod
+    2^64)`` (Newton's iteration, wrapping in uint64, from ``(3 o) ^ 2``,
+    right in the low 5 bits: each round doubles them, to 80 in four);
+    zeros where a value is < 1.  The kernel's divisibility test reads
+    ``inv`` and finds ``k`` itself."""
+    bad = np.asarray(values, I64) < 1
+    v, o = _odd_parts(values)
+    k = (np.frexp((v & -v).astype(np.float64))[1] - 1).astype(np.uint64)
+    zero = np.uint64(0)
+    return (np.where(bad, zero, k), np.where(bad, zero, o),
+            _inverses(values).view(np.uint64))
+
+
+def _inverses(operands) -> np.ndarray:
+    """The packed ``inverses`` of ``operands``: ``inv`` of
+    :func:`size_constants` (0 where a value is < 1) as the int64 of the
+    same bits."""
+    _, o = _odd_parts(operands)
+    u2 = np.uint64(2)
+    with np.errstate(over="ignore"):       # in place: a round is 3 passes
+        inv = o * np.uint64(3)
+        inv ^= u2
+        t = np.empty_like(o)
+        for _ in range(4):
+            np.multiply(o, inv, out=t)
+            np.subtract(u2, t, out=t)
+            inv *= t
+    inv = inv.view(I64)
+    inv[np.asarray(operands, I64) < 1] = 0
+    return inv
+
+
+def _operand_ranges(rows: np.ndarray, requests: np.ndarray) -> tuple:
+    """Per row descriptor of every request: its index in ``rows``, its
+    request, and the float64 index of the last operand it reads (float,
+    so that a stride past int64 cannot wrap into range)."""
+    r = requests
+    idx, owner = _expand(r[:, REQ_ROW], r[:, REQ_DIMS] + r[:, REQ_AXES])
+    rw = rows[idx]
+    n, c = r[owner, REQ_N], r[owner, REQ_C]
+    last = rw[:, 0] + np.maximum(n // c - 1, 0).astype(np.float64) \
+        * rw[:, 1] + (c - 1).astype(np.float64) * rw[:, 2]
+    return idx, owner, last
+
+
+def _any_in_ranges(flag: np.ndarray, lo: np.ndarray,
+                   hi: np.ndarray) -> np.ndarray:
+    """Per range ``[lo, hi)`` of ``flag``'s indices, whether any is set
+    (prefix sums, one pass over ``flag``; none where no flag is set, the
+    usual case)."""
+    if not flag.any():
+        return np.zeros(len(lo), bool)
+    count = np.concatenate([[0], np.cumsum(flag)])
+    return count[hi] - count[lo] > 0
+
+
+def _wide(operands: np.ndarray, rows: np.ndarray, requests: np.ndarray,
+          ranges: tuple) -> np.ndarray:
+    """``wide`` of each request: 1 where an operand it reads is 2^32 or
+    more (the kernel then keeps 64-bit quotients), else 0 (32-bit ones:
+    exact, as the quotient form has no running product); ``ranges`` are
+    :func:`_operand_ranges`'."""
+    idx, owner, last = ranges
+    live = requests[owner, REQ_N] > 0
+    hit = _any_in_ranges(operands >= 1 << 32, rows[idx[live], 0],
+                         last[live].astype(I64) + 1)
+    wide = np.zeros(len(requests), bool)
+    np.logical_or.at(wide, owner[live], hit)
+    return wide.astype(I64)
+
+
 # ---------------------------------------------------------------------------
 # packed requests
 # ---------------------------------------------------------------------------
@@ -152,19 +266,30 @@ def _cells(shape: tuple) -> tuple:
 class Packed:
     """Requests packed for one launch (host arrays, int64): ``operands``
     ``(n_operands,)``, ``rows`` ``(n_rows, 3)`` descriptors, ``requests``
-    ``(n_req, 8)`` (``REQ_*`` fields), ``steps`` ``(n_steps, 3)`` and
-    ``tiles`` ``(n_tiles, 2)``.  Constructing one checks it: a request
-    out of the kernel's limits, a step or a descriptor out of range
-    raises ``ValueError``."""
+    ``(n_req, REQ_FIELDS)`` (``REQ_*``) and ``steps`` ``(n_steps, 3)``.
+    Constructing one checks them — a request out of the kernel's limits, an
+    operand out of its range, a step or a descriptor out of range raises
+    ``ValueError`` — and derives the kernel's own buffers: ``inverses``
+    ``(n_operands,)`` (:func:`_inverses`), ``wide`` ``(n_req,)``
+    (:func:`_wide`) and ``tiles`` ``(n_tiles, TILE_FIELDS)``
+    (:func:`_tiles`)."""
 
     operands: np.ndarray
     rows: np.ndarray
     requests: np.ndarray
     steps: np.ndarray
-    tiles: np.ndarray
+    inverses: np.ndarray = field(init=False, repr=False)
+    wide: np.ndarray = field(init=False, repr=False)
+    tiles: np.ndarray = field(init=False, repr=False)
 
     def __post_init__(self):
-        _check_packed(self)
+        ranges = _check_packed(self)
+        for name, value in (
+                ("inverses", _inverses(self.operands)),
+                ("wide", _wide(self.operands, self.rows, self.requests,
+                               ranges)),
+                ("tiles", _tiles(self.requests))):
+            object.__setattr__(self, name, value)
 
     @property
     def n_out(self) -> int:
@@ -175,8 +300,8 @@ class Packed:
         """The buffers on ``device`` in one copy (from pinned memory for
         a CUDA device)."""
         device = torch.device(device)
-        parts = (self.operands, self.rows, self.requests, self.steps,
-                 self.tiles)
+        parts = (self.operands, self.inverses, self.rows, self.requests,
+                 self.wide, self.steps, self.tiles)
         flat = torch.from_numpy(np.concatenate([p.reshape(-1)
                                                 for p in parts]))
         if device.type == "cuda":
@@ -198,8 +323,10 @@ class DevicePacked:
 
     host: Packed
     operands: torch.Tensor
+    inverses: torch.Tensor
     rows: torch.Tensor
     requests: torch.Tensor
+    wide: torch.Tensor
     steps: torch.Tensor
     tiles: torch.Tensor
 
@@ -212,19 +339,25 @@ def _expand(starts: np.ndarray, counts: np.ndarray) -> tuple:
     return np.repeat(starts, counts) + np.arange(len(owner)) - first, owner
 
 
-def _check_packed(p: Packed) -> None:
+def _check_packed(p: Packed) -> tuple:
+    """Raises ``ValueError`` where ``p``'s buffers are malformed or out of
+    the kernel's limits; else returns their :func:`_operand_ranges`."""
     shapes = {"operands": (p.operands, 1), "rows": (p.rows, 2),
-              "requests": (p.requests, 2), "steps": (p.steps, 2),
-              "tiles": (p.tiles, 2)}
+              "requests": (p.requests, 2), "steps": (p.steps, 2)}
     for name, (a, nd) in shapes.items():
         if not isinstance(a, np.ndarray) or a.dtype != I64 or a.ndim != nd:
             raise ValueError(f"shard_factor packed {name}: int64 array of "
                              f"{nd} dims expected")
-    for name, a, w in (("rows", p.rows, 3), ("requests", p.requests, 8),
-                       ("steps", p.steps, 3), ("tiles", p.tiles, 2)):
+    for name, a, w in (("rows", p.rows, 3),
+                       ("requests", p.requests, REQ_FIELDS),
+                       ("steps", p.steps, 3)):
         if a.shape[1] != w:
             raise ValueError(f"shard_factor packed {name}: {w} columns "
                              f"expected, got {a.shape[1]}")
+    if len(p.operands) > OPERAND_LIMIT:
+        raise ValueError(f"shard_factor kernel limits exceeded: "
+                         f"{len(p.operands)} packed operand values (max "
+                         f"{OPERAND_LIMIT}, 32-bit indices)")
     r = p.requests
     n, c = r[:, REQ_N], r[:, REQ_C]
     nd, na, ns = r[:, REQ_DIMS], r[:, REQ_AXES], r[:, REQ_STEPS]
@@ -256,33 +389,50 @@ def _check_packed(p: Packed) -> None:
             or (st[:, 2] > _EXTRA_FIRST).any()):
         raise ValueError("shard_factor: step out of range for the operands")
     # every descriptor stays inside the operands
-    idx, owner = _expand(r[:, REQ_ROW], nd + na)
+    ranges = idx, owner, last = _operand_ranges(p.rows, r)
     rw = p.rows[idx]
-    rows_r = n[owner] // c[owner]
-    last = rw[:, 0] + np.maximum(rows_r - 1, 0) * rw[:, 1] \
-        + (c[owner] - 1) * rw[:, 2]
-    if (rw < 0).any() or ((n[owner] > 0) & (last >= len(p.operands))).any():
+    live = n[owner] > 0
+    if (rw < 0).any() or (live & (last >= len(p.operands))).any():
         raise ValueError("shard_factor: an operand descriptor reads "
                          "outside the operands")
+    # the values each descriptor reads lie in the kernel's range: dims in
+    # [0, DIM_LIMIT], sizes >= 1 (over [offset, last])
+    is_dim = idx - r[owner, REQ_ROW] < nd[owner]
+    lo = rw[live, 0]
+    hi = last[live].astype(I64) + 1
+    for mask, bad, what in (
+            (is_dim[live], (p.operands < 0) | (p.operands > DIM_LIMIT),
+             f"a dim outside [0, {DIM_LIMIT}] (DIM_LIMIT, 2^62)"),
+            (~is_dim[live], p.operands < 1, "a size below 1")):
+        if _any_in_ranges(bad, lo[mask], hi[mask]).any():
+            raise ValueError(f"shard_factor kernel limits exceeded: "
+                             f"{what}")
     # each output cell belongs to one request (no two threads write it)
     order = np.argsort(r[:, REQ_OUT], kind="stable")
     ends = (r[:, REQ_OUT] + n)[order]
     if (ends[:-1] > r[order[1:], REQ_OUT]).any():
         raise ValueError("shard_factor: two requests write the same output "
                          "cells")
-    # the tiles cover every cell of every request once
-    want = _tiles(r)
-    if not np.array_equal(p.tiles, want):
-        raise ValueError("shard_factor: tiles must cover each request's "
-                         "cells once, in order")
+    return ranges
 
 
 def _tiles(requests: np.ndarray) -> np.ndarray:
-    n = requests[:, REQ_N]
-    per = -(-n // TILE)
-    cell, owner = _expand(np.zeros_like(per), per)
-    return np.stack([owner, cell * TILE], axis=1).astype(I64) \
-        if len(owner) else np.zeros((0, 2), I64)
+    """Each ``TILE`` cells, request by request: ``(request, first cell,
+    its row, its column, the request's first row descriptor, first step,
+    n_dims + n_axes, n_steps)`` (``TILE_FIELDS``; the program's place
+    rides with the tile so that the kernel loads it beside the request's
+    header)."""
+    r = requests
+    per = -(-r[:, REQ_N] // TILE)
+    tile, owner = _expand(np.zeros_like(per), per)
+    if not len(owner):
+        return np.zeros((0, TILE_FIELDS), I64)
+    first = tile * TILE
+    c = r[owner, REQ_C]
+    return np.stack([owner, first, first // c, first % c,
+                     r[owner, REQ_ROW], r[owner, REQ_STEP],
+                     r[owner, REQ_DIMS] + r[owner, REQ_AXES],
+                     r[owner, REQ_STEPS]], axis=1).astype(I64)
 
 
 def _program(dims, axes, sizes: dict, rules: dict, extra):
@@ -372,13 +522,11 @@ class ShardFactorBatch:
                 rows.append((ops_at[key], s0, s1))
             steps.extend(st)
             out += n
-        requests = np.array(reqs, I64).reshape(-1, 8)
-        return Packed(
-            operands=np.concatenate(parts).astype(I64) if parts
-            else np.zeros(0, I64),
-            rows=np.array(rows, I64).reshape(-1, 3), requests=requests,
-            steps=np.array(steps, I64).reshape(-1, 3),
-            tiles=_tiles(requests))
+        operands = np.concatenate(parts).astype(I64) if parts \
+            else np.zeros(0, I64)
+        return Packed(operands, np.array(rows, I64).reshape(-1, 3),
+                      np.array(reqs, I64).reshape(-1, REQ_FIELDS),
+                      np.array(steps, I64).reshape(-1, 3))
 
     def resolve(self, device) -> dict:
         """Every recorded request's answer (request key -> int64 array of
@@ -470,14 +618,33 @@ def _check_steps(dims: torch.Tensor, sizes: torch.Tensor, steps):
     return st
 
 
+def _check_values(dims: torch.Tensor, sizes: torch.Tensor) -> None:
+    if bool((dims < 0).any()) or bool((dims > DIM_LIMIT).any()):
+        raise ValueError(f"shard_factor kernel limits exceeded: a dim "
+                         f"outside [0, {DIM_LIMIT}] (DIM_LIMIT, 2^62)")
+    if bool((sizes < 1).any()):
+        raise ValueError("shard_factor kernel limits exceeded: a size "
+                         "below 1")
+
+
 def shard_factor_plain(dims: torch.Tensor, sizes: torch.Tensor,
                        steps) -> torch.Tensor:
     """One request's step program as masked int64 tensor ops: ``dims`` is
-    ``(n_dims, n)``, ``sizes`` is ``(n_axes, n)``, the result ``(n,)``."""
+    ``(n_dims, n)`` in ``[0, DIM_LIMIT]``, ``sizes`` is ``(n_axes, n)``,
+    each >= 1, the result ``(n,)``."""
     st = _check_steps(dims, sizes, steps)
+    _check_values(dims, sizes)
+    return _plain(dims, sizes, st)
+
+
+def _plain(dims: torch.Tensor, sizes: torch.Tensor,
+           st: np.ndarray) -> torch.Tensor:
+    """The program on checked operands: per dim the quotient ``q`` of the
+    dim by the sizes applied to it; a step applies iff its size divides
+    ``q`` (``%`` and ``//``, exact with no running product)."""
     n = dims.shape[1]
     one = torch.ones((n,), dtype=torch.int64, device=dims.device)
-    totals = [one] * dims.shape[0]
+    q = list(dims)
     used = [torch.zeros((n,), dtype=torch.bool, device=dims.device)
             ] * sizes.shape[0]
     denom = one
@@ -486,12 +653,11 @@ def shard_factor_plain(dims: torch.Tensor, sizes: torch.Tensor,
         if fl == _EXTRA_FIRST:
             assigned = torch.zeros_like(assigned)
         sv = sizes[a]
-        ok = (dims[d] % (totals[d] * sv) == 0) & ~used[a]
+        ok = (q[d] % sv == 0) & ~used[a]
         if fl:
             ok = ok & ~assigned
-        mul = torch.where(ok, sv, one)
-        totals[d] = totals[d] * mul
-        denom = denom * mul
+        q[d] = torch.where(ok, q[d] // sv, q[d])
+        denom = denom * torch.where(ok, sv, one)
         used[a] = used[a] | ok
         if fl:
             assigned = assigned | ok
@@ -501,7 +667,8 @@ def shard_factor_plain(dims: torch.Tensor, sizes: torch.Tensor,
 def shard_factor_batch_plain(b: DevicePacked) -> torch.Tensor:
     """The batched function in plain PyTorch on ``b``'s device: each
     request's operand rows read through their descriptors (stride-0
-    views where they broadcast), :func:`shard_factor_plain` per request.
+    views where they broadcast), :func:`shard_factor_plain`'s program per
+    request (the operands were checked when ``b.host`` was made).
     Returns ``(n_out,)`` int64."""
     p = b.host
     out = torch.empty((p.n_out,), dtype=torch.int64,
@@ -517,7 +684,7 @@ def shard_factor_batch_plain(b: DevicePacked) -> torch.Tensor:
                                           + req[REQ_DIMS]
                                           + req[REQ_AXES]].tolist()]
         steps = p.steps[req[REQ_STEP]:req[REQ_STEP] + req[REQ_STEPS]]
-        out[req[REQ_OUT]:req[REQ_OUT] + n] = shard_factor_plain(
+        out[req[REQ_OUT]:req[REQ_OUT] + n] = _plain(
             torch.stack(rows[:req[REQ_DIMS]]),
             torch.stack(rows[req[REQ_DIMS]:]), steps)
     return out
@@ -531,9 +698,10 @@ def shard_factor_batch(b: DevicePacked) -> torch.Tensor:
     if not isinstance(b, DevicePacked):
         raise TypeError(f"shard_factor_batch: DevicePacked expected, got "
                         f"{type(b)}")
-    tensors = (b.operands, b.rows, b.requests, b.steps, b.tiles)
-    host = (b.host.operands, b.host.rows, b.host.requests, b.host.steps,
-            b.host.tiles)
+    names = ("operands", "inverses", "rows", "requests", "wide", "steps",
+             "tiles")
+    tensors = [getattr(b, k) for k in names]
+    host = [getattr(b.host, k) for k in names]
     device = b.operands.device
     if any(t.dtype != torch.int64 or t.device != device
            or not t.is_contiguous() or tuple(t.shape) != h.shape
@@ -554,9 +722,8 @@ def shard_factor_batch(b: DevicePacked) -> torch.Tensor:
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.shard_factor_batch_launch(
-            b.operands.data_ptr(), b.rows.data_ptr(),
-            b.requests.data_ptr(), b.steps.data_ptr(), b.tiles.data_ptr(),
-            out.data_ptr(), n_tiles, stream)
+            *(t.data_ptr() for t in tensors), out.data_ptr(), n_tiles,
+            stream)
     if rc != 0:
         raise RuntimeError(
             f"shard_factor kernel launch failed (cuda error {rc}) for "
@@ -574,13 +741,11 @@ def shard_factor_tensors(dims: torch.Tensor, sizes: torch.Tensor,
     st = _check_steps(dims, sizes, steps)
     n_dims, n = dims.shape
     n_axes = sizes.shape[0]
-    requests = np.array([[n, max(n, 1), 0, 0, n_dims, n_axes, 0, len(st)]],
-                        I64)
     rows = np.array([(k * n, 0, 1) for k in range(n_dims + n_axes)],
                     I64).reshape(-1, 3)
     ops = torch.cat([dims.reshape(-1), sizes.reshape(-1)]).cpu().numpy()
-    return shard_factor_batch(Packed(ops, rows, requests, st,
-                                     _tiles(requests)).to(dims.device))
+    req = np.array([(n, max(n, 1), 0, 0, n_dims, n_axes, 0, len(st))], I64)
+    return shard_factor_batch(Packed(ops, rows, req, st).to(dims.device))
 
 
 # ---------------------------------------------------------------------------
