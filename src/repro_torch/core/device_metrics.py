@@ -57,10 +57,22 @@ An eager step hides no loop trip from the counter, so the record's
 reference's key names (``launch.measure.record_for``); nothing is
 counted twice for it.  The counter holds integers only, never a tensor:
 holding one would move the allocator's readings.
+
+Where the counters say how much, :func:`span` says where: the training
+step, the model's blocks and loss chunks and the kernels' entry points
+open named spans (every name starts with ``repro_torch.``).  Under
+``torch.profiler`` each span is a ``record_function`` range, on the
+profiler's clock, in the host's trace and beside the device operations
+launched inside it.  The spans of a step's phases (its state, forward,
+backward and optimizer) are also kept by an active :class:`SpanRecorder`:
+host seconds and the allocator's readings at entry and exit.  With no
+profiler and no recorder a span costs a flag check.
 """
 
 from __future__ import annotations
 
+import contextlib
+import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
@@ -321,17 +333,112 @@ def report_kernel(tensors, flops: Optional[Callable[[], int]] = None
         counter.kernel_launches += 1
 
 
+# ---------------------------------------------------------------------------
+# spans: where in the step the work is
+# ---------------------------------------------------------------------------
+
+SPAN_PREFIX = "repro_torch."
+_RECORDERS: list = []
+_OFF = contextlib.nullcontext()
+_profiling = torch._C._autograd._profiler_enabled
+
+
+@dataclass
+class SpanRecord:
+    """One phase span a :class:`SpanRecorder` saw.  The allocator's
+    readings (``memory_allocated()`` at entry and exit,
+    ``max_memory_allocated()`` at exit) are None off CUDA."""
+
+    name: str
+    parent: Optional[str]
+    seconds: float
+    allocated_in: Optional[int]
+    allocated_out: Optional[int]
+    peak_out: Optional[int]
+
+
+class SpanRecorder:
+    """Keeps the phase spans entered while it is active (``with
+    SpanRecorder(device) as rec:``) as :class:`SpanRecord` s in
+    ``records``, in the order they close, each with its enclosing phase
+    span.  Phase spans open on the thread that calls the step.  It reads
+    the allocator without synchronising and holds no tensor."""
+
+    def __init__(self, device="cuda"):
+        dev = torch.device(device)
+        self._cuda = dev if dev.type == "cuda" else None
+        self.records: list = []
+        self._open: list = []
+
+    def __enter__(self):
+        _RECORDERS.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        _RECORDERS.remove(self)
+        return False
+
+    def _allocated(self) -> Optional[int]:
+        return None if self._cuda is None else \
+            torch.cuda.memory_allocated(self._cuda)
+
+    def _enter(self, name: str) -> None:
+        self._open.append((name, time.perf_counter(), self._allocated()))
+
+    def _exit(self) -> None:
+        name, t0, allocated_in = self._open.pop()
+        self.records.append(SpanRecord(
+            name=name, parent=self._open[-1][0] if self._open else None,
+            seconds=time.perf_counter() - t0, allocated_in=allocated_in,
+            allocated_out=self._allocated(),
+            peak_out=None if self._cuda is None else
+            torch.cuda.max_memory_allocated(self._cuda)))
+
+
+class _Span:
+    __slots__ = ("_name", "_range", "_recorders")
+
+    def __init__(self, name: str, recorders: tuple):
+        self._name, self._recorders = name, recorders
+        self._range = torch.profiler.record_function(name) \
+            if _profiling() else None
+
+    def __enter__(self):
+        for r in self._recorders:
+            r._enter(self._name)
+        if self._range is not None:
+            self._range.__enter__()
+
+    def __exit__(self, *exc):
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        for r in self._recorders:
+            r._exit()
+        return False
+
+
+def span(name: str, phase: bool = False):
+    """A context manager around one region of the program named ``name``
+    (``repro_torch.<layer>.<what>``): a ``record_function`` range while
+    the torch profiler is on, and with ``phase`` a :class:`SpanRecord` in
+    each active :class:`SpanRecorder`.  Otherwise a shared context that
+    does nothing: no dispatcher call, no allocation."""
+    recorders = tuple(_RECORDERS) if phase else ()
+    if not recorders and not _profiling():
+        return _OFF
+    return _Span(name, recorders)
+
+
 class StepCounter(TorchDispatchMode):
     """Counts what runs while it is active (``with StepCounter() as c:``):
-    ``flops`` (dot FLOPs), ``bytes_accessed``, ``aten_ops`` (ops counted
-    for bytes), ``kernel_launches`` (reports of the kernel wrappers) and
-    the collectives per kind.  Integers only."""
+    ``flops`` (dot FLOPs), ``bytes_accessed``, ``kernel_launches``
+    (reports of the kernel wrappers) and the collectives per kind.
+    Integers only."""
 
     def __init__(self):
         super().__init__()
         self.flops = 0
         self.bytes_accessed = 0
-        self.aten_ops = 0
         self.kernel_launches = 0
         self.collectives = CollectiveStats()
         self._depth = 0
@@ -366,7 +473,6 @@ class StepCounter(TorchDispatchMode):
             if kind == _DOT:
                 self.flops += dot_flops(func.overloadpacket,
                                         _local_args(args), _local(out))
-            self.aten_ops += 1
             self.bytes_accessed += _tensor_bytes(args) + _tensor_bytes(out)
             if kwargs:
                 self.bytes_accessed += _tensor_bytes(list(kwargs.values()))

@@ -15,7 +15,9 @@ kernel and whose backward is the backward kernel(s):
   CPU tests run the same wiring, forward and backward, as the card.
 
 The attention forward saves ``q, k, v, out, lse`` for its backward; the
-RMSNorm forward saves ``x, scale``.
+RMSNorm forward saves ``x, scale``.  Each forward and backward runs in a
+``device_metrics.span`` (``repro_torch.ops.<op>.fwd`` / ``.bwd``) that
+holds the wrapper's copies with the kernels.
 
 ``ssd_scan`` stands where the reference's SSM prefill calls the SSD's
 pure-``lax`` twin; like the reference's ``ops.ssd_scan`` it is forward
@@ -38,6 +40,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.device_metrics import span
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels import ssd as _ssd
@@ -55,8 +58,10 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = _fa.flash_bwd(q, k, v, out, lse, dout.contiguous(),
-                                   causal=ctx.causal, q_offset=ctx.q_offset)
+        with span("repro_torch.ops.flash_attention.bwd"):
+            dq, dk, dv = _fa.flash_bwd(q, k, v, out, lse, dout.contiguous(),
+                                       causal=ctx.causal,
+                                       q_offset=ctx.q_offset)
         return dq, dk, dv, None, None
 
 
@@ -71,7 +76,8 @@ class _RMSNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, scale = ctx.saved_tensors
-        dx, dscale = _rn.rmsnorm_bwd(x, scale, dy.contiguous(), ctx.eps)
+        with span("repro_torch.ops.rmsnorm.bwd"):
+            dx, dscale = _rn.rmsnorm_bwd(x, scale, dy.contiguous(), ctx.eps)
         return dx, dscale if ctx.needs_input_grad[1] else None, None
 
 
@@ -133,8 +139,9 @@ def flash_attention(q, k, v, causal: bool = True, q_offset: int = 0):
     if layout is not None:
         return _wrap(flash_attention(_local(q), _local(k), _local(v),
                                      causal, q_offset), layout)
-    return _FlashAttention.apply(q.contiguous(), k.contiguous(),
-                                 v.contiguous(), causal, q_offset)
+    with span("repro_torch.ops.flash_attention.fwd"):
+        return _FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                     v.contiguous(), causal, q_offset)
 
 
 def rmsnorm(x, scale, eps: float = 1e-5):
@@ -143,7 +150,8 @@ def rmsnorm(x, scale, eps: float = 1e-5):
                      {"x": tuple(range(x.dim() - 1))})
     if layout is not None:
         return _wrap(rmsnorm(_local(x), _local(scale), eps), layout)
-    return _RMSNorm.apply(x.contiguous(), scale.contiguous(), eps)
+    with span("repro_torch.ops.rmsnorm.fwd"):
+        return _RMSNorm.apply(x.contiguous(), scale.contiguous(), eps)
 
 
 def ssd_scan(x, dt, A, B, C, chunk: int = 256):

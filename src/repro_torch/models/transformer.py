@@ -36,6 +36,7 @@ import torch
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs import ArchConfig
+from repro_torch.core.device_metrics import span
 from repro_torch.core.spec import LayerSpec, ModuleSpec
 from repro_torch.kernels import ops
 from repro_torch.mesh_ctx import (current_mesh, current_mesh_shape,
@@ -166,7 +167,9 @@ def _save_dots(ctx, op, *args, **kwargs):
 def _remat(fn, policy: str):
     """``fn`` under the reference's remat policy: "none" saves every
     activation, "block" only ``fn``'s inputs (the block's carry) and
-    reruns ``fn`` in the backward, "dots" the matmul outputs too.
+    reruns ``fn`` in the backward, "dots" the matmul outputs too.  Each
+    run of ``fn``, forward or recompute, is a ``repro_torch.model.block``
+    span.
 
     The recompute runs in the backward, which may run outside the
     ``mesh_ctx.mesh_context`` the forward ran under: it reruns ``fn``
@@ -177,6 +180,7 @@ def _remat(fn, policy: str):
     barrier (``_pin``) so XLA cannot hoist a convert of the saved stack out
     of the loop; eager PyTorch has no such rewrite, so nothing stands in
     for it here."""
+    fn = functools.partial(_block_span, fn)
     if policy == "none":
         return fn
     if policy not in ("block", "dots"):
@@ -193,6 +197,11 @@ def _remat(fn, policy: str):
             current_rules()))
     return functools.partial(_ckpt.checkpoint, fn, use_reentrant=False,
                              context_fn=contexts)
+
+
+def _block_span(fn, *args, **kwargs):
+    with span("repro_torch.model.block"):
+        return fn(*args, **kwargs)
 
 
 @contextlib.contextmanager
@@ -235,12 +244,13 @@ def lm_logits(cfg: ArchConfig, p, hidden: torch.Tensor) -> torch.Tensor:
 
 
 def _chunk_loss(cfg: ArchConfig, p, h: torch.Tensor, labels: torch.Tensor):
-    logits = lm_logits(cfg, p, h)                        # (B, c, V) fp32
-    lse = torch.logsumexp(logits, dim=-1)
-    mask = labels >= 0
-    tgt = logits.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
-    return (torch.where(mask, lse - tgt, 0.0).sum(),
-            mask.sum().to(torch.float32))
+    with span("repro_torch.model.loss_chunk"):
+        logits = lm_logits(cfg, p, h)                    # (B, c, V) fp32
+        lse = torch.logsumexp(logits, dim=-1)
+        mask = labels >= 0
+        tgt = logits.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
+        return (torch.where(mask, lse - tgt, 0.0).sum(),
+                mask.sum().to(torch.float32))
 
 
 def chunked_xent(cfg: ArchConfig, p, hidden: torch.Tensor,

@@ -34,6 +34,11 @@ and donates the state; here the step is eager PyTorch:
 
 :func:`init_train_state` builds the parameters on the card unless the
 caller passes another device, as ``Model.init`` does.
+
+The state's making and each step's forward (embeddings to loss), backward
+(remat's recompute included) and optimizer (the update, the gradient
+norm, the int8 compression) are phase spans (``device_metrics.span``):
+``repro_torch.train.state``, ``.forward``, ``.backward``, ``.optimizer``.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from repro_torch.core.device_metrics import span
 from repro_torch.core.spec import TrainPolicy
 from repro_torch.models import param as PM
 from repro_torch.models.registry import Model
@@ -62,13 +68,14 @@ def train_state(params: PM.ModuleParams, policy: TrainPolicy,
     """The state of ready parameters (for example the reference's, carried
     across with ``Model.from_numpy``): the policy's leaves marked
     trainable, their optimizer state zeroed, step 0."""
-    PM.set_trainable(params, policy)
-    device = next(params.parameters()).device
-    return TrainState(params=params,
-                      opt=init_opt_state(PM.trainable_leaves(params),
-                                         opt_cfg),
-                      step=torch.zeros((), dtype=torch.int32,
-                                       device=device))
+    with span("repro_torch.train.state", phase=True):
+        PM.set_trainable(params, policy)
+        device = next(params.parameters()).device
+        return TrainState(params=params,
+                          opt=init_opt_state(PM.trainable_leaves(params),
+                                             opt_cfg),
+                          step=torch.zeros((), dtype=torch.int32,
+                                           device=device))
 
 
 def init_train_state(model: Model, policy: TrainPolicy,
@@ -114,12 +121,15 @@ def make_train_step(model: Model, policy: TrainPolicy,
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
 
     def grads_of(params, leaves, batch):
-        loss, metrics = model.loss(params, batch, remat=remat)
+        with span("repro_torch.train.forward", phase=True):
+            loss, metrics = model.loss(params, batch, remat=remat)
         # a leaf the loss never reads (the blocks a hybrid config whose
         # depth attn_every does not divide leaves out, C16) gets a zero
         # gradient, as the reference's
-        return loss.detach(), metrics, list(torch.autograd.grad(
-            loss, leaves, materialize_grads=True))
+        with span("repro_torch.train.backward", phase=True):
+            grads = list(torch.autograd.grad(loss, leaves,
+                                             materialize_grads=True))
+        return loss.detach(), metrics, grads
 
     def loss_and_grads(params, trainable, batch):
         leaves = [p for _, p in trainable]
@@ -151,13 +161,15 @@ def make_train_step(model: Model, policy: TrainPolicy,
         params = PM.set_trainable(state.params, policy)
         trainable = PM.trainable_params(params)
         loss, metrics, grads = loss_and_grads(params, trainable, batch)
-        if compress_grads:
-            grads = _compress_grads_int8(grads)
-        step = state.step + 1
-        apply_updates(PM.group_leaves(params, trainable),
-                      {n: g for (n, _), g in zip(trainable, grads)},
-                      state.opt, step.to(torch.float32), opt_cfg)
-        metrics = dict(metrics, loss=loss, grad_norm=_global_norm(grads))
+        with span("repro_torch.train.optimizer", phase=True):
+            if compress_grads:
+                grads = _compress_grads_int8(grads)
+            step = state.step + 1
+            apply_updates(PM.group_leaves(params, trainable),
+                          {n: g for (n, _), g in zip(trainable, grads)},
+                          state.opt, step.to(torch.float32), opt_cfg)
+            grad_norm = _global_norm(grads)
+        metrics = dict(metrics, loss=loss, grad_norm=grad_norm)
         return TrainState(params=params, opt=state.opt, step=step), metrics
 
     def _zero_step(state: TrainState, batch: dict):
@@ -173,7 +185,8 @@ def make_train_step(model: Model, policy: TrainPolicy,
         loss, metrics, grads = loss_and_grads(
             whole, PM.trainable_params(whole), local)
         if compress_grads:
-            grads = _compress_grads_int8(grads)
+            with span("repro_torch.train.optimizer", phase=True):
+                grads = _compress_grads_int8(grads)
         zero = {}
         for (name, _), g in zip(trainable, grads):
             sh = PM.sharding_of(zero_shardings, name)
@@ -183,17 +196,19 @@ def make_train_step(model: Model, policy: TrainPolicy,
         del grads, whole
         mesh = next(iter(zero.values())).device_mesh if zero else None
         step = state.step + 1
-        with torch.no_grad():
-            for leaf in PM.group_leaves(params, trainable):
-                _update_leaf(leaf, zero, state.opt[leaf.name],
-                             PM.sharding_of(zero_shardings, leaf.name),
-                             step.to(torch.float32), opt_cfg)
+        with span("repro_torch.train.optimizer", phase=True):
+            with torch.no_grad():
+                for leaf in PM.group_leaves(params, trainable):
+                    _update_leaf(leaf, zero, state.opt[leaf.name],
+                                 PM.sharding_of(zero_shardings, leaf.name),
+                                 step.to(torch.float32), opt_cfg)
+            grad_norm = torch.sqrt(sum(
+                (torch.sum(torch.square(g.float())).full_tensor()
+                 for g in zero.values()),
+                torch.zeros((), device=state.step.device)))
         metrics = {k: _mean_over_batch(v, mesh) for k, v in metrics.items()}
         metrics = dict(metrics, loss=_mean_over_batch(loss, mesh),
-                       grad_norm=torch.sqrt(sum(
-                           (torch.sum(torch.square(g.float())).full_tensor()
-                            for g in zero.values()),
-                           torch.zeros((), device=state.step.device))))
+                       grad_norm=grad_norm)
         return TrainState(params=params, opt=state.opt, step=step), metrics
 
     return train_step
